@@ -14,8 +14,14 @@ one `embed_texts` call and one in-place bank append (`record()` is the
 synchronous enqueue-then-flush).
 
 `device="cuda"` (the default) keeps every index on the card and runs the
-CUDA top-k kernel; `device="cpu"` runs the same code with the kernel's
-plain PyTorch version.  Without a card the default raises.
+CUDA top-k kernels; `device="cpu"` runs the same code with the kernels'
+plain PyTorch versions.  Without a card the default raises.
+`quantize="int8"` holds the device bank as int8 codes with per-row scales
+(core/vector_index.py): the dense search runs the quantized kernel K2 over
+a `rescore`x over-fetch and re-ranks the candidates by exact f32 score.
+With a TierManager attached (`store.attach_tiers`), a request whose
+namespace is demoted to the warm tier is answered from the host mirror
+(`VectorIndex.search_host`) and marked for promotion on the next tick.
 
 Ragged batches are padded to the next power-of-two Q bucket (padded
 queries carry a never-assigned namespace id and match nothing), and fusion
@@ -32,8 +38,8 @@ Isolation invariants:
 The typed surface is core/api.py: `execute()` runs RetrieveRequests
 through a `RetrievalPlan` — embed → dense → sparse → fuse → budget, with
 dense-only / sparse-only / raw (no-budget) variants.  The graph stage,
-durability (policy / data_dir / runtime), the int8 bank, sharding and the
-request scheduler arrive with later slices of the port and raise
+durability (policy / data_dir / runtime), sharding and the request
+scheduler arrive with later slices of the port and raise
 NotImplementedError here.
 """
 from __future__ import annotations
@@ -59,11 +65,10 @@ from repro_torch.data.tokenizer import HashTokenizer
 from repro_torch.obs.telemetry import (RECORD_LATENCY, RETRIEVE_LATENCY,
                                        get_telemetry)
 
-_SLICE_GRAPH = "the graph-stage slice (slice 2) of the port"
-_SLICE_INT8 = "the int8-bank and tiering slice (slice 3) of the port"
-_SLICE_DURABILITY = "the durability slice (slice 4) of the port"
-_SLICE_SERVING = "the serving slice (slice 5) of the port"
-_SLICE_SHARDING = "the sharding slice (slice 6) of the port"
+_SLICE_GRAPH = "the graph-stage slice of the port"
+_SLICE_DURABILITY = "the durability slice of the port"
+_SLICE_SERVING = "the serving slice of the port"
+_SLICE_SHARDING = "the sharding slice of the port"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,13 +91,11 @@ class MemoryService:
                  store: Optional[MemoryStore] = None,
                  plan: Optional[RetrievalPlan] = None, device="cuda",
                  policy=None, data_dir: Optional[str] = None, runtime=None,
-                 quantize: str = "none", shards: int = 1, mesh=None):
+                 quantize: str = "none", rescore: int = 4, shards: int = 1,
+                 mesh=None):
         if policy is not None or data_dir is not None or runtime is not None:
             raise NotImplementedError(
                 f"policy= / data_dir= / runtime= come with {_SLICE_DURABILITY}")
-        if quantize != "none":
-            raise NotImplementedError(
-                f"quantize={quantize!r} comes with {_SLICE_INT8}")
         if shards != 1 or mesh is not None:
             raise NotImplementedError(
                 f"shards= / mesh= come with {_SLICE_SHARDING}")
@@ -100,7 +103,8 @@ class MemoryService:
             if embedder is None:
                 raise ValueError("MemoryService needs an embedder or a store")
             store = MemoryStore(embedder, extractor, dim=dim,
-                                tokenizer=tokenizer, device=device)
+                                tokenizer=tokenizer, quantize=quantize,
+                                rescore=rescore, device=device)
         self.store = store
         self.embedder = store.embedder
         self.extractor = store.extractor
@@ -130,9 +134,12 @@ class MemoryService:
                 **service_kwargs) -> "MemoryService":
         """Rebuild a service from a version-2 snapshot written by either
         package: the restored service answers `retrieve_batch` identically
-        to the one that wrote it."""
-        store = MemoryStore.restore(path, embedder, extractor=extractor,
-                                    tokenizer=tokenizer, device=device)
+        to the one that wrote it.  `quantize=`/`rescore=` in service_kwargs
+        pick the restored index's device bank mode (snapshots are f32)."""
+        store = MemoryStore.restore(
+            path, embedder, extractor=extractor, tokenizer=tokenizer,
+            quantize=service_kwargs.pop("quantize", "none"),
+            rescore=service_kwargs.pop("rescore", 4), device=device)
         return cls(store=store, **service_kwargs)
 
     def snapshot(self, path: str) -> int:
@@ -236,6 +243,11 @@ class MemoryService:
         tenants = [self.store.get(r.namespace) for r in reqs]
         vindex = self.store.vindex
         device = vindex.device
+        tiers = self.store.tiers
+        if tiers is not None:
+            for t in tenants:
+                if t is not None:
+                    tiers.note_retrieve(t.ns_id)
         B = len(reqs)
         # fuse at the pow2 ceiling of the largest requested k; each row is
         # then sliced to its own k (the prefix of a wider fusion is the
@@ -252,7 +264,7 @@ class MemoryService:
             rankings, weight_cols = [], []
             if dense_rows:
                 with tel.span("plan.dense", batch=Bp, pool=self.pool,
-                              launches=1):
+                              launches=1) as sp:
                     qv = torch.as_tensor(qvecs, dtype=torch.float32).to(
                         device)
                     qmat = torch.zeros((Bp, qv.shape[1]), dtype=torch.float32,
@@ -260,6 +272,23 @@ class MemoryService:
                     qmat[dense_rows] = qv
                     _, dense_ids = vindex.search_batch(qmat, q_ns,
                                                        k=self.pool)
+                    if tiers is not None:
+                        # a demoted namespace's rows are absent from the
+                        # device bank: answer those requests from the
+                        # host-mirror masked search (exact, not accelerated)
+                        # and mark them for promotion on the next tick
+                        fb = [i for i in dense_rows
+                              if tenants[i] is not None
+                              and tiers.is_demoted(tenants[i].ns_id)]
+                        if fb:
+                            sp.set(host_fallbacks=len(fb))
+                            _, hi = vindex.search_host(qmat[fb], q_ns[fb],
+                                                       k=self.pool)
+                            dense_ids = dense_ids.clone()
+                            dense_ids[fb] = torch.from_numpy(
+                                hi.astype(np.int32)).to(device)
+                            for i in fb:
+                                tiers.note_host_fallback(tenants[i].ns_id)
                     dense_ids = self._mask_ranking(
                         dense_ids, [r.dense for r in res], Bp)
                 rankings.append(dense_ids)

@@ -15,10 +15,12 @@ mapping as one consistent unit:
   snapshot layout (version 2) through `checkpoint/io.py`, so either
   package restores what the other wrote.  `from_arrays` builds a store from
   the flat array dict such a snapshot loads to; `restore(path)` is
-  `load_raw` + `from_arrays`.
+  `load_raw` + `from_arrays`.  Snapshots are always f32, whatever the
+  device bank's `quantize` mode.
+* **tiering** — `attach_tiers()` mounts a hot/warm TierManager
+  (core/tiering.py) on the vector index; flushes note record activity.
 
-This slice of the port is unsharded, keeps every row on the device, and
-has no write-ahead-log sink.
+This slice of the port is unsharded and has no write-ahead-log sink.
 
 Layout invariant (checked, raising StoreInvariantError): global row id ==
 BM25 doc id == position in the row tables; tenant-local `rows[tid]` maps a
@@ -76,15 +78,22 @@ class PendingSession:
 class MemoryStore:
     def __init__(self, embedder, extractor: Optional[Extractor] = None,
                  dim: int = 256, tokenizer: HashTokenizer | None = None,
-                 device="cuda"):
+                 quantize: str = "none", rescore: int = 4, device="cuda"):
         self.embedder = embedder
         self.extractor = extractor or RuleExtractor()
         self.tokenizer = tokenizer or default_tokenizer()
         self.dim = dim
         self.device = resolve_device(device)
-        self.vindex = VectorIndex(dim=dim, device=self.device)
+        # quantize="int8" keeps the f32 host mirror as ground truth but
+        # holds the device bank as int8 codes + per-row scales, searched by
+        # K2 with an exact f32 rescore of the top rescore*k candidates
+        self.vindex = VectorIndex(dim=dim, device=self.device,
+                                  quantize=quantize, rescore=rescore)
         self.bm25 = BM25Index(tokenizer=self.tokenizer, device=self.device)
         self.graph = MemoryGraph(device=self.device)
+        # hot/warm tier manager (core/tiering.py) — attach_tiers() mounts
+        # one; when None every row stays device-resident
+        self.tiers = None
         self._tenants: Dict[str, TenantState] = {}
         self._ns_ids: Dict[str, int] = {}      # survives evict(): tombstoned
         #                                        rows keep a retired ns id
@@ -123,6 +132,19 @@ class MemoryStore:
 
     def row_tid(self, row: int) -> int:
         return self._row_tid[row]
+
+    # -- tiering -----------------------------------------------------------
+    def attach_tiers(self, policy=None, clock=None):
+        """Mount a hot/warm TierManager (core/tiering.py) on the vector
+        index.  Activity notes flow from the write path (`_apply_flush`)
+        and the service's read path; `tiers.tick()` demotes and promotes.
+        Returns the manager (also at `self.tiers`)."""
+        from repro_torch.core.tiering import TierManager
+        if self.tiers is not None:
+            raise ValueError("a TierManager is already attached")
+        kwargs = {} if clock is None else {"clock": clock}
+        self.tiers = TierManager(self.vindex, policy=policy, **kwargs)
+        return self.tiers
 
     # -- write path: batched ingestion -------------------------------------
     def enqueue(self, namespace: str, session_id: str,
@@ -180,7 +202,10 @@ class MemoryStore:
         flattened triples in order (host array or tensor).  The only code
         path that writes rows."""
         for ns, summary, _ in sessions:
-            self.tenant(ns).summaries.add(summary)
+            t = self.tenant(ns)
+            t.summaries.add(summary)
+            if self.tiers is not None:
+                self.tiers.note_record(t.ns_id)
         flat = [(ns, tr) for ns, _, triples in sessions for tr in triples]
         if not flat:
             return
@@ -332,10 +357,13 @@ class MemoryStore:
     def from_arrays(cls, arrays: Dict[str, np.ndarray], embedder, *,
                     extractor: Optional[Extractor] = None,
                     tokenizer: HashTokenizer | None = None,
+                    quantize: str = "none", rescore: int = 4,
                     device="cuda") -> "MemoryStore":
         """Build a store from the flat {name: ndarray} dict a version-2
         snapshot loads to (either package's `checkpoint.io.load_raw`).  The
-        result answers retrieval identically to the store that wrote it."""
+        result answers retrieval identically to the store that wrote it.
+        `quantize`/`rescore` pick the restored index's device bank mode; the
+        snapshot itself is always f32."""
         import msgpack
         meta = msgpack.unpackb(np.asarray(arrays["meta"]).tobytes(),
                                raw=False)
@@ -343,7 +371,8 @@ class MemoryStore:
             raise StoreInvariantError(
                 f"snapshot version {meta['version']} != {SNAPSHOT_VERSION}")
         store = cls(embedder, extractor, dim=int(meta["dim"]),
-                    tokenizer=tokenizer, device=device)
+                    tokenizer=tokenizer, quantize=quantize, rescore=rescore,
+                    device=device)
         store.vindex.load_rows(arrays["bank"], arrays["bank_alive"],
                                ns=arrays["row_ns"])
         bm = meta["bm25"]
@@ -392,13 +421,28 @@ class MemoryStore:
                 "evicted": len(t.evicted),
             } for ns, t in self._tenants.items()
         }
-        return {
+        vi = self.vindex
+        out = {
             "namespaces": len(self._tenants),
-            "bank_rows": self.vindex.n,
-            "alive_rows": self.vindex.n_alive,
-            "tombstones": self.vindex.n_dead,
+            "bank_rows": vi.n,
+            "alive_rows": vi.n_alive,
+            "tombstones": vi.n_dead,
             "bm25_docs": len(self.bm25),
             "pending": len(self._pending),
+            "bank": {
+                "quantize": vi.quantize,
+                "quantized": vi.quantize != "none",
+                "rescore": vi.rescore,
+                "hot_rows": vi.n_resident,
+                "warm_rows": vi.n_warm,
+                "rescore_hit_rate": (
+                    vi.counters["rescore_hits"] / vi.counters["rescore_rows"]
+                    if vi.counters["rescore_rows"] else None),
+                **vi.counters,
+            },
             "per_namespace": per_ns,
             "graph": self.graph.stats(),
         }
+        if self.tiers is not None:
+            out["tiering"] = self.tiers.stats()
+        return out

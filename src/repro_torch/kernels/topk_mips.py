@@ -1,21 +1,30 @@
-"""Exact namespace-masked top-k MIPS over the Memori triple bank (kernel K1).
+"""Exact top-k MIPS over the Memori triple bank (kernels K1-K4).
 
-Replaces the reference's Pallas TPU kernel `_kernel_masked` + `_merge_topk`
-(src/repro/kernels/topk_mips.py, pallas_call at :227) with the hand-written
-CUDA kernel in `csrc/topk_mips.cu`: the exact top-k of queries . bankᵀ over
-the rows `r < n_valid` whose label `bank_ns[r]` equals the query's
-`q_ns[q]`, ranked by (score desc, row asc); an unfilled slot is
-(NEG_INF, -1).
+Replaces the reference's four Pallas TPU kernels in
+src/repro/kernels/topk_mips.py with one hand-written CUDA template in
+`csrc/topk_mips.cu`:
 
-What bounds it on an H100: the plain-FP32 product, 2·Q·N·D flops (34.4
+  topk_mips_masked        K1  `_kernel_masked` + `_merge_topk` (call :227)
+  topk_mips_quant_masked  K2  `_kernel_quant_masked`           (call :227)
+  topk_mips               K3  `_kernel`                        (call :210)
+  topk_mips_quant         K4  `_kernel_quant`                  (call :210)
+
+Each returns the exact top-k of queries . bankᵀ over the rows
+`r < n_valid` (the masked pair: only rows whose label `bank_ns[r]` equals
+the query's `q_ns[q]`), ranked by (score desc, row asc); an unfilled slot
+is (NEG_INF, -1).  The quantized pair takes an int8 bank with per-row f32
+scales and scores `(q . float(codes[r])) * scales[r]` in that order.
+
+What bounds them on an H100: the plain-FP32 product, 2·Q·N·D flops (34.4
 GFLOP -> 0.51 ms at 67 TFLOP/s for Q=64, N=2²⁰, D=256), ahead of the bank
-read (1.07 GB -> 0.32 ms at 3.35 TB/s).  TF32 would break the rtol=1e-5
-parity the reference holds, so the kernel scores in FP32 FMA; the source
-explains the two-pass split-bank design.
+read (f32: 1.07 GB -> 0.32 ms; int8: 0.28 GB -> 0.08 ms at 3.35 TB/s).  An
+int8 bank moves a quarter of the bytes for the same operations.  TF32
+would break the rtol=1e-5 parity the reference holds, so the kernels score
+in FP32 FMA; the source explains the two-pass split-bank design.
 
-`topk_mips_masked` dispatches by device: CPU tensors run the plain PyTorch
-version `topk_mips_masked_ref`; CUDA tensors launch the kernel, or the call
-raises.  `topk_mips_masked.launches` counts kernel launches.
+Every wrapper dispatches by device: CPU tensors run its plain PyTorch
+version (`*_ref` below); CUDA tensors launch the kernel, or the call
+raises.  Each wrapper's `.launches` counts its kernel launches.
 """
 from __future__ import annotations
 
@@ -25,26 +34,21 @@ import functools
 import torch
 
 NEG_INF = -2.0e38
-MAX_K = 256          # the kernel's list length bound (K2 needs 256)
+MAX_K = 256          # the kernel's list length bound (K2's over-fetch is 256)
 _ROWS_PER_TILE = 64  # must match kBN / kQT in csrc/topk_mips.cu
 _QUERIES_PER_TILE = 64
-_CTAS_PER_SM = 2
+_SMEM_PER_SM = 233472   # H100: 228 KB of shared memory per SM
+_SMEM_PER_CTA = 1024    # reserved by the system for each resident CTA
 
 
-def topk_mips_masked_ref(queries, bank, q_ns, bank_ns, k: int = 32,
-                         n_valid=None):
-    """Plain PyTorch version: `einsum` scores, the namespace and `n_valid`
-    masks, and a stable (score desc, id asc) sort.  Returns (scores (Q, k)
-    f32, ids (Q, k) i32); a slot no live row fills is (NEG_INF, -1)."""
-    s = torch.einsum("qd,nd->qn", queries.float(), bank.float())
-    N = bank.shape[0]
-    ok = q_ns.to(torch.int32)[:, None] == bank_ns.to(torch.int32)[None, :]
-    if n_valid is not None:
-        col = torch.arange(N, device=bank.device)[None, :]
-        ok = ok & (col < int(n_valid))
+# -- plain PyTorch versions ---------------------------------------------------
+
+def _select(s, ok, k: int):
+    """Masked scores -> top-k by a stable (score desc, id asc) sort; a slot
+    no live row fills is (NEG_INF, -1)."""
     s = torch.where(ok, s, torch.full_like(s, NEG_INF))
     s, idx = torch.sort(s, dim=1, descending=True, stable=True)
-    kk = min(k, N)
+    kk = min(k, s.shape[1])
     s, idx = s[:, :kk], idx[:, :kk].to(torch.int32)
     idx = torch.where(s > NEG_INF / 2, idx, torch.full_like(idx, -1))
     if kk < k:
@@ -53,6 +57,74 @@ def topk_mips_masked_ref(queries, bank, q_ns, bank_ns, k: int = 32,
         idx = torch.nn.functional.pad(idx, (0, pad), value=-1)
     return s, idx
 
+
+def _live(Q: int, N: int, n_valid, device):
+    col = torch.arange(N, device=device)[None, :]
+    bound = N if n_valid is None else int(n_valid)
+    return (col < bound).expand(Q, N)
+
+
+def _labels_match(q_ns, bank_ns):
+    return q_ns.to(torch.int32)[:, None] == bank_ns.to(torch.int32)[None, :]
+
+
+def _quant_scores(queries, bank_i8, scales):
+    """(Q, N) scores in the kernels' order: contract the int8 codes as f32,
+    THEN multiply by the row scale."""
+    s = torch.einsum("qd,nd->qn", queries.float(), bank_i8.float())
+    return s * scales.float()[None, :]
+
+
+def topk_mips_ref(queries, bank, k: int = 32, n_valid=None):
+    """Plain version of K3: `einsum` scores, the `n_valid` mask and a
+    stable (score desc, id asc) sort.  Returns (scores (Q, k) f32, ids
+    (Q, k) i32)."""
+    s = torch.einsum("qd,nd->qn", queries.float(), bank.float())
+    return _select(s, _live(*s.shape, n_valid, s.device), k)
+
+
+def topk_mips_masked_ref(queries, bank, q_ns, bank_ns, k: int = 32,
+                         n_valid=None):
+    """Plain version of K1: K3's scores, also masked to the rows whose
+    label equals the query's."""
+    s = torch.einsum("qd,nd->qn", queries.float(), bank.float())
+    ok = _labels_match(q_ns, bank_ns) & _live(*s.shape, n_valid, s.device)
+    return _select(s, ok, k)
+
+
+def topk_mips_quant_ref(queries, bank_i8, scales, k: int = 32, n_valid=None):
+    """Plain version of K4: top-k of (q . codes) * scale over an int8
+    bank."""
+    s = _quant_scores(queries, bank_i8, scales)
+    return _select(s, _live(*s.shape, n_valid, s.device), k)
+
+
+def topk_mips_quant_masked_ref(queries, bank_i8, scales, q_ns, bank_ns,
+                               k: int = 32, n_valid=None):
+    """Plain version of K2: K4's scores, masked by label as K1."""
+    s = _quant_scores(queries, bank_i8, scales)
+    ok = _labels_match(q_ns, bank_ns) & _live(*s.shape, n_valid, s.device)
+    return _select(s, ok, k)
+
+
+def quantize_rows_ref(bank):
+    """Symmetric per-row int8 quantization (the contract the quantized
+    kernels score against): scale = max|row| / 127, codes =
+    round-half-even(row / scale) clipped to [-127, 127]; an all-zero row
+    gets scale 0 and zero codes.  Returns (codes int8 (N, D), scales f32
+    (N,)), bit-identical to `core.vector_index.quantize_rows_np`."""
+    bank = bank.float()
+    if bank.shape[1] == 0:
+        return (torch.zeros(bank.shape, dtype=torch.int8, device=bank.device),
+                torch.zeros(bank.shape[:1], device=bank.device))
+    scale = bank.abs().amax(dim=1) / 127.0
+    safe = torch.where(scale > 0, scale, torch.ones_like(scale))
+    inv = torch.where(scale > 0, 1.0 / safe, torch.zeros_like(scale))
+    codes = torch.clamp(torch.round(bank * inv[:, None]), -127, 127)
+    return codes.to(torch.int8), scale
+
+
+# -- the CUDA kernels ---------------------------------------------------------
 
 def _check(name, t, dtype, ndim, device):
     if not isinstance(t, torch.Tensor):
@@ -67,15 +139,24 @@ def _check(name, t, dtype, ndim, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def plan_chunks(n_valid: int, Q: int, sms: int):
+def partial_smem_bytes(k: int) -> int:
+    """Pass 1's dynamic shared memory for list length k, as
+    `partial_smem_bytes` in csrc/topk_mips.cu computes it."""
+    return 36864 + 576 * k
+
+
+def plan_chunks(n_valid: int, Q: int, sms: int, k: int = MAX_K):
     """Split the live prefix into row chunks (whole tiles) so that the
-    (chunk, query-tile) grid covers every SM about twice.  Returns
-    (n_chunks, rows_per_chunk); (0, 64) for an empty prefix."""
+    (chunk, query-tile) grid fills every SM with as many CTAs as its
+    shared memory holds at list length k (two at k <= 128, one above).
+    Returns (n_chunks, rows_per_chunk); (0, 64) for an empty prefix."""
     tiles = -(-n_valid // _ROWS_PER_TILE)
     if tiles == 0:
         return 0, _ROWS_PER_TILE
+    per_sm = _SMEM_PER_SM // (partial_smem_bytes(k) + _SMEM_PER_CTA)
+    ctas_per_sm = max(1, min(2, per_sm))
     q_tiles = -(-Q // _QUERIES_PER_TILE)
-    chunks = min(tiles, max(1, _CTAS_PER_SM * sms // q_tiles))
+    chunks = min(tiles, max(1, ctas_per_sm * sms // q_tiles))
     per = -(-tiles // chunks)
     return -(-tiles // per), per * _ROWS_PER_TILE
 
@@ -86,66 +167,126 @@ def _sm_count(index: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _launcher():
-    """The C entry point of the built kernel library, with its signature."""
+def _library():
+    """The built kernel library, with its C signatures set."""
     from repro_torch.kernels.build import load
-    fn = load("topk_mips").topk_mips_masked_launch
+    lib = load("topk_mips")
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, p, i, i, i, i, i, i, p, p, p, p, p]
-    fn.restype = i
-    return fn
+    lib.topk_mips_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i,
+                                     p, p, p, p, p]
+    lib.topk_mips_launch.restype = i
+    lib.topk_mips_partial_smem_bytes.argtypes = [i]
+    lib.topk_mips_partial_smem_bytes.restype = ctypes.c_size_t
+    for k in (1, MAX_K):
+        if lib.topk_mips_partial_smem_bytes(k) != partial_smem_bytes(k):
+            raise RuntimeError("partial_smem_bytes is out of step with "
+                               "csrc/topk_mips.cu")
+    return lib
 
 
-def topk_mips_masked(queries, bank, q_ns, bank_ns, k: int = 32, *,
-                     n_valid=None):
-    """queries (Q, D) f32, bank (N, D) f32, q_ns (Q,) i32, bank_ns (N,) i32
-    -> (scores (Q, k) f32, ids (Q, k) i32).  `n_valid` (default N) bounds
-    the live prefix of a capacity-padded bank.  1 <= k <= MAX_K."""
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"k={k} outside [1, {MAX_K}]")
+def _launch(fn, queries, bank, scales, q_ns, bank_ns, k, n_valid):
+    """Check the operands and launch the kernel behind wrapper `fn`, adding
+    one to its count; returns (scores (Q, k) f32, ids (Q, k) i32) on the
+    queries' device."""
+    name = fn.__name__
     device = queries.device
-    if device.type == "cpu":
-        return topk_mips_masked_ref(queries, bank, q_ns, bank_ns, k=k,
-                                    n_valid=n_valid)
-    if device.type != "cuda":
-        raise ValueError(f"topk_mips_masked: unsupported device {device}")
+    masked, quant = q_ns is not None, scales is not None
     _check("queries", queries, torch.float32, 2, device)
-    _check("bank", bank, torch.float32, 2, device)
-    _check("q_ns", q_ns, torch.int32, 1, device)
-    _check("bank_ns", bank_ns, torch.int32, 1, device)
+    _check("bank", bank, torch.int8 if quant else torch.float32, 2, device)
+    if quant:
+        _check("scales", scales, torch.float32, 1, device)
+    if masked:
+        _check("q_ns", q_ns, torch.int32, 1, device)
+        _check("bank_ns", bank_ns, torch.int32, 1, device)
     Q, D = queries.shape
     N = bank.shape[0]
     if bank.shape[1] != D:
         raise ValueError(f"bank width {bank.shape[1]} != query width {D}")
-    if q_ns.shape[0] != Q or bank_ns.shape[0] != N:
+    if quant and scales.shape[0] != N:
+        raise ValueError(f"{scales.shape[0]} scales for {N} bank rows")
+    if masked and (q_ns.shape[0] != Q or bank_ns.shape[0] != N):
         raise ValueError("q_ns / bank_ns lengths must match queries / bank")
     nv = N if n_valid is None else int(n_valid)
     if not 0 <= nv <= N:
         raise ValueError(f"n_valid={nv} outside [0, {N}]")
     if N >= 2**31 or Q >= 2**31:
-        raise ValueError("the kernel indexes rows and queries with int32")
+        raise ValueError(f"{name}: the kernel indexes rows and queries "
+                         "with int32")
     out_s = torch.empty((Q, k), dtype=torch.float32, device=device)
     out_i = torch.empty((Q, k), dtype=torch.int32, device=device)
     if Q == 0:
         return out_s, out_i
-    launch = _launcher()
+    lib = _library()
     index = device.index if device.index is not None else \
         torch.cuda.current_device()
-    n_chunks, rows_per_chunk = plan_chunks(nv, Q, _sm_count(index))
+    n_chunks, rows_per_chunk = plan_chunks(nv, Q, _sm_count(index), k)
     part = max(1, Q * n_chunks * k)
     part_s = torch.empty((part,), dtype=torch.float32, device=device)
     part_r = torch.empty((part,), dtype=torch.int32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
-    p = ctypes.c_void_p
-    rc = launch(
-        p(queries.data_ptr()), p(bank.data_ptr()), p(q_ns.data_ptr()),
-        p(bank_ns.data_ptr()), Q, D, nv, k, n_chunks, rows_per_chunk,
-        p(part_s.data_ptr()), p(part_r.data_ptr()), p(out_s.data_ptr()),
-        p(out_i.data_ptr()), p(stream))
+
+    def ptr(t):
+        return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+    rc = lib.topk_mips_launch(
+        ptr(queries), ptr(bank), ptr(scales), ptr(q_ns), ptr(bank_ns), Q, D,
+        nv, k, int(masked), int(quant), n_chunks, rows_per_chunk,
+        ptr(part_s), ptr(part_r), ptr(out_s), ptr(out_i),
+        ctypes.c_void_p(stream))
     if rc != 0:
-        raise RuntimeError(f"topk_mips kernel launch failed: CUDA error {rc}")
-    topk_mips_masked.launches += 1
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    fn.launches += 1
     return out_s, out_i
 
 
-topk_mips_masked.launches = 0
+def _dispatch(fn, ref, queries, bank, scales, q_ns, bank_ns, k, n_valid):
+    """CPU tensors -> the plain version; CUDA tensors -> the kernel."""
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"{fn.__name__}: k={k} outside [1, MAX_K={MAX_K}]")
+    device = queries.device
+    if device.type == "cpu":
+        return ref()
+    if device.type != "cuda":
+        raise ValueError(f"{fn.__name__}: unsupported device {device}")
+    return _launch(fn, queries, bank, scales, q_ns, bank_ns, k, n_valid)
+
+
+def topk_mips(queries, bank, k: int = 32, *, n_valid=None):
+    """K3.  queries (Q, D) f32, bank (N, D) f32 -> (scores (Q, k) f32, ids
+    (Q, k) i32).  `n_valid` (default N) bounds the live prefix of a
+    capacity-padded bank.  1 <= k <= MAX_K."""
+    return _dispatch(topk_mips, lambda: topk_mips_ref(
+        queries, bank, k=k, n_valid=n_valid), queries, bank, None, None,
+        None, k, n_valid)
+
+
+def topk_mips_masked(queries, bank, q_ns, bank_ns, k: int = 32, *,
+                     n_valid=None):
+    """K1.  As `topk_mips`, with q_ns (Q,) i32 and bank_ns (N,) i32: only
+    rows labelled with the query's namespace match."""
+    return _dispatch(topk_mips_masked, lambda: topk_mips_masked_ref(
+        queries, bank, q_ns, bank_ns, k=k, n_valid=n_valid), queries, bank,
+        None, q_ns, bank_ns, k, n_valid)
+
+
+def topk_mips_quant(queries, bank_i8, scales, k: int = 32, *, n_valid=None):
+    """K4.  As `topk_mips` over an int8 bank (N, D) with per-row f32
+    scales (N,): score = (q . codes) * scale."""
+    return _dispatch(topk_mips_quant, lambda: topk_mips_quant_ref(
+        queries, bank_i8, scales, k=k, n_valid=n_valid), queries, bank_i8,
+        scales, None, None, k, n_valid)
+
+
+def topk_mips_quant_masked(queries, bank_i8, scales, q_ns, bank_ns,
+                           k: int = 32, *, n_valid=None):
+    """K2.  `topk_mips_quant` with K1's namespace mask."""
+    return _dispatch(topk_mips_quant_masked, lambda:
+                    topk_mips_quant_masked_ref(queries, bank_i8, scales, q_ns,
+                                               bank_ns, k=k, n_valid=n_valid),
+                    queries, bank_i8, scales, q_ns, bank_ns, k, n_valid)
+
+
+KERNELS = (topk_mips, topk_mips_masked, topk_mips_quant,
+           topk_mips_quant_masked)
+for _fn in KERNELS:
+    _fn.launches = 0

@@ -30,7 +30,9 @@ def _port_files():
 
 def test_every_port_module_imports_without_jax_or_msgpack():
     mods = _port_modules()
-    assert "repro_torch.core.service" in mods
+    for m in ("repro_torch.core.service", "repro_torch.core.tiering",
+              "repro_torch.kernels.ops"):
+        assert m in mods
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['msgpack'] = None\n"

@@ -1,16 +1,19 @@
-"""The masked top-k MIPS (kernel K1) of the port against the JAX package:
-the port's plain PyTorch version `topk_mips_masked_ref` (what a CPU tensor
-runs) against the Pallas kernel in interpret mode and the JAX oracle, on
-the same numpy-seeded inputs.  Ids must match exactly and scores to
-rtol=1e-5, atol=1e-6 (the two einsums may round differently in the last
-ulp).  The CUDA kernel itself is held against the same plain version on
-the card by chip_smoke.py."""
+"""The top-k MIPS kernels K1-K4 of the port against the JAX package: each
+plain PyTorch version (what a CPU tensor runs) against the Pallas kernel
+in interpret mode and the JAX oracle, on the same numpy-seeded inputs, and
+the port's int8 quantizers bit-exact against the reference's.  Ids must
+match exactly and scores to rtol=1e-5, atol=1e-6 (the two einsums may
+round differently in the last ulp).  The CUDA kernels themselves are held
+against the same plain versions on the card by chip_smoke.py."""
 import numpy as np
 import pytest
 import torch
 
+from repro.core.vector_index import quantize_rows_np as j_quantize_rows_np
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro_torch.core.vector_index import quantize_rows_np
+from repro_torch.kernels import ops as tops
 from repro_torch.kernels import topk_mips as tk
 
 RTOL, ATOL = 1e-5, 1e-6
@@ -111,6 +114,18 @@ def test_k_outside_the_kernel_range_raises(k):
         tk.topk_mips_masked(*_torch(q, bank, q_ns, labels), k=k)
 
 
+@pytest.mark.parametrize("k", [0, tk.MAX_K + 1])
+@pytest.mark.parametrize("name", ["topk_mips", "topk_mips_quant",
+                                  "topk_mips_quant_masked"])
+def test_sibling_k_outside_the_kernel_range_raises_naming_max_k(k, name):
+    q, bank, q_ns, labels, _ = _case(1, 40, 40)
+    codes, scales = quantize_rows_np(bank)
+    args = {"topk_mips": (q, bank), "topk_mips_quant": (q, codes, scales),
+            "topk_mips_quant_masked": (q, codes, scales, q_ns, labels)}[name]
+    with pytest.raises(ValueError, match="MAX_K"):
+        getattr(tops, name)(*_torch(*args), k=k)
+
+
 def test_chunk_plan_covers_the_live_prefix():
     for n_valid in (0, 1, 63, 64, 65, 1000, 65536, 1 << 20):
         for Q in (1, 64, 65, 200):
@@ -118,3 +133,103 @@ def test_chunk_plan_covers_the_live_prefix():
             assert rows % 64 == 0 and rows > 0
             assert n_chunks * rows >= n_valid
             assert n_valid == 0 or (n_chunks - 1) * rows < n_valid
+
+
+# -- K2, K3, K4 ---------------------------------------------------------------
+
+def _quant_case(Q, N, n_valid, seed):
+    """`_case` with the bank quantized by the reference's quantizer, after
+    the adversarial rows of tests/test_quantized_index.py: an all-zero row
+    (scale 0), tiny-norm rows (x1e-3) and huge-norm outliers (x1e3) beside
+    unit-norm neighbours.  The planted duplicates keep identical codes."""
+    q, bank, q_ns, labels, dups = _case(Q, N, n_valid, seed=seed)
+    bank[5] = 0.0
+    tiny = [r for r in range(7, N, 11) if r not in dups]
+    huge = [r for r in range(13, N, 97) if r not in dups]
+    bank[tiny] *= 1e-3
+    bank[huge] *= 1e3
+    codes, scales = j_quantize_rows_np(bank)
+    return q, codes, scales, q_ns, labels, dups
+
+
+def _run(name, Q, N, n_valid, k, seed):
+    """One case of kernel `name` through the port's plain version, the
+    Pallas kernel in interpret mode (k <= 32) and the JAX oracle."""
+    if "quant" in name:
+        q, bank, scales, q_ns, labels, dups = _quant_case(Q, N, n_valid, seed)
+        lead = (q, bank, scales)
+    else:
+        q, bank, q_ns, labels, dups = _case(Q, N, n_valid, seed=seed)
+        lead = (q, bank)
+    args = lead + ((q_ns, labels) if "masked" in name else ())
+    s, i = getattr(tk, name + "_ref")(*_torch(*args), k=k, n_valid=n_valid)
+    s, i = s.numpy(), i.numpy()
+    _assert_same(s, i, *getattr(jref, name + "_ref")(*args, k=k,
+                                                       n_valid=n_valid))
+    if k <= 32:
+        _assert_same(s, i, *getattr(jops, name)(*args, k=k, n_valid=n_valid,
+                                                interpret=True))
+    return s, i, q_ns, labels, dups
+
+
+SIBLINGS = ["topk_mips", "topk_mips_quant", "topk_mips_quant_masked"]
+
+
+@pytest.mark.parametrize("name", SIBLINGS)
+@pytest.mark.parametrize("Q,N,n_valid,k", [(7, 300, 260, 16),
+                                           (8, 2048, 1900, 32)])
+def test_sibling_plain_versions_match_pallas_interpret(name, Q, N, n_valid,
+                                                       k):
+    s, i, q_ns, labels, dups = _run(name, Q, N, n_valid, k, seed=Q + N)
+    live = i >= 0
+    assert (s[~live] == np.float32(NEG_INF)).all()
+    assert (i[live] < n_valid).all()
+    if "masked" in name:
+        assert (labels[i[live]] ==
+                np.repeat(q_ns, k).reshape(Q, k)[live]).all()
+        assert live[1].sum() == 2 and not live[2].any()
+    else:
+        assert live.all()
+    # the duplicates tie exactly and rank in row order, side by side
+    pos = [list(i[0]).index(d) for d in dups]
+    assert pos == list(range(pos[0], pos[0] + 3))
+    assert len(set(s[0, pos].tolist())) == 1
+
+
+@pytest.mark.parametrize("name", SIBLINGS + ["topk_mips_masked"])
+def test_plain_versions_match_the_jax_oracle_at_k_256(name):
+    _run(name, 64, 1500, 1400, 256, seed=3)
+
+
+@pytest.mark.parametrize("name", SIBLINGS + ["topk_mips_masked"])
+def test_ops_entry_points_run_the_plain_version_on_cpu(name):
+    q, bank, q_ns, labels, _ = _case(7, 300, 260, seed=1)
+    codes, scales = quantize_rows_np(bank)
+    lead = (q, codes, scales) if "quant" in name else (q, bank)
+    args = _torch(*lead, *((q_ns, labels) if "masked" in name else ()))
+    fn = getattr(tops, name)
+    assert fn is getattr(tk, name)
+    s, i = fn(*args, k=16, n_valid=260)
+    s_r, i_r = getattr(tk, name + "_ref")(*args, k=16, n_valid=260)
+    assert fn.launches == 0
+    assert torch.equal(i, i_r) and torch.equal(s, s_r)
+    assert i.dtype == torch.int32 and s.dtype == torch.float32
+
+
+def test_quantizers_are_bit_exact_against_the_reference():
+    rng = np.random.default_rng(11)
+    bank = rng.standard_normal((257, 48)).astype(np.float32)
+    bank[3] = 0.0
+    bank[7] *= 1e-5
+    bank[11] *= 1e4
+    bank[20] = np.float32(0.5) * 127 / np.arange(1, 49)   # halfway codes
+    want_c, want_s = j_quantize_rows_np(bank)
+    for codes, scales in (quantize_rows_np(bank),
+                          tuple(t.numpy() for t in
+                                tk.quantize_rows_ref(torch.from_numpy(bank)))):
+        assert codes.dtype == np.int8 and scales.dtype == np.float32
+        np.testing.assert_array_equal(codes, want_c)
+        np.testing.assert_array_equal(scales, want_s)
+    c_ref, s_ref = jref.quantize_rows_ref(bank)
+    np.testing.assert_array_equal(want_c, np.asarray(c_ref))
+    np.testing.assert_array_equal(want_s, np.asarray(s_ref))

@@ -2,7 +2,8 @@
 recorded into the JAX package's MemoryService (jnp search, no Pallas) and
 the port's MemoryService(device="cpu") answer every plan identically —
 the same fused ids and scores, byte-identical rendered contexts, the same
-token counts — and snapshots written by either package restore in the
+token counts — with the f32 and the int8 device bank, through a hot/warm
+tier cycle, and snapshots written by either package restore in the
 other."""
 import dataclasses
 
@@ -15,11 +16,14 @@ from repro.core import service as jsvc
 from repro.core.api import RetrievalPlan as JPlan
 from repro.core.api import RetrieveRequest as JReq
 from repro.core.extraction import Message as JMessage
+from repro.core.tiering import TierPolicy as JTierPolicy
 from repro.data.locomo_synth import generate_conversation
 from repro_torch.checkpoint import io as tio
 from repro_torch.core import HashEmbedder, MemoryService, MemoryStore
 from repro_torch.core.api import RetrievalPlan, RetrieveRequest
 from repro_torch.core.extraction import Message
+from repro_torch.core.tiering import TierPolicy
+from repro_torch.obs.telemetry import get_telemetry, walk_spans
 
 NAMESPACES = ("alice/c0", "bob/c0", "carol/c0")
 PLANS = {
@@ -163,7 +167,7 @@ def test_evict_and_compact_keep_parity():
 
 def test_slices_to_come_raise_not_implemented():
     emb = HashEmbedder(device="cpu")
-    for kw in (dict(data_dir="/nonexistent"), dict(quantize="int8"),
+    for kw in (dict(data_dir="/nonexistent"), dict(runtime=object()),
                dict(shards=2)):
         with pytest.raises(NotImplementedError):
             MemoryService(emb, device="cpu", **kw)
@@ -174,3 +178,125 @@ def test_slices_to_come_raise_not_implemented():
     with pytest.raises(NotImplementedError):
         svc.retrieve_batch([("a", "where?")],
                            plan=RetrievalPlan.graph_expanded())
+
+
+# -- the int8 device bank --------------------------------------------------
+
+@pytest.fixture(scope="module")
+def int8_pair():
+    js = jsvc.MemoryService(jemb.HashEmbedder(), use_kernel=False,
+                            quantize="int8")
+    ts = MemoryService(HashEmbedder(device="cpu"), device="cpu",
+                       quantize="int8")
+    convs = _record(js, JMessage)
+    _record(ts, Message)
+    return js, ts, _requests(convs)
+
+
+@pytest.mark.parametrize("plan", sorted(PLANS))
+def test_int8_service_answers_like_the_reference(int8_pair, plan):
+    """K2's plain version plus the exact rescore, through every plan: the
+    same fused ids, contexts and token counts as the JAX int8 service, and
+    the same rescore counters (hence the same rescore hit rate)."""
+    js, ts, reqs = int8_pair
+    want = _answers(js, reqs, PLANS[plan], True)
+    got = _answers(ts, reqs, PLANS[plan], False)
+    assert got == want
+    assert any(w[1] for w in want)
+    st_t, st_j = ts.stats()["bank"], js.stats()["bank"]
+    assert st_t == st_j
+    assert st_t["quantize"] == "int8" and st_t["quant_searches"] > 0
+    if plan in ("hybrid", "dense_only"):
+        assert "(Alice; lives in; cusco)" in got[len(reqs) - 4][1]
+        assert "(Alice;" not in got[len(reqs) - 3][1]
+
+
+def test_int8_snapshot_restores_f32_in_both_packages(int8_pair, tmp_path):
+    """Snapshots stay f32 whatever the device bank: the port's int8
+    service writes the reference's layout, and each package restores it as
+    an int8 service answering like the writer."""
+    js, ts, reqs = int8_pair
+    pj, pt = str(tmp_path / "jax.snap"), str(tmp_path / "torch.snap")
+    js.snapshot(pj)
+    ts.snapshot(pt)
+    aj, at = jio.load_raw(pj), tio.load_raw(pt)
+    for name in aj:
+        np.testing.assert_array_equal(at[name], aj[name], err_msg=name)
+    assert at["bank"].dtype == np.float32
+    want = _answers(js, reqs, {}, True)
+    back = MemoryService.restore(pj, HashEmbedder(device="cpu"),
+                                 device="cpu", quantize="int8", rescore=4)
+    assert back.vindex.quantize == "int8"
+    np.testing.assert_array_equal(back.vindex.bank, ts.vindex.bank)
+    assert _answers(back, reqs, {}, False) == want
+    jback = jsvc.MemoryService.restore(pt, jemb.HashEmbedder(),
+                                       use_kernel=False, quantize="int8")
+    assert _answers(jback, reqs, {}, True) == want
+
+
+# -- hot/warm tiering --------------------------------------------------------
+
+@pytest.mark.parametrize("quantize", ["none", "int8"])
+def test_tier_cycle_answers_like_the_reference(quantize):
+    """test_service_host_fallback_and_promotion_cycle on both packages, with
+    the tier manager attached to the store and ticked by hand on one fake
+    clock: a demoted namespace is answered from the host mirror exactly as
+    when hot (reported as a host fallback), the next tick promotes it, and
+    every answer, tick and counter matches the JAX service's."""
+    now = [0.0]
+    svcs = []
+    for mod, emb, msg, policy, kw in (
+            (jsvc, jemb.HashEmbedder(), JMessage, JTierPolicy,
+             dict(use_kernel=False)),
+            (None, HashEmbedder(device="cpu"), Message, TierPolicy,
+             dict(device="cpu"))):
+        cls = mod.MemoryService if mod else MemoryService
+        svc = cls(emb, quantize=quantize, budget=800, **kw)
+        for u, city in enumerate(["Tallinn", "Porto", "Cusco"]):
+            svc.record(f"u{u}/c0", "s0", [
+                msg(f"U{u}", f"I live in {city}.", 1.0),
+                msg(f"U{u}", "I work as a welder.", 2.0)])
+        svc.store.attach_tiers(policy(max_hot_rows=4, halflife_s=60.0),
+                               clock=lambda: now[0])
+        svcs.append(svc)
+    js, ts = svcs
+    q = "Which city does the user live in?"
+    names = [f"u{u}/c0" for u in range(3)]
+
+    def answers(svc, jax_side):
+        return _answers(svc, [(n, q) for n in names], {}, jax_side)
+
+    def ticks():
+        now[0] += 1.0
+        did = [svc.store.tiers.tick() for svc in svcs]
+        assert did[1] == did[0]
+        return did[1]
+
+    hot = answers(ts, False)
+    assert hot == answers(js, True)
+    now[0] += 1.0
+    assert answers(ts, False) == answers(js, True)  # activity: all once
+    ts.retrieve("u2/c0", q)
+    js.retrieve("u2/c0", q)                         # u2 is the hottest
+    did = ticks()
+    assert did["demoted_ns"] >= 1
+    tiers = ts.store.tiers
+    demoted = tiers.demoted_namespaces()
+    assert demoted == js.store.tiers.demoted_namespaces()
+    assert ts.store.get("u2/c0").ns_id not in demoted
+    tel = get_telemetry()
+    trace = tel.start_trace(op="execute")
+    with tel.activate([trace]):
+        got = answers(ts, False)
+    tel.finish_trace(trace)
+    dense = [sp for sp in walk_spans(trace.to_dict()["root"])
+             if sp["name"] == "plan.dense"]
+    assert dense[0]["attrs"]["host_fallbacks"] == len(demoted)
+    assert got == answers(js, True) == hot, "host fallback changed answers"
+    assert tiers.counters["host_fallbacks"] == len(demoted)
+    assert ticks()["promoted_ns"] == len(demoted)
+    assert not any(tiers.is_demoted(n) for n in demoted)
+    assert answers(ts, False) == answers(js, True) == hot
+    assert tiers.stats() == js.store.tiers.stats()
+    assert ts.stats()["tiering"] == js.stats()["tiering"]
+    assert ts.stats()["bank"] == js.stats()["bank"]
