@@ -8,7 +8,8 @@ Run from the repository root on a machine with a CUDA card:
 It runs on `cuda:0` (one card, whatever the host holds), prints one JSON
 line per phase and fails (nonzero exit) on any failed check:
 
-1. build       — compiles every CUDA kernel of the port with nvcc (sm_90a).
+1. build       — compiles every CUDA kernel of the port with nvcc (sm_90a),
+                 one nvcc process per source, all at once.
 2. kernels     — holds each top-k kernel (K1-K4) against its plain PyTorch
                  version on the card over edge cases (Q in {1, 7, 64, 130},
                  N in {1000, 65536, 2**20}, k in {10, 64, 256}, n_valid < N,
@@ -38,6 +39,39 @@ line per phase and fails (nonzero exit) on any failed check:
                  rescored ranking of each execute are held against the
                  plain path, and recall@10 against the exact f32 host
                  search must reach 0.95.
+6. attention   — holds the attention kernels K6 (flash_attention) and K5
+                 (decode_attention) against their plain PyTorch versions on
+                 the card, f32 and bf16, over edge cases (the reference
+                 tests' shapes, lengths that are no multiple of the tile,
+                 G in {1, 3, 8, 16}, D in {16, 64, 128, 256}, causal and not,
+                 windows, kv_len of 1, of T and ragged, garbage past
+                 kv_len, the model's strided layouts), and times each at the
+                 agent's shapes (and K6 at S = T = 4096) beside its plain
+                 version, scaled_dot_product_attention and its bound.
+7. lm          — `memori-agent` at full width (12 layers, d_model 768,
+                 random weights from a seed) served by
+                 `Engine(slots=8, max_len=512)` through `ContinuousBatcher`:
+                 16 greedy requests of 32 new tokens, prompts from synthetic
+                 LoCoMo conversations, K5 and K6 launch counters reset just
+                 before and read just after.  Every K6 and K5 call of a
+                 teacher-forced run (ragged prefills, then batched decode
+                 steps) is held against its plain version on its own
+                 inputs.  End to end, on the same weights with wq/wk
+                 rescaled to unit score spread (`conditioned`: at the
+                 reference's init attention is a hard max, and rounding
+                 alone makes two correct paths part ways), the
+                 teacher-forced logits are held against the plain path's,
+                 prefill + decode against the full forward, and the greedy
+                 tokens against the plain path's (a divergence must sit at
+                 a counted near-tie).
+8. agent       — `MemoriClient` over `MemoryService(device="cuda")` with the
+                 engine as its LLM: users record facts through chat +
+                 end_session and `retrieve_batch` must return each user's
+                 fact and no other's (K1, K5 and K6 all launched);
+                 `LMExtractor` over the engine extracts one session;
+                 `LMEmbedder` (memori-embedder width) embeds the recorded
+                 triples through K6 (bidirectional): each call held against
+                 the plain version, the embeddings against the plain path.
 
 The last three lines are the kernels' summary, the card's name and power
 limit (as nvidia-smi reports them), and `{"ok": true, "device": {...}}`.
@@ -47,6 +81,7 @@ either it exits nonzero before printing any result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import os
@@ -84,6 +119,30 @@ KERNELS = {
     "topk_mips_quant": ("src/repro/kernels/topk_mips.py:112", False, True,
                         256),
 }
+# the attention kernels: the TPU kernel each replaces and its source
+ATTN_KERNELS = {
+    "flash_attention": ("src/repro/kernels/flash_attention.py:26",
+                        "src/repro_torch/csrc/flash_attention.cu"),
+    "decode_attention": ("src/repro/kernels/decode_attention.py:25",
+                         "src/repro_torch/csrc/decode_attention.cu"),
+}
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # the reference tests'
+# the agent's shapes: memori-agent's 4 kv-heads x 3 grouped heads of 64;
+# prefill of a ~150-token prompt (and the config's long-context window);
+# a decode step at 8 slots of a 512-position cache, ~170 positions filled
+LM_K, LM_G, LM_D = 4, 3, 64
+PREFILL_S, LONG_S = 150, 4096
+LM_SLOTS, LM_MAX_LEN, LM_REQUESTS, LM_NEW_TOKENS = 8, 512, 16, 32
+DECODE_KV_LEN = 170
+# logits of the kernel path against the plain path: the same f32 weights and
+# inputs; only the attention's summation order differs (online against
+# direct softmax, ~1e-6 relative per layer), over 12 layers and a 768-wide
+# vocab projection of logits of order 1
+LOGIT_TOL = 1e-4
+# prefill + decode against the full forward: other matmul shapes, other
+# accumulation orders (tests/test_decode_consistency.py holds 2e-3)
+DECODE_TOL = 2e-3
+EMBED_TOL = 2e-5
 
 
 def emit(obj) -> None:
@@ -103,8 +162,13 @@ def gpu_line() -> str:
 
 
 def wrappers():
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import topk_mips as tk
-    return {name: getattr(tk, name) for name in KERNELS}
+    out = {name: getattr(tk, name) for name in KERNELS}
+    out.update(flash_attention=fa.flash_attention,
+               decode_attention=da.decode_attention)
+    return out
 
 
 def reset_counts() -> None:
@@ -119,9 +183,11 @@ def counts() -> dict:
 # -- phase 1: build ------------------------------------------------------------
 
 def phase_build() -> dict:
+    from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    log = {name: build.build(name) for name in build.SOURCES}
+    with ThreadPoolExecutor(len(build.SOURCES)) as pool:   # one nvcc each
+        log = dict(zip(build.SOURCES, pool.map(build.build, build.SOURCES)))
     out = {"phase": "build", "seconds": time.perf_counter() - t0,
            "gpu": gpu_line(),
            "kernels": {name: {"nvcc_seconds": e["seconds"],
@@ -817,6 +883,714 @@ def phase_serve(device, rows: int, reps: int, templates,
     return out
 
 
+# -- phase 6: the attention kernels --------------------------------------------
+
+def attention_bound_ms(n_q_heads_pairs: int, bytes_moved: int, D: int):
+    """Least time on the card for attention over `n_q_heads_pairs` allowed
+    (query head, key) pairs: 4*D FP32 flops each (q.k and p.v), against the
+    bytes that must move once; returns (ms, "bytes" | "operations")."""
+    t_ops = 4.0 * D * n_q_heads_pairs / FP32_FLOPS_PER_S * 1e3
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    return max(t_ops, t_bytes), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def device_ms(fn, reps: int, tag: str) -> float:
+    """Mean device time per call of `fn` spent in kernels whose name holds
+    `tag`, from a profile of `reps` calls after one warm-up call: the
+    kernel's own time, without the host's launch cost that a back-to-back
+    CUDA-event time of a microsecond-scale kernel also holds."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.device_time_total for e in prof.key_averages()
+                   if tag in e.key)
+    return total_us / 1e3 / reps
+
+
+def flash_pairs(S: int, T: int, causal: bool, window: int) -> int:
+    """Allowed (query, key) pairs of one head: t < T, t <= s when causal,
+    t > s - window when window > 0."""
+    total = 0
+    for s in range(S):
+        hi = min(T, s + 1) if causal else T
+        lo = max(0, s - window + 1) if window > 0 else 0
+        total += max(0, hi - lo)
+    return total
+
+
+def _rand(shape, gen, device, dtype):
+    import torch
+    return torch.randn(shape, generator=gen, device=device).to(dtype)
+
+
+def check_flash(gen, device, dtype, B, K, G, S, T, D, causal, window,
+                strided=False) -> float:
+    """One K6 case against its plain version; returns the largest error."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    if strided:      # the model's layout: (B, S, H, D) and (B, T, K, D)
+        q = _rand((B, S, K * G, D), gen, device, dtype).view(
+            B, S, K, G, D).permute(0, 2, 3, 1, 4)
+        k = _rand((B, T, K, D), gen, device, dtype).permute(0, 2, 1, 3)
+        v = _rand((B, T, K, D), gen, device, dtype).permute(0, 2, 1, 3)
+    else:
+        q = _rand((B, K, G, S, D), gen, device, dtype)
+        k = _rand((B, K, T, D), gen, device, dtype)
+        v = _rand((B, K, T, D), gen, device, dtype)
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    want = fa.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    what = (f"flash_attention {str(dtype)[6:]} B={B} K={K} G={G} S={S} T={T} "
+            f"D={D} causal={causal} window={window} strided={strided}")
+    if got.shape != want.shape or got.dtype != want.dtype:
+        fail(f"{what}: {tuple(got.shape)} {got.dtype} vs "
+             f"{tuple(want.shape)} {want.dtype}")
+    tol = ATTN_TOL[str(dtype)[6:]]
+    err = float((got.float() - want.float()).abs().max())
+    if not err <= tol:
+        fail(f"{what}: max error {err} > {tol}")
+    return err
+
+
+def check_decode(gen, device, dtype, B, K, G, T, D, lens, window,
+                 strided=False) -> float:
+    """One K5 case against its plain version, then again with every cache
+    row past kv_len overwritten by garbage: the output must not move by a
+    bit.  Returns the largest error."""
+    import torch
+    from repro_torch.kernels import decode_attention as da
+    if strided:      # the engine's (B, T, K, D) cache, (B, 1, H, D) query
+        q = _rand((B, 1, K * G, D), gen, device, dtype).view(B, K, G, D)
+        k = _rand((B, T, K, D), gen, device, dtype).permute(0, 2, 1, 3)
+        v = _rand((B, T, K, D), gen, device, dtype).permute(0, 2, 1, 3)
+    else:
+        q = _rand((B, K, G, D), gen, device, dtype)
+        k = _rand((B, K, T, D), gen, device, dtype)
+        v = _rand((B, K, T, D), gen, device, dtype)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=device)
+    got = da.decode_attention(q, k, v, kv_len, window=window)
+    want = da.decode_attention_ref(q, k, v, kv_len, window=window)
+    tail = (torch.arange(T, device=device)[None, :]
+            >= kv_len[:, None])[:, None, :, None]          # (B, 1, T, 1)
+    k2 = torch.where(tail, torch.full_like(k, 999.0), k)
+    v2 = torch.where(tail, torch.full_like(v, -999.0), v)
+    got2 = da.decode_attention(q, k2, v2, kv_len, window=window)
+    torch.cuda.synchronize()
+    what = (f"decode_attention {str(dtype)[6:]} B={B} K={K} G={G} T={T} "
+            f"D={D} kv_len={lens} window={window} strided={strided}")
+    tol = ATTN_TOL[str(dtype)[6:]]
+    err = float((got.float() - want.float()).abs().max())
+    if got.shape != want.shape or not err <= tol:
+        fail(f"{what}: max error {err} > {tol}")
+    if not torch.equal(got, got2):
+        fail(f"{what}: rows past kv_len changed the output")
+    return err
+
+
+def sdpa_gqa(q, k, v, **kw):
+    """One `scaled_dot_product_attention` call on the kernels' grouped
+    layout: (B, K, G, S, D) queries over (B, K, T, D) keys."""
+    import torch
+    B, K, G, S, D = q.shape
+    return torch.nn.functional.scaled_dot_product_attention(
+        q.reshape(B, K * G, S, D), k, v, enable_gqa=True, **kw)
+
+
+def phase_attention(device, reps: int) -> dict:
+    import torch
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device=device).manual_seed(2)
+    res = {name: {"cases": 0, "max_abs_err": {"float32": 0.0,
+                                              "bfloat16": 0.0}}
+           for name in ATTN_KERNELS}
+
+    def note(name, dtype, err):
+        r = res[name]
+        key = str(dtype)[6:]
+        r["max_abs_err"][key] = max(r["max_abs_err"][key], err)
+        r["cases"] += 1
+
+    flash_shapes = [  # (B, K, G, S, T, D): the reference tests' shapes,
+        (1, 1, 1, 32, 32, 16), (2, 2, 4, 64, 64, 32), (1, 3, 2, 70, 70, 32),
+        (1, 2, 2, 96, 96, 16),
+        # S, T off the 64-row tile; G in {1, 3, 8, 16}; D up to 256
+        (1, 4, 3, 150, 150, 64), (3, 4, 1, 64, 64, 64),
+        (2, 2, 8, 130, 130, 128), (1, 2, 3, 77, 77, 256),
+        (1, 1, 16, 33, 33, 64), (1, 4, 3, 1, 1, 64),
+        (2, 1, 3, 40, 100, 64), (1, 2, 2, 100, 40, 16)]   # T != S
+    decode_shapes = [  # (B, K, G, T, D, kv_len)
+        (1, 1, 1, 64, 16, [61]), (3, 2, 4, 200, 32, [197, 190, 183]),
+        (LM_SLOTS, LM_K, LM_G, LM_MAX_LEN, LM_D,
+         [1, 2, 63, 64, 65, 170, 511, 512]),
+        (2, 2, 8, 300, 128, [1, 300]), (2, 1, 16, 100, 256, [37, 100]),
+        (3, 4, 3, LONG_S, 64, [LONG_S, 1, LONG_S // 2 + 1])]
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, K, G, S, T, D in flash_shapes:
+            for causal in (True, False):
+                for window in (0, 16):
+                    note("flash_attention", dtype, check_flash(
+                        gen, device, dtype, B, K, G, S, T, D, causal, window))
+        note("flash_attention", dtype, check_flash(
+            gen, device, dtype, 1, LM_K, LM_G, PREFILL_S, PREFILL_S, LM_D,
+            True, 0, strided=True))
+        note("flash_attention", dtype, check_flash(
+            gen, device, dtype, 5, 4, 1, 64, 64, 64, False, 0, strided=True))
+        for B, K, G, T, D, lens in decode_shapes:
+            for window in (0, 20):
+                note("decode_attention", dtype, check_decode(
+                    gen, device, dtype, B, K, G, T, D, lens, window))
+        note("decode_attention", dtype, check_decode(
+            gen, device, dtype, LM_SLOTS, LM_K, LM_G, LM_MAX_LEN, LM_D,
+            [DECODE_KV_LEN + 7 * i for i in range(LM_SLOTS)], 0,
+            strided=True))
+
+    # timings at the agent's shapes
+    f32 = torch.float32
+    timed = {}
+    for label, S in (("prefill", PREFILL_S), ("long_context", LONG_S)):
+        q = _rand((1, LM_K, LM_G, S, LM_D), gen, device, f32)
+        k = _rand((1, LM_K, S, LM_D), gen, device, f32)
+        v = _rand((1, LM_K, S, LM_D), gen, device, f32)
+        pairs = LM_K * LM_G * flash_pairs(S, S, True, 0)
+        bytes_moved = 4 * (2 * q.numel() + k.numel() + v.numel())
+        bound, by = attention_bound_ms(pairs, bytes_moved, LM_D)
+        timed[label] = {
+            "shape": {"B": 1, "K": LM_K, "G": LM_G, "S": S, "T": S,
+                      "D": LM_D, "causal": True},
+            "kernel_ms": time_ms(lambda: fa.flash_attention(q, k, v), reps),
+            "device_ms": device_ms(lambda: fa.flash_attention(q, k, v), reps,
+                                   "flash_fwd_kernel"),
+            "plain_ms": time_ms(lambda: fa.flash_attention_ref(q, k, v),
+                                max(1, reps // 4)),
+            "library_ms": time_ms(lambda: sdpa_gqa(q, k, v, is_causal=True),
+                                  reps),
+            "bound_ms": bound, "bound_by": by}
+    res["flash_attention"].update(timed["prefill"])
+    res["flash_attention"]["long_context"] = timed["long_context"]
+    # the embedder's bidirectional pass: 16 texts of 64 tokens, 4 heads
+    q = _rand((16, 4, 1, 64, 64), gen, device, f32)
+    k = _rand((16, 4, 64, 64), gen, device, f32)
+    v = _rand((16, 4, 64, 64), gen, device, f32)
+    res["flash_attention"]["embedder"] = {
+        "shape": {"B": 16, "K": 4, "G": 1, "S": 64, "T": 64, "D": 64,
+                  "causal": False},
+        "kernel_ms": time_ms(lambda: fa.flash_attention(q, k, v,
+                                                        causal=False), reps)}
+
+    q = _rand((LM_SLOTS, LM_K, LM_G, LM_D), gen, device, f32)
+    cache_k = _rand((LM_SLOTS, LM_MAX_LEN, LM_K, LM_D), gen, device, f32)
+    cache_v = _rand((LM_SLOTS, LM_MAX_LEN, LM_K, LM_D), gen, device, f32)
+    k, v = cache_k.permute(0, 2, 1, 3), cache_v.permute(0, 2, 1, 3)
+    kv_len = torch.full((LM_SLOTS,), DECODE_KV_LEN, dtype=torch.int32,
+                        device=device)
+    mask = (torch.arange(LM_MAX_LEN, device=device)[None, :]
+            < kv_len[:, None])[:, None, None, :]
+    rows = LM_SLOTS * DECODE_KV_LEN
+    bytes_moved = 4 * (2 * q.numel() + 2 * rows * LM_K * LM_D + LM_SLOTS)
+    bound, by = attention_bound_ms(rows * LM_K * LM_G, bytes_moved, LM_D)
+    res["decode_attention"].update({
+        "shape": {"B": LM_SLOTS, "K": LM_K, "G": LM_G, "T": LM_MAX_LEN,
+                  "D": LM_D, "kv_len": DECODE_KV_LEN},
+        "kernel_ms": time_ms(lambda: da.decode_attention(q, k, v, kv_len),
+                             reps),
+        "device_ms": device_ms(lambda: da.decode_attention(q, k, v, kv_len),
+                               reps, "decode_"),
+        "plain_ms": time_ms(lambda: da.decode_attention_ref(q, k, v, kv_len),
+                            reps),
+        "library_ms": time_ms(lambda: torch.nn.functional.
+                              scaled_dot_product_attention(
+                                  q.reshape(LM_SLOTS, LM_K * LM_G, 1, LM_D),
+                                  k, v, attn_mask=mask, enable_gqa=True),
+                              reps),
+        "bound_ms": bound, "bound_by": by})
+    out = {"phase": "attention", "tolerance": ATTN_TOL, "kernels": res,
+           "gpu": gpu_line()}
+    emit(out)
+    return out
+
+
+# -- phases 7 and 8: the agent's LM, and the agent loop -------------------------
+
+@contextlib.contextmanager
+def plain_attention():
+    """Route the attention layer to the kernels' plain PyTorch versions
+    (the comparison path only; the port never does this on a card)."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.layers import attention as attn
+    saved = attn.flash_attention, attn.decode_attention
+    attn.flash_attention = fa.flash_attention_ref
+    attn.decode_attention = da.decode_attention_ref
+    try:
+        yield
+    finally:
+        attn.flash_attention, attn.decode_attention = saved
+
+
+def lm_prompts(tokenizer, n: int):
+    """n prompts of 100 to 250 tokens: consecutive turns of synthetic
+    LoCoMo conversations, as `speaker: text` lines."""
+    import numpy as np
+    from repro_torch.data.locomo_synth import generate_conversation
+    rng = np.random.default_rng(7)
+    prompts = []
+    for i in range(n):
+        conv = generate_conversation(seed=30_000 + i)
+        msgs = [m for _, ms in conv.sessions for m in ms]
+        start = int(rng.integers(0, len(msgs) // 2))
+        target = int(rng.integers(100, 251))
+        lines, count = [], 0
+        for m in msgs[start:]:
+            line = f"{m.speaker}: {m.text}"
+            c = len(tokenizer.encode(line))
+            if count + c > target:
+                break
+            lines.append(line)
+            count += c
+        prompts.append("\n".join(lines))
+    return prompts
+
+
+def teacher_forced(model, params, seqs, prefix, steps, device):
+    """The engine's dataflow, teacher-forced: each sequence prefilled on
+    its first prefix[i] tokens into its own slot of a batched cache, then
+    `steps` batched decode steps feeding the sequences' next tokens at
+    per-slot positions.  Returns (prefill logits (n, V), decode logits
+    (steps, n, V))."""
+    import torch
+    n = len(seqs)
+    caches = model.init_caches(n, LM_MAX_LEN, device=device)
+    first = []
+    for i, seq in enumerate(seqs):
+        lg, pre = model.prefill(params, {"tokens": seq[None, :prefix[i]]})
+        first.append(lg[0, -1])
+        pre = model.prepare_decode_caches(pre, prefix[i], LM_MAX_LEN)
+        for full, single in zip(caches, pre):
+            for name, x in single.items():
+                full[name][i].copy_(x[0])
+    pos = torch.tensor(prefix, device=device)
+    out = []
+    for step in range(steps):
+        toks = torch.stack([seq[p + step] for seq, p in zip(seqs, prefix)])
+        lg, caches = model.decode_step(params, toks[:, None], caches,
+                                       pos + step)
+        out.append(lg[:, 0])
+    return torch.stack(first), torch.stack(out)
+
+
+def greedy_run(engine, requests, margins=None):
+    """Run `requests` through a ContinuousBatcher; returns (responses by
+    request index, wall seconds, prefill seconds per admission, decode
+    seconds per step with every slot busy).  With `margins` (a dict), the
+    top-two logit margin of every sampled token is recorded in it under
+    (request index, token index)."""
+    import torch
+    import repro_torch.serving.engine as engine_mod
+    from repro_torch.serving.scheduler import ContinuousBatcher
+    admit, step, sample = engine.admit, engine.step, engine_mod.sample
+    index = {r.request_id: i for i, r in enumerate(requests)}
+    prefill_s, step_s, admitting = [], [], []
+
+    def timed_admit(req):
+        admitting.append(req)
+        t = time.perf_counter()
+        slot = admit(req)              # ends in a device -> host read
+        prefill_s.append(time.perf_counter() - t)
+        admitting.pop()
+        return slot
+
+    def timed_step():
+        full = bool(engine.slot_active.all())
+        t = time.perf_counter()
+        done = step()                  # ends in a device -> host read
+        if full:
+            step_s.append(time.perf_counter() - t)
+        return done
+
+    def recording_sample(logits, generator, cfg):
+        top2 = torch.topk(logits[:, -1].float(), 2, dim=-1).values
+        gaps = (top2[:, 0] - top2[:, 1]).tolist()
+        if admitting:
+            margins[(index[admitting[-1].request_id], 0)] = gaps[0]
+        else:
+            for s, req in enumerate(engine.slot_req):
+                if req is not None:
+                    margins[(index[req.request_id],
+                             len(engine.slot_out[s]))] = gaps[s]
+        return sample(logits, generator, cfg)
+
+    engine.admit, engine.step = timed_admit, timed_step
+    if margins is not None:
+        engine_mod.sample = recording_sample
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = ContinuousBatcher(engine).run(requests)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        del engine.admit, engine.step
+        engine_mod.sample = sample
+    return [out[r.request_id] for r in requests], wall, prefill_s, step_s
+
+
+def profile_decode(engine, tok, prompts) -> dict:
+    """One profiled `Engine.step` with every slot busy: its host wall time,
+    the device's busy time (union of kernel and copy intervals) and idle
+    share, the number of device kernels and the costliest by device time.
+    The profiler records the second of two steps (the first is its
+    warm-up)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    from repro_torch.serving.requests import Request
+    for p in prompts[: engine.slots]:
+        engine.admit(Request(tok.encode(p), 4 * LM_NEW_TOKENS))
+    engine.step()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        engine.step()
+        torch.cuda.synchronize()
+        prof.step()
+        t0 = time.perf_counter()
+        engine.step()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kern = sorted((e.time_range.start, e.time_range.end, e.name)
+                  for e in prof.events()
+                  if str(e.device_type).endswith("CUDA")
+                  and not e.name.startswith("ProfilerStep"))
+    busy_us, end_us, by_name = 0.0, float("-inf"), {}
+    for start, end, name in kern:
+        busy_us += max(0.0, end - max(start, end_us))
+        end_us = max(end_us, end)
+        by_name[name] = by_name.get(name, 0.0) + (end - start) / 1e3
+    engine.slot_active[:] = False          # release the slots
+    engine.slot_req = [None] * engine.slots
+    engine.slot_out = [[] for _ in range(engine.slots)]
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
+            "device_idle_share": 1.0 - busy_us / 1e3 / wall_ms,
+            "device_kernels": len(kern),
+            "decode_attention_ms": sum(ms for n, ms in by_name.items()
+                                       if "decode_" in n),
+            "top_kernels_ms": {n[:60]: ms for n, ms in top}}
+
+
+@contextlib.contextmanager
+def checked_attention(errs: list):
+    """Hold every attention kernel call against its plain version on the
+    very same inputs: each call appends (kernel, max error, tolerance) to
+    `errs`, the tolerance being ATTN_TOL's f32 value scaled by the largest
+    |v| (the output is a convex combination of value rows)."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.layers import attention as attn
+    flash, decode = attn.flash_attention, attn.decode_attention
+
+    def note(name, got, want, v):
+        tol = ATTN_TOL["float32"] * max(1.0, float(v.abs().max()))
+        errs.append((name, float((got - want).abs().max()), tol))
+
+    def checked_flash(q, k, v, **kw):
+        got = flash(q, k, v, **kw)
+        note("flash_attention", got, fa.flash_attention_ref(q, k, v, **kw), v)
+        return got
+
+    def checked_decode(q, k, v, kv_len, **kw):
+        got = decode(q, k, v, kv_len, **kw)
+        note("decode_attention", got,
+             da.decode_attention_ref(q, k, v, kv_len, **kw), v)
+        return got
+
+    attn.flash_attention, attn.decode_attention = checked_flash, checked_decode
+    try:
+        yield
+    finally:
+        attn.flash_attention, attn.decode_attention = flash, decode
+
+
+def conditioned(params, cfg):
+    """The same weights with wq and wk rescaled from the reference's init
+    law (std 1/sqrt(heads): `scaled_normal` takes fan_in = shape[-2]) to
+    std 1/sqrt(d_model), so that q.k * D**-0.5 has unit spread.  At the
+    reference's scale the scores spread by ~64 at full width: attention is a
+    hard max, and a last-ulp difference in one score can switch the winning
+    key — any two correct implementations then part ways by O(1) logits."""
+    f = (cfg.num_heads / cfg.d_model) ** 0.5
+    layers = [{**blk, "attn": {**blk["attn"], "wq": blk["attn"]["wq"] * f,
+                               "wk": blk["attn"]["wk"] * f}}
+              for blk in params["layers"]]
+    return {**params, "layers": layers}
+
+
+def check_kernel_calls(errs, what: str) -> dict:
+    """Fail on any call of `errs` beyond its tolerance; per-kernel count and
+    largest error."""
+    out = {}
+    for name, err, tol in errs:
+        if not err <= tol:
+            fail(f"{what}: a {name} call differs from its plain version on "
+                 f"the same inputs by {err} > {tol}")
+        r = out.setdefault(name, {"calls": 0, "max_abs_err": 0.0})
+        r["calls"] += 1
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+    return out
+
+
+def phase_lm(device) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokenizer import HashTokenizer
+    from repro_torch.models.model_api import Model
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.requests import Request
+    cfg = get_config("memori-agent")
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(cfg)
+    params = model.init_params(torch.Generator(device=device).manual_seed(0))
+    tok = HashTokenizer(cfg.vocab_size)
+    engine = Engine(model, params, max_len=LM_MAX_LEN, slots=LM_SLOTS,
+                    tokenizer=tok)
+    prompts = lm_prompts(tok, LM_REQUESTS)
+    lens = [len(tok.encode(p)) for p in prompts]
+
+    def requests():
+        return [Request(tok.encode(p), LM_NEW_TOKENS) for p in prompts]
+
+    # warm-up (cuBLAS handles, the kernels' first launches), then the main
+    # path with every launch counter reset just before it
+    greedy_run(engine, requests()[:2])
+    reset_counts()
+    got, wall, prefill_s, step_s = greedy_run(engine, requests())
+    launches = counts()
+    for name in ATTN_KERNELS:
+        if launches[name] < 1:
+            fail(f"lm: {name} was not launched on the serving path")
+    tokens_out = sum(len(r.tokens) for r in got)
+    if len(got) != LM_REQUESTS or any(len(r.tokens) != LM_NEW_TOKENS
+                                      for r in got):
+        fail(f"lm: {[len(r.tokens) for r in got]} tokens per request")
+    max_memory = torch.cuda.max_memory_allocated()
+
+    # teacher-forced: 4 prompts (ragged lengths) prefilled on all but their
+    # last 8 tokens, then 8 batched decode steps; every kernel call held
+    # against its plain version on its own inputs
+    steps = 8
+    seqs = [torch.tensor(tok.encode(p), device=device) for p in prompts[:4]]
+    prefix = [len(s) - steps for s in seqs]
+
+    def logits_pair(p):
+        """(kernel path, plain path) teacher-forced logits and the full
+        forward of each sequence, for weights `p`."""
+        with torch.no_grad():
+            kern = teacher_forced(model, p, seqs, prefix, steps, device)
+            with plain_attention():
+                plain = teacher_forced(model, p, seqs, prefix, steps, device)
+            full = [model(p, s[None])[0] for s in seqs]
+        return kern, plain, full
+
+    errs = []
+    with checked_attention(errs):
+        kern, plain, _ = logits_pair(params)
+    per_call = check_kernel_calls(errs, "lm")
+    reference_init = {
+        "prefill": float((kern[0] - plain[0]).abs().max()),
+        "decode": float((kern[1] - plain[1]).abs().max())}
+
+    # end to end, on the conditioned weights
+    cparams = conditioned(params, cfg)
+    (k_first, k_dec), (p_first, p_dec), full = logits_pair(cparams)
+    err_prefill = float((k_first - p_first).abs().max())
+    err_decode = float((k_dec - p_dec).abs().max())
+    if not max(err_prefill, err_decode) <= LOGIT_TOL:
+        fail(f"lm: kernel vs plain logits differ by {err_prefill} "
+             f"(prefill) / {err_decode} (decode) > {LOGIT_TOL}")
+    err_full = 0.0
+    for i, f in enumerate(full):       # positions prefix-1 .. prefix+steps-1
+        want = f[prefix[i] - 1:]
+        have = torch.cat([k_first[i][None], k_dec[:, i]])
+        err_full = max(err_full, float((have - want).abs().max()))
+    if not err_full <= DECODE_TOL:
+        fail(f"lm: prefill + decode vs full forward differ by {err_full}")
+    if not all(torch.isfinite(x).all() for x in (k_first, k_dec)):
+        fail("lm: non-finite logits")
+
+    # greedy tokens of the same requests, kernel path against plain path
+    # (conditioned weights): a request may leave the plain path's tokens
+    # only at a step where the plain path's top-two logits are closer than
+    # LOGIT_TOL (a near-tie)
+    c_engine = Engine(model, cparams, max_len=LM_MAX_LEN, slots=LM_SLOTS,
+                      tokenizer=tok)
+    c_got, _, _, _ = greedy_run(c_engine, requests())
+    margins = {}
+    with plain_attention():
+        c_plain, _, _, _ = greedy_run(Engine(
+            model, cparams, max_len=LM_MAX_LEN, slots=LM_SLOTS,
+            tokenizer=tok), requests(), margins)
+    near_ties = sum(1 for m in margins.values() if m < LOGIT_TOL)
+    diverged = {}
+    for i, (a, b) in enumerate(zip(c_got, c_plain)):
+        diff = [j for j, (x, y) in enumerate(zip(a.tokens, b.tokens))
+                if x != y]
+        if not diff:
+            continue
+        j = diff[0]
+        diverged[i] = {"index": j, "plain_margin": margins[(i, j)]}
+        if margins[(i, j)] >= LOGIT_TOL:
+            fail(f"lm: request {i} token {j}: kernel path {a.tokens[j]}, "
+                 f"plain path {b.tokens[j]}, plain top-two margin "
+                 f"{margins[(i, j)]} >= {LOGIT_TOL}")
+    profiled = profile_decode(engine, tok, prompts)
+    out = {"phase": "lm", "config": "memori-agent", "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "heads": [cfg.num_heads, cfg.num_kv_heads],
+           "params": cfg.param_count(),
+           "slots": LM_SLOTS, "max_len": LM_MAX_LEN,
+           "requests": LM_REQUESTS, "new_tokens": LM_NEW_TOKENS,
+           "prompt_tokens": {"min": min(lens), "mean": float(np.mean(lens)),
+                             "max": max(lens)},
+           "launches": launches,
+           "prefill_ms_per_request": float(np.mean(prefill_s)) * 1e3,
+           "decode_step_ms_at_full_slots": float(np.median(step_s)) * 1e3,
+           "decode_steps_at_full_slots": len(step_s),
+           "tokens_per_s": tokens_out / wall, "wall_s": wall,
+           "max_memory_allocated_bytes": max_memory,
+           "kernel_calls_vs_plain": per_call,
+           "reference_init_logits_vs_plain_max_abs": reference_init,
+           "conditioned": {
+               "logits_vs_plain_max_abs": {"prefill": err_prefill,
+                                           "decode": err_decode,
+                                           "tolerance": LOGIT_TOL},
+               "decode_vs_full_forward_max_abs": err_full,
+               "greedy_vs_plain": {
+                   "requests_equal": LM_REQUESTS - len(diverged),
+                   "plain_near_tie_steps": near_ties,
+                   "sampled_steps": len(margins),
+                   "diverged_at_near_tie": diverged}},
+           "profiled_step": profiled,
+           "allow_tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
+                          "cudnn": torch.backends.cudnn.allow_tf32},
+           "gpu": gpu_line()}
+    emit(out)
+    return out, engine
+
+
+AGENT_USERS = {
+    "priya/c0": ("Priya", ["Hi there! I am Priya.",
+                           "I work as a botanist and I live in Tallinn.",
+                           "I adopted a hedgehog named Biscuit."],
+                 "Where does Priya live?", "(Priya; lives in; tallinn)"),
+    "marco/c0": ("Marco", ["Hello, Marco here.",
+                           "I work as a glassblower and I live in Porto.",
+                           "I adopted a parrot named Olive."],
+                 "Where does Marco live?", "(Marco; lives in; porto)"),
+    "ines/c0": ("Ines", ["Good morning, this is Ines.",
+                         "I work as a cartographer and I live in Quito."],
+                "Where does Ines live?", "(Ines; lives in; quito)"),
+    "kofi/c0": ("Kofi", ["Hey, Kofi speaking.",
+                         "I work as a luthier and I live in Accra."],
+                "Where does Kofi live?", "(Kofi; lives in; accra)"),
+}
+
+
+def phase_agent(device, engine) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import (HashEmbedder, LMEmbedder, LMExtractor,
+                                  MemoriClient, MemoryService)
+    from repro_torch.models.model_api import Model
+
+    def llm(prompt: str) -> str:     # the launch/serve.py shape
+        return engine.generate([prompt[-500:]], max_new_tokens=12)[0]
+
+    svc = MemoryService(HashEmbedder(device=device), device=device,
+                        budget=800)
+    reset_counts()
+    t0 = time.perf_counter()
+    replies = 0
+    for ns, (name, turns, _, _) in AGENT_USERS.items():
+        client = MemoriClient(llm, svc.namespace(ns), user_name=name)
+        for i, turn in enumerate(turns):
+            client.chat(turn, timestamp=1_700_000_000.0 + i)
+            replies += 1
+        client.end_session()
+    torch.cuda.synchronize()
+    t_chat = time.perf_counter() - t0
+    reqs = [(ns, q) for ns, (_, _, q, _) in AGENT_USERS.items()]
+    ctxs = svc.retrieve_batch(reqs)
+    torch.cuda.synchronize()
+    launches = counts()
+    for (ns, _), ctx in zip(reqs, ctxs):
+        for other, (_, _, _, fact) in AGENT_USERS.items():
+            if other == ns and fact not in ctx.text:
+                fail(f"agent {ns}: its fact {fact} did not come back:\n"
+                     f"{ctx.text}")
+            if other != ns and fact in ctx.text:
+                fail(f"agent {ns}: retrieved {other}'s fact {fact}")
+    for name in ("topk_mips_masked", "flash_attention", "decode_attention"):
+        if launches[name] < 1:
+            fail(f"agent: {name} was not launched on the agent loop")
+
+    # LM-backed extraction of one session (a random-init LM yields no
+    # triples: this drives the wiring, prompt -> engine -> parser)
+    ns0, (name0, turns0, _, _) = next(iter(AGENT_USERS.items()))
+    from repro_torch.core.extraction import Message
+    msgs = [Message(name0, t, float(i)) for i, t in enumerate(turns0)]
+    triples, summary = LMExtractor(llm).extract(ns0, "s-lm", msgs)
+
+    # the embedder at memori-embedder width over the recorded triples
+    ecfg = get_config("memori-embedder")
+    emodel = Model(ecfg)
+    eparams = emodel.init_params(
+        torch.Generator(device=device).manual_seed(1))
+    texts = [t.text() for ns in AGENT_USERS
+             for t in svc.store.get(ns).triples.all()]
+    errs = []
+    before = counts()["flash_attention"]
+    with checked_attention(errs):
+        emb = LMEmbedder(emodel, eparams, out_dim=256).embed_texts(texts)
+    torch.cuda.synchronize()
+    emb_launches = counts()["flash_attention"] - before
+    per_call = check_kernel_calls(errs, "agent LMEmbedder")
+    if emb_launches != ecfg.num_layers:
+        fail(f"agent: LMEmbedder launched K6 {emb_launches} times")
+    norms = emb.norm(dim=1)
+    if not torch.allclose(norms, torch.ones_like(norms), atol=1e-5):
+        fail("agent: LMEmbedder rows are not unit-norm")
+    with plain_attention():
+        ref_init_err = float((LMEmbedder(emodel, eparams, out_dim=256)
+                              .embed_texts(texts) - emb).abs().max())
+    # end to end on the conditioned weights (see `conditioned`)
+    embedder = LMEmbedder(emodel, conditioned(eparams, ecfg), out_dim=256)
+    emb_c = embedder.embed_texts(texts)
+    with plain_attention():
+        err = float((embedder.embed_texts(texts) - emb_c).abs().max())
+    if not err <= EMBED_TOL:
+        fail(f"agent: LMEmbedder differs from its plain path by {err} > "
+             f"{EMBED_TOL}")
+    out = {"phase": "agent", "users": len(AGENT_USERS), "chat_turns": replies,
+           "chat_seconds": t_chat, "launches": launches,
+           "facts_returned": len(reqs),
+           "lm_extractor": {"triples": len(triples),
+                            "summary": summary.text[:60]},
+           "lm_embedder": {"texts": len(texts), "dim": int(emb.shape[1]),
+                           "k6_launches": emb_launches,
+                           "kernel_calls_vs_plain": per_call,
+                           "reference_init_max_abs_vs_plain": ref_init_err,
+                           "conditioned_max_abs_vs_plain": err},
+           "engine": dict(engine.stats), "gpu": gpu_line()}
+    emit(out)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=1 << 20,
@@ -834,9 +1608,14 @@ def main(argv=None) -> int:
                  "check runs on a CUDA card only")
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
+    # full FP32 products everywhere (the plain versions and the library
+    # yardsticks included): TF32 keeps ~3 decimal digits
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     phase_build()
     kern = phase_kernels(device, args.reps)["kernels"]
+    attn = phase_attention(device, args.reps)["kernels"]
     ops = phase_ops(device)
     templates = make_templates(device)
     reps = max(3, args.reps // 4)
@@ -845,6 +1624,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     serve8 = phase_serve(device, args.rows, reps, templates,
                          quantize="int8")
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm, engine = phase_lm(device)
+    agent = phase_agent(device, engine)
     path_launches = {"topk_mips_masked": serve["launches"],
                      "topk_mips_quant_masked": serve8["launches"],
                      "topk_mips": ops["launches"],
@@ -864,6 +1647,17 @@ def main(argv=None) -> int:
             "replaces": replaces, "launches": launches,
             "max_abs_err": max(r["max_abs_err"], ops["max_abs_err"][name],
                                path_err.get(name, 0.0)),
+            "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"]})
+    for name, (replaces, source) in ATTN_KERNELS.items():
+        r = attn[name]
+        if agent["launches"][name] < 1:
+            fail(f"{name} was not launched on the agent loop")
+        summary.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": lm["launches"][name],
+            "max_abs_err": r["max_abs_err"]["float32"],
             "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"]})

@@ -1,0 +1,78 @@
+"""Minimal functional module system.
+
+Layers describe their parameters as trees of `ParamSpec` (shape + logical
+axes + init law) — nested dicts, lists and tuples.  `materialize` turns a
+spec tree into the same tree of tensors, drawing every random leaf from one
+`torch.Generator` in tree order (dict insertion order, then list order), so
+a seed fixes every weight.  The init laws are the reference's
+(`repro/common/module.py`) for the layers this port carries (the
+recurrent mixers' laws come with them); the random bits are torch's, not
+JAX's, so a test that compares the two packages carries one set of weights
+across (`models.model_api.params_from_numpy`) instead of seeding both.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Optional, Tuple
+
+import torch
+
+PyTree = Any
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]
+    init: str = "normal"          # normal | zeros | ones | scaled_normal
+    scale: float = 0.02
+    dtype: Optional[torch.dtype] = None   # overrides the model param dtype
+
+    def __post_init__(self):
+        assert len(self.shape) == len(self.axes), (self.shape, self.axes)
+
+
+def tree_map(fn: Callable, tree: PyTree) -> PyTree:
+    """`fn` applied to every leaf of a tree of dicts, lists and tuples."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def stack(spec_tree: PyTree, n: int) -> PyTree:
+    """Prepend a stacked-layers dim to every spec in the tree."""
+    return tree_map(lambda s: dataclasses.replace(
+        s, shape=(n, *s.shape), axes=("layers", *s.axes)), spec_tree)
+
+
+def _init_leaf(gen: torch.Generator, spec: ParamSpec,
+               default_dtype: torch.dtype) -> torch.Tensor:
+    dtype = spec.dtype or default_dtype
+    dev = gen.device
+    shape = tuple(spec.shape)
+
+    def normal():
+        return torch.randn(shape, generator=gen, device=dev,
+                           dtype=torch.float32)
+
+    if spec.init == "zeros":
+        return torch.zeros(shape, dtype=dtype, device=dev)
+    if spec.init == "ones":
+        return torch.ones(shape, dtype=dtype, device=dev)
+    if spec.init == "scaled_normal":
+        fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
+        std = spec.scale / math.sqrt(max(1, fan_in))
+        return (normal() * std).to(dtype)
+    if spec.init == "normal":
+        return (normal() * spec.scale).to(dtype)
+    raise ValueError(f"unknown init {spec.init!r}")
+
+
+def materialize(generator: torch.Generator, spec_tree: PyTree,
+                param_dtype: torch.dtype = torch.float32) -> PyTree:
+    """Spec tree -> tensor tree on the generator's device."""
+    return tree_map(lambda s: _init_leaf(generator, s, param_dtype),
+                    spec_tree)

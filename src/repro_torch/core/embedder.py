@@ -1,11 +1,16 @@
-"""Embedding backend for triple/summary/query text.
+"""Embedding backends for triple/summary/query text.
 
-HashEmbedder — deterministic random-projection bag-of-words embedding
-(per-word Gaussian vectors keyed by the word's stable hash, idf-free mean,
-L2-normalised).  Zero-training, reproducible across processes and
-bit-identical to the reference package's HashEmbedder: the per-word numpy
-generator, the mean and the normalisation run on the host exactly as there,
-and the finished (n, dim) f32 block moves to the device in one copy.
+* HashEmbedder — deterministic random-projection bag-of-words embedding
+  (per-word Gaussian vectors keyed by the word's stable hash, idf-free mean,
+  L2-normalised).  Zero-training, reproducible across processes and
+  bit-identical to the reference package's HashEmbedder: the per-word numpy
+  generator, the mean and the normalisation run on the host exactly as
+  there, and the finished (n, dim) f32 block moves to the device in one
+  copy.
+* LMEmbedder — the in-framework replacement for the paper's Gemma-300: a
+  small bidirectional transformer (configs/memori_embedder.py), mean-pooled
+  and L2-normalised.  Its attention is kernel K6 with causal=False on the
+  card.
 """
 from __future__ import annotations
 
@@ -83,6 +88,43 @@ class HashEmbedder:
 
     def embed_texts(self, texts: Sequence[str]) -> torch.Tensor:
         return torch.from_numpy(self.embed_texts_np(texts)).to(self.device)
+
+    def embed_text(self, text: str) -> torch.Tensor:
+        return self.embed_texts([text])[0]
+
+
+class LMEmbedder:
+    """Mean-pooled bidirectional transformer encoder: texts are tokenized
+    and zero-padded to `max_len`, encoded with a bidirectional mask over all
+    `max_len` positions, mean-pooled over the real tokens, cut to `out_dim`
+    and L2-normalised (norm floor 1e-6) — the reference's arithmetic.  The
+    model runs on the device its parameters live on."""
+
+    def __init__(self, model, params, out_dim: int = 256,
+                 tokenizer: HashTokenizer | None = None, max_len: int = 64):
+        self.model = model
+        self.cfg = model.cfg
+        self.params = params
+        self.device = params["embed"]["table"].device
+        self.out_dim = out_dim
+        self.max_len = max_len
+        self.tokenizer = tokenizer or HashTokenizer(self.cfg.vocab_size)
+
+    def embed_texts(self, texts: Sequence[str]) -> torch.Tensor:
+        L = self.max_len
+        toks = np.zeros((len(texts), L), np.int32)
+        mask = np.zeros((len(texts), L), np.float32)
+        for i, t in enumerate(texts):
+            ids = self.tokenizer.encode(t)[:L]
+            toks[i, : len(ids)] = ids
+            mask[i, : len(ids)] = 1.0
+        h = self.model.hidden(self.params, torch.from_numpy(toks).to(
+            self.device), mask_kind="bidir")
+        m = torch.from_numpy(mask).to(self.device)[..., None].to(h.dtype)
+        pooled = (h * m).sum(1) / torch.clamp(m.sum(1), min=1.0)
+        pooled = pooled[:, : self.out_dim]
+        return pooled / torch.clamp(
+            torch.linalg.vector_norm(pooled, dim=-1, keepdim=True), min=1e-6)
 
     def embed_text(self, text: str) -> torch.Tensor:
         return self.embed_texts([text])[0]

@@ -1,19 +1,21 @@
 """Extractors: raw dialogue -> semantic triples + session summary.
 
-Backends sit behind one protocol (DESIGN.md §3); this package carries the
-rule-based one (the LM-backed extractor arrives with the LM stack):
+Backends sit behind one protocol (DESIGN.md §3):
 
 * RuleExtractor — deterministic pattern extraction.  Used by tests and the
   synthetic LoCoMo-like benchmark so that evaluation isolates *memory
   structuring and retrieval quality* (the paper: "accuracy ... serves as a
   direct reflection of how well the Advanced Augmentation pipeline
   structured, preserved, and surfaced the relevant facts").
+* LMExtractor — prompts a served LM (`serving.engine.Engine.generate`) for
+  one `(subject; predicate; object)` line per fact and a `SUMMARY:` line,
+  and parses its generation.
 """
 from __future__ import annotations
 
 import dataclasses
 import re
-from typing import List, Protocol, Sequence, Tuple
+from typing import Callable, List, Protocol, Sequence, Tuple
 
 from repro_torch.core.summaries import Summary
 from repro_torch.core.triples import Triple
@@ -175,3 +177,51 @@ class RuleExtractor:
                 f"Key developments: {body}.")
         return Summary(conversation_id=conversation_id, session_id=session_id,
                        timestamp=ts, text=text)
+
+
+# ---------------------------------------------------------------------------
+# LM-backed extraction
+# ---------------------------------------------------------------------------
+
+EXTRACTION_PROMPT = """You are a memory extraction engine. Read the conversation
+below and output one line per atomic fact in the exact form
+(subject; predicate; object). Then output one line starting with
+SUMMARY: followed by a 2-3 sentence summary of the conversation.
+
+{conversation}
+
+FACTS:
+"""
+
+_TRIPLE_LINE = re.compile(r"\(([^;()]+);([^;()]+);([^;()]+)\)")
+
+
+class LMExtractor:
+    """Uses a served LM (a `generate(prompt) -> str` callable from
+    repro_torch.serving) as the extraction model."""
+
+    def __init__(self, generate_fn: Callable[[str], str]):
+        self.generate = generate_fn
+
+    def extract(self, conversation_id: str, session_id: str,
+                messages: Sequence[Message]) -> Tuple[List[Triple], Summary]:
+        convo = "\n".join(f"{m.speaker}: {m.text}" for m in messages)
+        out = self.generate(EXTRACTION_PROMPT.format(conversation=convo))
+        last_ts = max((m.timestamp for m in messages), default=0.0)
+        triples = []
+        summary_text = ""
+        for line in out.splitlines():
+            if line.strip().upper().startswith("SUMMARY:"):
+                summary_text = line.split(":", 1)[1].strip()
+                continue
+            m = _TRIPLE_LINE.search(line)
+            if m:
+                triples.append(Triple(
+                    subject=_clean(m.group(1)), predicate=_clean(m.group(2)),
+                    object=_clean(m.group(3)),
+                    conversation_id=conversation_id, session_id=session_id,
+                    timestamp=last_ts, source_text=line.strip()))
+        summary = Summary(conversation_id=conversation_id,
+                          session_id=session_id, timestamp=last_ts,
+                          text=summary_text or "(no summary produced)")
+        return triples, summary

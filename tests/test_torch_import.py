@@ -31,7 +31,8 @@ def _port_files():
 def test_every_port_module_imports_without_jax_or_msgpack():
     mods = _port_modules()
     for m in ("repro_torch.core.service", "repro_torch.core.tiering",
-              "repro_torch.kernels.ops"):
+              "repro_torch.kernels.ops", "repro_torch.models.model_api",
+              "repro_torch.serving.engine", "repro_torch.core.sdk"):
         assert m in mods
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"
