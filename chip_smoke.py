@@ -12,13 +12,17 @@ line per phase and fails (nonzero exit) on any failed check:
                  one nvcc process per source, all at once.
 2. kernels     — holds each top-k kernel (K1-K4) against its plain PyTorch
                  version on the card over edge cases (Q in {1, 7, 64, 130},
-                 N in {1000, 65536, 2**20}, k in {10, 64, 256}, n_valid < N,
-                 tombstones and padding labels, an all-masked query, k
-                 above the live rows, planted duplicate rows; for the int8
-                 pair also an all-zero row and rows whose norm differs by
-                 10**3 from their neighbours), and times each at the main
-                 path's shape beside its plain version, one PyTorch library
-                 call and its bound on the card.
+                 N in {1000, 65536, 2**20}, k in {1, 10, 64, 256, 257, 512,
+                 2048}, n_valid < N, tombstones and padding labels, an
+                 all-masked query, k above the live rows, planted duplicate
+                 rows; for the int8 pair also an all-zero row and rows whose
+                 norm differs by 10**3 from their neighbours) and the scan
+                 kernel's hard cases (a bank whose scores rise with the row,
+                 an all-tied bank, n_valid below k and off the tile), and
+                 times each at the main path's shape beside its plain
+                 version, one PyTorch library call and its bound on the
+                 card, with its two passes' device time, resident CTAs per
+                 SM and ptxas registers (K3/K4 also on a rising bank).
 3. ops         — drives the four public entry points of kernels/ops.py
                  once each at the main path's shapes (the path of K3 and
                  K4), launch counters reset just before and read just after.
@@ -101,6 +105,9 @@ NEG_INF = -2.0e38
 F32_EPS = 2.0 ** -24          # unit roundoff of float32
 # bank sizes N of the kernel checks, and the main path's bank size
 KERNEL_SIZES = (1000, 65536, 1 << 20)
+# k of the kernel checks: 1, the service's pool and over-fetch sizes, the
+# partial kernel's bound (256), and past it up to MAX_K (the scan kernel)
+KERNEL_KS = (1, 10, 64, 256, 257, 512, 2048)
 MAIN_N = 1 << 20
 D = 256
 # conversations recorded through enqueue/flush, the template conversations
@@ -182,6 +189,37 @@ def counts() -> dict:
 
 # -- phase 1: build ------------------------------------------------------------
 
+def ptxas_entries(report: str) -> dict:
+    """Registers and spill bytes of each kernel (entry function) in
+    `nvcc -Xptxas -v` output, keyed by a short name: `topk_scan_kernel<0,1,8>`
+    for a template instance (its bool/int arguments), else the kernel's
+    name."""
+    import re
+    out, name = {}, None
+    for ln in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            t = re.search(r"([A-Za-z][A-Za-z_]*_kernel)(I((?:L[a-z]\d+E)+)E)?",
+                          m.group(1))
+            name = t.group(1) + ("<" + ",".join(re.findall(
+                r"L[a-z](\d+)E", t.group(3))) + ">" if t.group(2) else "")
+            while name in out:      # other template arguments, same name
+                name += "'"
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and "spill_stores" not in out[name]:
+            out[name].update(spill_stores=int(m.group(1)),
+                             spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+            name = None
+    return out
+
+
 def phase_build() -> dict:
     from concurrent.futures import ThreadPoolExecutor
     from repro_torch.kernels import build
@@ -191,10 +229,7 @@ def phase_build() -> dict:
     out = {"phase": "build", "seconds": time.perf_counter() - t0,
            "gpu": gpu_line(),
            "kernels": {name: {"nvcc_seconds": e["seconds"],
-                              "ptxas": [ln.strip() for ln in
-                                        e["ptxas"].splitlines()
-                                        if "registers" in ln
-                                        or "spill" in ln]}
+                              "ptxas": ptxas_entries(e["ptxas"])}
                        for name, e in log.items()}}
     emit(out)
     return out
@@ -306,7 +341,82 @@ def _call(fn, q, bank, codes, scales, q_ns, lab, masked, quant, **kw):
     return fn(*lead, *((q_ns, lab) if masked else ()), **kw)
 
 
-def phase_kernels(device, reps: int) -> dict:
+def kernel_instances(name: str, k: int, d: int):
+    """The pass-1 and pass-2 kernels (ptxas_entries names) that wrapper
+    `name` launches at list length k and width d."""
+    from repro_torch.kernels import topk_mips as tk
+    _, masked, quant, _ = KERNELS[name]
+    if tk.uses_partial_kernel(k, masked):
+        return f"topk_partial_kernel<1,{int(quant)}>", "topk_merge_kernel"
+    queries, _ = tk.scan_tile(k, quant, d)
+    return (f"topk_scan_kernel<{int(masked)},{int(quant)},{queries // 8}>",
+            "topk_merge_lists_kernel")
+
+
+def device_split_ms(fn, reps: int):
+    """Mean device ms per call of a top-k's two passes, from a profile of
+    `reps` calls after a warm-up: pass 1 (the partial or scan kernel, its
+    sample pass included) and pass 2 (the merge of the chunk lists)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    split = [0.0, 0.0]
+    for e in prof.key_averages():
+        if "topk_partial_kernel" in e.key or "topk_scan_kernel" in e.key:
+            split[0] += e.device_time_total
+        elif "topk_merge" in e.key:
+            split[1] += e.device_time_total
+    return [t / 1e3 / reps for t in split]
+
+
+def kernel_hard_cases(gen, device, res) -> None:
+    """The scan kernel's own hard cases, for all four kernels: a bank whose
+    scores rise with the row, so every row is admitted (the worst case for
+    the candidate buffers); a bank of equal rows, so every score ties and
+    the ids must be the first k live rows in ascending order; n_valid
+    below k; n_valid off the 256-row tile."""
+    import torch
+    from repro_torch.kernels import topk_mips as tk
+    N, Q = 65536, 7
+    base = torch.rand((1, D), generator=gen, device=device) + 0.1
+    rising = base * torch.linspace(0.01, 1.0, N, device=device)[:, None]
+    q_up = base.repeat(Q, 1) + 0.01 * torch.rand((Q, D), generator=gen,
+                                                 device=device)
+    small = torch.randn((5000, D), generator=gen, device=device)
+    q64 = torch.randn((64, D), generator=gen, device=device)
+    cases = [("rising", rising, q_up, N - 77, k) for k in (64, 256, 2048)]
+    cases += [("ties", torch.ones((N, D), device=device),
+               torch.randn((Q, D), generator=gen, device=device), N - 300, k)
+              for k in (1, 257, 2048)]
+    cases += [("n_valid<k", small, q64, 700, 2048),
+              ("n_valid off tile", small, q64, 4099, 64)]
+    for tag, bank, q, n_valid, k in cases:
+        codes, scales = tk.quantize_rows_ref(bank)
+        lab = torch.randint(0, 3, (bank.shape[0],), generator=gen,
+                            device=device, dtype=torch.int32)
+        q_ns = torch.randint(0, 3, (q.shape[0],), generator=gen,
+                             device=device, dtype=torch.int32)
+        for name, (_, masked, quant, _) in KERNELS.items():
+            args = (q, bank, codes, scales, q_ns, lab, masked, quant)
+            s_k, i_k = _call(getattr(tk, name), *args, k=k, n_valid=n_valid)
+            s_r, i_r = _call(getattr(tk, name + "_ref"), *args, k=k,
+                             n_valid=n_valid)
+            torch.cuda.synchronize()
+            what = f"{name} {tag} N={bank.shape[0]} n_valid={n_valid} k={k}"
+            slack = quant_slack(q, codes, scales, i_r) if quant else None
+            err = compare_topk(s_k, i_k, s_r, i_r, what, slack)
+            if tag == "ties" and not torch.equal(i_k, i_r):
+                fail(f"{what}: tied rows not the first live rows in order")
+            res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
+            res[name]["cases"] += 1
+
+
+def phase_kernels(device, reps: int, build_log=None) -> dict:
     import torch
     from repro_torch.kernels import topk_mips as tk
     gen = torch.Generator(device=device).manual_seed(0)
@@ -345,7 +455,7 @@ def phase_kernels(device, reps: int) -> dict:
             if Q > 1:
                 q_ns[1] = n_big             # k above the live rows (5)
                 q_ns[2] = n_big + 1         # matches nothing: all masked
-            for k in (10, 64, 256):
+            for k in KERNEL_KS:
                 for name, (_, masked, quant, _) in KERNELS.items():
                     args = (q, bank, codes, scales, q_ns, lab, masked, quant)
                     s_k, i_k = _call(getattr(tk, name), *args, k=k,
@@ -360,10 +470,14 @@ def phase_kernels(device, reps: int) -> dict:
                     res[name]["max_abs_err"] = max(res[name]["max_abs_err"],
                                                    err)
                     # the duplicates tie exactly, side by side in row order
+                    # (at k >= 3; below, an int8 row 10**3 longer may
+                    # outrank them)
                     row = i_k[0].tolist()
                     pos = [row.index(d) if d in row else -1 for d in dups]
-                    if pos != list(range(pos[0], pos[0] + 3)) or pos[0] < 0 \
-                            or len(set(s_k[0, pos].tolist())) != 1:
+                    if k >= 3 and (
+                            pos != list(range(pos[0], pos[0] + 3))
+                            or pos[0] < 0
+                            or len(set(s_k[0, pos].tolist())) != 1):
                         fail(f"{what}: duplicate rows do not tie exactly "
                              f"({[row[p] for p in pos if p >= 0]} vs {dups})")
                     res[name]["cases"] += 1
@@ -386,6 +500,7 @@ def phase_kernels(device, reps: int) -> dict:
         err = compare_topk(s_k, i_k, s_r, i_r, f"{name} D={Dn}", slack)
         res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
         res[name]["cases"] += 1
+    kernel_hard_cases(gen, device, res)
     # the main path's shape: one batch of 64 queries over a full 2**20-row
     # bank of ~1400-row namespaces; k as the service asks for it
     Q, N = 64, MAIN_N
@@ -409,7 +524,22 @@ def phase_kernels(device, reps: int) -> dict:
         r["library_ms"] = time_ms(library, max(1, reps // 4))
         r["bound_ms"], r["bound_by"] = topk_bound_ms(Q, N, D, k, masked,
                                                      quant)
-    out = {"phase": "kernels", "sizes": list(KERNEL_SIZES),
+        fn = getattr(tk, name)
+        r["device_ms"] = device_split_ms(lambda: _call(fn, *args, k=k),
+                                         max(1, reps // 4))
+        r["ctas_per_sm"] = tk.occupancy(fn, k, D)
+        if build_log is not None:
+            entries = build_log["kernels"]["topk_mips"]["ptxas"]
+            r["ptxas"] = {inst: entries.get(inst)
+                          for inst in kernel_instances(name, k, D)}
+        if not masked:
+            # the worst case for selection: scores rise with the row
+            rise = (bank[:1].abs() + 0.01) * torch.linspace(
+                0.01, 1.0, N, device=device)[:, None]
+            lead = tk.quantize_rows_ref(rise) if quant else (rise,)
+            r["rising_ms"] = time_ms(lambda: fn(q.abs(), *lead, k=k), reps)
+            del rise, lead
+    out = {"phase": "kernels", "sizes": list(KERNEL_SIZES), "ks": list(KERNEL_KS),
            "tolerance": {"rtol": RTOL, "atol": ATOL,
                          "int8": "plus 2*D*u*scale*sum|q*codes| (u = 2**-24)"},
            "kernels": res, "gpu": gpu_line()}
@@ -1613,8 +1743,8 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
-    phase_build()
-    kern = phase_kernels(device, args.reps)["kernels"]
+    build = phase_build()
+    kern = phase_kernels(device, args.reps, build)["kernels"]
     attn = phase_attention(device, args.reps)["kernels"]
     ops = phase_ops(device)
     templates = make_templates(device)
