@@ -16,13 +16,20 @@ line per phase and fails (nonzero exit) on any failed check:
                  2048}, n_valid < N, tombstones and padding labels, an
                  all-masked query, k above the live rows, planted duplicate
                  rows; for the int8 pair also an all-zero row and rows whose
-                 norm differs by 10**3 from their neighbours) and the scan
+                 norm differs by 10**3 from their neighbours), the scan
                  kernel's hard cases (a bank whose scores rise with the row,
-                 an all-tied bank, n_valid below k and off the tile), and
-                 times each at the main path's shape beside its plain
-                 version, one PyTorch library call and its bound on the
-                 card, with its two passes' device time, resident CTAs per
-                 SM and ptxas registers (K3/K4 also on a rising bank).
+                 an all-tied bank, n_valid below k and off the tile) and,
+                 for K1/K2, the label layouts the compaction must handle
+                 (one label everywhere, 28-row contiguous namespaces,
+                 scattered namespaces, queries sharing labels, labels that
+                 own no row, every row tombstoned, one namespace's rows in
+                 one run) at N = 65536 (Q = 130) and 2**20.  It times each at
+                 the main path's shape beside its plain version, one
+                 PyTorch library call and its bound on the card, with its
+                 passes' device time, resident CTAs per SM and ptxas
+                 registers (K3/K4 also on a rising bank; K1/K2 under three
+                 label layouts: the main shape's, the serve phases' and one
+                 label everywhere).
 3. ops         — drives the four public entry points of kernels/ops.py
                  once each at the main path's shapes (the path of K3 and
                  K4), launch counters reset just before and read just after.
@@ -105,9 +112,11 @@ NEG_INF = -2.0e38
 F32_EPS = 2.0 ** -24          # unit roundoff of float32
 # bank sizes N of the kernel checks, and the main path's bank size
 KERNEL_SIZES = (1000, 65536, 1 << 20)
-# k of the kernel checks: 1, the service's pool and over-fetch sizes, the
-# partial kernel's bound (256), and past it up to MAX_K (the scan kernel)
+# k of the kernel checks: 1, the service's pool and over-fetch sizes, and
+# past 256 (a narrower query tile) up to MAX_K
 KERNEL_KS = (1, 10, 64, 256, 257, 512, 2048)
+# k of the masked kernels' label-layout checks
+LAYOUT_KS = (1, 64, 256, 300)
 MAIN_N = 1 << 20
 D = 256
 # conversations recorded through enqueue/flush, the template conversations
@@ -253,17 +262,22 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def topk_bound_ms(Q: int, n_valid: int, D: int, k: int, masked: bool = True,
-                  quant: bool = False):
-    """Least time for one top-k on the card: each input read once (queries,
-    the live bank prefix — f32 rows, or int8 codes and f32 scales — and
-    both label vectors when masked), each output written once, against the
-    f32 product's 2*Q*n_valid*D flops (plus one scale multiply per score
-    for the int8 bank)."""
-    bank = n_valid * D + 4 * n_valid if quant else 4 * n_valid * D
-    labels = 4 * (Q + n_valid) if masked else 0
-    bytes_moved = 4 * Q * D + bank + labels + 8 * Q * k
-    flops = 2.0 * Q * n_valid * D + (Q * n_valid if quant else 0)
+def topk_bound_ms(Q: int, n_valid: int, D: int, k: int, quant: bool = False,
+                  work=None):
+    """Least time for one top-k on the card: each input read once, each
+    output written once, against the f32 operations.  Unmasked (`work`
+    None): the queries and the live bank prefix (f32 rows, or int8 codes
+    and f32 scales), against the product's 2*Q*n_valid*D flops (plus one
+    scale multiply per score for the int8 bank).  Masked, `work` = (rows,
+    pairs) as `masked_work` counts them on these labels: both label
+    vectors, the queries and each row some query's label matches, against
+    2*D flops (plus the int8 multiply) per matching (query, row) pair;
+    (n_valid, Q*n_valid) gives the full product's bound."""
+    rows, pairs = (n_valid, Q * n_valid) if work is None else work
+    row_bytes = D + 4 if quant else 4 * D
+    labels = 0 if work is None else 4 * (Q + n_valid)
+    bytes_moved = 4 * Q * D + rows * row_bytes + labels + 8 * Q * k
+    flops = 2.0 * D * pairs + (pairs if quant else 0)
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOPS_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
@@ -342,21 +356,23 @@ def _call(fn, q, bank, codes, scales, q_ns, lab, masked, quant, **kw):
 
 
 def kernel_instances(name: str, k: int, d: int):
-    """The pass-1 and pass-2 kernels (ptxas_entries names) that wrapper
-    `name` launches at list length k and width d."""
+    """The kernels (ptxas_entries names) that wrapper `name` launches at
+    list length k and width d: the label compaction (masked), the scan
+    kernel and the list merge."""
     from repro_torch.kernels import topk_mips as tk
     _, masked, quant, _ = KERNELS[name]
-    if tk.uses_partial_kernel(k, masked):
-        return f"topk_partial_kernel<1,{int(quant)}>", "topk_merge_kernel"
-    queries, _ = tk.scan_tile(k, quant, d)
-    return (f"topk_scan_kernel<{int(masked)},{int(quant)},{queries // 8}>",
+    queries, _ = tk.scan_tile(k, quant, d, masked)
+    scan = (f"topk_scan_kernel<{int(masked)},{int(quant)},{queries // 8}>",
             "topk_merge_lists_kernel")
+    return ("topk_count_kernel", "topk_compact_kernel") + scan if masked \
+        else scan
 
 
-def device_split_ms(fn, reps: int):
-    """Mean device ms per call of a top-k's two passes, from a profile of
-    `reps` calls after a warm-up: pass 1 (the partial or scan kernel, its
-    sample pass included) and pass 2 (the merge of the chunk lists)."""
+def device_split_ms(fn, reps: int) -> dict:
+    """Mean device ms per call of a top-k's passes, from a profile of
+    `reps` calls after a warm-up: the label compaction (count + write, a
+    masked call's), the scan kernel (its sample pass included), the merge
+    of the chunk lists (both merges) and the rest (the floors' memset)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -365,13 +381,16 @@ def device_split_ms(fn, reps: int):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    split = [0.0, 0.0]
+    split = {"compact": 0.0, "scan": 0.0, "merge": 0.0, "other": 0.0}
     for e in prof.key_averages():
-        if "topk_partial_kernel" in e.key or "topk_scan_kernel" in e.key:
-            split[0] += e.device_time_total
-        elif "topk_merge" in e.key:
-            split[1] += e.device_time_total
-    return [t / 1e3 / reps for t in split]
+        if e.device_time_total <= 0:
+            continue
+        part = ("compact" if "topk_count_kernel" in e.key
+                or "topk_compact_kernel" in e.key else
+                "scan" if "topk_scan_kernel" in e.key else
+                "merge" if "topk_merge_lists_kernel" in e.key else "other")
+        split[part] += e.device_time_total
+    return {part: t / 1e3 / reps for part, t in split.items()}
 
 
 def kernel_hard_cases(gen, device, res) -> None:
@@ -501,32 +520,35 @@ def phase_kernels(device, reps: int, build_log=None) -> dict:
         res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
         res[name]["cases"] += 1
     kernel_hard_cases(gen, device, res)
+    for N in KERNEL_SIZES[1:]:
+        masked_layout_cases(gen, device, res, N)
     # the main path's shape: one batch of 64 queries over a full 2**20-row
-    # bank of ~1400-row namespaces; k as the service asks for it
+    # bank of ~1400-row namespaces; k as the service asks for it.  The
+    # masked pair is also timed under the serve phases' labels (37,450
+    # contiguous 28-row namespaces) and under one label everywhere (the
+    # single-tenant search: every row is compacted, K3's/K4's work)
     Q, N = 64, MAIN_N
     bank, codes, scales, lab, q, q_ns = main_inputs(gen, device)
+    serve_lab = torch.arange(N, device=device, dtype=torch.int32) // 28
+    layouts = {"main": (q_ns, lab),
+               "serve_like": (serve_lab[torch.randint(
+                   0, N, (Q,), generator=gen, device=device)], serve_lab),
+               "uniform": (torch.zeros_like(q_ns), torch.zeros_like(lab))}
     for name, (_, masked, quant, k) in KERNELS.items():
-        args = (q, bank, codes, scales, q_ns, lab, masked, quant)
-
-        def library():
-            s = (q @ codes.float().T) * scales if quant else q @ bank.T
-            if masked:
-                s = torch.where(q_ns[:, None] == lab[None, :], s, NEG_INF)
-            return torch.topk(s, k, dim=1)
-
         r = res[name]
-        r["main_shape"] = {"Q": Q, "N": N, "D": D, "k": k}
-        r["kernel_ms"] = time_ms(
-            lambda: _call(getattr(tk, name), *args, k=k), reps)
-        r["plain_ms"] = time_ms(
-            lambda: _call(getattr(tk, name + "_ref"), *args, k=k),
-            max(1, reps // 4))
-        r["library_ms"] = time_ms(library, max(1, reps // 4))
-        r["bound_ms"], r["bound_by"] = topk_bound_ms(Q, N, D, k, masked,
-                                                     quant)
         fn = getattr(tk, name)
-        r["device_ms"] = device_split_ms(lambda: _call(fn, *args, k=k),
-                                         max(1, reps // 4))
+        r["main_shape"] = {"Q": Q, "N": N, "D": D, "k": k}
+        for lname, (ql, bl) in layouts.items() if masked else [("", layouts[
+                "main"])]:
+            t = time_topk(fn, (q, bank, codes, scales, ql, bl, masked, quant),
+                          k, reps)
+            if lname:
+                r.setdefault("layouts", {})[lname] = t
+            if lname in ("", "main"):
+                r.update(t)
+        r["plain_ms"] = time_ms(
+            lambda: _call(getattr(tk, name + "_ref"), q, bank, codes, scales,
+                          q_ns, lab, masked, quant, k=k), max(1, reps // 4))
         r["ctas_per_sm"] = tk.occupancy(fn, k, D)
         if build_log is not None:
             entries = build_log["kernels"]["topk_mips"]["ptxas"]
@@ -539,12 +561,155 @@ def phase_kernels(device, reps: int, build_log=None) -> dict:
             lead = tk.quantize_rows_ref(rise) if quant else (rise,)
             r["rising_ms"] = time_ms(lambda: fn(q.abs(), *lead, k=k), reps)
             del rise, lead
+    for name, (_, masked, _, _) in KERNELS.items():
+        if masked:   # under one label everywhere, beside the unmasked twin
+            twin = res[name.replace("_masked", "")]["kernel_ms"]
+            res[name]["layouts"]["uniform"]["vs_unmasked"] = \
+                res[name]["layouts"]["uniform"]["kernel_ms"] / twin
     out = {"phase": "kernels", "sizes": list(KERNEL_SIZES), "ks": list(KERNEL_KS),
            "tolerance": {"rtol": RTOL, "atol": ATOL,
                          "int8": "plus 2*D*u*scale*sum|q*codes| (u = 2**-24)"},
            "kernels": res, "gpu": gpu_line()}
     emit(out)
     return out
+
+
+def time_topk(fn, args, k: int, reps: int) -> dict:
+    """Times of wrapper `fn` on `args` (as `_call` takes them) at the main
+    shape: CUDA-event ms a call back to back (nothing else runs between the
+    calls, so inputs that fit in the 50 MB L2 stay there: the 4 MB label
+    vector, and the compacted rows where they are few) and with a 128 MB
+    write between calls that evicts the L2 (its own time subtracted; its
+    write-back may still cost the call), the library call's ms (`q @ bankᵀ`
+    — int8: `(q @ codes.float()ᵀ) * scales` — then the mask, then
+    `torch.topk`), the bound of these inputs and that of the full product,
+    the profiler's device ms per pass and, masked, the compacted rows and
+    the matching (query, row) pairs."""
+    import torch
+    from repro_torch.kernels import topk_mips as tk
+    q, bank, codes, scales, q_ns, lab, masked, quant = args
+    Q, N = q.shape[0], bank.shape[0]
+
+    def call():
+        return _call(fn, *args, k=k)
+
+    def library():
+        s = (q @ codes.float().T) * scales if quant else q @ bank.T
+        if masked:
+            s = torch.where(q_ns[:, None] == lab[None, :], s, NEG_INF)
+        return torch.topk(s, k, dim=1)
+
+    flush = torch.empty(1 << 25, device=q.device)   # 128 MB
+    out = {"kernel_ms": time_ms(call, reps)}
+    out["l2_flushed_ms"] = time_ms(lambda: (flush.zero_(), call()), reps) \
+        - time_ms(flush.zero_, reps)
+    del flush
+    out["library_ms"] = time_ms(library, max(1, reps // 4))
+    work = tk.masked_work(q_ns, lab) if masked else None
+    out["bound_ms"], out["bound_by"] = topk_bound_ms(Q, N, D, k, quant, work)
+    if masked:
+        out["compacted_rows"], out["pairs"] = work
+        out["dense_bound_ms"] = topk_bound_ms(Q, N, D, k, quant,
+                                              (N, Q * N))[0]
+    out["device_ms"] = device_split_ms(call, max(1, reps // 4))
+    return out
+
+
+def masked_layouts(N: int, n_valid: int, Q: int, gen, device) -> dict:
+    """The label layouts the compaction must handle, over N rows with the
+    live prefix n_valid (padding -2 beyond it): name -> (query labels,
+    bank labels).  Query 0's label owns rows 0, n_valid // 2 + 1 and
+    n_valid - 1 (the planted duplicates) except where every row is
+    tombstoned."""
+    import torch
+    from repro_torch.kernels import topk_mips as tk
+
+    def rand(hi, n):
+        return torch.randint(0, hi, (n,), generator=gen, device=device,
+                             dtype=torch.int32)
+
+    def owned(lab, n):   # labels of n random live rows
+        live = lab[:n_valid][lab[:n_valid] >= 0]
+        return live[torch.randint(0, live.numel(), (n,), generator=gen,
+                                  device=device)]
+
+    out = {}
+    lab = torch.zeros(N, dtype=torch.int32, device=device)
+    lab[torch.rand(N, generator=gen, device=device) < 0.02] = -1
+    out["uniform"] = (torch.zeros(Q, dtype=torch.int32, device=device), lab)
+    lab = torch.arange(N, dtype=torch.int32, device=device) // 28
+    out["contiguous_28"] = (owned(lab, Q), lab)
+    lab = rand(max(2, N // 1400), N)
+    out["scattered"] = (owned(lab, Q), lab)
+    out["shared_labels"] = (owned(lab, 3)[rand(3, Q).long()], lab)
+    q_ns = owned(lab, Q)
+    q_ns[1::2] = int(lab.max()) + 1 + rand(5, Q // 2)    # own no row
+    out["unowned_labels"] = (q_ns, lab)
+    out["tombstoned"] = (rand(8, Q), torch.full_like(lab, -1))
+    # one namespace owns a run of rows that one chunk of the live prefix
+    # holds (chunk C // 3 of K1's plan at k = 64 on 132 SMs, the H100's);
+    # half the queries ask for it
+    lab = rand(max(2, N // 1400), N) + 1
+    C, _ = tk.plan_chunks(n_valid, Q, 132, 64, True, False, D)
+    tiles = -(-n_valid // 256)
+    lo, hi = (C // 3 * tiles // C * 256,
+              min(n_valid, (C // 3 + 1) * tiles // C * 256))
+    lab[lo: min(hi, lo + max(300, N // 256))] = 0
+    q_ns = owned(lab, Q)
+    q_ns[::2] = 0
+    out["skewed"] = (q_ns, lab)
+    dups = [0, n_valid // 2 + 1, n_valid - 1]
+    for name, (q_ns, lab) in out.items():
+        lab = lab.clone()
+        out[name] = (q_ns, lab)
+        lab[n_valid:] = -2
+        if name != "tombstoned":
+            lab[dups] = q_ns[0]
+    return out
+
+
+def masked_layout_cases(gen, device, res, N: int) -> None:
+    """K1 and K2 against their plain versions under every label layout of
+    `masked_layouts` at k in LAYOUT_KS, over N rows with n_valid off the
+    256-row tile (Q = 130, three query tiles, below 2**20; 64 at 2**20),
+    and the planted duplicate rows tying exactly, side by side in row
+    order."""
+    import torch
+    from repro_torch.kernels import topk_mips as tk
+    n_valid = N - N // 97
+    Q = 64 if N >= MAIN_N else 130
+    bank = torch.randn((N, D), generator=gen, device=device)
+    bank /= bank.norm(dim=1, keepdim=True)
+    dups = [0, n_valid // 2 + 1, n_valid - 1]
+    bank[dups] = bank[0].clone()
+    codes, scales = tk.quantize_rows_ref(bank)
+    q = torch.randn((Q, D), generator=gen, device=device)
+    q /= q.norm(dim=1, keepdim=True)
+    q[0] = bank[0]
+    for layout, (q_ns, lab) in masked_layouts(N, n_valid, Q, gen,
+                                              device).items():
+        for k in LAYOUT_KS:
+            for name, (_, masked, quant, _) in KERNELS.items():
+                if not masked:
+                    continue
+                args = (q, bank, codes, scales, q_ns, lab, masked, quant)
+                s_k, i_k = _call(getattr(tk, name), *args, k=k,
+                                 n_valid=n_valid)
+                s_r, i_r = _call(getattr(tk, name + "_ref"), *args, k=k,
+                                 n_valid=n_valid)
+                torch.cuda.synchronize()
+                what = f"{name} {layout} Q={Q} N={N} k={k}"
+                slack = quant_slack(q, codes, scales, i_r) if quant else None
+                err = compare_topk(s_k, i_k, s_r, i_r, what, slack)
+                row = i_k[0].tolist()
+                pos = [row.index(d) if d in row else -1 for d in dups]
+                if layout != "tombstoned" and k >= 3 and (
+                        pos != list(range(pos[0], pos[0] + 3)) or pos[0] < 0
+                        or len(set(s_k[0, pos].tolist())) != 1):
+                    fail(f"{what}: duplicate rows do not tie exactly")
+                res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
+                res[name]["cases"] += 1
+    del bank, codes, scales
 
 
 def main_inputs(gen, device):
@@ -665,7 +830,7 @@ def profile_execute(svc, reqs, plan, kernel: str) -> dict:
         by_name[name] = by_name.get(name, 0.0) + (end - start) / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     _, masked, quant, _ = KERNELS[kernel]
-    tag = f"topk_partial_kernel<{str(masked).lower()}, {str(quant).lower()}>"
+    tag = f"topk_scan_kernel<{str(masked).lower()}, {str(quant).lower()},"
     return {"wall_ms": wall_ms, "stages_ms": spans,
             "device_busy_ms": busy_us / 1e3,
             "device_idle_share": 1.0 - busy_us / 1e3 / wall_ms,

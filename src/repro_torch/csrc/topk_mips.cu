@@ -1,16 +1,11 @@
 // Exact top-k maximum-inner-product search for Hopper: the four Pallas TPU
-// kernels of src/repro/kernels/topk_mips.py as two CUDA designs, each a
-// template over <kMasked, kQuant>, behind one C entry point.
+// kernels of src/repro/kernels/topk_mips.py as one CUDA design, the scan
+// kernel, a template over <kMasked, kQuant>, behind one C entry point.
 //
 //   K1 <true,  false>  `_kernel_masked` + `_merge_topk`  (pallas_call :227)
 //   K2 <true,  true>   `_kernel_quant_masked`            (pallas_call :227)
 //   K3 <false, false>  `_kernel`                         (pallas_call :210)
 //   K4 <false, true>   `_kernel_quant`                   (pallas_call :210)
-//
-// Routing: K3 and K4 at every k, and K1 and K2 at kMaxK < k <= kScanMaxK,
-// run the scan kernel (topk_scan_kernel + topk_merge_lists_kernel, below).
-// K1 and K2 at k <= kMaxK = 256 -- every call on the service's path -- run
-// the partial kernel (topk_partial_kernel + topk_merge_kernel).
 //
 // For each query q: the exact top-k of score(q, r) over the rows r < n_valid
 // (masked: only rows whose label equals the query's, bank_ns[r] == q_ns[q]).
@@ -21,45 +16,39 @@
 // Ranking key is (score desc, row asc), so an exact tie goes to the lower
 // row; a slot that no live row fills is (NEG_INF = -2e38, -1).
 //
-// What bounds it: the plain-FP32 product, 2*Q*N*D flops, at the main path's
-// shapes.  Q=64, N=2^20, D=256: 34.4 GFLOP -> 0.51 ms at 67 TFLOP/s of
-// non-tensor-core FP32, against a bank read of 1.07 GB -> 0.32 ms at 3.35
-// TB/s for f32 and 0.28 GB -> 0.08 ms for int8 codes: the int8 bank moves a
-// quarter of the bytes but does the same operations, so K2 and K4 are
-// bounded by the operations too.  TF32 (or int8) tensor cores would be
-// faster but keep ~3 decimal digits of the query, which breaks the
-// rtol=1e-5 parity the reference holds, so the product stays in FP32 FMA.
-// Every score is a single fmaf chain over d = 0..D-1 in order (then one
-// multiply by the row's scale), whatever tile or CTA its row lands in, so
-// identical rows score bit-identically and the tie rule is exact.
+// What bounds it.  Unmasked: the plain-FP32 product, 2*Q*N*D flops.  Q=64,
+// N=2^20, D=256: 34.4 GFLOP -> 0.51 ms at 67 TFLOP/s of non-tensor-core
+// FP32, against a bank read of 1.07 GB -> 0.32 ms at 3.35 TB/s for f32 and
+// 0.28 GB -> 0.08 ms for int8 codes: the int8 bank moves a quarter of the
+// bytes but does the same operations, so K4 is bounded by the operations
+// too.  TF32 (or int8) tensor cores would be faster but keep ~3 decimal
+// digits of the query, which breaks the rtol=1e-5 parity the reference
+// holds, so the product stays in FP32 FMA.  Every score is a single fmaf
+// chain over d = 0..D-1 in order (then one multiply by the row's scale),
+// whatever tile or CTA its row lands in, so identical rows score
+// bit-identically and the tie rule is exact.
 //
-// The partial kernel (not the TPU grid: the Pallas grid walks the bank in
-// order with one program per 128-query tile, which at Q <= 64 keeps one
-// core busy):
-//   pass 1  the bank's live prefix is split into row chunks, one CTA per
-//           (chunk, 64-query tile), enough CTAs to fill every SM.  A CTA
-//           streams its chunk in 64-row tiles, stages each tile into shared
-//           memory as f32 (int8 codes convert exactly, read with 16-byte
-//           vector loads: a D = 256 row is 256 B), scores the tile against
-//           the query tile with a register-tiled FP32 FMA product (each
-//           thread owns a 4x4 block of scores), scales and masks it, and
-//           offers the survivors to a per-query sorted top-k list in shared
-//           memory.
-//   pass 2  one warp per query merges the chunks' sorted lists in chunk
-//           order into the final list and writes the sentinels.
+// Masked (K1, K2): the mask keeps few of the pairs.  A namespace owns a few
+// rows to a few thousand of the bank, so a tile of 64 queries matches ~0.2%
+// to ~8% of the rows and each query far fewer.  The least work is to read
+// both label vectors, each matching row once and one dot product per
+// matching (query, row) pair: ~0.03 ms at the main shape, not 0.51.  The
+// Pallas kernel scores every pair and masks afterwards, which the TPU's
+// matrix unit makes cheap; here FP32 FMA is the scarce resource, so a
+// masked call first compacts the bank by label (topk_count_kernel +
+// topk_compact_kernel): per query tile, the live rows whose label equals
+// any of the tile's query labels, in ascending row order, written to a
+// device list without a read back to the host.  The scan kernel then
+// stages and scores only the listed rows.  What bounds a masked call now
+// is the product of the listed rows against the whole query tile (a row
+// matches one or a few of the tile's queries, so most of those products
+// are still masked out), the tiles' per-tile latency when few tiles are
+// listed, and the launches.  With one label on every row and query (the
+// single-tenant search) every row is listed, and K1/K2 do K3's/K4's work
+// plus one pass over the labels.
 //
-// Its selection: a query's list holds exactly k entries sorted by the ranking
-// key (empty slots are (-inf, INT_MAX)); its threshold is the k-th score.
-// Candidates arrive 32 at a time, one per lane.  Because every stream is
-// offered in ascending row order among equal scores (pass 1: rows ascend;
-// pass 2: chunks ascend and each chunk list is sorted), a candidate whose
-// score merely equals the threshold ranks after the k-th entry and is
-// dropped, so admission is `score > threshold`.  Admitted candidates are
-// bitonic-sorted in registers and merged into the list by co-ranking (a
-// binary search per element), which needs no padding to a power of two.
-// That costs O(k) per admitting 32-row batch: cheap when masked (a query's
-// namespace owns few of a chunk's rows), too dear unmasked, where the scan
-// kernel takes over.
+// Launches of one call: [count, compact] (masked), [sample scan, sample
+// merge] (long chunks), scan, merge.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -71,362 +60,216 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kQT = 64;            // queries per CTA tile
-constexpr int kBN = 64;            // bank rows per tile
-constexpr int kDK = 32;            // depth step staged in shared memory
-constexpr int kStride = kQT + 4;   // row stride of the staged tiles (16 B aligned)
-constexpr int kVec = 16;           // int8 codes per 16-byte vector load
-constexpr int kMaxK = 256;
 constexpr int kPadRow = 0x7fffffff;
 constexpr float kNegInf = -2.0e38f;
 constexpr unsigned kFull = 0xffffffffu;
-
-static_assert(kQT == kBN, "the 16x16 thread grid assumes square tiles");
-static_assert(kQT % kWarps == 0, "queries are dealt evenly to warps");
-static_assert(kDK % kVec == 0, "a depth step is whole vector loads");
 
 __device__ __forceinline__ bool ranks_before(float sa, int ra, float sb, int rb) {
   return sa > sb || (sa == sb && ra < rb);
 }
 
-// Bitonic sort of one (score, row) pair per lane into ranking order
-// (lane 0 holds the best).
-__device__ __forceinline__ void warp_sort32(float& s, int& r) {
-  const int lane = threadIdx.x & 31;
+// ---------------------------------------------------------------------------
+// Label compaction (masked calls), ahead of the scan kernel.  One CTA per
+// (row block, query tile); the query tile is the scan kernel's.  Each CTA
+// sorts its tile's labels in shared memory and tests a row's label with a
+// binary search.  topk_count_kernel counts each block's matching rows;
+// topk_compact_kernel sums the counts of the blocks before its own and
+// writes its matching rows there, in ascending order, so that the tile's
+// list is the bank's matching rows in row order; its last block writes
+// the list's length.  The scan kernel reads that length on the device.
+// Both read the labels in batches of 4 consecutive rows a thread (1,024
+// rows a block), all loads issued before the first test; the write pass
+// stages a batch's matches in shared memory and stores them coalesced.
+// ---------------------------------------------------------------------------
+
+constexpr int kMaxTileQueries = 64;   // the widest query tile of the scan kernel
+constexpr int kCompactRun = 4;        // consecutive rows a thread tests in a batch
+constexpr int kCompactBatch = kThreads * kCompactRun;
+constexpr int kCompactMaxBlocks = 1024;
+
+__host__ __device__ inline int compact_rows_per_block(int n_valid) {
+  const int batches = (n_valid + kCompactBatch - 1) / kCompactBatch;
+  const int per = (batches + kCompactMaxBlocks - 1) / kCompactMaxBlocks;
+  return (per > 1 ? per : 1) * kCompactBatch;
+}
+
+__host__ __device__ inline int compact_blocks(int n_valid) {
+  const int rows = compact_rows_per_block(n_valid);
+  return (n_valid + rows - 1) / rows;
+}
+
+// The labels of query tile blockIdx.y (qt queries from q0) into lab[0, n),
+// sorted ascending; returns n.  Block-collective.
+__device__ int tile_labels(const int* q_ns, int Q, int qt, int* raw, int* lab) {
+  const int tid = threadIdx.x;
+  const int q0 = blockIdx.y * qt;
+  const int n = min(qt, Q - q0);
+  if (tid < n) raw[tid] = q_ns[q0 + tid];
+  __syncthreads();
+  if (tid < n) {
+    const int v = raw[tid];
+    int rank = 0;
+    for (int j = 0; j < n; ++j) rank += (raw[j] < v || (raw[j] == v && j < tid)) ? 1 : 0;
+    lab[rank] = v;
+  }
+  __syncthreads();
+  return n;
+}
+
+// Whether x is among the sorted lab[0, n) (n >= 1).
+__device__ __forceinline__ bool label_in(const int* lab, int n, int x) {
+  int pos = 0;
+  for (int len = n; len > 1;) {
+    const int half = len >> 1;
+    if (lab[pos + half] <= x) pos += half;
+    len -= half;
+  }
+  return lab[pos] == x;
+}
+
+// Bit i set where row r0 + i (< r_end) carries one of the sorted labels.
+__device__ __forceinline__ unsigned match_run(const int* __restrict__ bank_ns, int r0,
+                                              int r_end, const int* lab, int n) {
+  int v[kCompactRun];
 #pragma unroll
-  for (int size = 2; size <= 32; size <<= 1) {
+  for (int i = 0; i < kCompactRun; ++i) v[i] = r0 + i < r_end ? bank_ns[r0 + i] : 0;
+  unsigned bits = 0u;
 #pragma unroll
-    for (int stride = size >> 1; stride > 0; stride >>= 1) {
-      const float os = __shfl_xor_sync(kFull, s, stride);
-      const int orow = __shfl_xor_sync(kFull, r, stride);
-      const bool lower = (lane & stride) == 0;
-      const bool ascending = (lane & size) == 0;
-      const bool other_first = ranks_before(os, orow, s, r);
-      const bool take = (lower == ascending) ? other_first : !other_first;
-      if (take) {
-        s = os;
-        r = orow;
-      }
-    }
-  }
+  for (int i = 0; i < kCompactRun; ++i)
+    if (r0 + i < r_end && label_in(lab, n, v[i])) bits |= 1u << i;
+  return bits;
 }
 
-// Offer one candidate per lane to the sorted list (ls, lr) of length k.
-// `ok` false means the lane has no candidate.  scr_* (k entries) and nw_*
-// (32 entries) are this warp's scratch.  Warp-collective.
-__device__ void offer(float s, int r, bool ok, float* ls, int* lr, int k,
-                      float* scr_s, int* scr_r, float* nw_s, int* nw_r) {
-  const int lane = threadIdx.x & 31;
-  const float thr = ls[k - 1];
-  const bool take = ok && (s > thr);
-  const unsigned mask = __ballot_sync(kFull, take);
-  if (mask == 0u) return;
-  const int cnt = __popc(mask);
-  if (!take) {
-    s = -CUDART_INF_F;
-    r = kPadRow;
-  }
-  warp_sort32(s, r);
-  nw_s[lane] = s;
-  nw_r[lane] = r;
-  __syncwarp();
-  if (lane < cnt) {
-    // list entries ranking before this candidate
-    int lo = 0, hi = k;
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (ranks_before(ls[mid], lr[mid], s, r)) lo = mid + 1; else hi = mid;
-    }
-    const int pos = lane + lo;
-    if (pos < k) {
-      scr_s[pos] = s;
-      scr_r[pos] = r;
-    }
-  }
-  for (int i = lane; i < k; i += 32) {
-    const float bs = ls[i];
-    const int br = lr[i];
-    // admitted candidates ranking before list entry i
-    int lo = 0, hi = cnt;
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (ranks_before(nw_s[mid], nw_r[mid], bs, br)) lo = mid + 1; else hi = mid;
-    }
-    const int pos = i + lo;
-    if (pos < k) {
-      scr_s[pos] = bs;
-      scr_r[pos] = br;
-    }
-  }
-  __syncwarp();
-  for (int i = lane; i < k; i += 32) {
-    ls[i] = scr_s[i];
-    lr[i] = scr_r[i];
-  }
-  __syncwarp();
-}
-
-// Pass 1's dynamic shared memory: staged tiles, the score tile, the
-// per-query lists and scratch, and the tile's labels and scales.  At most
-// 180 KB (k = kMaxK), so one CTA fits on an SM at k = 256 and two at
-// k <= 128 (kernels/topk_mips.py mirrors this to plan the grid).
-size_t partial_smem_bytes(int k) {
-  return sizeof(float) * (2 * kDK * kStride + kQT * (kBN + 1)) +
-         (sizeof(float) + sizeof(int)) * (size_t)(kQT * k + kWarps * k + kWarps * 32) +
-         sizeof(int) * (kQT + kBN) + sizeof(float) * kBN;
-}
-
-// at most 34 KB (k = kMaxK), under the default dynamic shared-memory ceiling
-size_t merge_smem_bytes(int k) {
-  return (sizeof(float) + sizeof(int)) * (size_t)(2 * kWarps * k + kWarps * 32);
-}
-
-// kMasked: rows must carry the query's label.  kQuant: `bank` is int8 codes
-// with per-row `scales`; `vec16` says every row's codes can be read with
-// aligned 16-byte loads (D % 16 == 0 and a 16-byte aligned bank).
-template <bool kMasked, bool kQuant>
 __global__ void __launch_bounds__(kThreads)
-topk_partial_kernel(const float* __restrict__ q, const void* __restrict__ bank_v,
-                    const float* __restrict__ scales,
-                    const int* __restrict__ q_ns, const int* __restrict__ bank_ns,
-                    int Q, int D, int n_valid, int k, int rows_per_chunk,
-                    int n_chunks, bool vec16, float* __restrict__ part_s,
-                    int* __restrict__ part_r) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* As = reinterpret_cast<float*>(smem);          // [kDK][kStride] queries
-  float* Bs = As + kDK * kStride;                      // [kDK][kStride] bank rows
-  float* S = Bs + kDK * kStride;                       // [kQT][kBN + 1] scores
-  float* ls = S + kQT * (kBN + 1);                     // [kQT][k] list scores
-  int* lr = reinterpret_cast<int*>(ls + kQT * k);      // [kQT][k] list rows
-  float* scr_s = reinterpret_cast<float*>(lr + kQT * k);  // [kWarps][k]
-  int* scr_r = reinterpret_cast<int*>(scr_s + kWarps * k);
-  float* nw_s = reinterpret_cast<float*>(scr_r + kWarps * k);  // [kWarps][32]
-  int* nw_r = reinterpret_cast<int*>(nw_s + kWarps * 32);
-  int* qns_t = nw_r + kWarps * 32;                     // [kQT]
-  int* bns_t = qns_t + kQT;                            // [kBN]
-  float* scl_t = reinterpret_cast<float*>(bns_t + kBN);  // [kBN]
+topk_count_kernel(const int* __restrict__ q_ns, const int* __restrict__ bank_ns, int Q,
+                  int n_valid, int qt, int* __restrict__ counts) {
+  __shared__ int raw[kMaxTileQueries], lab[kMaxTileQueries], warp_sum[kWarps];
+  const int tid = threadIdx.x;
+  const int n = tile_labels(q_ns, Q, qt, raw, lab);
+  const int per = compact_rows_per_block(n_valid);
+  const int r_begin = blockIdx.x * per;
+  const int r_end = (int)min((long long)n_valid, (long long)r_begin + per);
+  int c = 0;
+  for (int base = r_begin; base < r_end; base += kCompactBatch)
+    c += __popc(match_run(bank_ns, base + tid * kCompactRun, r_end, lab, n));
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) c += __shfl_xor_sync(kFull, c, o);
+  if ((tid & 31) == 0) warp_sum[tid >> 5] = c;
+  __syncthreads();
+  if (tid == 0) {
+    int total = 0;
+    for (int w = 0; w < kWarps; ++w) total += warp_sum[w];
+    counts[blockIdx.y * gridDim.x + blockIdx.x] = total;
+  }
+}
 
+__global__ void __launch_bounds__(kThreads)
+topk_compact_kernel(const int* __restrict__ q_ns, const int* __restrict__ bank_ns, int Q,
+                    int n_valid, int qt, const int* __restrict__ counts,
+                    int* __restrict__ list, int list_stride, int* __restrict__ list_len) {
+  __shared__ int raw[kMaxTileQueries], lab[kMaxTileQueries], warp_sum[kWarps];
+  __shared__ int staged[kCompactBatch];   // a batch's matches, in row order
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int chunk = blockIdx.x;
-  const int q0 = blockIdx.y * kQT;
-  const int row_begin = chunk * rows_per_chunk;
-  const int row_end = min(n_valid, row_begin + rows_per_chunk);
-  const int tx = tid & 15;   // bank rows tx*4 .. tx*4+3 of the tile
-  const int ty = tid >> 4;   // queries   ty*4 .. ty*4+3 of the tile
-
-  for (int i = tid; i < kQT * k; i += kThreads) {
-    ls[i] = -CUDART_INF_F;
-    lr[i] = kPadRow;
-  }
-  if constexpr (kMasked) {
-    for (int i = tid; i < kQT; i += kThreads) qns_t[i] = (q0 + i < Q) ? q_ns[q0 + i] : 0;
-  }
+  const int n = tile_labels(q_ns, Q, qt, raw, lab);
+  // this block's place in the list: the matches of the blocks before it
+  int before = 0;
+  for (int b = tid; b < (int)blockIdx.x; b += kThreads) before += counts[blockIdx.y * gridDim.x + b];
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) before += __shfl_xor_sync(kFull, before, o);
+  if (lane == 0) warp_sum[warp] = before;
   __syncthreads();
-
-  for (int r0 = row_begin; r0 < row_end; r0 += kBN) {
-    float acc[4][4];
+  int off = 0;
+  for (int w = 0; w < kWarps; ++w) off += warp_sum[w];
+  __syncthreads();
+  int* out = list + (size_t)blockIdx.y * list_stride;
+  const int per = compact_rows_per_block(n_valid);
+  const int r_begin = blockIdx.x * per;
+  const int r_end = (int)min((long long)n_valid, (long long)r_begin + per);
+  for (int base = r_begin; base < r_end; base += kCompactBatch) {
+    // thread t tests rows r0 .. r0 + 3; its matches go after those of the
+    // threads before it (a block-wide exclusive scan of the counts)
+    const int r0 = base + tid * kCompactRun;
+    unsigned bits = match_run(bank_ns, r0, r_end, lab, n);
+    const int c = __popc(bits);
+    int incl = c;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-    for (int d0 = 0; d0 < D; d0 += kDK) {
-      for (int e = tid; e < kQT * kDK; e += kThreads) {
-        const int qi = e / kDK, dd = e % kDK;
-        const int gq = q0 + qi, gd = d0 + dd;
-        As[dd * kStride + qi] = (gq < Q && gd < D) ? q[(size_t)gq * D + gd] : 0.f;
-      }
-      if constexpr (kQuant) {
-        const int8_t* bank = static_cast<const int8_t*>(bank_v);
-        if (vec16) {
-          // two 16-byte loads per row and depth step; neighbouring threads
-          // read the two halves of one row's 32 codes
-          for (int e = tid; e < kBN * (kDK / kVec); e += kThreads) {
-            const int ri = e / (kDK / kVec), c = e % (kDK / kVec);
-            const int gr = r0 + ri, gd = d0 + c * kVec;
-            int4 v = make_int4(0, 0, 0, 0);
-            if (gr < row_end && gd < D)
-              v = *reinterpret_cast<const int4*>(bank + (size_t)gr * D + gd);
-            const unsigned w[4] = {(unsigned)v.x, (unsigned)v.y, (unsigned)v.z,
-                                   (unsigned)v.w};
-#pragma unroll
-            for (int t = 0; t < kVec; ++t)
-              Bs[(c * kVec + t) * kStride + ri] =
-                  static_cast<float>(static_cast<int8_t>(w[t >> 2] >> (8 * (t & 3))));
-          }
-        } else {
-          for (int e = tid; e < kBN * kDK; e += kThreads) {
-            const int ri = e / kDK, dd = e % kDK;
-            const int gr = r0 + ri, gd = d0 + dd;
-            Bs[dd * kStride + ri] =
-                (gr < row_end && gd < D) ? static_cast<float>(bank[(size_t)gr * D + gd]) : 0.f;
-          }
-        }
-      } else {
-        const float* bank = static_cast<const float*>(bank_v);
-        for (int e = tid; e < kBN * kDK; e += kThreads) {
-          const int ri = e / kDK, dd = e % kDK;
-          const int gr = r0 + ri, gd = d0 + dd;
-          Bs[dd * kStride + ri] = (gr < row_end && gd < D) ? bank[(size_t)gr * D + gd] : 0.f;
-        }
-      }
-      __syncthreads();
-#pragma unroll 8
-      for (int dd = 0; dd < kDK; ++dd) {
-        const float4 a = *reinterpret_cast<const float4*>(&As[dd * kStride + ty * 4]);
-        const float4 b = *reinterpret_cast<const float4*>(&Bs[dd * kStride + tx * 4]);
-        const float av[4] = {a.x, a.y, a.z, a.w};
-        const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
-      __syncthreads();
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl += y;
     }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) S[(ty * 4 + i) * (kBN + 1) + tx * 4 + j] = acc[i][j];
-    for (int i = tid; i < kBN; i += kThreads) {
-      const int gr = r0 + i;
-      if constexpr (kMasked) bns_t[i] = (gr < row_end) ? bank_ns[gr] : 0;
-      if constexpr (kQuant) scl_t[i] = (gr < row_end) ? scales[gr] : 0.f;
-    }
+    if (lane == 31) warp_sum[warp] = incl;
     __syncthreads();
-
-    for (int qi = warp; qi < kQT; qi += kWarps) {
-      if (q0 + qi >= Q) break;
-      float* qls = ls + qi * k;
-      int* qlr = lr + qi * k;
-#pragma unroll
-      for (int h = 0; h < kBN; h += 32) {
-        const int ri = h + lane;
-        const int row = r0 + ri;
-        bool ok = row < row_end;
-        if constexpr (kMasked) ok = ok && bns_t[ri] == qns_t[qi];
-        float s = S[qi * (kBN + 1) + ri];
-        if constexpr (kQuant) s = s * scl_t[ri];   // after the sum, as the reference
-        offer(s, row, ok, qls, qlr, k, scr_s + warp * k, scr_r + warp * k,
-              nw_s + warp * 32, nw_r + warp * 32);
-      }
+    int at = incl - c, total = 0;
+    for (int w = 0; w < kWarps; ++w) {
+      at += w < warp ? warp_sum[w] : 0;
+      total += warp_sum[w];
     }
+    for (; bits != 0u; bits &= bits - 1u) staged[at++] = r0 + __ffs(bits) - 1;
     __syncthreads();
+    for (int i = tid; i < total; i += kThreads) out[off + i] = staged[i];
+    off += total;
+    __syncthreads();   // warp_sum and staged are rewritten next batch
   }
-
-  for (int qi = warp; qi < kQT; qi += kWarps) {
-    if (q0 + qi >= Q) break;
-    const size_t base = ((size_t)(q0 + qi) * n_chunks + chunk) * k;
-    for (int i = lane; i < k; i += 32) {
-      part_s[base + i] = ls[qi * k + i];
-      part_r[base + i] = lr[qi * k + i];
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-topk_merge_kernel(const float* __restrict__ part_s, const int* __restrict__ part_r,
-                  int Q, int k, int n_chunks, float* __restrict__ out_s,
-                  int* __restrict__ out_i) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  float* ls = reinterpret_cast<float*>(smem) + warp * k;
-  int* lr = reinterpret_cast<int*>(reinterpret_cast<float*>(smem) + kWarps * k) + warp * k;
-  float* scr_s = reinterpret_cast<float*>(smem) + 2 * kWarps * k + warp * k;
-  int* scr_r = reinterpret_cast<int*>(reinterpret_cast<float*>(smem) + 3 * kWarps * k) + warp * k;
-  float* nw_s = reinterpret_cast<float*>(smem) + 4 * kWarps * k + warp * 32;
-  int* nw_r = reinterpret_cast<int*>(reinterpret_cast<float*>(smem) + 4 * kWarps * k + kWarps * 32) + warp * 32;
-
-  const int qq = blockIdx.x * kWarps + warp;
-  if (qq >= Q) return;   // warp-uniform; this kernel has no block barrier
-  for (int i = lane; i < k; i += 32) {
-    ls[i] = -CUDART_INF_F;
-    lr[i] = kPadRow;
-  }
-  __syncwarp();
-  for (int c = 0; c < n_chunks; ++c) {
-    const float* cs = part_s + ((size_t)qq * n_chunks + c) * k;
-    const int* cr = part_r + ((size_t)qq * n_chunks + c) * k;
-    for (int g = 0; g < k; g += 32) {
-      const int i = g + lane;
-      const bool in = i < k;
-      const float s = in ? cs[i] : -CUDART_INF_F;
-      const int r = in ? cr[i] : kPadRow;
-      offer(s, r, in, ls, lr, k, scr_s, scr_r, nw_s, nw_r);
-      // a chunk list is sorted: once its smallest offered score cannot
-      // pass the threshold, nothing later in it can
-      const float s_last = __shfl_sync(kFull, s, min(31, k - 1 - g));
-      if (!(s_last > ls[k - 1])) break;
-    }
-  }
-  for (int i = lane; i < k; i += 32) {
-    const bool live = lr[i] != kPadRow;
-    out_s[(size_t)qq * k + i] = live ? ls[i] : kNegInf;
-    out_i[(size_t)qq * k + i] = live ? lr[i] : -1;
-  }
-}
-
-template <bool kMasked, bool kQuant>
-cudaError_t raise_smem_ceiling() {
-  return cudaFuncSetAttribute(topk_partial_kernel<kMasked, kQuant>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)partial_smem_bytes(kMaxK));
-}
-
-template <bool kMasked, bool kQuant>
-void launch_partial(dim3 grid, size_t smem, cudaStream_t st, const float* q,
-                    const void* bank, const float* scales, const int* q_ns,
-                    const int* bank_ns, int Q, int D, int n_valid, int k,
-                    int rows_per_chunk, int n_chunks, bool vec16, float* part_s,
-                    int* part_r) {
-  topk_partial_kernel<kMasked, kQuant><<<grid, kThreads, smem, st>>>(
-      q, bank, scales, q_ns, bank_ns, Q, D, n_valid, k, rows_per_chunk,
-      n_chunks, vec16, part_s, part_r);
+  if (blockIdx.x == gridDim.x - 1 && tid == 0) list_len[blockIdx.y] = off;
 }
 
 // ---------------------------------------------------------------------------
-// The scan kernel: K3 and K4 at every k, K1 and K2 at kMaxK < k <= kScanMaxK.
+// The scan kernel: all four kernels, at every k up to kScanMaxK.
 //
 // pass 1  topk_scan_kernel<kMasked, kQuant, kQW>: one CTA per (chunk, query
-//         tile of 8*kQW queries); the live prefix's 256-row tiles are split
-//         evenly over the chunks.  Warp w owns queries w*kQW .. w*kQW+kQW-1
-//         of the tile for the whole chunk: their scores, thresholds,
-//         candidate buffers and lists, so selection needs no block barrier.
-//         Lane l owns rows l + 32 j (j < 8) of each tile, a kQW x 8 register
-//         tile of scores, fed per 4 depths by 8 + kQW 16-byte shared loads
-//         for 32 kQW FMAs.  The bank streams through a 3-stage ring of
-//         16-deep slices (16-byte cp.async, zero-filled past the edges),
-//         stored [row][d] with a 20-float row stride (conflict-free 16-byte
-//         reads); int8 codes land raw and are converted to f32 once per
-//         element, smem -> smem, before the product.  The query tile stays
-//         in shared memory for the whole CTA when it fits (`resident`),
+//         tile of 8*kQW queries).  It walks entries: unmasked, entry e is
+//         row e of the live prefix; masked, it is the e-th row of the query
+//         tile's compacted list, whose length the CTA reads on the device.
+//         The entries' 256-row tiles are split evenly over the chunks, so a
+//         skewed bank (one namespace owning a long run of rows) is balanced
+//         by what each chunk scores; a chunk with no tile writes empty
+//         lists.  The launch plan is made from n_valid alone.  Warp w owns
+//         queries w*kQW .. w*kQW+kQW-1 of the tile for the whole chunk:
+//         their scores, thresholds, candidate buffers and lists, so
+//         selection needs no block barrier.  Lane l owns entries l + 32 j
+//         (j < 8) of each tile, a kQW x 8 register tile of scores, fed per
+//         4 depths by 8 + kQW 16-byte shared loads for 32 kQW FMAs.  The
+//         bank streams through a 3-stage ring of 16-deep slices (16-byte
+//         cp.async per row piece, zero-filled past the edges), stored
+//         [row][d] with a 20-float row stride (conflict-free 16-byte
+//         reads); masked, each tile's 256 row ids are read once into
+//         shared memory (one of three buffers, so that the selection of a
+//         tile still finds them while later tiles are staged) and the
+//         copies gather through them.  int8 codes land raw and are
+//         converted to f32 once per element, smem -> smem, before the
+//         product.  The query tile stays in shared memory for the whole CTA
+//         when it fits (`resident`, copied with the ring's first stage),
 //         otherwise its 16-deep slice rides in each ring stage.  The query
 //         tile is the widest (64, 32, 16, 8) whose lists, buffers and ring
-//         fit in a block's 227 KB: 64 at the main shapes (K3 f32 k = 64,
-//         K4 int8 k = 256), 32 for f32 at k = 256, 8 at k = 2048.
+//         fit in a block's 227 KB: 64 at the main shapes (f32 k = 64, int8
+//         k = 256), 32 for f32 at k = 256, 8 at k = 2048.
 // pass 2  topk_merge_lists_kernel: one CTA per query; warp w merges chunk
 //         lists w, w+8, ... into its own list, then the 8 lists merge in a
-//         tree of three rounds.
+//         tree of three rounds.  Pass 1 writes a list's live entries and
+//         one empty entry after them (a CTA with no tile writes just that
+//         and exits), and the merge stops at a list's first entry that does
+//         not rank before its own k-th, so an empty or short chunk list
+//         costs one 32-entry read.
 //
 // Selection (pass 1).  A tile's score s of row r for query i is a candidate
-// iff r < row_end, the labels match (masked), s > thr[i] (the k-th score of
-// the query's merged list, -inf until it is full) and s >= the query's
-// floor (below).  Few candidates in a tile (< kBuf / 2) are appended to the
-// query's buffer (ballot + popc); many -- a chunk's first tiles -- are
-// sorted as a whole tile in registers and merged into the list at once.  A
-// buffer past half full posts a joint flush: at the next tile every warp
-// sorts and merges all its buffers, so the merges of all warps overlap
-// between two barriers instead of each stalling the CTA in turn.  The
-// selection each tile runs is short code; the rest (`admit`, `sort_merge`,
-// `merge_sorted`) is out of line, so the tile loop stays in the
-// instruction cache.
+// iff its entry is live, the labels match (masked: a listed row matches
+// some query of the tile, not necessarily this one), s > thr[i] (the k-th
+// score of the query's merged list, -inf until it is full) and s >= the
+// query's floor (below).  Few candidates in a tile (< kBuf / 2) are
+// appended to the query's buffer (ballot + popc); many -- a chunk's first
+// tiles -- are sorted as a whole tile in registers and merged into the
+// list at once.  A buffer past half full posts a joint flush: at the next
+// tile every warp sorts and merges all its buffers, so the merges of all
+// warps overlap between two barriers instead of each stalling the CTA in
+// turn.  The selection each tile runs is short code; the rest (`admit`,
+// `sort_merge`, `merge_sorted`) is out of line, so the tile loop stays in
+// the instruction cache.
 //
 // Dropping a score that merely EQUALS thr[i] is exact: tiles run through a
-// chunk in ascending row order, so every entry of the merged list has a
+// chunk in ascending entry order, and entries ascend with the row (the
+// compacted list keeps row order), so every entry of the merged list has a
 // lower row than the candidate, which ranks after the k-th entry.  The
 // merge pass has no such order (warps take interleaved chunks), so it
 // admits by the full key (score desc, row asc).
@@ -435,28 +278,31 @@ void launch_partial(dim3 grid, size_t smem, cudaStream_t st, const float* q,
 // scoring below it cannot enter the final top-k (one that equals it may,
 // by row, and is kept).  Every chunk whose list is full raises it to its
 // k-th score (atomicMax on an order-preserving key).  When chunks hold at
-// least kSampleRatio tiles, a sample pass first scans the last tile of
-// each chunk (one a CTA) and merges them exactly: their k-th score is the
-// floor the main pass starts from, so in a bank of random order only
+// least kSampleRatio tiles (for a masked call, tiles of its list: each CTA
+// decides on the device), a sample pass first scans the last tile of each
+// chunk (one a CTA) and merges them exactly: their k-th score is the floor
+// the main pass starts from, so in a bank of random order only
 // ~k * rows / (256 n_chunks) rows of each chunk pass it, and in a bank
 // whose scores rise with the row almost none but the last chunk's.
 // ---------------------------------------------------------------------------
 
 constexpr int kScanMaxK = 2048;
-constexpr int kTileRows = 256;      // bank rows per tile: lane l owns l + 32 j
+constexpr int kTileRows = 256;      // entries per tile: lane l owns l + 32 j
 constexpr int kRowsPerLane = kTileRows / 32;
 constexpr int kSlice = 16;          // depth of one ring stage
 constexpr int kSliceStride = kSlice + 4;   // floats per staged row
 constexpr int kStages = 3;
+constexpr int kIdBufs = 3;          // masked: row-id buffers of the tiles in flight
 constexpr int kBuf = 64;            // candidate buffer of one query (pow2)
 constexpr int kSeg = 256;           // merge pass: list entries per admission
 constexpr int kSmemMax = 232448;    // dynamic shared memory a block can use
 constexpr int kScanWidths[4] = {8, 4, 2, 1};   // kQW, widest first
 constexpr int kSampleRatio = 4;     // sample pass when chunks hold >= 4 tiles
 
-static_assert(kTileRows == kThreads, "int8 staging gives each thread a row");
+static_assert(kTileRows == kThreads, "int8 staging and the row ids give each thread a row");
 static_assert(kBuf % 32 == 0 && (kBuf & (kBuf - 1)) == 0, "kBuf is a pow2 of warps");
 static_assert(kSeg % 32 == 0, "kSeg is whole warps");
+static_assert(8 * kScanWidths[0] <= kMaxTileQueries, "compaction holds a tile's labels");
 
 // Scores as unsigned keys in the same order (0 is below every score), so
 // a query's score floor can be raised with atomicMax.
@@ -476,24 +322,26 @@ __host__ __device__ inline int padded_depth(int D) {
 // Pass 1's dynamic shared memory for a query tile of qt queries: the ring
 // (bank slice, and query slice unless resident),
 // the int8 conversion tile, the resident queries, then the lists, the
-// candidate buffers and a tile's worth of scratch a warp (8 bytes an entry).
-size_t scan_smem_bytes(int k, bool quant, int D, int qt, bool resident) {
+// candidate buffers and a tile's worth of scratch a warp (8 bytes an entry),
+// and for a masked call the row ids of the tiles in flight.
+size_t scan_smem_bytes(int k, bool quant, int D, int qt, bool resident, bool masked) {
   const size_t bank_stage = quant ? (size_t)kTileRows * kSlice
                                   : sizeof(float) * kTileRows * kSliceStride;
   const size_t q_stage = resident ? 0 : sizeof(float) * qt * kSliceStride;
   const size_t conv = quant ? sizeof(float) * kTileRows * kSliceStride : 0;
   const size_t qres = resident ? sizeof(float) * qt * padded_depth(D) : 0;
+  const size_t ids = masked ? sizeof(int) * kIdBufs * kTileRows : 0;
   return kStages * (bank_stage + q_stage) + conv + qres +
          (sizeof(float) + sizeof(int)) * ((size_t)qt * (k + kBuf) + kWarps * kTileRows) +
-         2 * sizeof(int);
+         2 * sizeof(int) + ids;
 }
 
 // The widest warp query width kQW whose tile fits, and whether its queries
 // can stay resident.  0 if none fits (never for k <= kScanMaxK).
-int scan_width(int k, bool quant, int D, bool* resident) {
+int scan_width(int k, bool quant, int D, bool masked, bool* resident) {
   for (int qw : kScanWidths) {
-    if (scan_smem_bytes(k, quant, D, 8 * qw, false) <= (size_t)kSmemMax) {
-      *resident = scan_smem_bytes(k, quant, D, 8 * qw, true) <= (size_t)kSmemMax;
+    if (scan_smem_bytes(k, quant, D, 8 * qw, false, masked) <= (size_t)kSmemMax) {
+      *resident = scan_smem_bytes(k, quant, D, 8 * qw, true, masked) <= (size_t)kSmemMax;
       return qw;
     }
   }
@@ -675,19 +523,20 @@ __device__ __forceinline__ void raise_floor(unsigned* floor_key, const float* ls
 }
 
 // Admit one tile's c candidates of a query: ws[32 j + lane] holds the
-// score of row r0 + 32 j + lane where it passed the query's threshold and
-// mask, -inf elsewhere.  Many (c >= kBuf / 2): sort the whole tile and
-// merge it into the list at once.  Few: append them to the query's buffer
-// (cnt entries), merging the buffer first should it overflow.  Returns the
-// buffer's new count.  Kept out of line, so the selection each tile runs
-// is short code.  Warp-collective.
+// score of the tile's entry 32 j + lane where it passed the query's
+// threshold and mask, -inf elsewhere; that entry's row is ids[e] (masked)
+// or e0 + e.  Many (c >= kBuf / 2): sort the whole tile and merge it into
+// the list at once.  Few: append them to the query's buffer (cnt entries),
+// merging the buffer first should it overflow.  Returns the buffer's new
+// count.  Kept out of line, so the selection each tile runs is short code.
+// Warp-collective.
 __device__ __noinline__ int admit(float* ls, int* lr, int k, float* bs, int* br, int cnt,
-                                  float* ws, int* wr, int c, int r0) {
+                                  float* ws, int* wr, int c, int e0, const int* ids) {
   const int lane = threadIdx.x & 31;
   __syncwarp();
   if (c >= kBuf / 2) {
     for (int e = lane; e < kTileRows; e += 32)
-      wr[e] = ws[e] > -CUDART_INF_F ? r0 + e : kPadRow;
+      wr[e] = ws[e] > -CUDART_INF_F ? (ids ? ids[e] : e0 + e) : kPadRow;
     sort_merge<kRowsPerLane>(ls, lr, k, ws, wr, kTileRows, min(c, k));
     return cnt;
   }
@@ -707,7 +556,7 @@ __device__ __noinline__ int admit(float* ls, int* lr, int k, float* bs, int* br,
     if (ok) {
       const int p = cnt + __popc(m & ((1u << lane) - 1u));
       bs[p] = s;
-      br[p] = r0 + e;
+      br[p] = ids ? ids[e] : e0 + e;
     }
     cnt += __popc(m);
   }
@@ -716,8 +565,10 @@ __device__ __noinline__ int admit(float* ls, int* lr, int k, float* bs, int* br,
 }
 
 // Merge pass: admit the entries of one sorted segment (len <= kSeg) that
-// rank before the list's k-th entry -- a prefix, as the segment is sorted
-// -- through scratch into the list.  Returns whether the whole segment was
+// rank before the list's k-th entry -- a prefix, as the segment is sorted;
+// the first entry that does not ends it, and what follows it is not read
+// as an entry (pass 1 leaves it unwritten past a list's live entries) --
+// through scratch into the list.  Returns whether the whole segment was
 // admitted (if not, nothing after it in its list can be).  Warp-collective.
 __device__ __noinline__ bool admit_segment(float* ls, int* lr, int k, const float* src_s,
                                            const int* src_r, int len, float* scr_s,
@@ -731,9 +582,9 @@ __device__ __noinline__ bool admit_segment(float* ls, int* lr, int k, const floa
     const bool in = i < len;
     const float s = in ? src_s[i] : -CUDART_INF_F;
     const int r = in ? src_r[i] : kPadRow;
-    const bool ok = in && ranks_before(s, r, ts, tr);
-    const int c = __popc(__ballot_sync(kFull, ok));
-    if (ok) {
+    const unsigned m = __ballot_sync(kFull, in && ranks_before(s, r, ts, tr));
+    const int c = m == kFull ? 32 : __ffs(~m) - 1;   // the admitted prefix
+    if (lane < c) {
       scr_s[n + lane] = s;
       scr_r[n + lane] = r;
     }
@@ -745,27 +596,28 @@ __device__ __noinline__ bool admit_segment(float* ls, int* lr, int k, const floa
   return n == len;
 }
 
-// Issue the copies of one ring stage: the 256 x 16 bank slice at (r0, d0)
-// and, unless the queries are resident, the query tile's slice.  `vec`: the
-// bank's rows can be read in aligned 16-byte pieces (f32: D % 4 == 0; int8:
-// D % 16 == 0); `qvec` the same for the queries.  Otherwise plain loads.
+// Issue the copies of one ring stage: the 256 x 16 bank slice at depth d0
+// of the tile whose first entry is e0 and, unless the queries are
+// resident, the query tile's slice.  Entry e0 + i is live below e_end and
+// is row ids[i] (masked) or e0 + i.  `vec`: the bank's rows can be read in
+// aligned 16-byte pieces (f32: D % 4 == 0; int8: D % 16 == 0); `qvec` the
+// same for the queries.  Otherwise plain loads.
 template <bool kQuant>
 __device__ __forceinline__ void stage_slice(unsigned char* bank_dst, float* q_dst,
-                                            const void* bank_v, const float* q, int r0,
-                                            int row_end, int d0, int D, int q0, int Q,
-                                            int qt, bool vec, bool qvec) {
+                                            const void* bank_v, const float* q, int e0,
+                                            int e_end, const int* ids, int d0, int D, int q0,
+                                            int Q, int qt, bool vec, bool qvec) {
   const int tid = threadIdx.x;
   if constexpr (kQuant) {
     const int8_t* bank = static_cast<const int8_t*>(bank_v);
     int8_t* dst = reinterpret_cast<int8_t*>(bank_dst);
-    const int gr = r0 + tid;
+    const bool live = e0 + tid < e_end;
+    const size_t gr = ids ? ids[tid] : e0 + tid;
     if (vec) {
-      const bool ok = gr < row_end;
-      cp_async16(dst + tid * kSlice, ok ? bank + (size_t)gr * D + d0 : bank, ok);
+      cp_async16(dst + tid * kSlice, live ? bank + gr * D + d0 : bank, live);
     } else {
       for (int dd = 0; dd < kSlice; ++dd)
-        dst[tid * kSlice + dd] =
-            (gr < row_end && d0 + dd < D) ? bank[(size_t)gr * D + d0 + dd] : int8_t(0);
+        dst[tid * kSlice + dd] = (live && d0 + dd < D) ? bank[gr * D + d0 + dd] : int8_t(0);
     }
   } else {
     const float* bank = static_cast<const float*>(bank_v);
@@ -773,15 +625,17 @@ __device__ __forceinline__ void stage_slice(unsigned char* bank_dst, float* q_ds
     if (vec) {
       for (int e = tid; e < kTileRows * (kSlice / 4); e += kThreads) {
         const int ri = e >> 2, c = e & 3;
-        const int gr = r0 + ri, gd = d0 + 4 * c;
-        const bool ok = gr < row_end && gd < D;
-        cp_async16(dst + ri * kSliceStride + 4 * c, ok ? bank + (size_t)gr * D + gd : bank, ok);
+        const int gd = d0 + 4 * c;
+        const bool ok = e0 + ri < e_end && gd < D;
+        const size_t gr = ids ? ids[ri] : e0 + ri;
+        cp_async16(dst + ri * kSliceStride + 4 * c, ok ? bank + gr * D + gd : bank, ok);
       }
     } else {
       for (int e = tid; e < kTileRows * kSlice; e += kThreads) {
         const int ri = e / kSlice, dd = e % kSlice;
-        const int gr = r0 + ri, gd = d0 + dd;
-        dst[ri * kSliceStride + dd] = (gr < row_end && gd < D) ? bank[(size_t)gr * D + gd] : 0.f;
+        const int gd = d0 + dd;
+        const size_t gr = ids ? ids[ri] : e0 + ri;
+        dst[ri * kSliceStride + dd] = (e0 + ri < e_end && gd < D) ? bank[gr * D + gd] : 0.f;
       }
     }
   }
@@ -802,12 +656,15 @@ __device__ __forceinline__ void stage_slice(unsigned char* bank_dst, float* q_ds
   }
 }
 
+// `list` (masked) holds each query tile's compacted rows, list_stride
+// apart, and `list_len` their lengths; both are unused when unmasked.
 template <bool kMasked, bool kQuant, int kQW>
 __global__ void __launch_bounds__(kThreads, 1)
 topk_scan_kernel(const float* __restrict__ q, const void* __restrict__ bank_v,
                  const float* __restrict__ scales, const int* __restrict__ q_ns,
-                 const int* __restrict__ bank_ns, int Q, int D, int n_valid, int k,
-                 int n_chunks, bool resident, bool vec, bool qvec,
+                 const int* __restrict__ bank_ns, const int* __restrict__ list,
+                 const int* __restrict__ list_len, int list_stride, int Q, int D,
+                 int n_valid, int k, int n_chunks, bool resident, bool vec, bool qvec,
                  float* __restrict__ part_s, int* __restrict__ part_r,
                  unsigned* floor_key, bool sample) {
   constexpr int kQT = kQW * kWarps;
@@ -825,6 +682,7 @@ topk_scan_kernel(const float* __restrict__ q, const void* __restrict__ bank_v,
   float* ws_all = reinterpret_cast<float*>(br + kQT * kBuf);             // [kWarps][256]
   int* wr_all = reinterpret_cast<int*>(ws_all + kWarps * kTileRows);
   int* flush_at = wr_all + kWarps * kTileRows;   // [2]: tile of the next joint flush
+  int* ids_all = flush_at + 2;                   // masked: [kIdBufs][256] row ids
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -833,23 +691,42 @@ topk_scan_kernel(const float* __restrict__ q, const void* __restrict__ bank_v,
   int* wr = wr_all + warp * kTileRows;
   const int chunk = blockIdx.x;
   const int q0 = blockIdx.y * kQT;
-  const int n_tiles = (n_valid + kTileRows - 1) / kTileRows;
+  const int* rows = kMasked ? list + (size_t)blockIdx.y * list_stride : nullptr;
+  const int n_entries = kMasked ? list_len[blockIdx.y] : n_valid;
+  const int n_tiles = (n_entries + kTileRows - 1) / kTileRows;
   const int t_end = (int)((long long)(chunk + 1) * n_tiles / n_chunks);
-  // a sample pass scans the last tile of each chunk
-  const int t_begin = sample ? t_end - 1 : (int)((long long)chunk * n_tiles / n_chunks);
-  const int row_end = min(n_valid, t_end * kTileRows);
+  // a sample pass scans the last tile of each chunk, if chunks are long
+  const int t_begin = !sample ? (int)((long long)chunk * n_tiles / n_chunks)
+                      : n_tiles >= kSampleRatio * n_chunks ? t_end - 1 : t_end;
+  const int e_end = min(n_entries, t_end * kTileRows);
   const int n_slices = max(1, (D + kSlice - 1) / kSlice);
   const int n_steps = (t_end - t_begin) * n_slices;
+  if (n_steps == 0) {   // no tile: empty lists, one empty entry each
+    for (int i = tid; i < kQT && q0 + i < Q; i += kThreads) {
+      const size_t base = ((size_t)(q0 + i) * n_chunks + chunk) * k;
+      part_s[base] = -CUDART_INF_F;
+      part_r[base] = kPadRow;
+    }
+    return;
+  }
 
   for (int i = tid; i < kQT * k; i += kThreads) {
     ls[i] = -CUDART_INF_F;
     lr[i] = kPadRow;
   }
   if (tid < 2) flush_at[tid] = -1;
-  if (resident) {
-    for (int e = tid; e < kQT * pd; e += kThreads) {
-      const int qi = e / pd, dd = e % pd;
-      qres[e] = (q0 + qi < Q && dd < D) ? q[(size_t)(q0 + qi) * D + dd] : 0.f;
+  if (resident) {   // with the ring's first stage: waited for at step 0
+    if (qvec) {
+      for (int e = tid; e < kQT * (pd / 4); e += kThreads) {
+        const int qi = e / (pd / 4), d = 4 * (e % (pd / 4));
+        const bool ok = q0 + qi < Q && d < D;
+        cp_async16(qres + qi * pd + d, ok ? q + (size_t)(q0 + qi) * D + d : q, ok);
+      }
+    } else {
+      for (int e = tid; e < kQT * pd; e += kThreads) {
+        const int qi = e / pd, dd = e % pd;
+        qres[e] = (q0 + qi < Q && dd < D) ? q[(size_t)(q0 + qi) * D + dd] : 0.f;
+      }
     }
   }
   int qns[kQW];
@@ -868,17 +745,29 @@ topk_scan_kernel(const float* __restrict__ q, const void* __restrict__ bank_v,
 #pragma unroll
     for (int j = 0; j < kRowsPerLane; ++j) acc[i][j] = 0.f;
 
+  // Block-collective when it starts a tile (masked: the tile's row ids are
+  // read into their buffer, behind a barrier, before the first copy).
   auto issue = [&](int t) {
     unsigned char* st = smem + (t % kStages) * stage_bytes;
+    const int tile = t / n_slices;
+    const int e0 = (t_begin + tile) * kTileRows;
+    int* ids = nullptr;
+    if constexpr (kMasked) {
+      ids = ids_all + tile % kIdBufs * kTileRows;
+      if (t % n_slices == 0) {
+        ids[tid] = e0 + tid < e_end ? rows[e0 + tid] : 0;
+        __syncthreads();
+      }
+    }
     stage_slice<kQuant>(st, resident ? nullptr : reinterpret_cast<float*>(st + bank_stage),
-                        bank_v, q, (t_begin + t / n_slices) * kTileRows, row_end,
-                        (t % n_slices) * kSlice, D, q0, Q, kQT, vec, qvec);
+                        bank_v, q, e0, e_end, ids, (t % n_slices) * kSlice, D, q0, Q, kQT,
+                        vec, qvec);
   };
   for (int t = 0; t < kStages - 1; ++t) {
     if (t < n_steps) issue(t);
     cp_async_commit();
   }
-  __syncthreads();   // lists and resident queries
+  __syncthreads();   // the lists (and resident queries not copied by cp.async)
 
   for (int t = 0; t < n_steps; ++t) {
     cp_async_wait_one();
@@ -934,7 +823,8 @@ topk_scan_kernel(const float* __restrict__ q, const void* __restrict__ bank_v,
 
     // the tile's scores are complete: select, warp by warp
     const int tile = t / n_slices;
-    const int r0 = (t_begin + tile) * kTileRows;
+    const int e0 = (t_begin + tile) * kTileRows;
+    const int* ids = kMasked ? ids_all + tile % kIdBufs * kTileRows : nullptr;
     // a joint flush posted at the last tile: every warp merges its buffers
     // now, so that the merges of all warps overlap between two barriers
     if (flush_at[tile & 1] == tile) {
@@ -955,9 +845,10 @@ topk_scan_kernel(const float* __restrict__ q, const void* __restrict__ bank_v,
     int lab[kRowsPerLane];
 #pragma unroll
     for (int j = 0; j < kRowsPerLane; ++j) {
-      const int row = r0 + lane + 32 * j;
-      scl[j] = (kQuant && row < row_end) ? scales[row] : 0.f;
-      lab[j] = (kMasked && row < row_end) ? bank_ns[row] : 0;
+      const bool live = e0 + lane + 32 * j < e_end;
+      const int row = kMasked ? ids[lane + 32 * j] : e0 + lane + 32 * j;
+      scl[j] = (kQuant && live) ? scales[row] : 0.f;
+      lab[j] = (kMasked && live) ? bank_ns[row] : 0;
     }
     // every chunk's full list raises its query's floor: the k-th score of
     // k live rows, so no row scoring below it can enter the final top-k
@@ -982,7 +873,7 @@ topk_scan_kernel(const float* __restrict__ q, const void* __restrict__ bank_v,
         for (int j = 0; j < kRowsPerLane; ++j) {
           sv[j] = acc[i][j];
           if constexpr (kQuant) sv[j] = sv[j] * scl[j];   // after the sum, as the reference
-          bool ok = r0 + lane + 32 * j < row_end && sv[j] > thr[i] && sv[j] >= fl[i];
+          bool ok = e0 + lane + 32 * j < e_end && sv[j] > thr[i] && sv[j] >= fl[i];
           if constexpr (kMasked) ok = ok && lab[j] == qns[i];
           if (!ok) sv[j] = -CUDART_INF_F;
           c += __popc(__ballot_sync(kFull, ok));
@@ -990,7 +881,7 @@ topk_scan_kernel(const float* __restrict__ q, const void* __restrict__ bank_v,
         if (c > 0) {   // warp-uniform
 #pragma unroll
           for (int j = 0; j < kRowsPerLane; ++j) ws[32 * j + lane] = sv[j];
-          cnt[i] = admit(qls, qlr, k, qbs, qbr, cnt[i], ws, wr, c, r0);
+          cnt[i] = admit(qls, qlr, k, qbs, qbr, cnt[i], ws, wr, c, e0, ids);
           raise_floor(floor_key + q0 + qi, qls, qlr, k, thr[i]);
           thr[i] = qls[k - 1];
           post = post || cnt[i] > kBuf / 2;
@@ -1007,6 +898,8 @@ topk_scan_kernel(const float* __restrict__ q, const void* __restrict__ bank_v,
       for (int j = 0; j < kRowsPerLane; ++j) acc[i][j] = 0.f;
   }
 
+  // each list's live entries and the empty entry after them (if any): the
+  // merge pass reads no further
 #pragma unroll
   for (int i = 0; i < kQW; ++i) {
     const int qi = warp * kQW + i;
@@ -1016,6 +909,7 @@ topk_scan_kernel(const float* __restrict__ q, const void* __restrict__ bank_v,
                             cnt[i]);
     const size_t base = ((size_t)(q0 + qi) * n_chunks + chunk) * k;
     for (int e = lane; e < k; e += 32) {
+      if (e > 0 && lr[qi * k + e - 1] == kPadRow) break;
       part_s[base + e] = ls[qi * k + e];
       part_r[base + e] = lr[qi * k + e];
     }
@@ -1027,10 +921,15 @@ size_t merge_lists_smem_bytes(int k) {
   return (sizeof(float) + sizeof(int)) * (size_t)kWarps * (k + kSeg);
 }
 
+// floor_out: a sample pass's merge, which writes each query's floor key
+// only.  list_len (masked) holds the query tiles' compacted lengths (qt
+// queries a tile), from which a sample pass's merge sees, as its scan
+// kernel did, whether the sample ran.
 __global__ void __launch_bounds__(kThreads)
 topk_merge_lists_kernel(const float* __restrict__ part_s, const int* __restrict__ part_r,
                         int k, int n_chunks, float* __restrict__ out_s,
-                        int* __restrict__ out_i, unsigned* __restrict__ floor_out) {
+                        int* __restrict__ out_i, unsigned* __restrict__ floor_out,
+                        const int* __restrict__ list_len, int qt) {
   extern __shared__ __align__(16) unsigned char smem[];
   float* ls = reinterpret_cast<float*>(smem);              // [kWarps][k]
   int* lr = reinterpret_cast<int*>(ls + kWarps * k);
@@ -1039,6 +938,11 @@ topk_merge_lists_kernel(const float* __restrict__ part_s, const int* __restrict_
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int qq = blockIdx.x;
+  if (floor_out != nullptr && list_len != nullptr &&
+      (list_len[qq / qt] + kTileRows - 1) / kTileRows < kSampleRatio * n_chunks) {
+    if (tid == 0) floor_out[qq] = 0u;   // no sample: no floor
+    return;
+  }
   for (int i = tid; i < kWarps * k; i += kThreads) {
     ls[i] = -CUDART_INF_F;
     lr[i] = kPadRow;
@@ -1117,140 +1021,122 @@ cudaError_t raise_scan_ceilings() {
 
 extern "C" {
 
-// Pass 1's dynamic shared memory of the partial kernel for list length k.
-size_t topk_mips_partial_smem_bytes(int k) { return partial_smem_bytes(k); }
-
 // The scan kernel's dynamic shared memory for a query tile of
 // `queries_per_tile` queries (bytes).
 size_t topk_mips_scan_smem_bytes(int k, int quant, int D, int queries_per_tile,
-                                 int resident) {
-  return scan_smem_bytes(k, quant != 0, D, queries_per_tile, resident != 0);
+                                 int resident, int masked) {
+  return scan_smem_bytes(k, quant != 0, D, queries_per_tile, resident != 0, masked != 0);
 }
 
-// The scan kernel's query tile for (k, quant, D): 2 * queries + resident,
-// or 0 if no tile fits.
-int topk_mips_scan_tile(int k, int quant, int D) {
+// The scan kernel's query tile for (k, quant, D, masked): 2 * queries +
+// resident, or 0 if no tile fits.
+int topk_mips_scan_tile(int k, int quant, int D, int masked) {
   bool resident = false;
-  const int qw = scan_width(k, quant != 0, D, &resident);
+  const int qw = scan_width(k, quant != 0, D, masked != 0, &resident);
   return qw == 0 ? 0 : 2 * 8 * qw + (resident ? 1 : 0);
+}
+
+// The int32 scratch (`part_r`) a call of topk_mips_launch needs: the chunk
+// lists' rows (Q * n_chunks * k), the score floors (Q) and, masked, each
+// query tile's compacted list (n_valid), its row blocks' counts and its
+// length.  0 if no query tile fits.
+size_t topk_mips_scratch_ints(int Q, int D, int n_valid, int k, int masked, int quant,
+                              int n_chunks) {
+  bool resident = false;
+  const int qw = scan_width(k, quant != 0, D, masked != 0, &resident);
+  if (qw == 0) return 0;
+  const size_t q_tiles = (size_t)(Q + 8 * qw - 1) / (8 * qw);
+  const size_t compact =
+      masked ? q_tiles * ((size_t)n_valid + compact_blocks(n_valid) + 1) : 0;
+  return (size_t)Q * n_chunks * k + Q + compact;
 }
 
 // Resident pass-1 CTAs per SM of the kernel a call with these arguments
 // launches (cudaOccupancyMaxActiveBlocksPerMultiprocessor), into *ctas.
 // Returns the CUDA error code.
 int topk_mips_occupancy(int masked, int quant, int k, int D, int* ctas) {
-  cudaError_t err;
-  if (masked && k <= kMaxK) {
-    if ((err = raise_smem_ceiling<true, false>()) != cudaSuccess) return (int)err;
-    if ((err = raise_smem_ceiling<true, true>()) != cudaSuccess) return (int)err;
-    const void* fn = quant ? reinterpret_cast<const void*>(topk_partial_kernel<true, true>)
-                           : reinterpret_cast<const void*>(topk_partial_kernel<true, false>);
-    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, fn, kThreads,
-                                                              partial_smem_bytes(k));
-  }
   bool resident = false;
-  const int qw = scan_width(k, quant != 0, D, &resident);
+  const int qw = scan_width(k, quant != 0, D, masked != 0, &resident);
   if (qw == 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err;
   if ((err = raise_scan_ceilings()) != cudaSuccess) return (int)err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       ctas, scan_kernel(masked != 0, quant != 0, qw), kThreads,
-      scan_smem_bytes(k, quant != 0, D, 8 * qw, resident));
+      scan_smem_bytes(k, quant != 0, D, 8 * qw, resident, masked != 0));
 }
 
-// Launch both passes on `stream`.  `bank` is f32 (quant == 0) or int8 codes
-// with per-row `scales` (quant != 0); `q_ns`/`bank_ns` are read only when
-// masked != 0.  part_s holds Q * n_chunks * k entries, part_r Q more (the
-// scan kernel's per-query score floors).  Masked calls
-// with k <= 256 (K1, K2 on the service's path) run the partial kernel and
-// its warp-per-query merge: rows_per_chunk is then a multiple of its 64-row
-// tile.  Every other call runs the scan kernel and the list merge, which
-// split the live prefix's 256-row tiles evenly over n_chunks (at most one
-// chunk a tile) and ignore rows_per_chunk.  Returns the CUDA error code of
-// the launches (0 on success).
+// Launch every pass on `stream`, with no read back to the host.  `bank` is
+// f32 (quant == 0) or int8 codes with per-row `scales` (quant != 0);
+// `q_ns`/`bank_ns` are read only when masked != 0.  part_s holds Q *
+// n_chunks * k entries, part_r topk_mips_scratch_ints(...).  The scan
+// kernel splits its entries' 256-row tiles evenly over n_chunks (at most
+// one chunk a tile of the live prefix).  Returns the CUDA error code of the
+// launches (0 on success).
 int topk_mips_launch(const float* q, const void* bank, const float* scales,
                      const int* q_ns, const int* bank_ns, int Q, int D,
                      int n_valid, int k, int masked, int quant, int n_chunks,
-                     int rows_per_chunk, float* part_s, int* part_r,
-                     float* out_s, int* out_i, void* stream) {
-  const bool partial = masked && k <= kMaxK;
+                     float* part_s, int* part_r, float* out_s, int* out_i, void* stream) {
   const int n_tiles = (n_valid + kTileRows - 1) / kTileRows;
   if (Q < 0 || D < 0 || n_valid < 0 || k < 1 || k > kScanMaxK || n_chunks < 0 ||
-      (partial && n_chunks > 0 && (rows_per_chunk <= 0 || rows_per_chunk % kBN != 0)) ||
-      (!partial && n_chunks > n_tiles) ||
-      (n_chunks > 0 && masked && (q_ns == nullptr || bank_ns == nullptr)) ||
+      n_chunks > n_tiles || (n_chunks > 0 && masked && (q_ns == nullptr || bank_ns == nullptr)) ||
       (n_chunks > 0 && quant && scales == nullptr))
     return (int)cudaErrorInvalidValue;
   if (Q == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (!partial) {
-    if ((err = raise_scan_ceilings()) != cudaSuccess) return (int)err;
-    if (n_chunks > 0) {
-      bool resident = false;
-      const int qw = scan_width(k, quant != 0, D, &resident);
-      if (qw == 0) return (int)cudaErrorInvalidValue;
-      const int qt = 8 * qw;
-      const dim3 grid(n_chunks, (Q + qt - 1) / qt);
-      const size_t smem = scan_smem_bytes(k, quant != 0, D, qt, resident);
-      const uintptr_t qa = reinterpret_cast<uintptr_t>(q);
-      const uintptr_t ba = reinterpret_cast<uintptr_t>(bank);
-      bool vec = quant ? (D % 16 == 0 && ba % 16 == 0) : (D % 4 == 0 && ba % 16 == 0);
-      bool qvec = D % 4 == 0 && qa % 16 == 0;
-      unsigned* floor_key = reinterpret_cast<unsigned*>(part_r + (size_t)Q * n_chunks * k);
-      if ((err = cudaMemsetAsync(floor_key, 0, sizeof(unsigned) * Q, st)) != cudaSuccess)
-        return (int)err;
-      const void* scan = scan_kernel(masked != 0, quant != 0, qw);
-      // A sample pass when chunks are long: the last tile of each chunk, one
-      // a CTA, merged exactly; their k-th score becomes each query's floor.
-      bool sample = n_tiles >= kSampleRatio * n_chunks;
-      void* args[] = {(void*)&q,       (void*)&bank,   (void*)&scales, (void*)&q_ns,
-                      (void*)&bank_ns, (void*)&Q,      (void*)&D,      (void*)&n_valid,
-                      (void*)&k,       (void*)&n_chunks, (void*)&resident, (void*)&vec,
-                      (void*)&qvec,    (void*)&part_s, (void*)&part_r, (void*)&floor_key,
-                      (void*)&sample};
-      if (sample) {
-        if ((err = cudaLaunchKernel(scan, grid, dim3(kThreads), args, smem, st)) != cudaSuccess)
-          return (int)err;
-        topk_merge_lists_kernel<<<Q, kThreads, merge_lists_smem_bytes(k), st>>>(
-            part_s, part_r, k, n_chunks, out_s, out_i, floor_key);
-        if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-      }
-      sample = false;
+  if ((err = raise_scan_ceilings()) != cudaSuccess) return (int)err;
+  if (n_chunks > 0) {
+    bool resident = false;
+    const int qw = scan_width(k, quant != 0, D, masked != 0, &resident);
+    if (qw == 0) return (int)cudaErrorInvalidValue;
+    const int qt = 8 * qw;
+    const dim3 grid(n_chunks, (Q + qt - 1) / qt);
+    const size_t smem = scan_smem_bytes(k, quant != 0, D, qt, resident, masked != 0);
+    const uintptr_t qa = reinterpret_cast<uintptr_t>(q);
+    const uintptr_t ba = reinterpret_cast<uintptr_t>(bank);
+    bool vec = quant ? (D % 16 == 0 && ba % 16 == 0) : (D % 4 == 0 && ba % 16 == 0);
+    bool qvec = D % 4 == 0 && qa % 16 == 0;
+    unsigned* floor_key = reinterpret_cast<unsigned*>(part_r + (size_t)Q * n_chunks * k);
+    int* list = nullptr;
+    int* list_len = nullptr;
+    int list_stride = n_valid;
+    if (masked) {
+      list = reinterpret_cast<int*>(floor_key + Q);
+      int* counts = list + (size_t)grid.y * list_stride;
+      const dim3 cgrid(compact_blocks(n_valid), grid.y);
+      list_len = counts + (size_t)grid.y * cgrid.x;
+      topk_count_kernel<<<cgrid, kThreads, 0, st>>>(q_ns, bank_ns, Q, n_valid, qt, counts);
+      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+      topk_compact_kernel<<<cgrid, kThreads, 0, st>>>(q_ns, bank_ns, Q, n_valid, qt, counts,
+                                                      list, list_stride, list_len);
+      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    }
+    if ((err = cudaMemsetAsync(floor_key, 0, sizeof(unsigned) * Q, st)) != cudaSuccess)
+      return (int)err;
+    const void* scan = scan_kernel(masked != 0, quant != 0, qw);
+    // A sample pass when chunks may be long (n_tiles bounds a masked
+    // call's list; its CTAs check the list's own length): the last tile of
+    // each chunk, one a CTA, merged exactly; their k-th score becomes each
+    // query's floor.
+    bool sample = n_tiles >= kSampleRatio * n_chunks;
+    void* args[] = {(void*)&q,        (void*)&bank,     (void*)&scales,  (void*)&q_ns,
+                    (void*)&bank_ns,  (void*)&list,     (void*)&list_len, (void*)&list_stride,
+                    (void*)&Q,        (void*)&D,        (void*)&n_valid, (void*)&k,
+                    (void*)&n_chunks, (void*)&resident, (void*)&vec,     (void*)&qvec,
+                    (void*)&part_s,   (void*)&part_r,   (void*)&floor_key, (void*)&sample};
+    if (sample) {
       if ((err = cudaLaunchKernel(scan, grid, dim3(kThreads), args, smem, st)) != cudaSuccess)
         return (int)err;
+      topk_merge_lists_kernel<<<Q, kThreads, merge_lists_smem_bytes(k), st>>>(
+          part_s, part_r, k, n_chunks, out_s, out_i, floor_key, list_len, qt);
+      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
     }
-    topk_merge_lists_kernel<<<Q, kThreads, merge_lists_smem_bytes(k), st>>>(
-        part_s, part_r, k, n_chunks, out_s, out_i, nullptr);
-    return (int)cudaGetLastError();
+    sample = false;
+    if ((err = cudaLaunchKernel(scan, grid, dim3(kThreads), args, smem, st)) != cudaSuccess)
+      return (int)err;
   }
-  // Pass 1 takes more dynamic shared memory than the default 48 KB ceiling
-  // (pass 2 stays below it).  Raise the ceiling of every variant on the
-  // first launch on a device, to what k = kMaxK needs, which covers every k.
-  static int smem_device = -1;
-  int device;
-  err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return (int)err;
-  if (device != smem_device) {
-    if ((err = raise_smem_ceiling<true, false>()) != cudaSuccess) return (int)err;
-    if ((err = raise_smem_ceiling<true, true>()) != cudaSuccess) return (int)err;
-    smem_device = device;
-  }
-  if (n_chunks > 0) {
-    const dim3 grid(n_chunks, (Q + kQT - 1) / kQT);
-    const size_t smem = partial_smem_bytes(k);
-    const bool vec16 = quant && D % kVec == 0 &&
-                       reinterpret_cast<uintptr_t>(bank) % 16 == 0;
-    if (quant)
-      launch_partial<true, true>(grid, smem, st, q, bank, scales, q_ns, bank_ns, Q, D,
-                                 n_valid, k, rows_per_chunk, n_chunks, vec16, part_s, part_r);
-    else
-      launch_partial<true, false>(grid, smem, st, q, bank, scales, q_ns, bank_ns, Q, D,
-                                  n_valid, k, rows_per_chunk, n_chunks, vec16, part_s, part_r);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  topk_merge_kernel<<<(Q + kWarps - 1) / kWarps, kThreads, merge_smem_bytes(k), st>>>(
-      part_s, part_r, Q, k, n_chunks, out_s, out_i);
+  topk_merge_lists_kernel<<<Q, kThreads, merge_lists_smem_bytes(k), st>>>(
+      part_s, part_r, k, n_chunks, out_s, out_i, nullptr, nullptr, 1);
   return (int)cudaGetLastError();
 }
 

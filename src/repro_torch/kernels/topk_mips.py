@@ -15,15 +15,17 @@ the query's `q_ns[q]`), ranked by (score desc, row asc); an unfilled slot
 is (NEG_INF, -1).  The quantized pair takes an int8 bank with per-row f32
 scales and scores `(q . float(codes[r])) * scales[r]` in that order.
 
-What bounds them on an H100: the plain-FP32 product, 2·Q·N·D flops (34.4
-GFLOP -> 0.51 ms at 67 TFLOP/s for Q=64, N=2²⁰, D=256), ahead of the bank
-read (f32: 1.07 GB -> 0.32 ms; int8: 0.28 GB -> 0.08 ms at 3.35 TB/s).  An
-int8 bank moves a quarter of the bytes for the same operations.  TF32
-would break the rtol=1e-5 parity the reference holds, so the kernels score
-in FP32 FMA.  Two designs, both two-pass over a split bank (the source
-explains them): the scan kernel (K3 and K4 at every k, K1 and K2 at
-256 < k <= MAX_K) and the partial kernel (K1 and K2 at k <= 256, every
-call on the service's path).  1 <= k <= MAX_K = 2048 on every device.
+What bounds them on an H100.  Unmasked: the plain-FP32 product, 2·Q·N·D
+flops (34.4 GFLOP -> 0.51 ms at 67 TFLOP/s for Q=64, N=2²⁰, D=256), ahead
+of the bank read (f32: 1.07 GB -> 0.32 ms; int8: 0.28 GB -> 0.08 ms at
+3.35 TB/s).  An int8 bank moves a quarter of the bytes for the same
+operations.  TF32 would break the rtol=1e-5 parity the reference holds,
+so the kernels score in FP32 FMA.  Masked: only the rows a query tile's
+namespaces own, which a device-side label compaction lists ahead of the
+scan (`masked_work` counts the least work of a masked call).  All four
+run one design, the scan kernel over a split bank and a merge of the
+chunks' lists (the source explains it).  1 <= k <= MAX_K = 2048 on every
+device.
 
 Every wrapper dispatches by device: CPU tensors run its plain PyTorch
 version (`*_ref` below); CUDA tensors launch the kernel, or the call
@@ -38,13 +40,11 @@ import torch
 
 NEG_INF = -2.0e38
 MAX_K = 2048         # the scan kernel's list length bound (kScanMaxK)
-PARTIAL_MAX_K = 256  # masked calls up to this k run the partial kernel (kMaxK)
-_ROWS_PER_TILE = 64  # must match kBN / kQT in csrc/topk_mips.cu
-_QUERIES_PER_TILE = 64
-_TILE_ROWS = 256     # the scan kernel's kTileRows, kSlice, kSliceStride, kBuf
-_SLICE = 16
+_TILE_ROWS = 256     # the scan kernel's kTileRows, kSlice, kSliceStride, kBuf,
+_SLICE = 16          # kIdBufs
 _SLICE_STRIDE = 20
 _BUF = 64
+_ID_BUFS = 3
 SMEM_PER_BLOCK = 232448  # H100: dynamic shared memory one block can use
 _SMEM_PER_SM = 233472   # H100: 228 KB of shared memory per SM
 _SMEM_PER_CTA = 1024    # reserved by the system for each resident CTA
@@ -75,6 +75,20 @@ def _live(Q: int, N: int, n_valid, device):
 
 def _labels_match(q_ns, bank_ns):
     return q_ns.to(torch.int32)[:, None] == bank_ns.to(torch.int32)[None, :]
+
+
+def masked_work(q_ns, bank_ns, n_valid=None):
+    """The least work of a masked top-k on these labels: (rows, pairs) --
+    the live rows whose label equals some query's (each read once), and
+    the matching (query, live row) pairs (one dot product each).  Runs on
+    the labels' device."""
+    live = bank_ns[: bank_ns.shape[0] if n_valid is None else int(n_valid)]
+    live = torch.sort(live.to(torch.int64)).values
+    q = q_ns.to(torch.int64)
+    rows = int(torch.isin(live, q).sum())
+    pairs = int((torch.searchsorted(live, q, right=True)
+                 - torch.searchsorted(live, q)).sum())
+    return rows, pairs
 
 
 def _quant_scores(queries, bank_i8, scales):
@@ -148,79 +162,60 @@ def _check(name, t, dtype, ndim, device):
         raise ValueError(f"{name} must be contiguous")
 
 
-def partial_smem_bytes(k: int) -> int:
-    """Pass 1's dynamic shared memory of the partial kernel for list length
-    k, as `partial_smem_bytes` in csrc/topk_mips.cu computes it."""
-    return 36864 + 576 * k
-
-
-def uses_partial_kernel(k: int, masked: bool) -> bool:
-    """Which pass 1 a call runs: the partial kernel for masked calls with
-    k <= PARTIAL_MAX_K (K1, K2 on the service's path), the scan kernel for
-    every other call (K3, K4 at every k)."""
-    return masked and k <= PARTIAL_MAX_K
-
-
 def _padded_depth(D: int) -> int:
     return -(-D // _SLICE) * _SLICE + 4
 
 
 def scan_smem_bytes(k: int, quant: bool, D: int, queries: int,
-                    resident: bool) -> int:
+                    resident: bool, masked: bool) -> int:
     """The scan kernel's dynamic shared memory for a tile of `queries`
     queries, as `scan_smem_bytes` in csrc/topk_mips.cu: a 3-stage ring of
     256-row x 16-deep bank slices (int8 raw, f32 with a 20-float row
     stride) plus the queries' slice unless they are resident, the int8
-    conversion tile, the resident queries, and 8-byte entries of the lists,
-    the candidate buffers and a tile's scratch for each of the 8 warps."""
+    conversion tile, the resident queries, 8-byte entries of the lists,
+    the candidate buffers and a tile's scratch for each of the 8 warps,
+    and (masked) three tiles' row ids."""
     bank_stage = _TILE_ROWS * _SLICE if quant else 4 * _TILE_ROWS * _SLICE_STRIDE
     q_stage = 0 if resident else 4 * queries * _SLICE_STRIDE
     conv = 4 * _TILE_ROWS * _SLICE_STRIDE if quant else 0
     qres = 4 * queries * _padded_depth(D) if resident else 0
+    ids = 4 * _ID_BUFS * _TILE_ROWS if masked else 0
     return (3 * (bank_stage + q_stage) + conv + qres
-            + 8 * (queries * (k + _BUF) + 8 * _TILE_ROWS) + 8)
+            + 8 * (queries * (k + _BUF) + 8 * _TILE_ROWS) + 8 + ids)
 
 
-def scan_tile(k: int, quant: bool, D: int):
+def scan_tile(k: int, quant: bool, D: int, masked: bool):
     """The scan kernel's query tile: the widest of 64, 32, 16, 8 queries
     whose lists, buffers and ring fit in a block's shared memory, and
     whether its queries fit too (resident for the whole CTA).  Returns
     (queries, resident)."""
     for queries in (64, 32, 16, 8):
-        if scan_smem_bytes(k, quant, D, queries, False) <= SMEM_PER_BLOCK:
-            return queries, scan_smem_bytes(k, quant, D, queries,
-                                            True) <= SMEM_PER_BLOCK
+        if scan_smem_bytes(k, quant, D, queries, False,
+                           masked) <= SMEM_PER_BLOCK:
+            return queries, scan_smem_bytes(k, quant, D, queries, True,
+                                            masked) <= SMEM_PER_BLOCK
     raise ValueError(f"k={k}: no query tile fits in shared memory")
 
 
-def plan_chunks(n_valid: int, Q: int, sms: int, k: int = PARTIAL_MAX_K,
-                masked: bool = True, quant: bool = False, D: int = 256):
-    """Split the live prefix into row chunks of whole tiles so that the
+def plan_chunks(n_valid: int, Q: int, sms: int, k: int, masked: bool,
+                quant: bool, D: int):
+    """Split the live prefix's 256-row tiles into chunks so that the
     (chunk, query-tile) grid fills every SM with as many CTAs as its
-    shared memory holds (at most two).  Returns (n_chunks, rows_per_chunk);
-    (0, tile rows) for an empty prefix.  The partial kernel's chunks are
-    rows_per_chunk rows each; the scan kernel gives chunk c of C the tiles
-    [c·T/C, (c+1)·T/C) of the T live 256-row tiles, so rows_per_chunk is
-    its longest chunk."""
-    if uses_partial_kernel(k, masked):
-        tile, queries, smem = _ROWS_PER_TILE, _QUERIES_PER_TILE, \
-            partial_smem_bytes(k)
-    else:
-        tile = _TILE_ROWS
-        queries, resident = scan_tile(k, quant, D)
-        smem = scan_smem_bytes(k, quant, D, queries, resident)
-    tiles = -(-n_valid // tile)
+    shared memory holds (at most two).  Chunk c of C scans the tiles
+    [c·T/C, (c+1)·T/C) of its T tiles: the live prefix's, or for a masked
+    call the tiles of its query tile's compacted rows (at most as many,
+    counted on the device).  Returns (n_chunks, rows_per_chunk), the
+    longest chunk of the live prefix; (0, 256) for an empty prefix."""
+    queries, resident = scan_tile(k, quant, D, masked)
+    smem = scan_smem_bytes(k, quant, D, queries, resident, masked)
+    tiles = -(-n_valid // _TILE_ROWS)
     if tiles == 0:
-        return 0, tile
+        return 0, _TILE_ROWS
     per_sm = _SMEM_PER_SM // (smem + _SMEM_PER_CTA)
     ctas_per_sm = max(1, min(2, per_sm))
     q_tiles = -(-Q // queries)
-    if uses_partial_kernel(k, masked):
-        chunks = min(tiles, max(1, ctas_per_sm * sms // q_tiles))
-        per = -(-tiles // chunks)
-        return -(-tiles // per), per * tile
     chunks = min(tiles, -(-ctas_per_sm * sms // q_tiles))
-    return chunks, -(-tiles // chunks) * tile
+    return chunks, -(-tiles // chunks) * _TILE_ROWS
 
 
 @functools.lru_cache(maxsize=None)
@@ -234,32 +229,33 @@ def _library():
     from repro_torch.kernels.build import load
     lib = load("topk_mips")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.topk_mips_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, i,
+    lib.topk_mips_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i,
                                      p, p, p, p, p]
     lib.topk_mips_launch.restype = i
-    lib.topk_mips_partial_smem_bytes.argtypes = [i]
-    lib.topk_mips_partial_smem_bytes.restype = ctypes.c_size_t
-    lib.topk_mips_scan_smem_bytes.argtypes = [i, i, i, i, i]
+    lib.topk_mips_scratch_ints.argtypes = [i, i, i, i, i, i, i]
+    lib.topk_mips_scratch_ints.restype = ctypes.c_size_t
+    lib.topk_mips_scan_smem_bytes.argtypes = [i, i, i, i, i, i]
     lib.topk_mips_scan_smem_bytes.restype = ctypes.c_size_t
-    lib.topk_mips_scan_tile.argtypes = [i, i, i]
+    lib.topk_mips_scan_tile.argtypes = [i, i, i, i]
     lib.topk_mips_scan_tile.restype = i
     lib.topk_mips_occupancy.argtypes = [i, i, i, i, ctypes.POINTER(i)]
     lib.topk_mips_occupancy.restype = i
-    for k in (1, PARTIAL_MAX_K):
-        if lib.topk_mips_partial_smem_bytes(k) != partial_smem_bytes(k):
-            raise RuntimeError("partial_smem_bytes is out of step with "
-                               "csrc/topk_mips.cu")
-    for k in (1, 64, 257, MAX_K):
+    for k in (1, 64, 256, 257, MAX_K):
         for quant in (False, True):
-            for D in (24, 256, 1000):
-                queries, resident = scan_tile(k, quant, D)
-                if (lib.topk_mips_scan_tile(k, int(quant), D) !=
-                        2 * queries + int(resident) or
-                        lib.topk_mips_scan_smem_bytes(
-                            k, int(quant), D, queries, int(resident)) !=
-                        scan_smem_bytes(k, quant, D, queries, resident)):
-                    raise RuntimeError("scan_tile / scan_smem_bytes are out "
-                                       "of step with csrc/topk_mips.cu")
+            for masked in (False, True):
+                for D in (24, 256, 1000):
+                    queries, resident = scan_tile(k, quant, D, masked)
+                    if (lib.topk_mips_scan_tile(k, int(quant), D,
+                                                int(masked)) !=
+                            2 * queries + int(resident) or
+                            lib.topk_mips_scan_smem_bytes(
+                                k, int(quant), D, queries, int(resident),
+                                int(masked)) !=
+                            scan_smem_bytes(k, quant, D, queries, resident,
+                                            masked)):
+                        raise RuntimeError("scan_tile / scan_smem_bytes are "
+                                           "out of step with "
+                                           "csrc/topk_mips.cu")
     return lib
 
 
@@ -310,11 +306,14 @@ def _launch(fn, queries, bank, scales, q_ns, bank_ns, k, n_valid):
     lib = _library()
     index = device.index if device.index is not None else \
         torch.cuda.current_device()
-    n_chunks, rows_per_chunk = plan_chunks(nv, Q, _sm_count(index), k,
-                                           masked, quant, D)
-    part = Q * n_chunks * k    # chunk lists; part_r's last Q: score floors
+    n_chunks, _ = plan_chunks(nv, Q, _sm_count(index), k, masked, quant, D)
+    part = Q * n_chunks * k    # the chunk lists
+    # part_r: the lists' rows, then the score floors and (masked) the
+    # compacted row lists
+    scratch = lib.topk_mips_scratch_ints(Q, D, nv, k, int(masked),
+                                         int(quant), n_chunks)
     part_s = torch.empty((max(1, part),), dtype=torch.float32, device=device)
-    part_r = torch.empty((part + Q,), dtype=torch.int32, device=device)
+    part_r = torch.empty((scratch,), dtype=torch.int32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
 
     def ptr(t):
@@ -322,8 +321,7 @@ def _launch(fn, queries, bank, scales, q_ns, bank_ns, k, n_valid):
 
     rc = lib.topk_mips_launch(
         ptr(queries), ptr(bank), ptr(scales), ptr(q_ns), ptr(bank_ns), Q, D,
-        nv, k, int(masked), int(quant), n_chunks, rows_per_chunk,
-        ptr(part_s), ptr(part_r), ptr(out_s), ptr(out_i),
+        nv, k, int(masked), int(quant), n_chunks, ptr(part_s), ptr(part_r), ptr(out_s), ptr(out_i),
         ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")

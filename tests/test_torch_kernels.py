@@ -127,12 +127,19 @@ def test_sibling_k_outside_the_kernel_range_raises_naming_max_k(k, name):
 
 
 def test_chunk_plan_covers_the_live_prefix():
-    for n_valid in (0, 1, 63, 64, 65, 1000, 65536, 1 << 20):
-        for Q in (1, 64, 65, 200):
-            n_chunks, rows = tk.plan_chunks(n_valid, Q, sms=132)
-            assert rows % 64 == 0 and rows > 0
-            assert n_chunks * rows >= n_valid
-            assert n_valid == 0 or (n_chunks - 1) * rows < n_valid
+    # K1 and K2 as the service calls them (k = 64 f32, k = 256 int8)
+    for k, quant in ((64, False), (256, True)):
+        for n_valid in (0, 1, 63, 64, 65, 1000, 65536, 1 << 20):
+            for Q in (1, 64, 65, 200):
+                n_chunks, rows = tk.plan_chunks(n_valid, Q, 132, k, True,
+                                                quant, 32)
+                tiles = -(-n_valid // 256)
+                assert rows % 256 == 0 and rows > 0
+                assert n_chunks * rows >= n_valid
+                assert (n_chunks == 0) == (n_valid == 0)
+                # no chunk without a tile; rows is the longest chunk
+                assert n_chunks <= tiles
+                assert n_valid == 0 or rows == -(-tiles // n_chunks) * 256
 
 
 # -- K2, K3, K4 ---------------------------------------------------------------

@@ -181,12 +181,10 @@ def _scan_chunk_rows(chunk, n_chunks, n_valid):
 def test_scan_plan_covers_rows_and_queries_and_fills_the_card(k, Q):
     for masked in (False, True):
         for quant in (False, True):
-            if tk.uses_partial_kernel(k, masked):
-                continue     # K1/K2 at k <= 256: the partial kernel's plan
-            queries, resident = tk.scan_tile(k, quant, 256)
+            queries, resident = tk.scan_tile(k, quant, 256, masked)
             assert queries in (64, 32, 16, 8)
-            assert tk.scan_smem_bytes(k, quant, 256, queries,
-                                      resident) <= 232448
+            assert tk.scan_smem_bytes(k, quant, 256, queries, resident,
+                                      masked) <= 232448
             q_tiles = -(-Q // queries)
             assert q_tiles * queries >= Q > (q_tiles - 1) * queries
             for n_valid in (0, 1, 63, 64, 65, 1000, 65536, 1 << 20):
