@@ -56,15 +56,27 @@ line per phase and fails (nonzero exit) on any failed check:
                  tests' shapes, lengths that are no multiple of the tile,
                  G in {1, 3, 8, 16}, D in {16, 64, 128, 256}, causal and not,
                  windows, kv_len of 1, of T and ragged, garbage past
-                 kv_len, the model's strided layouts), and times each at the
-                 agent's shapes (and K6 at S = T = 4096) beside its plain
-                 version, scaled_dot_product_attention and its bound.
+                 kv_len, the model's strided layouts, and one or more
+                 cases for each launch path, each checked to take it: K6's
+                 wide and narrow CTA shapes, K5's single- and multi-split
+                 grids, each with K/V by cp.async and by plain loads at
+                 D = 50), holds one K5 call
+                 captured in a CUDA graph against the plain version on every
+                 replay while kv_len changes in place (f32 and bf16, windows
+                 0 and 20), and times each at the agent's shapes (and K6 at
+                 S = T = 4096) beside its plain version,
+                 scaled_dot_product_attention and its bound (K5 also inside
+                 a graph of 100 calls; K6 with its CTA count); the served
+                 instances must not spill (ptxas).
 7. lm          — `memori-agent` at full width (12 layers, d_model 768,
                  random weights from a seed) served by
                  `Engine(slots=8, max_len=512)` through `ContinuousBatcher`:
                  16 greedy requests of 32 new tokens, prompts from synthetic
                  LoCoMo conversations, K5 and K6 launch counters reset just
-                 before and read just after.  Every K6 and K5 call of a
+                 before and read just after: the decode step must run as a
+                 replayed CUDA graph, K5 counted once a layer a step (744),
+                 and a replayed step's logits and caches must equal an eager
+                 step's on copies of the caches.  Every K6 and K5 call of a
                  teacher-forced run (ragged prefills, then batched decode
                  steps) is held against its plain version on its own
                  inputs.  End to end, on the same weights with wq/wk
@@ -88,6 +100,14 @@ The last three lines are the kernels' summary, the card's name and power
 limit (as nvidia-smi reports them), and `{"ok": true, "device": {...}}`.
 The script needs the repository's `src/` beside it and a CUDA card; without
 either it exits nonzero before printing any result.
+
+`--serving-times N` only times the lm phase's serving run N times and
+prints its prefill, decode-step and tokens/s numbers; with `--src DIR` it
+imports the port from another checkout's `src`, so one card compares two
+commits by the same code:
+
+    for src in parent/src src src parent/src; do
+        python3 chip_smoke.py --serving-times 5 --src $src; done
 """
 from __future__ import annotations
 
@@ -150,6 +170,14 @@ LM_K, LM_G, LM_D = 4, 3, 64
 PREFILL_S, LONG_S = 150, 4096
 LM_SLOTS, LM_MAX_LEN, LM_REQUESTS, LM_NEW_TOKENS = 8, 512, 16, 32
 DECODE_KV_LEN = 170
+# kv_len values a captured K5 call is replayed through (tile and split edges)
+DECODE_REPLAY_LENS = (1, 2, 63, 64, 65, 170, 511, 512)
+# K5 calls in the CUDA graph that times a graph-replayed call
+GRAPH_CALLS = 100
+# host runtime calls that put work on the device, as the profiler names them
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                     "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+                     "cudaMemsetAsync")
 # logits of the kernel path against the plain path: the same f32 weights and
 # inputs; only the attention's summation order differs (online against
 # direct softmax, ~1e-6 relative per layer), over 12 layers and a 768-wide
@@ -201,17 +229,23 @@ def counts() -> dict:
 def ptxas_entries(report: str) -> dict:
     """Registers and spill bytes of each kernel (entry function) in
     `nvcc -Xptxas -v` output, keyed by a short name: `topk_scan_kernel<0,1,8>`
-    for a template instance (its bool/int arguments), else the kernel's
-    name."""
+    or `flash_fwd_kernel<f32,64,8,16,8>` for a template instance (its
+    arguments), else the kernel's name."""
     import re
     out, name = {}, None
     for ln in report.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", ln)
         if m:
-            t = re.search(r"([A-Za-z][A-Za-z_]*_kernel)(I((?:L[a-z]\d+E)+)E)?",
-                          m.group(1))
-            name = t.group(1) + ("<" + ",".join(re.findall(
-                r"L[a-z](\d+)E", t.group(3))) + ">" if t.group(2) else "")
+            mangled = m.group(1)
+            t = re.search(r"([A-Za-z][A-Za-z_]*_kernel)(I?)", mangled)
+            name = t.group(1)
+            if t.group(2):      # template arguments: a type, then literals
+                a = re.match(r"(f|\d+__nv_bfloat16)?((?:L[bi]\d+E)*)",
+                             mangled[t.end():])
+                args = re.findall(r"L[bi](\d+)E", a.group(2))
+                if a.group(1):
+                    args.insert(0, "f32" if a.group(1) == "f" else "bf16")
+                name += "<" + ",".join(args) + ">"
             while name in out:      # other template arguments, same name
                 name += "'"
             out[name] = {}
@@ -787,6 +821,29 @@ def make_templates(device):
     return templates
 
 
+def device_activity(prof) -> dict:
+    """What a profile recorded on the device and the host's calls that put
+    work there: the device's busy ms (union of kernel and copy intervals),
+    its kernel count, device ms by kernel name, and the host's launch calls
+    (`HOST_LAUNCH_CALLS`) by name."""
+    kern = sorted((e.time_range.start, e.time_range.end, e.name)
+                  for e in prof.events()
+                  if str(e.device_type).endswith("CUDA")
+                  and not e.name.startswith("ProfilerStep"))
+    host_calls = {}
+    for e in prof.events():
+        if (str(e.device_type).endswith("CPU")
+                and e.name in HOST_LAUNCH_CALLS):
+            host_calls[e.name] = host_calls.get(e.name, 0) + 1
+    busy_us, end_us, by_name = 0.0, float("-inf"), {}
+    for start, end, name in kern:
+        busy_us += max(0.0, end - max(start, end_us))
+        end_us = max(end_us, end)
+        by_name[name] = by_name.get(name, 0.0) + (end - start) / 1e3
+    return {"busy_ms": busy_us / 1e3, "kernels": len(kern),
+            "by_name": by_name, "host_calls": host_calls}
+
+
 def profile_execute(svc, reqs, plan, kernel: str) -> dict:
     """One traced and profiled `retrieve_batch`: the host time of each plan
     stage (telemetry spans; a stage that waits on the device includes the
@@ -818,23 +875,17 @@ def profile_execute(svc, reqs, plan, kernel: str) -> dict:
     tel.finish_trace(trace)
     spans = {c["name"]: c["duration_s"] * 1e3
              for c in trace.to_dict()["root"].get("children", [])}
-    # device work only: the step's own annotation spans the whole call
-    kern = sorted((e.time_range.start, e.time_range.end, e.name)
-                  for e in prof.events()
-                  if str(e.device_type).endswith("CUDA")
-                  and not e.name.startswith("ProfilerStep"))
-    busy_us, end_us, by_name = 0.0, float("-inf"), {}
-    for start, end, name in kern:
-        busy_us += max(0.0, end - max(start, end_us))
-        end_us = max(end_us, end)
-        by_name[name] = by_name.get(name, 0.0) + (end - start) / 1e3
+    act = device_activity(prof)    # device work only, not the step's span
+    by_name = act["by_name"]
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     _, masked, quant, _ = KERNELS[kernel]
     tag = f"topk_scan_kernel<{str(masked).lower()}, {str(quant).lower()},"
     return {"wall_ms": wall_ms, "stages_ms": spans,
-            "device_busy_ms": busy_us / 1e3,
-            "device_idle_share": 1.0 - busy_us / 1e3 / wall_ms,
-            "device_kernels": len(kern),
+            "device_busy_ms": act["busy_ms"],
+            "device_idle_share": 1.0 - act["busy_ms"] / wall_ms,
+            "device_kernels": act["kernels"],
+            "host_launch_calls": sum(act["host_calls"].values()),
+            "host_launch_calls_by_name": act["host_calls"],
             "kernel_seen": any(tag in n for n in by_name),
             "top_kernels_ms": {name[:60]: ms for name, ms in top}}
 
@@ -1225,9 +1276,14 @@ def _rand(shape, gen, device, dtype):
 
 
 def check_flash(gen, device, dtype, B, K, G, S, T, D, causal, window,
-                strided=False) -> float:
-    """One K6 case against its plain version; returns the largest error."""
+                strided=False, path=None) -> float:
+    """One K6 case against its plain version; returns the largest error.
+    With `path` ("wide" or "narrow", whether K/V go by cp.async), the case
+    must take that path: `flash_grid` and `cp_async_ok` must say so, and the
+    C launcher must report the rows per CTA of the shape `flash_grid`
+    names."""
     import torch
+    from repro_torch.common.utils import sm_count
     from repro_torch.kernels import flash_attention as fa
     if strided:      # the model's layout: (B, S, H, D) and (B, T, K, D)
         q = _rand((B, S, K * G, D), gen, device, dtype).view(
@@ -1238,11 +1294,22 @@ def check_flash(gen, device, dtype, B, K, G, S, T, D, causal, window,
         q = _rand((B, K, G, S, D), gen, device, dtype)
         k = _rand((B, K, T, D), gen, device, dtype)
         v = _rand((B, K, T, D), gen, device, dtype)
-    got = fa.flash_attention(q, k, v, causal=causal, window=window)
-    want = fa.flash_attention_ref(q, k, v, causal=causal, window=window)
-    torch.cuda.synchronize()
     what = (f"flash_attention {str(dtype)[6:]} B={B} K={K} G={G} S={S} T={T} "
             f"D={D} causal={causal} window={window} strided={strided}")
+    fa.flash_attention.rows_per_cta = 0
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    if path is not None:
+        narrow, rows, _, _ = fa.flash_grid(B, K, G, S, D, sm_count(device))
+        planned = ("narrow" if narrow else "wide",
+                   fa.cp_async_ok(D, q.element_size(), k, v))
+        if planned != path:
+            fail(f"{what}: takes path {planned}, the case is for {path}")
+        ran = fa.flash_attention.rows_per_cta
+        if ran != rows:
+            fail(f"{what}: launched CTAs of {ran} rows, flash_grid "
+                 f"says {rows} ({path[0]})")
+    want = fa.flash_attention_ref(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
     if got.shape != want.shape or got.dtype != want.dtype:
         fail(f"{what}: {tuple(got.shape)} {got.dtype} vs "
              f"{tuple(want.shape)} {want.dtype}")
@@ -1254,12 +1321,16 @@ def check_flash(gen, device, dtype, B, K, G, S, T, D, causal, window,
 
 
 def check_decode(gen, device, dtype, B, K, G, T, D, lens, window,
-                 strided=False) -> float:
+                 strided=False, path=None) -> float:
     """One K5 case against its plain version, then again with every cache
     row past kv_len overwritten by garbage: the output must not move by a
-    bit.  Returns the largest error."""
+    bit.  Returns the largest error.  With `path` (whether the grid has one
+    split, so each CTA writes its output directly; whether K/V go by
+    cp.async), the launch plan the wrapper used must be that one."""
     import torch
+    from repro_torch.common.utils import sm_count
     from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
     if strided:      # the engine's (B, T, K, D) cache, (B, 1, H, D) query
         q = _rand((B, 1, K * G, D), gen, device, dtype).view(B, K, G, D)
         k = _rand((B, T, K, D), gen, device, dtype).permute(0, 2, 1, 3)
@@ -1279,6 +1350,14 @@ def check_decode(gen, device, dtype, B, K, G, T, D, lens, window,
     torch.cuda.synchronize()
     what = (f"decode_attention {str(dtype)[6:]} B={B} K={K} G={G} T={T} "
             f"D={D} kv_len={lens} window={window} strided={strided}")
+    if path is not None:
+        n_split = da.plan_splits(T, B, K, sm_count(device))
+        planned = (n_split == 1, fa.cp_async_ok(D, q.element_size(), k, v))
+        used = {p.dims[7:9] for p in da._plans.values()
+                if p.dims[:5] == (B, K, G, T, D)}
+        if planned != path or used != {(n_split, int(planned[1]))}:
+            fail(f"{what}: plan (one split, cp.async) {planned}, launch "
+                 f"plans (splits, cp.async) {used}; the case is for {path}")
     tol = ATTN_TOL[str(dtype)[6:]]
     err = float((got.float() - want.float()).abs().max())
     if got.shape != want.shape or not err <= tol:
@@ -1297,8 +1376,92 @@ def sdpa_gqa(q, k, v, **kw):
         q.reshape(B, K * G, S, D), k, v, enable_gqa=True, **kw)
 
 
-def phase_attention(device, reps: int) -> dict:
+def attention_instances(entries: dict, name: str) -> dict:
+    """The ptxas entries of `name`'s instances that the served paths run
+    (memori-agent is f32 with D = 64): K5's one, K6's two CTA shapes."""
+    from repro_torch.kernels import flash_attention as fa
+    dp = fa.padded_head_dim(LM_D)
+    want = {"decode_attention": (f"decode_attention_kernel<f32,{dp}>", 1),
+            "flash_attention": (f"flash_fwd_kernel<f32,{dp},", 2)}[name]
+    found = {i: e for i, e in entries.items() if i.startswith(want[0])}
+    if len(found) != want[1]:
+        fail(f"{name}: ptxas entries {sorted(found)}, want {want[1]} "
+             f"starting {want[0]!r}")
+    return found
+
+
+def graph_ms(fn, calls: int, reps: int) -> float:
+    """Mean device time of one `fn` call inside a CUDA graph of `calls`
+    back-to-back calls, replayed `reps` times between CUDA events (one
+    eager call first builds whatever the capture must not allocate)."""
     import torch
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(calls):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        g.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * calls)
+
+
+def decode_replays(gen, device) -> dict:
+    """One K5 call at the engine's shape captured in a CUDA graph, replayed
+    while kv_len changes in place: replay i gives row b the length
+    DECODE_REPLAY_LENS[(b + i) % 8], so every row takes every length.  Each
+    replay is held against the plain version on the same inputs (a counter
+    left unreset, or a split taken from the wrong kv_len, shows here).
+    Returns {dtype: {window: largest error}}."""
+    import torch
+    from repro_torch.kernels import decode_attention as da
+    lens = DECODE_REPLAY_LENS
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tol = ATTN_TOL[str(dtype)[6:]]
+        q = _rand((LM_SLOTS, 1, LM_K * LM_G, LM_D), gen, device,
+                  dtype).view(LM_SLOTS, LM_K, LM_G, LM_D)
+        k = _rand((LM_SLOTS, LM_MAX_LEN, LM_K, LM_D), gen, device,
+                  dtype).permute(0, 2, 1, 3)
+        v = _rand((LM_SLOTS, LM_MAX_LEN, LM_K, LM_D), gen, device,
+                  dtype).permute(0, 2, 1, 3)
+        kv_len = torch.full((LM_SLOTS,), LM_MAX_LEN, dtype=torch.int32,
+                            device=device)
+        res = out[str(dtype)[6:]] = {}
+        for window in (0, 20):
+            da.decode_attention(q, k, v, kv_len, window=window)   # the plan
+            torch.cuda.synchronize()
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g):
+                got = da.decode_attention(q, k, v, kv_len, window=window)
+            err = 0.0
+            for i in range(len(lens)):
+                kv_len.copy_(torch.tensor(
+                    [lens[(b + i) % len(lens)] for b in range(LM_SLOTS)],
+                    dtype=torch.int32))
+                g.replay()
+                want = da.decode_attention_ref(q, k, v, kv_len,
+                                               window=window)
+                e = float((got.float() - want.float()).abs().max())
+                if not e <= tol:
+                    fail(f"decode_attention {str(dtype)[6:]} window={window}"
+                         f" graph replay {i} kv_len={kv_len.tolist()}: max "
+                         f"error {e} > {tol}")
+                err = max(err, e)
+            res[str(window)] = err
+    return out
+
+
+def phase_attention(device, reps: int, build_log=None) -> dict:
+    import torch
+    from repro_torch.common.utils import sm_count
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     gen = torch.Generator(device=device).manual_seed(2)
@@ -1320,6 +1483,28 @@ def phase_attention(device, reps: int) -> dict:
         (2, 2, 8, 130, 130, 128), (1, 2, 3, 77, 77, 256),
         (1, 1, 16, 33, 33, 64), (1, 4, 3, 1, 1, 64),
         (2, 1, 3, 40, 100, 64), (1, 2, 2, 100, 40, 16)]   # T != S
+    # each launch path that no case above reaches at 132 SMs, named:
+    # (B, K, G, S, T, D, causal, window, (CTA shape, K/V by cp.async))
+    flash_paths = [
+        (1, 4, 3, LONG_S, LONG_S, 64, True, 0, ("wide", True)),
+        (1, 4, 3, LONG_S, LONG_S, 64, True, 512, ("wide", True)),
+        (40, 4, 1, 64, 64, 64, False, 0, ("wide", True)),  # 40 texts embedded
+        (12, 4, 2, 96, 96, 32, False, 16, ("wide", True)),
+        (4, 4, 8, 130, 130, 128, True, 0, ("wide", True)),
+        (4, 4, 4, 77, 77, 256, True, 16, ("wide", True)),
+        (40, 4, 1, 64, 64, 50, False, 0, ("wide", False)),
+        (40, 4, 1, 64, 64, 50, True, 16, ("wide", False)),
+        (1, 4, 3, PREFILL_S, PREFILL_S, 64, True, 0, ("narrow", True)),
+        (1, 2, 3, 70, 70, 50, True, 0, ("narrow", False)),
+        (1, 2, 3, 70, 90, 50, False, 16, ("narrow", False))]
+    # (B, K, G, T, D, kv_len, (one split, K/V by cp.async)): B * K >= 264
+    # gives one split a (b, kv-head); D = 50 rows are not 16-byte multiples
+    one_split_lens = [1 + 37 * i % 100 for i in range(34)]
+    decode_paths = [
+        (34, 8, 2, 100, 64, one_split_lens, (True, True)),
+        (34, 8, 2, 100, 50, one_split_lens, (True, False)),
+        (3, 2, 4, 200, 50, [197, 1, 120], (False, False)),
+        (3, 2, 4, 200, 64, [197, 1, 120], (False, True))]
     decode_shapes = [  # (B, K, G, T, D, kv_len)
         (1, 1, 1, 64, 16, [61]), (3, 2, 4, 200, 32, [197, 190, 183]),
         (LM_SLOTS, LM_K, LM_G, LM_MAX_LEN, LM_D,
@@ -1337,6 +1522,10 @@ def phase_attention(device, reps: int) -> dict:
             True, 0, strided=True))
         note("flash_attention", dtype, check_flash(
             gen, device, dtype, 5, 4, 1, 64, 64, 64, False, 0, strided=True))
+        for B, K, G, S, T, D, causal, window, path in flash_paths:
+            note("flash_attention", dtype, check_flash(
+                gen, device, dtype, B, K, G, S, T, D, causal, window,
+                path=path))
         for B, K, G, T, D, lens in decode_shapes:
             for window in (0, 20):
                 note("decode_attention", dtype, check_decode(
@@ -1345,6 +1534,11 @@ def phase_attention(device, reps: int) -> dict:
             gen, device, dtype, LM_SLOTS, LM_K, LM_G, LM_MAX_LEN, LM_D,
             [DECODE_KV_LEN + 7 * i for i in range(LM_SLOTS)], 0,
             strided=True))
+        for B, K, G, T, D, lens, path in decode_paths:
+            for window in (0, 20):
+                note("decode_attention", dtype, check_decode(
+                    gen, device, dtype, B, K, G, T, D, lens, window,
+                    path=path))
 
     # timings at the agent's shapes
     f32 = torch.float32
@@ -1356,9 +1550,13 @@ def phase_attention(device, reps: int) -> dict:
         pairs = LM_K * LM_G * flash_pairs(S, S, True, 0)
         bytes_moved = 4 * (2 * q.numel() + k.numel() + v.numel())
         bound, by = attention_bound_ms(pairs, bytes_moved, LM_D)
+        narrow, rows, _, ctas = fa.flash_grid(1, LM_K, LM_G, S, LM_D,
+                                              sm_count(device))
         timed[label] = {
             "shape": {"B": 1, "K": LM_K, "G": LM_G, "S": S, "T": S,
                       "D": LM_D, "causal": True},
+            "ctas": ctas, "cta_shape": "narrow" if narrow else "wide",
+            "rows_per_cta": rows,
             "kernel_ms": time_ms(lambda: fa.flash_attention(q, k, v), reps),
             "device_ms": device_ms(lambda: fa.flash_attention(q, k, v), reps,
                                    "flash_fwd_kernel"),
@@ -1397,6 +1595,10 @@ def phase_attention(device, reps: int) -> dict:
                              reps),
         "device_ms": device_ms(lambda: da.decode_attention(q, k, v, kv_len),
                                reps, "decode_"),
+        "graph_ms": graph_ms(lambda: da.decode_attention(q, k, v, kv_len),
+                             GRAPH_CALLS, reps),
+        "splits": da.plan_splits(LM_MAX_LEN, LM_SLOTS, LM_K,
+                                 sm_count(device)),
         "plain_ms": time_ms(lambda: da.decode_attention_ref(q, k, v, kv_len),
                             reps),
         "library_ms": time_ms(lambda: torch.nn.functional.
@@ -1405,6 +1607,17 @@ def phase_attention(device, reps: int) -> dict:
                                   k, v, attn_mask=mask, enable_gqa=True),
                               reps),
         "bound_ms": bound, "bound_by": by})
+    res["decode_attention"]["graph_replays_max_abs_err"] = decode_replays(
+        gen, device)
+    if build_log is not None:
+        for name in ATTN_KERNELS:
+            entries = build_log["kernels"][name]["ptxas"]
+            if not entries:         # the library was built before this run
+                continue
+            ptxas = res[name]["ptxas"] = attention_instances(entries, name)
+            for inst, e in ptxas.items():
+                if e.get("spill_stores", 0) or e.get("spill_loads", 0):
+                    fail(f"{inst}: ptxas reports spills: {e}")
     out = {"phase": "attention", "tolerance": ATTN_TOL, "kernels": res,
            "gpu": gpu_line()}
     emit(out)
@@ -1539,7 +1752,9 @@ def greedy_run(engine, requests, margins=None):
 def profile_decode(engine, tok, prompts) -> dict:
     """One profiled `Engine.step` with every slot busy: its host wall time,
     the device's busy time (union of kernel and copy intervals) and idle
-    share, the number of device kernels and the costliest by device time.
+    share, the number of device kernels beside the host's launch calls
+    (runtime API calls that put work on the device: a replayed graph is one
+    `cudaGraphLaunch`) and the costliest kernels by device time.
     The profiler records the second of two steps (the first is its
     warm-up)."""
     import torch
@@ -1557,22 +1772,17 @@ def profile_decode(engine, tok, prompts) -> dict:
         engine.step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kern = sorted((e.time_range.start, e.time_range.end, e.name)
-                  for e in prof.events()
-                  if str(e.device_type).endswith("CUDA")
-                  and not e.name.startswith("ProfilerStep"))
-    busy_us, end_us, by_name = 0.0, float("-inf"), {}
-    for start, end, name in kern:
-        busy_us += max(0.0, end - max(start, end_us))
-        end_us = max(end_us, end)
-        by_name[name] = by_name.get(name, 0.0) + (end - start) / 1e3
+    act = device_activity(prof)
+    by_name = act["by_name"]
     engine.slot_active[:] = False          # release the slots
     engine.slot_req = [None] * engine.slots
     engine.slot_out = [[] for _ in range(engine.slots)]
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return {"wall_ms": wall_ms, "device_busy_ms": busy_us / 1e3,
-            "device_idle_share": 1.0 - busy_us / 1e3 / wall_ms,
-            "device_kernels": len(kern),
+    return {"wall_ms": wall_ms, "device_busy_ms": act["busy_ms"],
+            "device_idle_share": 1.0 - act["busy_ms"] / wall_ms,
+            "device_kernels": act["kernels"],
+            "host_launch_calls": sum(act["host_calls"].values()),
+            "host_launch_calls_by_name": act["host_calls"],
             "decode_attention_ms": sum(ms for n, ms in by_name.items()
                                        if "decode_" in n),
             "top_kernels_ms": {n[:60]: ms for n, ms in top}}
@@ -1639,8 +1849,43 @@ def check_kernel_calls(errs, what: str) -> dict:
     return out
 
 
-def phase_lm(device) -> dict:
-    import numpy as np
+def replay_vs_eager(engine, tok, prompts) -> float:
+    """On one engine state (every slot busy), the largest difference
+    between the logits of the engine's replayed decode graph and of an
+    eager `decode_step` on copies of the caches and the same static
+    inputs.  The same kernels on the same inputs: expected 0."""
+    import torch
+    from repro_torch.serving.requests import Request
+    for p in prompts[: engine.slots]:
+        engine.admit(Request(tok.encode(p), 4 * LM_NEW_TOKENS))
+    engine.step()
+    host = engine._host_inputs.numpy()
+    host[:, 0] = engine.slot_tokens
+    host[:, 1] = engine.slot_pos
+    engine._inputs.copy_(engine._host_inputs)
+    copies = [{n: x.clone() for n, x in layer.items()}
+              for layer in engine.caches]
+    with torch.no_grad():
+        eager, _ = engine.model.decode_step(
+            engine.params, engine._inputs[:, :1].clone(), copies,
+            engine._inputs[:, 1].clone())
+    replayed = engine.graph.replay()
+    torch.cuda.synchronize()
+    err = float((replayed - eager).abs().max())
+    for cp, layer in zip(copies, engine.caches):   # the graph wrote in place
+        for n, x in layer.items():
+            err = max(err, float((cp[n] - x).abs().max()))
+    engine.slot_active[:] = False          # release the slots
+    engine.slot_req = [None] * engine.slots
+    engine.slot_out = [[] for _ in range(engine.slots)]
+    return err
+
+
+def lm_setup(device):
+    """memori-agent with random weights (seed 0), its engine (LM_SLOTS
+    slots of LM_MAX_LEN), the tokenizer, LM_REQUESTS prompts and a maker
+    of their requests; one warm-up run of two requests (cuBLAS handles,
+    the kernels' first launches) has been made on the engine."""
     import torch
     from repro_torch.configs import get_config
     from repro_torch.data.tokenizer import HashTokenizer
@@ -1648,27 +1893,67 @@ def phase_lm(device) -> dict:
     from repro_torch.serving.engine import Engine
     from repro_torch.serving.requests import Request
     cfg = get_config("memori-agent")
-    torch.cuda.reset_peak_memory_stats()
     model = Model(cfg)
     params = model.init_params(torch.Generator(device=device).manual_seed(0))
     tok = HashTokenizer(cfg.vocab_size)
     engine = Engine(model, params, max_len=LM_MAX_LEN, slots=LM_SLOTS,
                     tokenizer=tok)
     prompts = lm_prompts(tok, LM_REQUESTS)
-    lens = [len(tok.encode(p)) for p in prompts]
 
     def requests():
         return [Request(tok.encode(p), LM_NEW_TOKENS) for p in prompts]
 
-    # warm-up (cuBLAS handles, the kernels' first launches), then the main
-    # path with every launch counter reset just before it
     greedy_run(engine, requests()[:2])
+    return cfg, model, params, tok, engine, prompts, requests
+
+
+def serving_times(device, rounds: int) -> dict:
+    """The lm phase's serving run alone, `rounds` times on one engine:
+    prefill ms per admission and decode ms per step at full slots (mean and
+    median over all rounds) and each round's tokens/s.  It uses only what
+    the port's earlier slices have too, so with `--src` it times another
+    checkout's port by the same code (an A/B on one card)."""
+    import numpy as np
+    _, _, _, _, engine, _, requests = lm_setup(device)
+    prefill_s, step_s, tokens_per_s = [], [], []
+    for _ in range(rounds):
+        got, wall, p, st = greedy_run(engine, requests())
+        prefill_s += p
+        step_s += st
+        tokens_per_s.append(sum(len(r.tokens) for r in got) / wall)
+    return {"phase": "serving_times", "rounds": rounds,
+            "prefill_ms": {"mean": float(np.mean(prefill_s)) * 1e3,
+                           "median": float(np.median(prefill_s)) * 1e3},
+            "decode_step_ms_at_full_slots": {
+                "mean": float(np.mean(step_s)) * 1e3,
+                "median": float(np.median(step_s)) * 1e3},
+            "tokens_per_s": tokens_per_s, "gpu": gpu_line()}
+
+
+def phase_lm(device) -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.serving.engine import Engine
+    torch.cuda.reset_peak_memory_stats()
+    cfg, model, params, tok, engine, prompts, requests = lm_setup(device)
+    lens = [len(tok.encode(p)) for p in prompts]
+
+    # the main path, every launch counter reset just before it
     reset_counts()
     got, wall, prefill_s, step_s = greedy_run(engine, requests())
     launches = counts()
     for name in ATTN_KERNELS:
         if launches[name] < 1:
             fail(f"lm: {name} was not launched on the serving path")
+    if engine.graph is None:
+        fail("lm: the engine's decode step was not captured as a CUDA graph")
+    # every request decodes LM_NEW_TOKENS - 1 tokens after its prefill, the
+    # slots filling and draining together: 2 x 31 steps, K5 in each layer
+    want_k5 = (-(-LM_REQUESTS // LM_SLOTS) * (LM_NEW_TOKENS - 1)
+               * cfg.num_layers)
+    if launches["decode_attention"] != want_k5:
+        fail(f"lm: K5 counted {launches['decode_attention']} launches on the "
+             f"serving path, want {want_k5}")
     tokens_out = sum(len(r.tokens) for r in got)
     if len(got) != LM_REQUESTS or any(len(r.tokens) != LM_NEW_TOKENS
                                       for r in got):
@@ -1743,6 +2028,10 @@ def phase_lm(device) -> dict:
             fail(f"lm: request {i} token {j}: kernel path {a.tokens[j]}, "
                  f"plain path {b.tokens[j]}, plain top-two margin "
                  f"{margins[(i, j)]} >= {LOGIT_TOL}")
+    replay_err = replay_vs_eager(engine, tok, prompts)
+    if not replay_err <= LOGIT_TOL:
+        fail(f"lm: replayed decode graph vs eager decode_step differ by "
+             f"{replay_err} > {LOGIT_TOL}")
     profiled = profile_decode(engine, tok, prompts)
     out = {"phase": "lm", "config": "memori-agent", "layers": cfg.num_layers,
            "d_model": cfg.d_model, "heads": [cfg.num_heads, cfg.num_kv_heads],
@@ -1753,6 +2042,7 @@ def phase_lm(device) -> dict:
                              "max": max(lens)},
            "launches": launches,
            "prefill_ms_per_request": float(np.mean(prefill_s)) * 1e3,
+           "prefill_ms_median": float(np.median(prefill_s)) * 1e3,
            "decode_step_ms_at_full_slots": float(np.median(step_s)) * 1e3,
            "decode_steps_at_full_slots": len(step_s),
            "tokens_per_s": tokens_out / wall, "wall_s": wall,
@@ -1769,6 +2059,10 @@ def phase_lm(device) -> dict:
                    "plain_near_tie_steps": near_ties,
                    "sampled_steps": len(margins),
                    "diverged_at_near_tie": diverged}},
+           "decode_graph": {"replayed_vs_eager_max_abs": replay_err,
+                            "captured_launches": {
+                                f.__name__: d
+                                for f, d in engine.graph.deltas.items()}},
            "profiled_step": profiled,
            "allow_tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
                           "cudnn": torch.backends.cudnn.allow_tf32},
@@ -1892,11 +2186,17 @@ def main(argv=None) -> int:
                     help="bank rows the serve phases fill to")
     ap.add_argument("--reps", type=int, default=20,
                     help="timed repetitions per measurement")
+    ap.add_argument("--serving-times", type=int, default=0, metavar="ROUNDS",
+                    help="only time the lm phase's serving run ROUNDS times "
+                         "and print its numbers (no checks)")
+    ap.add_argument("--src", default=SRC,
+                    help="the source tree to import the port from (an A/B "
+                         "of --serving-times against another checkout)")
     args = ap.parse_args(argv)
-    if not os.path.isdir(os.path.join(SRC, "repro_torch")):
+    if not os.path.isdir(os.path.join(args.src, "repro_torch")):
         sys.exit("chip_smoke: run from a checkout of the repository "
-                 f"(no {os.path.join(SRC, 'repro_torch')})")
-    sys.path.insert(0, SRC)
+                 f"(no {os.path.join(args.src, 'repro_torch')})")
+    sys.path.insert(0, os.path.abspath(args.src))
     import torch
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is False — this "
@@ -1907,10 +2207,13 @@ def main(argv=None) -> int:
     # yardsticks included): TF32 keeps ~3 decimal digits
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.serving_times:
+        emit({**serving_times(device, args.serving_times), "src": args.src})
+        return 0
     t_start = time.perf_counter()
     build = phase_build()
     kern = phase_kernels(device, args.reps, build)["kernels"]
-    attn = phase_attention(device, args.reps)["kernels"]
+    attn = phase_attention(device, args.reps, build)["kernels"]
     ops = phase_ops(device)
     templates = make_templates(device)
     reps = max(3, args.reps // 4)

@@ -1,6 +1,8 @@
 """Small shared helpers: integer rounding, deterministic hashing, devices."""
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -46,3 +48,16 @@ def resolve_device(device) -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {device!r}: 'cuda' or 'cpu'")
     return dev
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of CUDA `device` (its index, or the
+    current device when it has none)."""
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    return _sm_count(index)

@@ -7,42 +7,55 @@
 // kv_len (B,) int32 on the device.  For batch row b the allowed keys are the
 // positions t < kv_len[b] (and t > kv_len[b] - 1 - window when window > 0);
 // output = softmax(q . k * scale) over them . v, finalised as
-// acc / max(l, 1e-37), in q's dtype.  Cache rows past kv_len (stale rows of
-// an earlier occupant of the slot) are never read.  bf16 converts at
-// staging; all arithmetic is plain FP32.
+// acc / max(l, 1e-37), in q's dtype; a row with no allowed key outputs 0.
+// Cache rows past kv_len (stale rows of an earlier occupant of the slot) are
+// never read.  bf16 converts on the way out of shared memory; all arithmetic
+// is plain FP32.
 //
 // What bounds it: bytes.  Each allowed cache row is read once for all G
 // heads, 2 * D * 4 bytes per (row, kv-head) in f32, against 4 * G * D flops:
 // G/2 flops per byte, far below the card's ~20 FP32 flops per byte.  At the
-// agent's decode step (8 slots, K=4, kv_len ~150-200, D=64) that is ~3 MB,
-// ~1 us at 3.35 TB/s, so a launch costs more than the work.
+// agent's decode step (8 slots, K=4, kv_len ~170, D=64) that is ~3 MB, ~1 us
+// at 3.35 TB/s, so latency and launches cost more than the work.
 //
 // Design (the TPU kernel walks T in order inside one core; a CTA per
 // (b, kv-head) would leave most of 132 SMs idle at 8 slots x 4 kv-heads):
-//   pass 1  grid (T-split, kv-head, batch row).  Each CTA reads kv_len[b]
-//           on the device and returns at once when its split of T holds no
-//           allowed position; otherwise it streams its split in 64-row tiles
-//           through shared memory, computes the G x 64 scores, updates the
-//           per-head running max and sum (one warp per head, shuffles) and
-//           the G x D accumulator (registers), and writes the split's
-//           partial (m, l, acc) to scratch the wrapper allocates.
-//   pass 2  one CTA per (kv-head, batch row) merges the splits' partials:
-//           M = max m, L = sum l e^(m-M), out = sum acc e^(m-M) / max(L, 1e-37).
-//           A split with no allowed position wrote l = 0 and is skipped.
+//   * one launch, grid (split, kv-head, batch row) fixed by the shape, so a
+//     CUDA graph can hold it.  Each CTA reads kv_len[b] on the device and
+//     takes split `blockIdx.x` of the allowed range
+//     [max(0, kv_len - window), min(kv_len, T)) cut into n_split near-equal
+//     pieces (`split_range`, mirrored by kernels/decode_attention.py), so
+//     every CTA of a (b, kv-head) has about the same rows whatever kv_len;
+//   * 32-row tiles of K and V stream through a ring of 2-3 tiles in shared
+//     memory by 16-byte cp.async (plain loads when a row is not 16-byte
+//     aligned), so the next tile's copy overlaps this tile's math;
+//   * warp w owns heads w, w+4, w+8, w+12; lane j scores key j of the tile
+//     for those heads (float4 reads of its K row against the broadcast
+//     query), the warp keeps the running max and sum with shuffles, and
+//     P.V walks the tile's keys with p broadcast by shuffle and each lane
+//     holding float4 columns of the accumulator (lane groups take keys in
+//     turn when D/4 < 32 and are summed at the end);
+//   * each CTA writes its (m, l, acc) to a workspace the wrapper keeps, then
+//     takes a ticket (__threadfence + atomicAdd on a per-(b, kv-head)
+//     counter); the last CTA to arrive merges the splits in split order and
+//     resets the counter to 0 for the next call or graph replay.  With one
+//     split the CTA writes the output directly.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
 #include <cstdint>
 
+#include "attention_common.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kKeys = 64;   // cache rows per tile
-constexpr int kMaxG = 16;   // query heads per kv-head
-constexpr float kNegInf = -2.0e38f;
+constexpr int kKeys = 32;       // cache rows per tile: one per lane
+constexpr int kMaxG = 16;       // query heads per kv-head
+constexpr int kHeadsPerWarp = kMaxG / kWarps;
+constexpr int kMaxSplits = 32;  // splits of one (b, kv-head)
 
 struct Strides {  // element strides; D has stride 1
   long long q[3];  // b, k, g
@@ -51,231 +64,332 @@ struct Strides {  // element strides; D has stride 1
   long long o[3];  // b, k, g
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16_rn(x); }
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
+  return x;
+}
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
 
+// Split `split` of n_split of the allowed range [max(0, kv_len - window),
+// min(kv_len, T)) of n rows: rows [n * split / n_split, n * (split + 1) /
+// n_split) of it, so the pieces differ by at most one row and none is
+// empty while n >= n_split.  kernels/decode_attention.py `split_range` is
+// the same.
+__device__ __forceinline__ void split_range(int kl, int T_len, int window, int n_split,
+                                            int split, int* lo, int* hi) {
+  const int hi_all = max(0, min(kl, T_len));
+  const int lo_all = window > 0 ? max(0, kl - window) : 0;
+  const long long n = max(0, hi_all - lo_all);
+  *lo = lo_all + (int)(n * split / n_split);
+  *hi = lo_all + (int)(n * (split + 1) / n_split);
+}
+
+// shared-memory row of a K/V tile: DP elements plus 16 bytes, so rows stay
+// 16-byte aligned for cp.async and lanes reading their own rows hit
+// different banks
+template <typename T, int DP>
+__host__ __device__ constexpr int row_elems() { return DP + 16 / (int)sizeof(T); }
 template <int DP>
-constexpr size_t smem_floats(int G) {
-  return (size_t)G * DP                 // queries
-         + (size_t)kKeys * (DP + 1)     // K tile
-         + (size_t)kKeys * DP           // V tile
-         + (size_t)G * kKeys            // scores, then probabilities
-         + 3 * (size_t)G;               // m, l, correction per head
+__host__ __device__ constexpr int ring_stages() { return DP >= 256 ? 2 : 3; }
+
+template <typename T, int DP>
+constexpr size_t smem_bytes(int G) {
+  return (size_t)G * DP * sizeof(float) +
+         (size_t)ring_stages<DP>() * 2 * kKeys * row_elems<T, DP>() * sizeof(T);
 }
 
 template <typename T, int DP>
-__global__ void __launch_bounds__(kThreads)
-decode_partial_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const int* __restrict__ kv_len,
-                      int G, int T_len, int D, float scale, int window, int chunk,
-                      Strides st, float* __restrict__ part_ml,
-                      float* __restrict__ part_acc) {
-  constexpr int kAcc = (kMaxG * DP + kThreads - 1) / kThreads;
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + G * DP;
-  float* Vs = Ks + kKeys * (DP + 1);
-  float* Ps = Vs + kKeys * DP;
-  float* ms = Ps + G * kKeys;
-  float* ls = ms + G;
-  float* cs = ls + G;
+__global__ void __launch_bounds__(kThreads, 1)
+decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const int* __restrict__ kv_len,
+                        T* __restrict__ out, int G, int T_len, int D, float scale,
+                        int window, int vec, Strides st, float* __restrict__ part_ml,
+                        float* __restrict__ part_acc, int* __restrict__ counters) {
+  constexpr int RS = row_elems<T, DP>();
+  constexpr int NS = ring_stages<DP>();
+  constexpr int CH = DP / 4;                   // float4 columns of a row
+  constexpr int LG = CH < 32 ? 32 / CH : 1;    // lane groups walking keys in turn
+  constexpr int CPL = CH < 32 ? 1 : CH / 32;   // float4 columns per lane
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Qs = reinterpret_cast<float*>(smem_raw);
+  T* ring = reinterpret_cast<T*>(smem_raw + (size_t)G * DP * sizeof(float));
+  __shared__ int is_last;
+  __shared__ float split_m[kMaxG][kMaxSplits];       // the merge's maxima,
+  __shared__ float weights[kMaxG][kMaxSplits + 1];  // sums, then weights
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int split = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
   const int n_split = gridDim.x;
-  const size_t part = ((size_t)(b * gridDim.y + kh) * n_split + split) * G;
-  const int kl = kv_len[b];
-  int lo = split * chunk;
-  const int hi = min(lo + chunk, min(kl, T_len));
-  if (window > 0) lo = max(lo, kl - window);
-  if (lo >= hi) {  // no allowed position in this split
-    for (int g = tid; g < G; g += kThreads) {
-      part_ml[(part + g) * 2] = kNegInf;
-      part_ml[(part + g) * 2 + 1] = 0.f;
+  const int bk = b * gridDim.y + kh;
+  const int lg = lane / CH % LG, col = CH < 32 ? lane % CH : lane;
+  int lo, hi;
+  split_range(kv_len[b], T_len, window, n_split, split, &lo, &hi);
+  const int n = max(0, hi - lo);
+
+  float m[kHeadsPerWarp], l[kHeadsPerWarp];
+  float4 acc[kHeadsPerWarp][CPL];
+#pragma unroll
+  for (int h = 0; h < kHeadsPerWarp; ++h) {
+    m[h] = kNegInf;
+    l[h] = 0.f;
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) acc[h][c] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+
+  if (n > 0) {
+    const T* qb = q + b * st.q[0] + kh * st.q[1];
+    const T* kb = k + b * st.k[0] + kh * st.k[1];
+    const T* vb = v + b * st.v[0] + kh * st.v[1];
+    const int ntiles = (n + kKeys - 1) / kKeys;
+    auto stage = [&](int t) {
+      T* Ks = ring + (size_t)(t % NS) * 2 * kKeys * RS;
+      const int r0 = lo + t * kKeys;
+      stage_tile<T, RS, kThreads>(Ks, Ks + kKeys * RS, kb, vb, st.k[2], st.v[2], r0,
+                                  min(kKeys, hi - r0), D, vec, tid);
+    };
+#pragma unroll
+    for (int t = 0; t < NS - 1; ++t) {
+      if (t < ntiles) stage(t);
+      else cp_async_commit();
+    }
+    // the query, while the first tiles are in flight
+    for (int i = tid; i < G * DP; i += kThreads) {
+      const int g = i / DP, d = i % DP;
+      Qs[i] = d < D ? to_f32(qb[g * st.q[2] + d]) : 0.f;
+    }
+    if (D < DP) {  // the ring's columns past D are never copied: zero them once
+      for (int i = tid; i < NS * 2 * kKeys * (DP - D); i += kThreads)
+        store(ring + (size_t)(i / (DP - D)) * RS + D + i % (DP - D), 0.f);
+    }
+    for (int t = 0; t < ntiles; ++t) {
+      if (t + NS - 1 < ntiles) stage(t + NS - 1);
+      else cp_async_commit();
+      cp_async_wait<NS - 1>();
+      __syncthreads();  // tile t (and the query, the zeroed columns) visible
+      const T* Ks = ring + (size_t)(t % NS) * 2 * kKeys * RS;
+      const T* Vs = Ks + kKeys * RS;
+      const int rows = min(kKeys, hi - (lo + t * kKeys));
+      const bool valid = lane < rows;
+
+      float sc[kHeadsPerWarp];
+#pragma unroll
+      for (int h = 0; h < kHeadsPerWarp; ++h) sc[h] = 0.f;
+      const T* krow = Ks + lane * RS;
+#pragma unroll 4
+      for (int d = 0; d < DP; d += 4) {
+        const float4 kv = load4(krow + d);
+#pragma unroll
+        for (int h = 0; h < kHeadsPerWarp; ++h) {
+          const int g = warp + kWarps * h;
+          if (g < G) sc[h] = dot4(*reinterpret_cast<const float4*>(Qs + g * DP + d), kv, sc[h]);
+        }
+      }
+      float p[kHeadsPerWarp];
+#pragma unroll
+      for (int h = 0; h < kHeadsPerWarp; ++h) {
+        p[h] = 0.f;
+        if (warp + kWarps * h >= G) continue;  // warp-uniform
+        const float s = sc[h] * scale;
+        const float m_new = fmaxf(m[h], warp_max(valid ? s : kNegInf));
+        const float corr = expf(m[h] - m_new);
+        p[h] = valid ? expf(s - m_new) : 0.f;
+        l[h] = l[h] * corr + warp_sum(p[h]);
+        m[h] = m_new;
+#pragma unroll
+        for (int c = 0; c < CPL; ++c) {
+          acc[h][c].x *= corr;
+          acc[h][c].y *= corr;
+          acc[h][c].z *= corr;
+          acc[h][c].w *= corr;
+        }
+      }
+      for (int j0 = 0; j0 < rows; j0 += LG) {
+        const int j = j0 + lg;
+        float4 vx[CPL];
+#pragma unroll
+        for (int c = 0; c < CPL; ++c)
+          vx[c] = j < rows ? load4(Vs + j * RS + 4 * (col + 32 * c)) : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+        for (int h = 0; h < kHeadsPerWarp; ++h) {
+          if (warp + kWarps * h >= G) continue;  // warp-uniform
+          const float pj = __shfl_sync(0xffffffffu, p[h], j & 31);
+#pragma unroll
+          for (int c = 0; c < CPL; ++c) {
+            acc[h][c].x = fmaf(pj, vx[c].x, acc[h][c].x);
+            acc[h][c].y = fmaf(pj, vx[c].y, acc[h][c].y);
+            acc[h][c].z = fmaf(pj, vx[c].z, acc[h][c].z);
+            acc[h][c].w = fmaf(pj, vx[c].w, acc[h][c].w);
+          }
+        }
+      }
+      __syncthreads();  // tile t consumed: its buffer may be refilled
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < kHeadsPerWarp; ++h) {  // sum the lane groups' keys
+#pragma unroll
+    for (int c = 0; c < CPL; ++c) {
+#pragma unroll
+      for (int off = CH; off < 32; off <<= 1) {
+        acc[h][c].x += __shfl_xor_sync(0xffffffffu, acc[h][c].x, off);
+        acc[h][c].y += __shfl_xor_sync(0xffffffffu, acc[h][c].y, off);
+        acc[h][c].z += __shfl_xor_sync(0xffffffffu, acc[h][c].z, off);
+        acc[h][c].w += __shfl_xor_sync(0xffffffffu, acc[h][c].w, off);
+      }
+    }
+  }
+
+  if (n_split == 1) {  // the whole range in this CTA: finalise here
+#pragma unroll
+    for (int h = 0; h < kHeadsPerWarp; ++h) {
+      const int g = warp + kWarps * h;
+      if (g >= G || lg != 0) continue;
+      T* ob = out + b * st.o[0] + kh * st.o[1] + g * st.o[2];
+      const float inv = 1.f / fmaxf(l[h], 1e-37f);
+#pragma unroll
+      for (int c = 0; c < CPL; ++c) {
+        const int d0 = 4 * (col + 32 * c);
+        const float a[4] = {acc[h][c].x, acc[h][c].y, acc[h][c].z, acc[h][c].w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (d0 + e < D) store(ob + d0 + e, a[e] * inv);
+      }
     }
     return;
   }
 
-  const T* qb = q + b * st.q[0] + kh * st.q[1];
-  const T* kb = k + b * st.k[0] + kh * st.k[1];
-  const T* vb = v + b * st.v[0] + kh * st.v[1];
-  for (int i = tid; i < G * DP; i += kThreads) {
-    const int g = i / DP, d = i % DP;
-    Qs[i] = d < D ? to_f32(qb[g * st.q[2] + d]) : 0.f;
+  // this split's partial state, then the ticket
+  const size_t part = ((size_t)bk * n_split + split) * G;
+#pragma unroll
+  for (int h = 0; h < kHeadsPerWarp; ++h) {
+    const int g = warp + kWarps * h;
+    if (g >= G || lg != 0) continue;
+    if (lane == 0) {
+      part_ml[(part + g) * 2] = m[h];
+      part_ml[(part + g) * 2 + 1] = l[h];
+    }
+#pragma unroll
+    for (int c = 0; c < CPL; ++c)
+      *reinterpret_cast<float4*>(part_acc + (part + g) * DP + 4 * (col + 32 * c)) = acc[h][c];
   }
-  for (int g = tid; g < G; g += kThreads) {
-    ms[g] = kNegInf;
-    ls[g] = 0.f;
-  }
-  float acc[kAcc];
-#pragma unroll
-  for (int a = 0; a < kAcc; ++a) acc[a] = 0.f;
-
-  for (int t0 = lo; t0 < hi; t0 += kKeys) {
-    const int n = min(kKeys, hi - t0);
-    __syncthreads();  // the previous tile is consumed (and Qs, ms, ls are set)
-    for (int i = tid; i < kKeys * DP; i += kThreads) {
-      const int j = i / DP, d = i % DP;
-      float kx = 0.f, vx = 0.f;
-      if (j < n && d < D) {
-        kx = to_f32(kb[(t0 + j) * st.k[2] + d]);
-        vx = to_f32(vb[(t0 + j) * st.v[2] + d]);
-      }
-      Ks[j * (DP + 1) + d] = kx;
-      Vs[j * DP + d] = vx;
-    }
-    __syncthreads();
-    for (int i = tid; i < G * kKeys; i += kThreads) {
-      const int g = i / kKeys, j = i % kKeys;
-      float s = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < DP; ++d) s = fmaf(Qs[g * DP + d], Ks[j * (DP + 1) + d], s);
-      Ps[i] = s * scale;
-    }
-    __syncthreads();
-    for (int g = warp; g < G; g += kWarps) {  // warp-uniform
-      const float m_old = ms[g];
-      float mx = kNegInf;
-      for (int j = lane; j < n; j += 32) mx = fmaxf(mx, Ps[g * kKeys + j]);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-      for (int j = lane; j < kKeys; j += 32) {
-        const float p = j < n ? expf(Ps[g * kKeys + j] - m_new) : 0.f;
-        Ps[g * kKeys + j] = p;
-        sum += p;
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      if (lane == 0) {
-        const float corr = expf(m_old - m_new);
-        cs[g] = corr;
-        ls[g] = ls[g] * corr + sum;
-        ms[g] = m_new;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int a = 0; a < kAcc; ++a) {
-      const int i = tid + a * kThreads;
-      if (i < G * DP) {
-        const int g = i / DP, d = i % DP;
-        float x = acc[a] * cs[g];
-        for (int j = 0; j < n; ++j) x = fmaf(Ps[g * kKeys + j], Vs[j * DP + d], x);
-        acc[a] = x;
-      }
-    }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    const int ticket = atomicAdd(counters + bk, 1);
+    is_last = ticket == n_split - 1;
+    if (is_last) counters[bk] = 0;  // every split has arrived: reset for the next call
   }
   __syncthreads();
-  for (int g = tid; g < G; g += kThreads) {
-    part_ml[(part + g) * 2] = ms[g];
-    part_ml[(part + g) * 2 + 1] = ls[g];
-  }
-#pragma unroll
-  for (int a = 0; a < kAcc; ++a) {
-    const int i = tid + a * kThreads;
-    if (i < G * DP) {
-      const int g = i / DP, d = i % DP;
-      if (d < D) part_acc[(part + g) * D + d] = acc[a];
-    }
-  }
-}
+  if (!is_last) return;
+  __threadfence();
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-decode_combine_kernel(const float* __restrict__ part_ml,
-                      const float* __restrict__ part_acc, T* __restrict__ out,
-                      int G, int D, int n_split, Strides st) {
-  const int kh = blockIdx.x, b = blockIdx.y;
-  const size_t base = (size_t)(b * gridDim.x + kh) * n_split;
-  for (int i = threadIdx.x; i < G * D; i += kThreads) {
-    const int g = i / D, d = i % D;
+  // merge the splits in split order (the same sums whichever CTA is last):
+  // M = max m, w_s = e^(m_s - M), L = sum l_s w_s, out = sum acc_s w_s /
+  // max(L, 1e-37); a split with no allowed row has l = 0 and weight 0
+  const size_t base = (size_t)bk * n_split;
+  for (int i = tid; i < G * n_split; i += kThreads) {  // every (m, l) in one round trip
+    const int g = i / n_split, s = i % n_split;
+    const size_t pi = (base + s) * G + g;
+    split_m[g][s] = __ldcg(part_ml + pi * 2);
+    weights[g][s] = __ldcg(part_ml + pi * 2 + 1);
+  }
+  __syncthreads();
+  if (tid < G) {  // one thread a head: its weights and their sum
+    const int g = tid;
     float M = kNegInf;
+    for (int s = 0; s < n_split; ++s)
+      if (weights[g][s] > 0.f) M = fmaxf(M, split_m[g][s]);
+    float L = 0.f;
     for (int s = 0; s < n_split; ++s) {
-      const size_t p = (base + s) * G + g;
-      if (part_ml[p * 2 + 1] > 0.f) M = fmaxf(M, part_ml[p * 2]);
+      const float ls = weights[g][s];
+      const float w = ls > 0.f ? expf(split_m[g][s] - M) : 0.f;
+      weights[g][s] = w;
+      L = fmaf(ls, w, L);
     }
-    float L = 0.f, A = 0.f;
+    weights[g][kMaxSplits] = fmaxf(L, 1e-37f);
+  }
+  __syncthreads();
+  for (int i = tid; i < G * D; i += kThreads) {
+    const int g = i / D, d = i % D;
+    float A = 0.f;
     for (int s = 0; s < n_split; ++s) {
-      const size_t p = (base + s) * G + g;
-      const float l = part_ml[p * 2 + 1];
-      if (l > 0.f) {
-        const float w = expf(part_ml[p * 2] - M);
-        L = fmaf(l, w, L);
-        A = fmaf(part_acc[p * D + d], w, A);
-      }
+      const float w = weights[g][s];
+      if (w > 0.f) A = fmaf(__ldcg(part_acc + ((base + s) * G + g) * DP + d), w, A);
     }
-    store(out + b * st.o[0] + kh * st.o[1] + g * st.o[2] + d, A / fmaxf(L, 1e-37f));
+    store(out + b * st.o[0] + kh * st.o[1] + g * st.o[2] + d, A / weights[g][kMaxSplits]);
   }
 }
 
 template <typename T, int DP>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* kv_len,
                    void* out, int B, int K, int G, int T_len, int D, float scale,
-                   int window, int n_split, int chunk, const Strides& st,
-                   float* part_ml, float* part_acc, cudaStream_t stream) {
+                   int window, int n_split, int vec, const Strides& st,
+                   float* part_ml, float* part_acc, int* counters, cudaStream_t stream) {
   static int attr_device = -1;  // the shared-memory ceiling is per device
   int device;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
   if (device != attr_device) {
-    err = cudaFuncSetAttribute(decode_partial_kernel<T, DP>,
+    err = cudaFuncSetAttribute(decode_attention_kernel<T, DP>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)(smem_floats<DP>(kMaxG) * sizeof(float)));
+                               (int)smem_bytes<T, DP>(kMaxG));
     if (err != cudaSuccess) return err;
     attr_device = device;
   }
-  decode_partial_kernel<T, DP><<<dim3(n_split, K, B), kThreads,
-                                 smem_floats<DP>(G) * sizeof(float), stream>>>(
+  decode_attention_kernel<T, DP><<<dim3(n_split, K, B), kThreads, smem_bytes<T, DP>(G),
+                                   stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      kv_len, G, T_len, D, scale, window, chunk, st, part_ml, part_acc);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  decode_combine_kernel<T><<<dim3(K, B), kThreads, 0, stream>>>(
-      part_ml, part_acc, static_cast<T*>(out), G, D, n_split, st);
+      kv_len, static_cast<T*>(out), G, T_len, D, scale, window, vec, st, part_ml,
+      part_acc, counters);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_dtype(const void* q, const void* k, const void* v, const int* kv_len,
                          void* out, int B, int K, int G, int T_len, int D, float scale,
-                         int window, int n_split, int chunk, const Strides& st,
-                         float* part_ml, float* part_acc, cudaStream_t s) {
-  if (D <= 32) return launch<T, 32>(q, k, v, kv_len, out, B, K, G, T_len, D, scale, window, n_split, chunk, st, part_ml, part_acc, s);
-  if (D <= 64) return launch<T, 64>(q, k, v, kv_len, out, B, K, G, T_len, D, scale, window, n_split, chunk, st, part_ml, part_acc, s);
-  if (D <= 128) return launch<T, 128>(q, k, v, kv_len, out, B, K, G, T_len, D, scale, window, n_split, chunk, st, part_ml, part_acc, s);
-  return launch<T, 256>(q, k, v, kv_len, out, B, K, G, T_len, D, scale, window, n_split, chunk, st, part_ml, part_acc, s);
+                         int window, int n_split, int vec, const Strides& st,
+                         float* part_ml, float* part_acc, int* counters, cudaStream_t s) {
+  if (D <= 32) return launch<T, 32>(q, k, v, kv_len, out, B, K, G, T_len, D, scale, window, n_split, vec, st, part_ml, part_acc, counters, s);
+  if (D <= 64) return launch<T, 64>(q, k, v, kv_len, out, B, K, G, T_len, D, scale, window, n_split, vec, st, part_ml, part_acc, counters, s);
+  if (D <= 128) return launch<T, 128>(q, k, v, kv_len, out, B, K, G, T_len, D, scale, window, n_split, vec, st, part_ml, part_acc, counters, s);
+  return launch<T, 256>(q, k, v, kv_len, out, B, K, G, T_len, D, scale, window, n_split, vec, st, part_ml, part_acc, counters, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Largest grouped-query count and head dimension the kernel takes.
+// Largest grouped-query count, head dimension and split count the kernel
+// takes.
 int decode_attention_max_group() { return kMaxG; }
 int decode_attention_max_head_dim() { return 256; }
+int decode_attention_max_splits() { return kMaxSplits; }
 
-// Launch both passes on `stream`.  dtype 0 = f32, 1 = bf16 (q, k, v and out
-// alike).  `strides` holds 12 element strides: q (b, k, g), k (b, k, t),
-// v (b, k, t), out (b, k, g).  The cache's T axis is cut into n_split splits
-// of `chunk` rows (n_split * chunk >= T); part_ml holds B*K*n_split*G*2 and
-// part_acc B*K*n_split*G*D floats.  Returns the CUDA error code (0 on
-// success).
+// Launch on `stream`.  dtype 0 = f32, 1 = bf16 (q, k, v and out alike).
+// `strides` holds 12 element strides: q (b, k, g), k (b, k, t), v (b, k, t),
+// out (b, k, g).  `vec` = 1 when k and v may be copied by 16-byte cp.async
+// (D * element size, the b/k/t strides in bytes and both bases are 16-byte
+// multiples).  With n_split > 1: part_ml holds B*K*n_split*G*2 and part_acc
+// B*K*n_split*G*DP floats (DP = D rounded up to 32, 64, 128 or 256), and
+// counters B*K ints that are 0 before the call and 0 again after it.
+// Returns the CUDA error code (0 on success).
 int decode_attention_launch(int dtype, const void* q, const void* k, const void* v,
                             const int* kv_len, void* out, int B, int K, int G,
                             int T_len, int D, float scale, int window, int n_split,
-                            int chunk, const long long* strides, float* part_ml,
-                            float* part_acc, void* stream) {
+                            int vec, const long long* strides, float* part_ml,
+                            float* part_acc, int* counters, void* stream) {
   if (B < 0 || K < 0 || G < 0 || G > kMaxG || T_len < 1 || D < 1 || D > 256 ||
-      window < 0 || n_split < 1 || chunk < 1 || (long long)n_split * chunk < T_len ||
-      strides == nullptr || (dtype != 0 && dtype != 1))
+      window < 0 || n_split < 1 || n_split > kMaxSplits || strides == nullptr ||
+      (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   if (B == 0 || K == 0 || G == 0) return 0;
-  if (K > 65535 || B > 65535 || kv_len == nullptr || part_ml == nullptr ||
-      part_acc == nullptr)
+  if (K > 65535 || B > 65535 || kv_len == nullptr ||
+      (n_split > 1 && (part_ml == nullptr || part_acc == nullptr || counters == nullptr)))
     return (int)cudaErrorInvalidValue;
   Strides st;
   for (int i = 0; i < 3; ++i) {
@@ -286,8 +400,8 @@ int decode_attention_launch(int dtype, const void* q, const void* k, const void*
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      dtype == 0 ? launch_dtype<float>(q, k, v, kv_len, out, B, K, G, T_len, D, scale, window, n_split, chunk, st, part_ml, part_acc, s)
-                 : launch_dtype<__nv_bfloat16>(q, k, v, kv_len, out, B, K, G, T_len, D, scale, window, n_split, chunk, st, part_ml, part_acc, s);
+      dtype == 0 ? launch_dtype<float>(q, k, v, kv_len, out, B, K, G, T_len, D, scale, window, n_split, vec, st, part_ml, part_acc, counters, s)
+                 : launch_dtype<__nv_bfloat16>(q, k, v, kv_len, out, B, K, G, T_len, D, scale, window, n_split, vec, st, part_ml, part_acc, counters, s);
   return (int)err;
 }
 

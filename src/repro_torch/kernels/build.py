@@ -3,9 +3,9 @@
 Each source `csrc/<name>.cu` is compiled by `nvcc` for `sm_90a` into a
 shared library with a plain C interface and loaded with `ctypes` (no
 PyTorch headers: a build takes seconds, not minutes).  Libraries land in
-`<repo>/build/kernels/`, named by a hash of the source and the flags, so
-an edited source rebuilds and an unchanged one is reused.  A failed build
-raises; nothing falls back to another path.
+`<repo>/build/kernels/`, named by a hash of the source, the shared headers
+and the flags, so an edited source or header rebuilds and an unchanged one
+is reused.  A failed build raises; nothing falls back to another path.
 """
 from __future__ import annotations
 
@@ -38,7 +38,10 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    """The library's path, tagged by a hash of the source, the shared
+    headers (`csrc/*.cuh`) and the flags."""
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 

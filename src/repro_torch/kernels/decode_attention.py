@@ -15,13 +15,26 @@ kv_len never reach the output, whatever they hold.
 
 What bounds it on an H100: bytes — every allowed cache row is read once
 for the G heads that share it, 2·D·4 bytes per (row, kv-head) in f32
-against 4·G·D flops.  The kernel splits T across CTAs so that the
-engine's few slots fill the card (`plan_splits`), then merges the splits'
-partial softmax states in a second small kernel; both run in plain FP32.
+against 4·G·D flops.  One launch a call: the grid (split, kv-head, batch
+row) is fixed by the shape (`plan_splits`), each CTA takes its share of
+the allowed range from kv_len on the device (`split_range`), and the last
+CTA of each (b, kv-head) merges the splits' partial softmax states; all
+arithmetic is plain FP32.
 
 The cache is read through its strides (D must have stride 1): the engine's
 (B, T, K, D) per-layer cache goes in as a permuted view, never copied.
-`kv_len` stays on the device; a split past it returns at once.
+`kv_len` stays on the device, so a captured call (a CUDA graph) stays right
+when kv_len changes between replays.
+
+Host path: the first call of a (device, dtypes, shapes, strides, window,
+scale, alignment) checks its operands and builds a launch plan — the split
+count, the ctypes stride array and a persistent workspace (the partials,
+and one arrival counter per (b, kv-head) that the kernel leaves at 0).
+Later calls look the plan up, allocate the output and make one ctypes
+call.  A plan must be built outside any graph capture (an eager call
+first); building one while capturing raises.  Calls that share a plan share
+its workspace, so they must be ordered on one stream, as the engine makes
+them: two calls of one shape on two streams at once would race.
 
 A CPU tensor runs the plain PyTorch version (`decode_attention_ref`, the
 reference's oracle `ref.decode_attention_ref`); a CUDA tensor launches the
@@ -31,15 +44,18 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Dict, NamedTuple
 
 import torch
 
+from repro_torch.common.utils import sm_count
 from repro_torch.kernels.flash_attention import (DTYPES, MAX_HEAD_DIM,
-                                                 NEG_INF, check_operand)
+                                                 NEG_INF, check_operand,
+                                                 cp_async_ok, padded_head_dim)
 
 MAX_GROUP = 16      # query heads per kv-head (kMaxG in the source)
-TILE = 64           # cache rows per tile (kKeys in the source)
-CTAS_PER_SM = 4     # the split plan's target occupancy
+MAX_SPLITS = 32     # splits of one (b, kv-head) (kMaxSplits in the source)
+CTAS_PER_SM = 2     # the split plan's target occupancy
 
 
 def decode_attention_ref(q, k, v, kv_len, *, scale=None, window: int = 0):
@@ -62,19 +78,26 @@ def decode_attention_ref(q, k, v, kv_len, *, scale=None, window: int = 0):
     return out.to(q.dtype)
 
 
-def plan_splits(T: int, B: int, K: int, sms: int):
-    """Cut the cache's T axis into splits of whole tiles so that the
-    (split, kv-head, batch row) grid puts about CTAS_PER_SM CTAs on every
-    SM.  Returns (n_split, rows_per_split)."""
-    tiles = -(-T // TILE)
-    want = max(1, -(-CTAS_PER_SM * sms // max(1, B * K)))
-    per = -(-tiles // min(tiles, want))
-    return -(-tiles // per), per * TILE
+def plan_splits(T: int, B: int, K: int, sms: int) -> int:
+    """The number of CTAs that share one (b, kv-head): about CTAS_PER_SM
+    CTAs on every SM over the (split, kv-head, batch row) grid, at most
+    MAX_SPLITS and T.  It depends on the shape alone, so a captured graph
+    keeps it whatever kv_len does."""
+    want = -(-CTAS_PER_SM * sms // max(1, B * K))
+    return max(1, min(MAX_SPLITS, T, want))
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
+def split_range(kv_len: int, T: int, window: int, n_split: int,
+                split: int):
+    """Rows [lo, hi) of split `split`: of the n rows of the allowed range
+    [max(0, kv_len - window), min(kv_len, T)), rows [n * split // n_split,
+    n * (split + 1) // n_split) — pieces that differ by at most one row,
+    none empty while n >= n_split.  The kernel's `split_range` does the
+    same arithmetic on the device."""
+    hi_all = max(0, min(kv_len, T))
+    lo_all = max(0, kv_len - window) if window > 0 else 0
+    n = max(0, hi_all - lo_all)
+    return lo_all + n * split // n_split, lo_all + n * (split + 1) // n_split
 
 
 @functools.lru_cache(maxsize=None)
@@ -85,19 +108,39 @@ def _library():
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.decode_attention_launch.argtypes = [i, p, p, p, p, p, i, i, i, i, i,
                                             ctypes.c_float, i, i, i, p, p, p,
-                                            p]
+                                            p, p]
     lib.decode_attention_launch.restype = i
-    lib.decode_attention_max_group.restype = i
-    lib.decode_attention_max_head_dim.restype = i
+    for name in ("max_group", "max_head_dim", "max_splits"):
+        getattr(lib, f"decode_attention_{name}").restype = i
     if (lib.decode_attention_max_group() != MAX_GROUP
-            or lib.decode_attention_max_head_dim() != MAX_HEAD_DIM):
-        raise RuntimeError("MAX_GROUP / MAX_HEAD_DIM are out of step with "
-                           "csrc/decode_attention.cu")
+            or lib.decode_attention_max_head_dim() != MAX_HEAD_DIM
+            or lib.decode_attention_max_splits() != MAX_SPLITS):
+        raise RuntimeError("MAX_GROUP / MAX_HEAD_DIM / MAX_SPLITS are out of "
+                           "step with csrc/decode_attention.cu")
     return lib
 
 
-def _launch(q, k, v, kv_len, window: int, scale: float):
+class _Plan(NamedTuple):
+    """What a call of one key needs besides its pointers: the C function,
+    the leading arguments, the ctypes strides, the workspace pointers (the
+    tensors are kept alive here) and the output's shape."""
+    fn: object
+    dims: tuple
+    strides: object
+    workspace: tuple
+    tensors: tuple
+    out_shape: tuple
+
+
+_plans: Dict[tuple, _Plan] = {}
+
+
+def _make_plan(q, k, v, kv_len, window: int, scale: float, vec: bool):
     device = q.device
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError("decode_attention: no launch plan for this shape "
+                           "yet; make one eager call before capturing a "
+                           "graph (the plan allocates its workspace)")
     if q.dtype not in DTYPES:
         raise TypeError(f"decode_attention takes f32 or bf16, got {q.dtype}")
     check_operand("q", q, q.dtype, 4, device)
@@ -119,24 +162,41 @@ def _launch(q, k, v, kv_len, window: int, scale: float):
         raise ValueError(f"cache shape {tuple(k.shape)} beyond the kernel")
     if window < 0:
         raise ValueError(f"window={window} < 0")
-    out = torch.empty((B, K, G, D), dtype=q.dtype, device=device)
+    n_split = plan_splits(T, B, K, sm_count(device))
+    f32 = torch.float32
+    part_ml = torch.empty((B, K, n_split, G, 2), dtype=f32, device=device)
+    part_acc = torch.empty((B, K, n_split, G, padded_head_dim(D)), dtype=f32,
+                           device=device)
+    counters = torch.zeros((B, K), dtype=torch.int32, device=device)
+    out_strides = (K * G * D, G * D, D)
+    strides = (ctypes.c_longlong * 12)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out_strides)
+    return _Plan(
+        fn=_library().decode_attention_launch,
+        dims=(B, K, G, T, D, float(scale), int(window), n_split, int(vec)),
+        strides=strides,
+        workspace=(part_ml.data_ptr(), part_acc.data_ptr(),
+                   counters.data_ptr()),
+        tensors=(part_ml, part_acc, counters), out_shape=(B, K, G, D))
+
+
+def _launch(q, k, v, kv_len, window: int, scale: float):
+    vec = cp_async_ok(q.shape[-1], q.element_size(), k, v)
+    key = (q.device, q.dtype, k.dtype, v.dtype, kv_len.dtype, k.device,
+           v.device, kv_len.device, q.shape, k.shape, v.shape, kv_len.shape,
+           q.stride(), k.stride(), v.stride(), kv_len.stride(), window,
+           scale, vec)
+    plan = _plans.get(key)
+    if plan is None:
+        plan = _plans[key] = _make_plan(q, k, v, kv_len, window, scale, vec)
+    out = torch.empty(plan.out_shape, dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
-    index = device.index if device.index is not None else \
-        torch.cuda.current_device()
-    n_split, chunk = plan_splits(T, B, K, _sm_count(index))
-    part_ml = torch.empty((B, K, n_split, G, 2), dtype=torch.float32,
-                          device=device)
-    part_acc = torch.empty((B, K, n_split, G, D), dtype=torch.float32,
-                           device=device)
-    strides = (ctypes.c_longlong * 12)(
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3])
-    stream = torch.cuda.current_stream(device).cuda_stream
-    rc = _library().decode_attention_launch(
-        DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        kv_len.data_ptr(), out.data_ptr(), B, K, G, T, D, float(scale),
-        int(window), n_split, chunk, strides, part_ml.data_ptr(),
-        part_acc.data_ptr(), ctypes.c_void_p(stream))
+    B, K, G, T, D, fscale, win, n_split, ivec = plan.dims
+    rc = plan.fn(DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 kv_len.data_ptr(), out.data_ptr(), B, K, G, T, D, fscale,
+                 win, n_split, ivec, plan.strides, *plan.workspace,
+                 torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
                            f"error {rc}")

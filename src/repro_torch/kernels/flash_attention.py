@@ -17,7 +17,12 @@ What bounds it on an H100: operations, 4·K·G·D·S·T flops (halved when
 causal) in plain FP32 — 25.8 GFLOP, 0.39 ms at 67 TFLOP/s, for the
 long-context shape K=4, G=3, S=T=4096, D=64 — against 25 MB of inputs.
 The kernel stays in full FP32 (no TF32, no tensor cores) to hold the
-reference's 2e-5; its source explains the CTA layout.
+reference's 2e-5.  It has two CTA shapes (`FLASH_CONFIGS`): a wide one (4
+rows x 4 keys a thread, 64 rows a CTA at D <= 64) for problems that fill
+the card with it, and a narrow one (8 rows a CTA) for small ones such as
+the agent's prefill.  The C launcher picks one from the grid and the SM
+count; `flash_grid` mirrors that choice and `flash_key_range` each CTA's
+key loop.
 
 The kernel reads q, k and v through their strides (D must have stride 1),
 so the model's (B, S, H, D) projections and (B, T, K, D) caches are passed
@@ -27,7 +32,9 @@ folds back to (B, S, H, D) without a copy.
 
 A CPU tensor runs the plain PyTorch version (`flash_attention_ref`, the
 reference's oracle `ref.flash_attention_ref`); a CUDA tensor launches the
-kernel or the call raises.  `flash_attention.launches` counts launches.
+kernel or the call raises.  `flash_attention.launches` counts launches,
+and `flash_attention.rows_per_cta` holds the query rows per CTA of the
+shape the C launcher last launched.
 """
 from __future__ import annotations
 
@@ -80,6 +87,62 @@ def check_operand(what: str, t, dtype, ndim: int, device) -> None:
         raise ValueError(f"{what}'s last axis must have stride 1")
 
 
+# padded head dim -> {narrow: (query rows per CTA, keys per tile)}: the CTA
+# shapes of csrc/flash_attention.cu (`Shape`)
+FLASH_CONFIGS = {
+    32: {False: (64, 32), True: (8, 64)},
+    64: {False: (64, 32), True: (8, 64)},
+    128: {False: (64, 64), True: (8, 64)},
+    256: {False: (32, 32), True: (8, 32)},
+}
+
+
+def padded_head_dim(D: int) -> int:
+    """The kernels' instance for head dim D: D rounded up to 32, 64, 128
+    or 256."""
+    for dp in (32, 64, 128, 256):
+        if D <= dp:
+            return dp
+    raise ValueError(f"head dim {D} > {MAX_HEAD_DIM}")
+
+
+def flash_grid(B: int, K: int, G: int, S: int, D: int, sms: int):
+    """(narrow, query rows per CTA, keys per tile, CTAs): the wide CTA
+    shape when its grid puts at least one CTA on every SM, else the narrow
+    one, as the C launcher decides.  Row block i of a (b, kv-head) holds its flattened (s, g) rows
+    [i * rows, (i + 1) * rows)."""
+    dp = padded_head_dim(D)
+    for narrow in (False, True):
+        rows, keys = FLASH_CONFIGS[dp][narrow]
+        ctas = -(-G * S // rows) * K * B
+        if ctas >= sms or narrow:
+            return narrow, rows, keys, ctas
+
+
+def flash_key_range(r0: int, rows: int, keys: int, G: int, S: int, T: int,
+                    causal: bool, window: int):
+    """Keys [t_begin, t_end) that the CTA of rows [r0, r0 + rows) walks in
+    tiles of `keys` (t_begin a tile boundary): from the first tile a
+    window lets any of its rows see, to the block's last position when
+    causal.  The kernel does the same arithmetic on the device."""
+    s_lo = r0 // G
+    s_hi = (min(r0 + rows, G * S) - 1) // G
+    t_end = min(T, s_hi + 1) if causal else T
+    t_begin = max(0, s_lo - window + 1) if window > 0 else 0
+    return t_begin - t_begin % keys, t_end
+
+
+def cp_async_ok(D: int, esize: int, *tensors) -> bool:
+    """Whether K/V rows of `tensors` may be copied by 16-byte cp.async: D
+    times the element size, each base and each stride of the first three
+    axes are multiples of 16 bytes.  Else the kernels stage with plain
+    loads."""
+    return D * esize % 16 == 0 and all(
+        t.data_ptr() % 16 == 0 and all(s * esize % 16 == 0
+                                       for s in t.stride()[:3])
+        for t in tensors)
+
+
 @functools.lru_cache(maxsize=None)
 def _library():
     """The built kernel library, with its C signature set."""
@@ -87,7 +150,8 @@ def _library():
     lib = load("flash_attention")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.flash_attention_launch.argtypes = [i, p, p, p, p, i, i, i, i, i, i,
-                                           ctypes.c_float, i, i, p, p]
+                                           ctypes.c_float, i, i, i, p, p,
+                                           ctypes.POINTER(i)]
     lib.flash_attention_launch.restype = i
     lib.flash_attention_max_head_dim.restype = i
     if lib.flash_attention_max_head_dim() != MAX_HEAD_DIM:
@@ -112,7 +176,7 @@ def _launch(q, k, v, causal: bool, window: int, scale: float):
         raise ValueError(f"head dim {D} outside [1, {MAX_HEAD_DIM}]")
     if T < 1:
         raise ValueError("flash_attention needs at least one key")
-    if B > 65535 or K > 65535 or max(G * S, T) >= 2 ** 31:
+    if max(G * S, T, B * K * G * S) >= 2 ** 31:
         raise ValueError(f"shape {tuple(q.shape)} beyond the kernel's grid")
     if window < 0:
         raise ValueError(f"window={window} < 0")
@@ -122,15 +186,19 @@ def _launch(q, k, v, causal: bool, window: int, scale: float):
         return out
     strides = (ctypes.c_longlong * 14)(
         *q.stride()[:4], *k.stride()[:3], *v.stride()[:3], *out.stride()[:4])
+    vec = cp_async_ok(D, q.element_size(), k, v)
     stream = torch.cuda.current_stream(device).cuda_stream
+    rows = ctypes.c_int(0)
     rc = _library().flash_attention_launch(
         DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), B, K, G, S, T, D, float(scale), int(bool(causal)),
-        int(window), strides, ctypes.c_void_p(stream))
+        int(window), int(vec), strides, ctypes.c_void_p(stream),
+        ctypes.byref(rows))
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {rc}")
     flash_attention.launches += 1
+    flash_attention.rows_per_cta = rows.value
     return out
 
 
@@ -148,3 +216,4 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 flash_attention.launches = 0
+flash_attention.rows_per_cta = 0

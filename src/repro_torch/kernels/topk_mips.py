@@ -38,6 +38,8 @@ import functools
 
 import torch
 
+from repro_torch.common.utils import sm_count
+
 NEG_INF = -2.0e38
 MAX_K = 2048         # the scan kernel's list length bound (kScanMaxK)
 _TILE_ROWS = 256     # the scan kernel's kTileRows, kSlice, kSliceStride, kBuf,
@@ -219,11 +221,6 @@ def plan_chunks(n_valid: int, Q: int, sms: int, k: int, masked: bool,
 
 
 @functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-@functools.lru_cache(maxsize=None)
 def _library():
     """The built kernel library, with its C signatures set."""
     from repro_torch.kernels.build import load
@@ -304,9 +301,7 @@ def _launch(fn, queries, bank, scales, q_ns, bank_ns, k, n_valid):
     if Q == 0:
         return out_s, out_i
     lib = _library()
-    index = device.index if device.index is not None else \
-        torch.cuda.current_device()
-    n_chunks, _ = plan_chunks(nv, Q, _sm_count(index), k, masked, quant, D)
+    n_chunks, _ = plan_chunks(nv, Q, sm_count(device), k, masked, quant, D)
     part = Q * n_chunks * k    # the chunk lists
     # part_r: the lists' rows, then the score floors and (masked) the
     # compacted row lists

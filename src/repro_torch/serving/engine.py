@@ -8,10 +8,24 @@ place; each `step` runs one batched decode (attention through K5 in every
 layer) and samples the next token of every slot.  The dataflow of the
 reference's `repro/serving/engine.py`, with the PRNG key replaced by an
 explicit `torch.Generator` and the caches updated in place.
+
+The reference jits its decode step; on a CUDA device the engine captures
+`model.decode_step` for its (slots, max_len) as one CUDA graph instead.
+The step's inputs live in static device buffers (`tokens (slots, 1)` and
+`pos (slots,)`, one int32 (slots, 2) tensor); every `step` copies the
+slots' tokens and positions into them and runs the decode, eagerly the
+first time (the warm-up, which also builds the kernels' launch plans) and
+as a replay of the graph captured right after it from then on.  The graph
+writes the caches in place and leaves the logits in its static output;
+sampling stays outside it (the module-level `sample`).  A capture that
+fails raises: on CUDA the graph is the path, with no eager fallback.  A
+CPU engine (which a caller asks for explicitly) runs every step eagerly
+through the same static buffers and builds no graph.  Prefill stays eager:
+every prompt length differs.
 """
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
@@ -20,6 +34,44 @@ from repro_torch.data.tokenizer import EOS_ID, HashTokenizer, default_tokenizer
 from repro_torch.models.model_api import Model
 from repro_torch.serving.requests import Request, Response
 from repro_torch.serving.sampler import SamplerConfig, sample
+
+
+def counted_kernels():
+    """Every kernel wrapper of the port that counts its launches."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import topk_mips as tk
+    return (*tk.KERNELS, fa.flash_attention, da.decode_attention)
+
+
+class CountedGraph:
+    """`fn` captured as a CUDA graph whose replays count kernel launches as
+    eager calls would.  Capturing runs fn's Python once, so each wrapper it
+    calls adds to its `launches` though nothing ran on the device: the
+    capture takes those deltas back out, and every `replay` adds them
+    again.  `graph` and `capture` default to `torch.cuda.CUDAGraph()` and
+    `torch.cuda.graph`."""
+
+    def __init__(self, fn: Callable, *, graph=None, capture=None):
+        self.graph = graph if graph is not None else torch.cuda.CUDAGraph()
+        capture = capture if capture is not None else torch.cuda.graph
+        kernels = counted_kernels()
+        before = [f.launches for f in kernels]
+        try:
+            with capture(self.graph):
+                self.output = fn()
+        finally:
+            deltas = [f.launches - n for f, n in zip(kernels, before)]
+            for f, n in zip(kernels, before):
+                f.launches = n
+        self.deltas = {f: d for f, d in zip(kernels, deltas) if d}
+
+    def replay(self):
+        """Run the captured work once; returns the static output."""
+        self.graph.replay()
+        for f, d in self.deltas.items():
+            f.launches += d
+        return self.output
 
 
 class Engine:
@@ -43,6 +95,13 @@ class Engine:
         self.slot_out: List[List[int]] = [[] for _ in range(slots)]
         self.slot_tokens = np.zeros((slots,), np.int32)
         self.stats = {"decode_steps": 0, "tokens_out": 0, "admitted": 0}
+        # the decode step's static inputs: column 0 the tokens, 1 the positions
+        cuda = self.device.type == "cuda"
+        self._inputs = torch.zeros((slots, 2), dtype=torch.int32,
+                                   device=self.device)
+        self._host_inputs = torch.zeros((slots, 2), dtype=torch.int32,
+                                        pin_memory=cuda)
+        self.graph: Optional[CountedGraph] = None
 
     # -- admission -----------------------------------------------------------
     def _insert_cache(self, slot: int, single_caches) -> None:
@@ -79,11 +138,19 @@ class Engine:
         responses."""
         if not self.slot_active.any():
             return []
-        tokens = torch.from_numpy(self.slot_tokens[:, None].copy()).to(
-            self.device)
-        pos = torch.from_numpy(self.slot_pos.copy()).to(self.device)
-        logits, self.caches = self.model.decode_step(self.params, tokens,
-                                                     self.caches, pos)
+        host = self._host_inputs.numpy()
+        host[:, 0] = self.slot_tokens
+        host[:, 1] = self.slot_pos
+        # the pinned buffer is rewritten only after this step's sample has
+        # come back to the host, so the copy may run ahead of the host
+        self._inputs.copy_(self._host_inputs,
+                           non_blocking=self.device.type == "cuda")
+        if self.graph is not None:
+            logits = self.graph.replay()
+        elif self.device.type == "cuda":
+            logits = self._warm_up_and_capture()
+        else:
+            logits = self.decode()
         nxt = sample(logits, self.generator, self.sampler).cpu().numpy()
         self.stats["decode_steps"] += 1
 
@@ -107,6 +174,27 @@ class Engine:
                 self.slot_req[s] = None
                 self.slot_out[s] = []
         return done
+
+    def decode(self):
+        """One eager decode step on the static inputs (caches written in
+        place) -> logits (slots, 1, V)."""
+        logits, _ = self.model.decode_step(self.params, self._inputs[:, :1],
+                                           self.caches, self._inputs[:, 1])
+        return logits
+
+    def _warm_up_and_capture(self):
+        """The first step on CUDA: the decode runs eagerly on a side stream
+        (lazy initialisation, the kernels' launch plans and workspaces stay
+        out of the capture), then the same step is captured; returns the
+        eager step's logits."""
+        main = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            logits = self.decode()
+        main.wait_stream(side)
+        self.graph = CountedGraph(self.decode)
+        return logits
 
     # -- convenience -------------------------------------------------------------
     def generate(self, prompts: List[str], max_new_tokens: int = 32) -> List[str]:

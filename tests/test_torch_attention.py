@@ -206,17 +206,112 @@ def test_cpu_tensors_take_the_plain_versions():
 
 
 @pytest.mark.parametrize("T,B,K,want", [
-    (512, 8, 4, (8, 64)),       # the agent's decode step: 256 CTAs
-    (4096, 8, 4, (16, 256)),
-    (64, 1, 1, (1, 64)),
-    (200, 3, 2, (4, 64)),
-    (100, 128, 8, (1, 128)),    # enough CTAs already: one split
+    (512, 8, 4, 9),             # the agent's decode step: 288 CTAs
+    (4096, 8, 4, 9),
+    (64, 1, 1, 32),
+    (200, 3, 2, 32),
+    (100, 128, 8, 1),           # enough CTAs already: one split
 ])
 def test_decode_split_plan_covers_the_cache(T, B, K, want):
-    n_split, chunk = tda.plan_splits(T, B, K, sms=132)
-    assert (n_split, chunk) == want
-    assert chunk % tda.TILE == 0 and n_split * chunk >= T
-    assert (n_split - 1) * chunk < T
+    """The grid depends on the shape alone; each CTA's rows come from
+    kv_len on the device (`split_range`, the kernel's arithmetic): for every
+    kv_len in 1..T and window, the splits tile the allowed range
+    [max(0, kv_len - window), kv_len) in order, each position in exactly
+    one split, their sizes differing by at most one row."""
+    n_split = tda.plan_splits(T, B, K, sms=132)
+    assert n_split == want
+    for window in (0, 20):
+        for kv_len in range(1, T + 1):
+            lo_all = max(0, kv_len - window) if window else 0
+            bounds = [tda.split_range(kv_len, T, window, n_split, s)
+                      for s in range(n_split)]
+            assert bounds[0][0] == lo_all and bounds[-1][1] == kv_len
+            assert all(hi == lo for (_, hi), (lo, _) in zip(bounds,
+                                                           bounds[1:]))
+            sizes = [hi - lo for lo, hi in bounds]
+            n = kv_len - lo_all
+            assert set(sizes) <= {n // n_split, -(-n // n_split)}
+            if n >= n_split:
+                assert min(sizes) > 0       # no CTA launched empty
+
+
+def _allowed(S, T, causal, window):
+    s = np.arange(S)[:, None]
+    t = np.arange(T)[None, :]
+    ok = np.ones((S, T), bool)
+    if causal:
+        ok &= t <= s
+    if window > 0:
+        ok &= t > s - window
+    return ok
+
+
+@pytest.mark.parametrize("G,S,T,D", [(3, 150, 150, 64), (3, 4096, 4096, 64),
+                                     (1, 64, 64, 64), (2, 100, 40, 16),
+                                     (2, 40, 100, 128), (16, 33, 33, 256)])
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0), (True, 16),
+                                           (False, 16)])
+def test_flash_grid_covers_every_allowed_pair_once(G, S, T, D, causal,
+                                                   window):
+    """K6's grid (`flash_grid`) and each CTA's key loop (`flash_key_range`,
+    the kernel's arithmetic) visit every allowed (query row, key) pair of
+    the problem exactly once: the row blocks partition the G*S rows and a
+    block's tiles hold every key its rows may see."""
+    for B, K in ((1, 4), (16, 4)):
+        narrow, rows, keys, ctas = tfa.flash_grid(B, K, G, S, D, sms=132)
+        dp = tfa.padded_head_dim(D)
+        assert (rows, keys) == tfa.FLASH_CONFIGS[dp][narrow][:2]
+        n_blocks = -(-G * S // rows)
+        assert ctas == n_blocks * K * B
+        wide_ctas = -(-G * S // tfa.FLASH_CONFIGS[dp][False][0]) * K * B
+        assert narrow == (wide_ctas < 132)
+        ok = _allowed(S, T, causal, window)
+        visits = np.zeros((G * S, T), np.int8)
+        for blk in range(n_blocks):
+            r0 = blk * rows
+            t0, t1 = tfa.flash_key_range(r0, rows, keys, G, S, T, causal,
+                                         window)
+            assert t0 % keys == 0
+            for t in range(t0, t1, keys):          # the kernel's tile loop
+                visits[r0:r0 + rows, t:min(t + keys, T)] += 1
+        rows_ok = np.repeat(ok, G, axis=0)          # row r is position r // G
+        assert (visits[rows_ok] == 1).all()
+        assert visits.max() <= 1
+    # the agent's prefill fills the card; the long context takes the wide
+    # CTA shape
+    assert tfa.flash_grid(1, 4, 3, 150, 64, 132)[3] >= 132
+    assert not tfa.flash_grid(1, 4, 3, 4096, 64, 132)[0]
+
+
+@pytest.mark.parametrize("dtype,D,offset,want", [
+    (torch.float32, 64, 0, True), (torch.bfloat16, 64, 0, True),
+    (torch.float32, 50, 0, False), (torch.bfloat16, 50, 0, False),
+    (torch.bfloat16, 8, 0, True), (torch.float32, 64, 1, False)])
+def test_cp_async_ok_needs_16_byte_rows_bases_and_strides(dtype, D, offset,
+                                                          want):
+    """K5 and K6 stage K/V by 16-byte cp.async only when every row start is
+    a 16-byte multiple (`cp_async_ok`, shared by both wrappers); D = 50 or
+    a view one element into its storage takes the plain loads."""
+    base = torch.zeros(2 * 3 * 40 * D + 64, dtype=dtype)
+    start = (-base.data_ptr() // base.element_size()) % (
+        16 // base.element_size()) + offset
+    cache = base[start:start + 2 * 40 * 3 * D].view(2, 40, 3, D)
+    k = cache.permute(0, 2, 1, 3)                 # the engine's (B, T, K, D)
+    assert tfa.cp_async_ok(D, base.element_size(), k, k) is want
+
+
+def test_library_tag_follows_the_shared_headers(tmp_path, monkeypatch):
+    """A kernel library is named by a hash of its source and of the shared
+    headers, so editing `csrc/attention_common.cuh` rebuilds K5 and K6."""
+    from repro_torch.kernels import build
+    assert (build.CSRC / "attention_common.cuh").exists()
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text('#include "common.cuh"\n')
+    (tmp_path / "common.cuh").write_text("// one\n")
+    first = build.library_path("k")
+    assert build.library_path("k") == first
+    (tmp_path / "common.cuh").write_text("// two\n")
+    assert build.library_path("k") != first
 
 
 # ---------------------------------------------------------------------------

@@ -6,6 +6,8 @@ tests/test_serving.py hold on the port; `LMEmbedder` matches the JAX
 embedder; `MemoriClient.chat` over the port's service hands the LM the
 same prompt as the JAX client over the JAX service and records the same
 session; `LMExtractor` parses a generation identically."""
+import contextlib
+
 import jax
 import numpy as np
 import pytest
@@ -28,7 +30,7 @@ from repro_torch.core import (HashEmbedder, LMEmbedder, LMExtractor,
                               MemoriClient, MemoryService, Message)
 from repro_torch.data.tokenizer import HashTokenizer
 from repro_torch.models.model_api import Model, params_from_numpy
-from repro_torch.serving.engine import Engine
+from repro_torch.serving.engine import CountedGraph, Engine, counted_kernels
 from repro_torch.serving.requests import Request
 from repro_torch.serving.sampler import SamplerConfig, sample
 from repro_torch.serving.scheduler import ContinuousBatcher
@@ -80,6 +82,79 @@ def test_greedy_tokens_equal_the_jax_engine(models):
     assert got == want
     assert len({tuple(t) for t in got}) > 1     # the check discriminates
     assert eng.stats == jeng.stats
+
+
+def test_cpu_engine_builds_no_graph_and_gives_the_jax_tokens(models):
+    """A CPU engine decodes eagerly through the same static input buffers
+    as the CUDA one (which replays a graph of that decode) and captures
+    nothing; its greedy tokens are the JAX engine's, across slot reuse."""
+    jmodel, jparams, _, _ = models
+    jeng = JEngine(jmodel, jparams, max_len=48, slots=2,
+                   tokenizer=_tokenizers()[0])
+    eng = _engine(models, slots=2)
+    jreqs = [JRequest(jeng.tokenizer.encode(p), max_new_tokens=6)
+             for p in PROMPTS[:3]]
+    reqs = [Request(eng.tokenizer.encode(p), max_new_tokens=6)
+            for p in PROMPTS[:3]]
+    jout = JBatcher(jeng).run(jreqs)
+    out = ContinuousBatcher(eng).run(reqs)
+    assert eng.graph is None
+    assert eng._inputs.device.type == "cpu"
+    assert [out[r.request_id].tokens for r in reqs] == \
+        [jout[r.request_id].tokens for r in jreqs]
+    # the static buffers hold the last step's inputs: tokens, positions
+    assert eng._inputs.dtype == torch.int32
+    assert tuple(eng._inputs.shape) == (2, 2)
+
+
+class _FakeGraph:
+    """Stands in for torch.cuda.CUDAGraph on the CPU: a replay runs the
+    captured function's work again without its Python-side counting."""
+
+    def __init__(self):
+        self.replays = 0
+
+    def replay(self):
+        self.replays += 1
+
+
+@contextlib.contextmanager
+def _fake_capture(graph):
+    yield graph
+
+
+def test_graph_replays_count_the_captured_launches():
+    """Capturing runs the step's Python once, so every kernel wrapper it
+    calls counts launches that never ran: `CountedGraph` takes them back
+    out and adds them again on each replay — 12 K5 launches a replayed
+    memori-agent step, as an eager step counts."""
+    from repro_torch.kernels import decode_attention as tda
+    from repro_torch.kernels import flash_attention as tfa
+    kernels = counted_kernels()
+    assert tda.decode_attention in kernels and tfa.flash_attention in kernels
+    before = {f: f.launches for f in kernels}
+
+    def step():                       # what a capture of the step records
+        tda.decode_attention.launches += 12
+        return "logits"
+
+    g = CountedGraph(step, graph=_FakeGraph(), capture=_fake_capture)
+    assert {f: f.launches for f in kernels} == before
+    assert g.deltas == {tda.decode_attention: 12}
+    for _ in range(3):
+        assert g.replay() == "logits"
+    assert g.graph.replays == 3
+    assert tda.decode_attention.launches == before[tda.decode_attention] + 36
+    assert tfa.flash_attention.launches == before[tfa.flash_attention]
+    tda.decode_attention.launches = before[tda.decode_attention]
+
+    def failing():
+        tda.decode_attention.launches += 5
+        raise RuntimeError("capture failed")
+
+    with pytest.raises(RuntimeError, match="capture failed"):
+        CountedGraph(failing, graph=_FakeGraph(), capture=_fake_capture)
+    assert tda.decode_attention.launches == before[tda.decode_attention]
 
 
 def test_all_requests_finish(models):
