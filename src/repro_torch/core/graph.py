@@ -1,15 +1,15 @@
 """MemoryGraph — the device-resident entity graph over the triple store.
 
 Triples name entities and version chains, and sessions order facts in time.
-This module packs that structure into adjacency lanes next to the bank; the
-retrieval `graph` stage (a batched k-hop expansion over these lanes) comes
-with the next slice of the port, but the graph grows on every flush, so its
-host truth and its device lanes are kept here.
+This module packs that structure into adjacency lanes next to the bank and
+turns retrieval's seed rows into a batched k-hop expansion — the `graph`
+stage of RetrievalPlan.
 
 **Nodes** are interned entities: one node per (namespace id, normalized
 entity text), normalized by `triples.normalize_entity` (the same
 canonicalization `Triple.key` uses).  Interning is per namespace, so no
-edge ever connects two tenants.
+edge ever connects two tenants (the expansion masks by node and row
+namespace anyway).
 
 **Edges** are typed and directed (every upsert inserts both directions):
 
@@ -27,13 +27,28 @@ everywhere else in the store; node and edge lanes are append-only.
 source of truth (snapshot, compaction), and the device lanes are
 capacity-doubling tensors that `sync_device` extends in place (slice
 assignment) with the delta since the last sync; a lane is re-uploaded only
-when its host capacity doubles.
+when its host capacity doubles (`counters["lane_uploads"]` counts those).
+
+**Expansion semantics** (`expand`): seed rows activate their incident
+nodes at 1.0; each hop relaxes every edge once —
+
+    contribution(dst) = ((F[src] * (type_w[b, type] * edge_w)) * decay)
+                        / out_degree(src)
+
+— combined by max (a scatter-max, independent of order), so it matches
+the reference package's expansion and its scalar oracle bit for bit in
+float32.  Each product and the division is its own elementwise op, so no
+multiply is ever contracted into an FMA.  Seed nodes never score rows.  A
+row's score is the max over its incident nodes' activations, masked to the
+request's namespace; rows rank by (-score, row id).  Hop counts are per
+request; the loop runs to the batch's (pow2-bucketed) maximum.
 """
 from __future__ import annotations
 
 from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.common.utils import next_pow2, resolve_device, to_device
 from repro_torch.core.triples import normalize_entity
@@ -51,6 +66,90 @@ _LANES = ("node_ns", "edge_src", "edge_dst", "edge_type", "edge_w",
 
 def _next_capacity(n: int, floor: int = 64) -> int:
     return max(floor, next_pow2(max(1, n)))
+
+
+def _expand_device(edge_src, edge_dst, edge_type, edge_w, node_ns,
+                   row_sub, row_obj, row_labels, rankings, q_ns, type_w,
+                   hops_b, n_edges: int, n_rows: int, *, hops: int, k: int,
+                   seed_k: int, decay: float):
+    """Batched k-hop expansion over the lanes, the whole batch at once:
+    per hop one gather and one scatter-max over the live edges.  Tensors
+    on one device: the (capacity,) lanes, `rankings` a sequence of (B, P_i)
+    int id matrices (-1-padded, best-first), `q_ns` (B,) int, `type_w`
+    (B, 3) f32, `hops_b` (B,) int.  Only the first `n_edges` edges and
+    `n_rows` rows are live.  Returns (row ids (B, k) i32 best-first
+    -1-padded, scores (B, k) f32 0-padded, and one (2, hops) i32 tensor:
+    frontier sizes, then edges touched, per hop; hops >= 1)."""
+    dev = q_ns.device
+    B = q_ns.shape[0]
+    Ncap = node_ns.shape[0]
+    Rcap = row_sub.shape[0]
+    Lcap = row_labels.shape[0]
+    f32 = torch.float32
+    zero = torch.zeros((), dtype=f32, device=dev)
+    decay32 = torch.tensor(np.float32(decay), device=dev)
+    q_ns = q_ns.long()
+    # -- seeds: top seed_k of every upstream ranking -> incident nodes ------
+    seeds = torch.cat([r[:, : min(seed_k, r.shape[1])].long()
+                       for r in rankings], dim=1)
+    ok = (seeds >= 0) & (seeds < n_rows)
+    srow = torch.where(ok, seeds, 0)
+    ok = ok & (row_labels.long()[srow.clamp(0, Lcap - 1)] == q_ns[:, None])
+    F = torch.zeros((B, Ncap), dtype=f32, device=dev)
+    for lane in (row_sub, row_obj):
+        nodes = torch.where(ok, lane.long()[srow.clamp(0, Rcap - 1)], -1)
+        F.scatter_reduce_(1, nodes.clamp(0, Ncap - 1),
+                          (nodes >= 0).to(f32), "amax")
+    ns_ok = node_ns.long()[None, :] == q_ns[:, None]      # (B, Ncap)
+    F = torch.where(ns_ok, F, zero)
+    # seed nodes never score rows — not their hop-0 activation and not a
+    # later re-activation (a hub seed round-trips at full strength and would
+    # tie every row it touches); seed rows are the upstream rankings' job
+    seed_mask = F > 0
+    acc = torch.zeros_like(F)
+    # -- per-expansion edge terms over the live edges -------------------------
+    src_c = edge_src[:n_edges].long().clamp(0, Ncap - 1)
+    dst_c = edge_dst[:n_edges].long().clamp(0, Ncap - 1)
+    deg_f = torch.bincount(src_c, minlength=Ncap).clamp(min=1).to(f32)
+    we = type_w[:, edge_type[:n_edges].long().clamp(0, N_EDGE_TYPES - 1)] \
+        * edge_w[None, :n_edges]                            # (B, E)
+    deg_src = deg_f[src_c][None, :]
+    dst_b = dst_c[None, :].expand(B, -1)
+    hops_b = hops_b.long()
+    stats = []
+    for h in range(1, hops + 1):
+        c = F[:, src_c] * we          # float32 op order: the oracle contract
+        c = c * decay32
+        c = c / deg_src
+        newF = torch.zeros((B, Ncap), dtype=f32, device=dev)
+        newF.scatter_reduce_(1, dst_b, c, "amax")
+        newF = torch.where(ns_ok & (hops_b >= h)[:, None], newF, zero)
+        acc = torch.maximum(acc, newF)
+        F = newF
+        stats.append(torch.stack([(newF > 0).sum(), (c > 0).sum()]))
+    # -- node activations -> row ranking ------------------------------------
+    acc = torch.where(seed_mask, zero, acc)
+    r_idx = torch.arange(n_rows, device=dev)
+    rl = row_labels.long()[r_idx.clamp(max=Lcap - 1)]
+    r_ok = rl[None, :] == q_ns[:, None]
+    rs, ro = (torch.where(lane[None, :n_rows] >= 0,
+                          acc[:, lane[:n_rows].long().clamp(0, Ncap - 1)],
+                          zero)
+              for lane in (row_sub, row_obj))
+    score = torch.where(r_ok, torch.maximum(rs, ro), zero)  # (B, n_rows)
+    hit = score > 0
+    # (-score, row id): the columns are already in row order, so a stable
+    # sort on -score alone breaks ties to the lower row
+    neg = torch.where(hit, -score, torch.full_like(score, float("inf")))
+    neg_s, order = torch.sort(neg, dim=1, stable=True)
+    kk = min(k, n_rows)
+    alive = neg_s[:, :kk] < float("inf")
+    ids = torch.where(alive, order[:, :kk], -1).to(torch.int32)
+    scores = torch.where(alive, -neg_s[:, :kk], zero)
+    if kk < k:
+        ids = torch.nn.functional.pad(ids, (0, k - kk), value=-1)
+        scores = torch.nn.functional.pad(scores, (0, k - kk))
+    return ids, scores, torch.stack(stats, dim=1).to(torch.int32)
 
 
 class GraphInvariantError(RuntimeError):
@@ -88,7 +187,10 @@ class MemoryGraph:
         self._dev = None                     # dict of lane tensors
         self._synced = (0, 0, 0)             # (nodes, edges, rows) on device
         self._pending_w: List[int] = []      # edge ids with re-set weights
-        self.counters = {"edges_upserted": 0}
+        # lane_uploads: whole-lane uploads (the first sync and one after
+        # each capacity doubling); steady-state syncs write deltas in place
+        self.counters = {"expansions": 0, "edges_upserted": 0,
+                         "lane_uploads": 0}
 
     # -- sizes --------------------------------------------------------------
     @property
@@ -236,6 +338,7 @@ class MemoryGraph:
         if self._dev is None:
             self._dev = {name: to_device(lane, self.device)
                          for name, lane in self._host_lanes().items()}
+            self.counters["lane_uploads"] += 1
             self._synced = (self.n_nodes, self._n_edges, self._n_rows)
             self._pending_w = []
             return
@@ -260,6 +363,37 @@ class MemoryGraph:
                                     to_device(self._edge_w[ids], self.device))
         self._synced = (self.n_nodes, self._n_edges, self._n_rows)
         self._pending_w = []
+
+    # -- the read path ------------------------------------------------------
+    def expand(self, rankings: Sequence, q_ns, row_labels, type_w, hops_b,
+               *, k: int, max_hops: int, seed_k: int = 8,
+               decay: float = 0.5):
+        """Batched expansion over the device lanes.  `rankings` are the
+        upstream (B, P_i) id matrices (dense/sparse, -1-padded, best-first);
+        their first `seed_k` columns seed the frontier.  `row_labels` is the
+        bank's cached (capacity,) effective-label device tensor (tombstones
+        and demoted rows -1: they neither seed nor surface).  `type_w`
+        (B, 3) per-request edge-type weights, `hops_b` (B,) per-request hop
+        counts (0 = seeds only), `max_hops` the loop depth (the caller
+        buckets it to a power of two), `k` the ranking width.  Returns (ids
+        (B, k) i32 device, scores (B, k) f32 device, per-hop frontier
+        sizes, per-hop edges touched — both host lists, read back in one
+        copy after the loop)."""
+        self.sync_device()
+        d, dev = self._dev, self.device
+        hops = max(1, int(max_hops))
+        ids, scores, per_hop = _expand_device(
+            d["edge_src"], d["edge_dst"], d["edge_type"], d["edge_w"],
+            d["node_ns"], d["row_sub"], d["row_obj"], row_labels.to(dev),
+            [torch.as_tensor(r).to(dev) for r in rankings],
+            torch.as_tensor(np.asarray(q_ns, np.int64)).to(dev),
+            torch.as_tensor(np.asarray(type_w, np.float32)).to(dev),
+            torch.as_tensor(np.asarray(hops_b, np.int64)).to(dev),
+            self._n_edges, self._n_rows, hops=hops, k=int(k),
+            seed_k=int(seed_k), decay=float(decay))
+        self.counters["expansions"] += 1
+        fsz, etc = per_hop.cpu().tolist()
+        return ids, scores, fsz, etc
 
     # -- compaction / persistence -------------------------------------------
     def compact_rows(self, old_to_new: np.ndarray) -> None:

@@ -1,7 +1,9 @@
 """Hybrid retrieval: cosine similarity over triple embeddings + BM25 keyword
 matching (paper §3.3), fused by weighted reciprocal-rank fusion.
 
-Two implementations of the same contract:
+`hybrid_search` is the single-tenant search (one query, host lists); the
+multi-tenant service fuses with `rrf_fuse_batch`.  Two implementations of
+the same fusion contract:
 
 * `rrf_fuse` — the scalar oracle: one query, Python lists, a dict loop.
   Accumulates in float32 so the batched path can match it bit-for-bit.
@@ -128,3 +130,22 @@ def rrf_fuse_batch(rankings, weights=None, c: float = 60.0, k: int = 10):
         fused_ids = torch.nn.functional.pad(fused_ids, (0, k - P), value=-1)
         fused_scores = torch.nn.functional.pad(fused_scores, (0, k - P))
     return fused_ids, fused_scores
+
+
+def hybrid_search(query_text: str, query_vec, vindex, bm25, top_k: int = 24,
+                  dense_weight: float = 1.0, sparse_weight: float = 0.7,
+                  pool: int = 64) -> List[Tuple[int, float]]:
+    """The single-tenant hybrid search: one namespace-collapsed dense
+    search (`VectorIndex.search`) and one BM25 top-k, fused on the host by
+    `rrf_fuse`.  Returns [(doc id, fused score)] best-first, length <=
+    top_k."""
+    if vindex.n == 0:
+        return []
+    pool = min(pool, vindex.n)
+    _, dense_ids = vindex.search(query_vec, k=pool)
+    dense_rank = [int(i) for i in dense_ids[0] if i >= 0]
+    _, sparse_ids = bm25.topk(query_text, k=pool)
+    sparse_rank = [int(i) for i in sparse_ids]
+    fused = rrf_fuse([dense_rank, sparse_rank],
+                     weights=[dense_weight, sparse_weight])
+    return fused[:top_k]

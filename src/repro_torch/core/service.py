@@ -36,10 +36,10 @@ Isolation invariants:
   * tombstoned rows (evict / evict_superseded) never surface again.
 
 The typed surface is core/api.py: `execute()` runs RetrieveRequests
-through a `RetrievalPlan` — embed → dense → sparse → fuse → budget, with
-dense-only / sparse-only / raw (no-budget) variants.  The graph stage,
-durability (policy / data_dir / runtime), sharding and the request
-scheduler arrive with later slices of the port and raise
+through a `RetrievalPlan` — embed → dense → sparse → graph → fuse →
+budget, with dense-only / sparse-only / raw (no-budget) / graph-expanded
+variants.  Durability (policy / data_dir / runtime), sharding and the
+request scheduler arrive with later slices of the port and raise
 NotImplementedError here.
 """
 from __future__ import annotations
@@ -62,13 +62,20 @@ from repro_torch.core.store import MemoryStore
 from repro_torch.core.summaries import Summary
 from repro_torch.core.triples import Triple
 from repro_torch.data.tokenizer import HashTokenizer
-from repro_torch.obs.telemetry import (RECORD_LATENCY, RETRIEVE_LATENCY,
-                                       get_telemetry)
+from repro_torch.obs.telemetry import (GRAPH_EXPAND_LATENCY, RECORD_LATENCY,
+                                       RETRIEVE_LATENCY, get_telemetry)
 
-_SLICE_GRAPH = "the graph-stage slice of the port"
 _SLICE_DURABILITY = "the durability slice of the port"
 _SLICE_SERVING = "the serving slice of the port"
 _SLICE_SHARDING = "the sharding slice of the port"
+
+# graph-stage fallbacks when neither the request nor the plan sets them:
+# 2 hops reaches friend-of-a-fact chains, causal/temporal edges slightly
+# discounted against direct co-occurrence, and the expanded ranking fuses
+# below the dense column's weight (it corroborates, it does not dominate)
+_GRAPH_HOPS = 2
+_GRAPH_EDGE_WEIGHTS = (1.0, 0.9, 0.9)
+_GRAPH_WEIGHT = 0.6
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,7 +86,11 @@ class _Resolved:
     sparse_weight: float
     dense: bool
     sparse: bool
+    graph: bool
     budget: bool
+    hops: int = _GRAPH_HOPS
+    edge_weights: Tuple[float, float, float] = _GRAPH_EDGE_WEIGHTS
+    graph_weight: float = _GRAPH_WEIGHT
 
 
 class MemoryService:
@@ -214,7 +225,8 @@ class MemoryService:
         """The retrieval engine: a batch of typed requests through the
         plan's stages in one set of device launches — one embed_texts call,
         one masked top-k launch against the device bank (cached row
-        labels), one stacked BM25 scoring pass and one `rrf_fuse_batch`;
+        labels), one stacked BM25 scoring pass, one batched graph expansion
+        and one `rrf_fuse_batch`;
         the (B, k) fused ranking crosses to the host in one transfer.
         Reads are read-your-writes: pending sessions are flushed first.
         Per-request options ride inside the shared launches: fusion runs at
@@ -307,6 +319,40 @@ class MemoryService:
                 weight_cols.append(
                     [r.sparse_weight for r in res]
                     + [self.sparse_weight] * (Bp - B))
+            # graph expansion: the dense/sparse rankings' top rows seed a
+            # batched k-hop walk over the store's entity graph; the expanded
+            # rows join the fusion as a third ranking with their own weight
+            # column.  Requests that skip the stage get it masked to -1, so
+            # they fuse exactly like a graph-less batch.  Hop depth is per
+            # request; the loop runs to the pow2 bucket of the batch max.
+            graph_wants = [r.graph for r in res]
+            if any(graph_wants) and rankings:
+                g = self.store.graph
+                t_g = time.perf_counter()
+                hops_arr = np.zeros((Bp,), np.int32)
+                hops_arr[:B] = [rr.hops if rr.graph else 0 for rr in res]
+                tw = np.zeros((Bp, 3), np.float32)
+                tw[:B] = [rr.edge_weights for rr in res]
+                max_hops = next_pow2(max(1, int(hops_arr.max())))
+                with tel.span("plan.graph", batch=Bp, pool=self.pool,
+                              max_hops=max_hops, launches=1) as sp:
+                    graph_ids, _, fsz, etc = g.expand(
+                        rankings, q_ns, self.store.row_namespaces_device(),
+                        tw, hops_arr, k=self.pool, max_hops=max_hops,
+                        seed_k=plan.graph_seed_k, decay=plan.graph_decay)
+                    graph_ids = self._mask_ranking(graph_ids, graph_wants,
+                                                   Bp)
+                    sp.set(frontier_sizes=fsz, edges_touched=etc,
+                           nodes=g.n_nodes, edges=g.n_edges)
+                rankings.append(graph_ids)
+                weight_cols.append(
+                    [r.graph_weight for r in res] + [0.0] * (Bp - B))
+                tel.inc("memori_graph_expansions", 1,
+                        help="batched k-hop expansion launches")
+                tel.inc("memori_graph_requests", sum(graph_wants),
+                        help="requests whose plan ran the graph stage")
+                tel.observe(GRAPH_EXPAND_LATENCY, time.perf_counter() - t_g,
+                            help="graph k-hop expansion stage latency")
             with tel.span("plan.fuse", batch=Bp, k=k_fuse,
                           rankings=len(rankings), launches=1):
                 fused_ids, fused_scores = rrf_fuse_batch(
@@ -356,20 +402,27 @@ class MemoryService:
     def _resolve(self, req: RetrieveRequest, plan: RetrievalPlan) -> _Resolved:
         """Fold request -> plan -> service option defaults."""
         stages = req.stages if req.stages is not None else plan.stages
-        if "graph" in stages:
-            raise NotImplementedError(
-                f"the graph retrieval stage comes with {_SLICE_GRAPH}")
         dw = (req.dense_weight if req.dense_weight is not None
               else plan.dense_weight if plan.dense_weight is not None
               else self.dense_weight)
         sw = (req.sparse_weight if req.sparse_weight is not None
               else plan.sparse_weight if plan.sparse_weight is not None
               else self.sparse_weight)
+        ew = (req.edge_weights if req.edge_weights is not None
+              else plan.edge_weights if plan.edge_weights is not None
+              else _GRAPH_EDGE_WEIGHTS)
+        gw = (req.graph_weight if req.graph_weight is not None
+              else plan.graph_weight if plan.graph_weight is not None
+              else _GRAPH_WEIGHT)
         return _Resolved(
             k=req.top_k or plan.top_k or self.top_k,
             dense_weight=float(dw), sparse_weight=float(sw),
             dense="dense" in stages, sparse="sparse" in stages,
-            budget="budget" in stages)
+            graph="graph" in stages,
+            budget="budget" in stages,
+            hops=int(req.hops or plan.hops or _GRAPH_HOPS),
+            edge_weights=tuple(float(w) for w in ew),
+            graph_weight=float(gw))
 
     @staticmethod
     def _mask_ranking(ids: torch.Tensor, wants: List[bool], Bp: int):

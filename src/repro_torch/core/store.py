@@ -38,7 +38,8 @@ from repro_torch.checkpoint import io as ckpt_io
 from repro_torch.common.utils import resolve_device
 from repro_torch.core.bm25 import BM25Index
 from repro_torch.core.extraction import Extractor, Message, RuleExtractor
-from repro_torch.core.graph import GraphInvariantError, MemoryGraph
+from repro_torch.core.graph import (EDGE_TYPE_IDS, GraphInvariantError,
+                                    MemoryGraph)
 from repro_torch.core.summaries import Summary, SummaryStore
 from repro_torch.core.triples import Triple, TripleStore
 from repro_torch.core.vector_index import VectorIndex
@@ -252,6 +253,28 @@ class MemoryStore:
                      conversation_id=conversation_id)
         _, triples, summary = self.flush()[-1]
         return triples, summary
+
+    # -- explicit graph edges ----------------------------------------------
+    def link(self, namespace: str, subject: str, obj: str,
+             etype: str = "entity", weight: float = 1.0) -> None:
+        """Upsert one explicit graph edge between two entities of a tenant
+        (both directions; entities intern through the same normalization as
+        extraction, so linking "Caroline" reaches the node her triples
+        built)."""
+        if etype not in EDGE_TYPE_IDS:
+            raise ValueError(
+                f"unknown edge type {etype!r}; expected one of "
+                f"{sorted(EDGE_TYPE_IDS)}")
+        # M3 (durability) journals the link here, before the apply
+        self._apply_link(namespace, subject, obj, etype, float(weight))
+
+    def _apply_link(self, namespace: str, subject: str, obj: str,
+                    etype: str, weight: float) -> None:
+        ns_id = self.tenant(namespace).ns_id
+        src = self.graph.intern(ns_id, subject)
+        dst = self.graph.intern(ns_id, obj)
+        self.graph.link_nodes(src, dst, EDGE_TYPE_IDS[etype], weight)
+        self.graph.sync_device()
 
     # -- eviction ----------------------------------------------------------
     def evict_namespace(self, namespace: str) -> int:

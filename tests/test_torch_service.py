@@ -32,6 +32,8 @@ PLANS = {
     "sparse_only": {"stages": ("sparse", "fuse", "budget")},
     "raw": {"stages": ("dense", "sparse", "fuse")},
     "dense_raw": {"stages": ("dense", "fuse")},
+    "graph_expanded": {"stages": ("dense", "sparse", "graph", "fuse",
+                                  "budget")},
 }
 EXTRA = "I work as a chef and I live in Cusco."
 
@@ -174,10 +176,6 @@ def test_slices_to_come_raise_not_implemented():
     svc = MemoryService(emb, device="cpu")
     with pytest.raises(NotImplementedError):
         svc.start_scheduler()
-    svc.record("a", "s0", [Message("Alice", EXTRA)])
-    with pytest.raises(NotImplementedError):
-        svc.retrieve_batch([("a", "where?")],
-                           plan=RetrievalPlan.graph_expanded())
 
 
 # -- the int8 device bank --------------------------------------------------
