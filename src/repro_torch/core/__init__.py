@@ -8,6 +8,8 @@ from repro_torch.core.embedder import HashEmbedder, LMEmbedder  # noqa: F401
 from repro_torch.core.extraction import (LMExtractor, Message,  # noqa: F401
                                          RuleExtractor)
 from repro_torch.core.graph import MemoryGraph  # noqa: F401
+from repro_torch.core.lifecycle import (BackpressureError,  # noqa: F401
+                                        LifecyclePolicy, LifecycleRuntime)
 from repro_torch.core.memory import (ANSWER_PROMPT, MemoriMemory,  # noqa: F401
                                      RetrievedContext)
 from repro_torch.core.sdk import MemoriClient, MemoryLike  # noqa: F401

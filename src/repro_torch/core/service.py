@@ -38,12 +38,20 @@ Isolation invariants:
 The typed surface is core/api.py: `execute()` runs RetrieveRequests
 through a `RetrievalPlan` — embed → dense → sparse → graph → fuse →
 budget, with dense-only / sparse-only / raw (no-budget) / graph-expanded
-variants.  Durability (policy / data_dir / runtime), sharding and the
+variants.
+
+Everything that happens between requests — WAL-backed incremental
+persistence, the background flusher with backpressure, auto-compaction
+and snapshot rotation — lives in `core/lifecycle.py`'s LifecycleRuntime;
+pass `policy=`/`data_dir=` to mount one (or `MemoryService.recover(
+data_dir, ...)` to come back after a crash), and the service routes
+writes, maintenance and the read path through its lock.  Sharding and the
 request scheduler arrive with later slices of the port and raise
 NotImplementedError here.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, List, Optional, Sequence, Tuple
@@ -57,6 +65,7 @@ from repro_torch.core.api import (RawRetrieval, RetrievalPlan,
 from repro_torch.core.budget import TokenBudgeter
 from repro_torch.core.extraction import Extractor, Message
 from repro_torch.core.hybrid import rrf_fuse_batch
+from repro_torch.core.lifecycle import LifecyclePolicy, LifecycleRuntime
 from repro_torch.core.memory import ANSWER_PROMPT, RetrievedContext, render
 from repro_torch.core.store import MemoryStore
 from repro_torch.core.summaries import Summary
@@ -65,7 +74,6 @@ from repro_torch.data.tokenizer import HashTokenizer
 from repro_torch.obs.telemetry import (GRAPH_EXPAND_LATENCY, RECORD_LATENCY,
                                        RETRIEVE_LATENCY, get_telemetry)
 
-_SLICE_DURABILITY = "the durability slice of the port"
 _SLICE_SERVING = "the serving slice of the port"
 _SLICE_SHARDING = "the sharding slice of the port"
 
@@ -101,15 +109,16 @@ class MemoryService:
                  pool: int = 64, flush_every: Optional[int] = None,
                  store: Optional[MemoryStore] = None,
                  plan: Optional[RetrievalPlan] = None, device="cuda",
-                 policy=None, data_dir: Optional[str] = None, runtime=None,
+                 policy: Optional[LifecyclePolicy] = None,
+                 data_dir: Optional[str] = None,
+                 runtime: Optional[LifecycleRuntime] = None,
                  quantize: str = "none", rescore: int = 4, shards: int = 1,
                  mesh=None):
-        if policy is not None or data_dir is not None or runtime is not None:
-            raise NotImplementedError(
-                f"policy= / data_dir= / runtime= come with {_SLICE_DURABILITY}")
         if shards != 1 or mesh is not None:
             raise NotImplementedError(
                 f"shards= / mesh= come with {_SLICE_SHARDING}")
+        if store is None and runtime is not None:
+            store = runtime.store
         if store is None:
             if embedder is None:
                 raise ValueError("MemoryService needs an embedder or a store")
@@ -127,6 +136,18 @@ class MemoryService:
         self.pool = pool
         self.flush_every = flush_every
         self.plan = plan or RetrievalPlan()
+        if runtime is not None:
+            if runtime.store is not self.store:
+                raise ValueError("runtime is mounted on a different store")
+        elif policy is not None or data_dir is not None:
+            runtime = LifecycleRuntime(self.store, data_dir=data_dir,
+                                       policy=policy)
+        self.runtime = runtime
+
+    def _guard(self):
+        """The runtime's lock when one is mounted (serializes requests
+        against background flush/compaction/rotation), else a no-op."""
+        return self.runtime.lock if self.runtime else contextlib.nullcontext()
 
     # the underlying indices, exposed for tests and benchmarks
     @property
@@ -153,18 +174,61 @@ class MemoryService:
             rescore=service_kwargs.pop("rescore", 4), device=device)
         return cls(store=store, **service_kwargs)
 
+    @classmethod
+    def recover(cls, data_dir: str, embedder,
+                extractor: Optional[Extractor] = None,
+                policy: Optional[LifecyclePolicy] = None, device="cuda",
+                dim: int = 256, tokenizer: HashTokenizer | None = None,
+                shards: Optional[int] = None, mesh=None,
+                **service_kwargs) -> "MemoryService":
+        """Rebuild a service from a lifecycle runtime's durable directory
+        (written by either package): newest restorable snapshot + ordered
+        WAL replay on `device`.  The recovered service answers
+        `retrieve_batch` identically to the pre-crash one up to the last
+        durable flush, and keeps journaling to the same directory.  `dim`
+        matters only when the directory holds no snapshot yet.  A sharded
+        directory raises NotImplementedError."""
+        rt = LifecycleRuntime.recover(data_dir, embedder,
+                                      extractor=extractor, policy=policy,
+                                      device=device, dim=dim,
+                                      tokenizer=tokenizer, shards=shards,
+                                      mesh=mesh)
+        return cls(runtime=rt, **service_kwargs)
+
     def snapshot(self, path: str) -> int:
-        """Flush pending writes, then persist the whole store.  Returns
-        bytes written."""
-        return self.store.snapshot(path)
+        """Flush pending writes, then persist the whole store to an
+        explicit path (a mounted runtime's rotation is `rotate()`).
+        Returns bytes written."""
+        with self._guard():
+            return self.store.snapshot(path)
+
+    def rotate(self) -> dict:
+        """Snapshot rotation through the mounted runtime: full snapshot,
+        retention pruning, WAL truncation."""
+        if self.runtime is None:
+            raise RuntimeError("rotate() needs a mounted LifecycleRuntime")
+        return self.runtime.rotate()
+
+    def close(self, *, final_snapshot: bool = True) -> None:
+        """Stop the background runtime (final flush + snapshot when
+        durable).  Safe to call on a runtime-less service.  Idempotent."""
+        if self.runtime is not None:
+            self.runtime.close(final_snapshot=final_snapshot)
 
     def start_scheduler(self, **kwargs):
         raise NotImplementedError(
             f"the request scheduler comes with {_SLICE_SERVING}")
 
+    def __enter__(self) -> "MemoryService":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
     # -- tenancy -----------------------------------------------------------
     def namespaces(self) -> List[str]:
-        return self.store.namespaces()
+        with self._guard():
+            return self.store.namespaces()
 
     def namespace(self, name: str) -> "NamespaceView":
         return NamespaceView(self, name)
@@ -175,7 +239,14 @@ class MemoryService:
         """Synchronous ingest of one session: enqueue + flush (anything
         else pending is drained in the same batch)."""
         t0 = time.perf_counter()
-        out = self.store.ingest(namespace, session_id, messages)
+        with self._guard():
+            if self.runtime is not None:
+                if self.runtime.closed:
+                    raise RuntimeError(
+                        "service is closed: writes would bypass the "
+                        "journal (recover/remount before writing again)")
+                self.runtime.note_activity()
+            out = self.store.ingest(namespace, session_id, messages)
         get_telemetry().observe(
             RECORD_LATENCY, time.perf_counter() - t0,
             help="synchronous record (enqueue + flush) latency")
@@ -184,21 +255,30 @@ class MemoryService:
     def enqueue(self, namespace: str, session_id: str,
                 messages: Sequence[Message],
                 conversation_id: Optional[str] = None) -> None:
-        """Async ingest: queue the session for the next `flush()`; with
-        `flush_every` a count-based flush follows."""
-        self.store.enqueue(namespace, session_id, messages,
-                           conversation_id=conversation_id)
+        """Async ingest: queue the session for the next `flush()`.  With a
+        mounted runtime the queue is bounded and backpressured per policy
+        (the background flusher drains it); `flush_every` additionally
+        triggers a count-based flush."""
+        if self.runtime is not None:
+            self.runtime.enqueue(namespace, session_id, messages,
+                                 conversation_id=conversation_id)
+        else:
+            self.store.enqueue(namespace, session_id, messages,
+                               conversation_id=conversation_id)
         if self.flush_every and self.store.pending_count >= self.flush_every:
             self.flush()
 
     def flush(self) -> int:
         """Drain all pending sessions (all tenants) through one embed call
         and one bank append.  Returns the number of sessions ingested."""
+        if self.runtime is not None:
+            return self.runtime.flush()
         return len(self.store.flush())
 
     def compact(self) -> dict:
         """Reclaim tombstoned rows (see MemoryStore.compact)."""
-        return self.store.compact()
+        with self._guard():
+            return self.store.compact()
 
     # -- read path -------------------------------------------------------------
     def retrieve(self, namespace: str, query: str,
@@ -249,155 +329,164 @@ class MemoryService:
             qvecs = (self.embedder.embed_texts([reqs[i].query
                                                 for i in dense_rows])
                      if dense_rows else None)
-        if self.store.pending_count:
-            self.flush()
-        # reads never allocate tenant state: unknown namespaces stay unknown
-        tenants = [self.store.get(r.namespace) for r in reqs]
-        vindex = self.store.vindex
-        device = vindex.device
-        tiers = self.store.tiers
-        if tiers is not None:
-            for t in tenants:
-                if t is not None:
-                    tiers.note_retrieve(t.ns_id)
-        B = len(reqs)
-        # fuse at the pow2 ceiling of the largest requested k; each row is
-        # then sliced to its own k (the prefix of a wider fusion is the
-        # narrower fusion)
-        k_fuse = next_pow2(max(r.k for r in res))
-        if vindex.n:
-            # unknown tenants (and padded queries) get a never-assigned ns
-            # id >= 0: they match no bank row and select no document
-            unused = self.store.namespace_id_count()
-            ns_ids = [t.ns_id if t else unused for t in tenants]
-            Bp = next_pow2(B)
-            ns_pad = ns_ids + [unused] * (Bp - B)
-            q_ns = np.asarray(ns_pad, np.int32)
-            rankings, weight_cols = [], []
-            if dense_rows:
-                with tel.span("plan.dense", batch=Bp, pool=self.pool,
-                              launches=1) as sp:
-                    qv = torch.as_tensor(qvecs, dtype=torch.float32).to(
-                        device)
-                    qmat = torch.zeros((Bp, qv.shape[1]), dtype=torch.float32,
-                                       device=device)
-                    qmat[dense_rows] = qv
-                    _, dense_ids = vindex.search_batch(qmat, q_ns,
-                                                       k=self.pool)
-                    if tiers is not None:
-                        # a demoted namespace's rows are absent from the
-                        # device bank: answer those requests from the
-                        # host-mirror masked search (exact, not accelerated)
-                        # and mark them for promotion on the next tick
-                        fb = [i for i in dense_rows
-                              if tenants[i] is not None
-                              and tiers.is_demoted(tenants[i].ns_id)]
-                        if fb:
-                            sp.set(host_fallbacks=len(fb))
-                            _, hi = vindex.search_host(qmat[fb], q_ns[fb],
-                                                       k=self.pool)
-                            dense_ids = dense_ids.clone()
-                            dense_ids[fb] = torch.from_numpy(
-                                hi.astype(np.int32)).to(device)
-                            for i in fb:
-                                tiers.note_host_fallback(tenants[i].ns_id)
-                    dense_ids = self._mask_ranking(
-                        dense_ids, [r.dense for r in res], Bp)
-                rankings.append(dense_ids)
-                weight_cols.append(
-                    [r.dense_weight for r in res]
-                    + [self.dense_weight] * (Bp - B))
-            if any(r.sparse for r in res):
-                with tel.span("plan.sparse", batch=Bp, pool=self.pool,
-                              launches=1):
-                    _, sparse_ids = self.store.bm25.topk_batch_dev(
-                        [r.query for r in reqs] + [""] * (Bp - B),
-                        k=self.pool, namespaces=ns_pad)
-                    sparse_ids = self._mask_ranking(
-                        sparse_ids, [r.sparse for r in res], Bp)
-                rankings.append(sparse_ids)
-                weight_cols.append(
-                    [r.sparse_weight for r in res]
-                    + [self.sparse_weight] * (Bp - B))
-            # graph expansion: the dense/sparse rankings' top rows seed a
-            # batched k-hop walk over the store's entity graph; the expanded
-            # rows join the fusion as a third ranking with their own weight
-            # column.  Requests that skip the stage get it masked to -1, so
-            # they fuse exactly like a graph-less batch.  Hop depth is per
-            # request; the loop runs to the pow2 bucket of the batch max.
-            graph_wants = [r.graph for r in res]
-            if any(graph_wants) and rankings:
-                g = self.store.graph
-                t_g = time.perf_counter()
-                hops_arr = np.zeros((Bp,), np.int32)
-                hops_arr[:B] = [rr.hops if rr.graph else 0 for rr in res]
-                tw = np.zeros((Bp, 3), np.float32)
-                tw[:B] = [rr.edge_weights for rr in res]
-                max_hops = next_pow2(max(1, int(hops_arr.max())))
-                with tel.span("plan.graph", batch=Bp, pool=self.pool,
-                              max_hops=max_hops, launches=1) as sp:
-                    graph_ids, _, fsz, etc = g.expand(
-                        rankings, q_ns, self.store.row_namespaces_device(),
-                        tw, hops_arr, k=self.pool, max_hops=max_hops,
-                        seed_k=plan.graph_seed_k, decay=plan.graph_decay)
-                    graph_ids = self._mask_ranking(graph_ids, graph_wants,
-                                                   Bp)
-                    sp.set(frontier_sizes=fsz, edges_touched=etc,
-                           nodes=g.n_nodes, edges=g.n_edges)
-                rankings.append(graph_ids)
-                weight_cols.append(
-                    [r.graph_weight for r in res] + [0.0] * (Bp - B))
-                tel.inc("memori_graph_expansions", 1,
-                        help="batched k-hop expansion launches")
-                tel.inc("memori_graph_requests", sum(graph_wants),
-                        help="requests whose plan ran the graph stage")
-                tel.observe(GRAPH_EXPAND_LATENCY, time.perf_counter() - t_g,
-                            help="graph k-hop expansion stage latency")
-            with tel.span("plan.fuse", batch=Bp, k=k_fuse,
-                          rankings=len(rankings), launches=1):
-                fused_ids, fused_scores = rrf_fuse_batch(
-                    rankings,
-                    weights=np.stack(
-                        [np.asarray(c, np.float32) for c in weight_cols],
-                        axis=1),
-                    k=k_fuse)
-                fused_ids = fused_ids.cpu().numpy()[:B]
-                fused_scores = fused_scores.cpu().numpy()[:B]
-        else:
-            fused_ids = np.full((B, k_fuse), -1, np.int32)
-            fused_scores = np.zeros((B, k_fuse), np.float32)
-        out: List[Any] = []
-        with tel.span("plan.budget", batch=B):
-            for r, (rr, t) in enumerate(zip(res, tenants)):
-                # the fused ranking is sorted best-first, so its k_r prefix
-                # is the k=k_r fusion of the same inputs
-                ids = fused_ids[r][: rr.k]
-                scs = fused_scores[r][: rr.k]
-                if t is None:
+        with self._guard():
+            if self.runtime is not None:
+                self.runtime.note_activity()
+            if self.store.pending_count:
+                # through the runtime when mounted: the read-your-writes
+                # drain counts as a flush and wakes blocked enqueuers
+                self.flush()
+            # reads never allocate tenant state: unknown namespaces stay
+            # unknown
+            tenants = [self.store.get(r.namespace) for r in reqs]
+            vindex = self.store.vindex
+            device = vindex.device
+            tiers = self.store.tiers
+            if tiers is not None:
+                for t in tenants:
+                    if t is not None:
+                        tiers.note_retrieve(t.ns_id)
+            B = len(reqs)
+            # fuse at the pow2 ceiling of the largest requested k; each row is
+            # then sliced to its own k (the prefix of a wider fusion is the
+            # narrower fusion)
+            k_fuse = next_pow2(max(r.k for r in res))
+            if vindex.n:
+                # unknown tenants (and padded queries) get a never-assigned ns
+                # id >= 0: they match no bank row and select no document
+                unused = self.store.namespace_id_count()
+                ns_ids = [t.ns_id if t else unused for t in tenants]
+                Bp = next_pow2(B)
+                ns_pad = ns_ids + [unused] * (Bp - B)
+                q_ns = np.asarray(ns_pad, np.int32)
+                rankings, weight_cols = [], []
+                if dense_rows:
+                    with tel.span("plan.dense", batch=Bp, pool=self.pool,
+                                  launches=1) as sp:
+                        qv = torch.as_tensor(qvecs, dtype=torch.float32).to(
+                            device)
+                        qmat = torch.zeros((Bp, qv.shape[1]),
+                                           dtype=torch.float32, device=device)
+                        qmat[dense_rows] = qv
+                        _, dense_ids = vindex.search_batch(qmat, q_ns,
+                                                           k=self.pool)
+                        if tiers is not None:
+                            # a demoted namespace's rows are absent from the
+                            # device bank: answer those requests from the
+                            # host-mirror masked search (exact, not
+                            # accelerated) and mark them for promotion on the
+                            # next tick
+                            fb = [i for i in dense_rows
+                                  if tenants[i] is not None
+                                  and tiers.is_demoted(tenants[i].ns_id)]
+                            if fb:
+                                sp.set(host_fallbacks=len(fb))
+                                _, hi = vindex.search_host(qmat[fb], q_ns[fb],
+                                                           k=self.pool)
+                                dense_ids = dense_ids.clone()
+                                dense_ids[fb] = torch.from_numpy(
+                                    hi.astype(np.int32)).to(device)
+                                for i in fb:
+                                    tiers.note_host_fallback(tenants[i].ns_id)
+                        dense_ids = self._mask_ranking(
+                            dense_ids, [r.dense for r in res], Bp)
+                    rankings.append(dense_ids)
+                    weight_cols.append(
+                        [r.dense_weight for r in res]
+                        + [self.dense_weight] * (Bp - B))
+                if any(r.sparse for r in res):
+                    with tel.span("plan.sparse", batch=Bp, pool=self.pool,
+                                  launches=1):
+                        _, sparse_ids = self.store.bm25.topk_batch_dev(
+                            [r.query for r in reqs] + [""] * (Bp - B),
+                            k=self.pool, namespaces=ns_pad)
+                        sparse_ids = self._mask_ranking(
+                            sparse_ids, [r.sparse for r in res], Bp)
+                    rankings.append(sparse_ids)
+                    weight_cols.append(
+                        [r.sparse_weight for r in res]
+                        + [self.sparse_weight] * (Bp - B))
+                # graph expansion: the dense/sparse rankings' top rows seed a
+                # batched k-hop walk over the store's entity graph; the
+                # expanded rows join the fusion as a third ranking with their
+                # own weight column.  Requests that skip the stage get it
+                # masked to -1, so they fuse exactly like a graph-less batch.
+                # Hop depth is per request; the loop runs to the pow2 bucket
+                # of the batch max.
+                graph_wants = [r.graph for r in res]
+                if any(graph_wants) and rankings:
+                    g = self.store.graph
+                    t_g = time.perf_counter()
+                    hops_arr = np.zeros((Bp,), np.int32)
+                    hops_arr[:B] = [rr.hops if rr.graph else 0 for rr in res]
+                    tw = np.zeros((Bp, 3), np.float32)
+                    tw[:B] = [rr.edge_weights for rr in res]
+                    max_hops = next_pow2(max(1, int(hops_arr.max())))
+                    with tel.span("plan.graph", batch=Bp, pool=self.pool,
+                                  max_hops=max_hops, launches=1) as sp:
+                        graph_ids, _, fsz, etc = g.expand(
+                            rankings, q_ns, self.store.row_namespaces_device(),
+                            tw, hops_arr, k=self.pool, max_hops=max_hops,
+                            seed_k=plan.graph_seed_k, decay=plan.graph_decay)
+                        graph_ids = self._mask_ranking(graph_ids, graph_wants,
+                                                       Bp)
+                        sp.set(frontier_sizes=fsz, edges_touched=etc,
+                               nodes=g.n_nodes, edges=g.n_edges)
+                    rankings.append(graph_ids)
+                    weight_cols.append(
+                        [r.graph_weight for r in res] + [0.0] * (Bp - B))
+                    tel.inc("memori_graph_expansions", 1,
+                            help="batched k-hop expansion launches")
+                    tel.inc("memori_graph_requests", sum(graph_wants),
+                            help="requests whose plan ran the graph stage")
+                    tel.observe(GRAPH_EXPAND_LATENCY,
+                                time.perf_counter() - t_g,
+                                help="graph k-hop expansion stage latency")
+                with tel.span("plan.fuse", batch=Bp, k=k_fuse,
+                              rankings=len(rankings), launches=1):
+                    fused_ids, fused_scores = rrf_fuse_batch(
+                        rankings,
+                        weights=np.stack(
+                            [np.asarray(c, np.float32) for c in weight_cols],
+                            axis=1),
+                        k=k_fuse)
+                    fused_ids = fused_ids.cpu().numpy()[:B]
+                    fused_scores = fused_scores.cpu().numpy()[:B]
+            else:
+                fused_ids = np.full((B, k_fuse), -1, np.int32)
+                fused_scores = np.zeros((B, k_fuse), np.float32)
+            out: List[Any] = []
+            with tel.span("plan.budget", batch=B):
+                for r, (rr, t) in enumerate(zip(res, tenants)):
+                    # the fused ranking is sorted best-first, so its k_r prefix
+                    # is the k=k_r fusion of the same inputs
+                    ids = fused_ids[r][: rr.k]
+                    scs = fused_scores[r][: rr.k]
+                    if t is None:
+                        if rr.budget:
+                            text = render([], [])
+                            out.append(RetrievedContext(
+                                [], [], text, self.tokenizer.count(text)))
+                        else:
+                            out.append(RawRetrieval([], [], []))
+                        continue
                     if rr.budget:
-                        text = render([], [])
+                        scored = [(t.triples.get(self.store.row_tid(int(g))),
+                                   float(s))
+                                  for g, s in zip(ids, scs) if g >= 0]
+                        ctx = self.budgeter.select(scored, t.summaries)
+                        text = render(ctx.triples, ctx.summaries)
                         out.append(RetrievedContext(
-                            [], [], text, self.tokenizer.count(text)))
+                            ctx.triples, ctx.summaries, text,
+                            self.tokenizer.count(text)))
                     else:
-                        out.append(RawRetrieval([], [], []))
-                    continue
-                if rr.budget:
-                    scored = [(t.triples.get(self.store.row_tid(int(g))),
-                               float(s))
-                              for g, s in zip(ids, scs) if g >= 0]
-                    ctx = self.budgeter.select(scored, t.summaries)
-                    text = render(ctx.triples, ctx.summaries)
-                    out.append(RetrievedContext(
-                        ctx.triples, ctx.summaries, text,
-                        self.tokenizer.count(text)))
-                else:
-                    rows = [int(g) for g in ids if g >= 0]
-                    out.append(RawRetrieval(
-                        rows, [self.store.row_tid(g) for g in rows],
-                        [float(s) for g, s in zip(ids, scs) if g >= 0]))
-        tel.observe(RETRIEVE_LATENCY, time.perf_counter() - t_exec,
-                    n=B, help="end-to-end execute() latency per request")
-        return out
+                        rows = [int(g) for g in ids if g >= 0]
+                        out.append(RawRetrieval(
+                            rows, [self.store.row_tid(g) for g in rows],
+                            [float(s) for g, s in zip(ids, scs) if g >= 0]))
+            tel.observe(RETRIEVE_LATENCY, time.perf_counter() - t_exec,
+                        n=B, help="end-to-end execute() latency per request")
+            return out
 
     def _resolve(self, req: RetrieveRequest, plan: RetrievalPlan) -> _Resolved:
         """Fold request -> plan -> service option defaults."""
@@ -446,27 +535,46 @@ class MemoryService:
     def evict(self, namespace: str) -> int:
         """Drop a whole tenant: tombstone its bank rows + BM25 docs, free
         its stores.  Returns the number of rows evicted."""
-        return self.store.evict_namespace(namespace)
+        with self._guard():
+            return self.store.evict_namespace(namespace)
 
     def evict_superseded(self, namespace: str) -> int:
         """Physically evict triples superseded under conflict resolution."""
-        return self.store.evict_superseded(namespace)
+        with self._guard():
+            return self.store.evict_superseded(namespace)
 
-    # -- stats ----------------------------------------------------------------------
+    def attach_follower(self, sink, mode: str = "sync"):
+        """Stream every sealed WAL segment to a follower: comes with the
+        sharding slice of the port (raises)."""
+        if self.runtime is None:
+            raise RuntimeError("attach_follower needs a lifecycle runtime "
+                               "(construct the service with data_dir/runtime)")
+        return self.runtime.attach_follower(sink, mode=mode)
+
+    # -- stats -----------------------------------------------------------------
     def stats(self) -> dict:
-        """Store counters plus `pending_depth` (buffered sessions)."""
-        st = self.store.stats()
-        st["pending_depth"] = st["pending"]
-        return st
+        """Store counters plus the operator's runtime view: `pending_depth`
+        (buffered sessions), `wal_segments` (un-truncated log segments on
+        disk) and `last_snapshot_age_s` (None until a snapshot exists)."""
+        with self._guard():
+            st = self.store.stats()
+            if self.runtime is not None:
+                st.update(self.runtime.stats())
+            else:
+                st.update({"pending_depth": st["pending"],
+                           "wal_segments": 0,
+                           "last_snapshot_age_s": None})
+            return st
 
     def namespace_stats(self, namespace: str) -> dict:
         """Public per-namespace counters."""
-        t = self.store.get(namespace)
-        if t is None:
-            return {"triples": 0, "summaries": 0, "evicted": 0}
-        return {"triples": len(t.triples),
-                "summaries": len(t.summaries),
-                "evicted": len(t.evicted)}
+        with self._guard():
+            t = self.store.get(namespace)
+            if t is None:
+                return {"triples": 0, "summaries": 0, "evicted": 0}
+            return {"triples": len(t.triples),
+                    "summaries": len(t.summaries),
+                    "evicted": len(t.evicted)}
 
 
 class NamespaceView:
@@ -482,9 +590,13 @@ class NamespaceView:
 
     def record_session(self, conversation_id: str, session_id: str,
                        messages: Sequence[Message]):
-        if self.service.flush_every:
-            # batched ingestion: buffered until the count-based flush (reads
-            # still see it — retrieve flushes first)
+        runtime = self.service.runtime
+        if self.service.flush_every or (
+                runtime is not None
+                and runtime.policy.flush_interval_s is not None):
+            # batched ingestion: buffered until the count-based or
+            # time-based flusher drains the queue (reads still see it —
+            # retrieve flushes first)
             return self.service.enqueue(self.namespace, session_id, messages)
         return self.service.record(self.namespace, session_id, messages)
 
@@ -497,3 +609,9 @@ class NamespaceView:
 
     def stats(self) -> dict:
         return self.service.namespace_stats(self.namespace)
+
+    def close(self) -> None:
+        """Shut the backing service's lifecycle runtime down (final flush +
+        snapshot).  Idempotent and shared: the first closing view wins, so
+        any client of a shared service may call it on exit."""
+        self.service.close()

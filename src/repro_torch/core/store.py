@@ -19,8 +19,19 @@ mapping as one consistent unit:
   device bank's `quantize` mode.
 * **tiering** — `attach_tiers()` mounts a hot/warm TierManager
   (core/tiering.py) on the vector index; flushes note record activity.
+* **incremental persistence hooks** — when `wal_sink` is attached (by
+  `core/lifecycle.py`'s LifecycleRuntime), every durable mutation emits a
+  self-describing record *before* it is applied: `flush` logs the
+  extracted sessions plus the raw embedding vectors (the only input a
+  replay could not recompute bit-exactly), `link` its edge, and
+  `evict`/`evict_superseded`/`compact` their operation (deterministic
+  functions of store state).  `apply_wal(record)` replays a record through
+  the same commit code the live mutation used, so snapshot + ordered
+  replay rebuilds a store whose bank bytes and retrieval answers equal the
+  writer's up to the last durable record.  The records are the reference
+  package's, byte for byte.
 
-This slice of the port is unsharded and has no write-ahead-log sink.
+The port's store is unsharded: a sharded flush record raises.
 
 Layout invariant (checked, raising StoreInvariantError): global row id ==
 BM25 doc id == position in the row tables; tenant-local `rows[tid]` maps a
@@ -30,11 +41,13 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional, Sequence, Set, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.checkpoint import io as ckpt_io
+from repro_torch.checkpoint import packing
 from repro_torch.common.utils import resolve_device
 from repro_torch.core.bm25 import BM25Index
 from repro_torch.core.extraction import Extractor, Message, RuleExtractor
@@ -49,6 +62,13 @@ from repro_torch.obs.telemetry import FLUSH_LATENCY, get_telemetry
 # the reference package's snapshot layout version (graph_* arrays +
 # meta["graph"]); other versions are refused rather than half-read
 SNAPSHOT_VERSION = 2
+
+
+def _as_record(obj, names) -> dict:
+    """`dataclasses.asdict` of a flat dataclass of scalars (Triple,
+    Summary) whose field `names` are given — the same dict, several times
+    faster: a snapshot of the serve store converts a million triples."""
+    return {n: getattr(obj, n) for n in names}
 
 
 class StoreInvariantError(RuntimeError):
@@ -100,6 +120,16 @@ class MemoryStore:
         #                                        rows keep a retired ns id
         self._row_tid: List[int] = []          # global row -> local tid
         self._pending: List[PendingSession] = []
+        # incremental-persistence hook: called with a self-describing record
+        # BEFORE each durable mutation is applied (WAL-before-apply); a sink
+        # that raises aborts the mutation.  Attached by LifecycleRuntime;
+        # must be None while apply_wal() replays (replay must not re-log).
+        self.wal_sink: Optional[Callable[[dict], object]] = None
+        # called with the session count AFTER each non-empty flush commits,
+        # whoever triggered it (runtime, service read path, direct caller);
+        # the runtime uses it to track flush times and wake blocked
+        # enqueuers waiting on queue space
+        self.on_flush_commit: Optional[Callable[[int], None]] = None
 
     # -- tenancy -----------------------------------------------------------
     def tenant(self, namespace: str) -> TenantState:
@@ -167,9 +197,14 @@ class MemoryStore:
         """Drain every pending session across all tenants: extraction runs
         per session, but all new triples go through one `embed_texts` call,
         one bank append and one BM25 append.  Returns per-session
-        (namespace, triples, summary) in enqueue order.  All-or-nothing:
-        if extraction or embedding raises, the queue is restored intact
-        and nothing is committed."""
+        (namespace, triples, summary) in enqueue order.
+
+        All-or-nothing: extraction, embedding and the WAL append touch no
+        store state — if any of them raises, the queue is restored intact
+        and nothing is committed (no applied flush without its WAL record,
+        since the sink runs first).  With a sink attached the vectors come
+        to the host once (the record needs their bytes) and the commit
+        appends that host copy, as a replay of the record does."""
         if not self._pending:
             return []
         tel = get_telemetry()
@@ -187,11 +222,17 @@ class MemoryStore:
                     [tr.text() for tr in flat]) if flat else None
                 sessions = [(p.namespace, summary, triples)
                             for p, triples, summary in batch]
+                if self.wal_sink is not None:  # durability point: WAL first
+                    if isinstance(vecs, torch.Tensor):
+                        vecs = vecs.to(torch.float32).cpu().numpy()
+                    self.wal_sink(self._flush_record(sessions, vecs))
             except BaseException:
                 # restore the queue (ahead of anything enqueued since)
                 self._pending = pending + self._pending
                 raise
             self._apply_flush(sessions, vecs)
+            if self.on_flush_commit is not None:
+                self.on_flush_commit(len(batch))
         tel.observe(FLUSH_LATENCY, time.perf_counter() - t_flush,
                     help="flush latency (extract + embed + WAL + commit)")
         return [(p.namespace, triples, summary)
@@ -243,6 +284,69 @@ class MemoryStore:
                 f"graph row-incidence lanes ({self.graph.n_rows}) out of "
                 f"sync with the row tables ({len(self._row_tid)})")
 
+    # -- incremental persistence (WAL records) ------------------------------
+    def _flush_record(self, sessions, vecs) -> dict:
+        """Self-describing WAL record of one flush batch.  Everything a
+        replay cannot recompute rides along: the extracted sessions (the
+        extractor may be an LLM) and the raw embedding vectors (the
+        embedder may be one too), as little-endian f32 bytes of the host
+        copy.  BM25 doc rows are not logged — they are a deterministic
+        function of triple text and the tokenizer."""
+        n_rows = sum(len(triples) for _, _, triples in sessions)
+        return {
+            "op": "flush",
+            "sessions": [{
+                "namespace": ns,
+                "summary": dataclasses.asdict(summary),
+                "triples": [dataclasses.asdict(tr) for tr in triples],
+            } for ns, summary, triples in sessions],
+            "n_rows": n_rows,
+            "dim": self.dim,
+            "vecs": (np.asarray(vecs, "<f4").tobytes()
+                     if n_rows else b""),
+        }
+
+    def _apply_flush_record(self, record: dict) -> None:
+        sessions = [
+            (s["namespace"], Summary(**s["summary"]),
+             [Triple(**td) for td in s["triples"]])
+            for s in record["sessions"]]
+        n, dim = int(record["n_rows"]), int(record["dim"])
+        if dim != self.dim:
+            raise StoreInvariantError(
+                f"WAL flush record dim {dim} != store dim {self.dim}")
+        vecs = (np.frombuffer(record["vecs"], "<f4").reshape(n, dim)
+                if n else None)
+        self._apply_flush(sessions, vecs)
+
+    def apply_wal(self, record: dict) -> None:
+        """Replay one WAL record through the same commit code the live
+        mutation used.  Only valid on a store whose `wal_sink` is detached
+        (replay must not append to the log it is reading)."""
+        if self.wal_sink is not None:
+            raise StoreInvariantError(
+                "apply_wal with an attached wal_sink would re-log the "
+                "records being replayed")
+        op = record["op"]
+        if op == "flush":
+            self._apply_flush_record(record)
+        elif op == "sharded_flush":
+            raise NotImplementedError(
+                "a sharded_flush WAL record (a sharded store's journal) "
+                "replays with the sharding slice of the port")
+        elif op == "graph_edge":
+            self._apply_link(record["namespace"], record["subject"],
+                             record["object"], record["etype"],
+                             float(record["weight"]))
+        elif op == "evict_ns":
+            self.evict_namespace(record["namespace"])
+        elif op == "evict_superseded":
+            self.evict_superseded(record["namespace"])
+        elif op == "compact":
+            self.compact()
+        else:
+            raise StoreInvariantError(f"unknown WAL record op {op!r}")
+
     def ingest(self, namespace: str, session_id: str,
                messages: Sequence[Message],
                conversation_id: Optional[str] = None
@@ -260,12 +364,16 @@ class MemoryStore:
         """Upsert one explicit graph edge between two entities of a tenant
         (both directions; entities intern through the same normalization as
         extraction, so linking "Caroline" reaches the node her triples
-        built)."""
+        built).  Durable: a `graph_edge` WAL record lands before the apply,
+        and replay goes through the same `_apply_link`."""
         if etype not in EDGE_TYPE_IDS:
             raise ValueError(
                 f"unknown edge type {etype!r}; expected one of "
                 f"{sorted(EDGE_TYPE_IDS)}")
-        # M3 (durability) journals the link here, before the apply
+        if self.wal_sink is not None:    # durability point: WAL first
+            self.wal_sink({"op": "graph_edge", "namespace": namespace,
+                           "subject": subject, "object": obj,
+                           "etype": etype, "weight": float(weight)})
         self._apply_link(namespace, subject, obj, etype, float(weight))
 
     def _apply_link(self, namespace: str, subject: str, obj: str,
@@ -284,6 +392,8 @@ class MemoryStore:
                          if p.namespace != namespace]
         if namespace not in self._tenants:
             return 0
+        if self.wal_sink is not None:    # deterministic given store state
+            self.wal_sink({"op": "evict_ns", "namespace": namespace})
         t = self._tenants.pop(namespace)
         live = [row for tid, row in enumerate(t.rows)
                 if tid not in t.evicted and row >= 0]
@@ -299,6 +409,8 @@ class MemoryStore:
             return 0
         fresh = [tid for tid in t.triples.superseded_ids()
                  if tid not in t.evicted]
+        if fresh and self.wal_sink is not None:
+            self.wal_sink({"op": "evict_superseded", "namespace": namespace})
         rows = [t.rows[tid] for tid in fresh]
         self.vindex.delete([r for r in rows if r >= 0])
         self.bm25.remove([r for r in rows if r >= 0])
@@ -311,6 +423,8 @@ class MemoryStore:
         tables, the BM25 corpus, the graph's row lanes and each tenant's
         `rows` list move together.  Pending sessions are flushed first."""
         self.flush()
+        if self.wal_sink is not None:    # deterministic given store state
+            self.wal_sink({"op": "compact"})
         before = self.vindex.n
         old_to_new = self.vindex.compact()
         bm_map = self.bm25.compact()
@@ -330,12 +444,17 @@ class MemoryStore:
                 "dropped": int(before - self.vindex.n)}
 
     # -- persistence -------------------------------------------------------
-    def snapshot(self, path: str, *, fsync: bool = False) -> int:
+    def snapshot(self, path: str, *, atomic: bool = False,
+                 fsync: bool = False) -> int:
         """Write the full store state in the reference snapshot layout.
-        Pending sessions are flushed first.  Returns bytes written."""
-        import msgpack
+        Pending sessions are flushed first.  `atomic`/`fsync` forward to
+        `io.save` — the lifecycle runtime's rotation uses both, so a crash
+        mid-snapshot never clobbers the previous generation.  Returns bytes
+        written."""
         self.flush()
         n = self.vindex.n
+        triple_fields = [f.name for f in dataclasses.fields(Triple)]
+        summary_fields = [f.name for f in dataclasses.fields(Summary)]
         meta = {
             "version": SNAPSHOT_VERSION,
             "dim": self.dim,
@@ -347,16 +466,15 @@ class MemoryStore:
                     "ns_id": t.ns_id,
                     "rows": [int(r) for r in t.rows],
                     "evicted": sorted(t.evicted),
-                    "triples": [dataclasses.asdict(tr)
+                    "triples": [_as_record(tr, triple_fields)
                                 for tr in t.triples.all()],
-                    "summaries": [dataclasses.asdict(s)
+                    "summaries": [_as_record(s, summary_fields)
                                   for s in t.summaries.all()],
                 } for ns, t in self._tenants.items()
             },
             "graph": self.graph.snapshot_meta(),
         }
-        blob = np.frombuffer(msgpack.packb(meta, use_bin_type=True),
-                             np.uint8)
+        blob = np.frombuffer(packing.packb(meta), np.uint8)
         arrays = {
             "bank": self.vindex.bank.copy(),
             "bank_alive": self.vindex.alive(),
@@ -374,7 +492,7 @@ class MemoryStore:
                 f"snapshot: row tables ({arrays['row_tid'].shape[0]}) or "
                 f"graph lanes ({self.graph.n_rows}) out of sync with the "
                 f"bank ({n})")
-        return ckpt_io.save(path, arrays, fsync=fsync)
+        return ckpt_io.save(path, arrays, atomic=atomic, fsync=fsync)
 
     @classmethod
     def from_arrays(cls, arrays: Dict[str, np.ndarray], embedder, *,
@@ -387,9 +505,7 @@ class MemoryStore:
         result answers retrieval identically to the store that wrote it.
         `quantize`/`rescore` pick the restored index's device bank mode; the
         snapshot itself is always f32."""
-        import msgpack
-        meta = msgpack.unpackb(np.asarray(arrays["meta"]).tobytes(),
-                               raw=False)
+        meta = packing.unpackb(np.asarray(arrays["meta"]).tobytes())
         if meta["version"] != SNAPSHOT_VERSION:
             raise StoreInvariantError(
                 f"snapshot version {meta['version']} != {SNAPSHOT_VERSION}")

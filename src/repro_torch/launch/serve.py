@@ -1,0 +1,179 @@
+"""Serving launcher of the port: the agent's LM behind the Memori memory
+layer, on one CUDA card (or the CPU when asked).
+
+    PYTHONPATH=src python -m repro_torch.launch.serve
+    PYTHONPATH=src python -m repro_torch.launch.serve --host-demo --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --snapshot-path /tmp/memori.d --flush-interval 0.5 \\
+        --snapshot-interval 30 --max-pending 256
+
+`--arch` (default `memori-agent`) runs at full width; `--host-demo`
+reduces it to two layers of width 128 for a quick run.  The LM's weights
+are random, from a seed, so its replies are noise: the retrieval and
+token-accounting lines are the signal.
+
+`--snapshot-path` mounts the memory layer on a lifecycle runtime rooted at
+that durable directory: the service recovers from it on boot (newest valid
+snapshot + WAL replay — a restarted server answers as the last one did up
+to its last durable flush) and every flush appends to the write-ahead log.
+`--flush-interval` runs the background flusher (seconds); `--max-pending`
+bounds the queue with blocking backpressure; `--snapshot-interval` rotates
+full snapshots (retaining `--snapshot-retain` generations and truncating
+the WAL).  SIGTERM/SIGINT trigger a final flush + snapshot before exit, so
+a shutdown loses nothing that reached the queue drain.
+
+The request scheduler and the HTTP frontend (`--tick-interval`,
+`--max-batch`, `--http-port`, `--http-host`, `--api-keys`, `--qos-*`) come
+with the serving slice of the port, `--multipod` with its training and
+launch slice: each exits with an error that says so.
+"""
+import argparse
+import contextlib
+import os
+import signal
+
+_SLICE_SERVING = "the serving slice of the port"
+_SLICE_LAUNCH = "the training and launch slice of the port"
+# the reference launcher's flags for the request scheduler, admission
+# control and the HTTP frontend, which come with the serving slice
+_SERVING_FLAGS = ("tick_interval", "max_batch", "http_port", "http_host",
+                  "api_keys", "qos_rate", "qos_burst", "qos_max_queued",
+                  "qos_max_queued_global")
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default="memori-agent")
+    ap.add_argument("--host-demo", action="store_true",
+                    help="reduce the LM to 2 layers of width 128")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    ap.add_argument("--max-len", type=int, default=128)
+    ap.add_argument("--snapshot-path", default=None,
+                    help="durable directory for the lifecycle runtime "
+                         "(rotating snapshots + WAL); recovered on boot, "
+                         "snapshotted on shutdown incl. SIGTERM/SIGINT")
+    ap.add_argument("--flush-interval", type=float, default=None,
+                    help="background flusher period in seconds "
+                         "(policy.flush_interval_s); default: synchronous "
+                         "record")
+    ap.add_argument("--max-pending", type=int, default=None,
+                    help="bound the pending queue (blocking backpressure)")
+    ap.add_argument("--snapshot-interval", type=float, default=None,
+                    help="periodic full-snapshot rotation period in seconds")
+    ap.add_argument("--snapshot-retain", type=int, default=2,
+                    help="snapshot generations kept by rotation")
+    ap.add_argument("--multipod", action="store_true",
+                    help=f"(comes with {_SLICE_LAUNCH})")
+    for name in _SERVING_FLAGS:
+        ap.add_argument("--" + name.replace("_", "-"), default=None,
+                        help=f"(comes with {_SLICE_SERVING})")
+    args = ap.parse_args(argv)
+    if args.multipod:
+        ap.error(f"--multipod comes with {_SLICE_LAUNCH}")
+    for name in _SERVING_FLAGS:
+        if getattr(args, name) is not None:
+            ap.error(f"--{name.replace('_', '-')} comes with "
+                     f"{_SLICE_SERVING} (the request scheduler, admission "
+                     "control and the HTTP frontend)")
+    if args.snapshot_interval is not None and args.snapshot_path is None:
+        ap.error("--snapshot-interval needs --snapshot-path (rotation "
+                 "without a durable directory would silently no-op)")
+    if args.snapshot_path is not None and os.path.isfile(args.snapshot_path):
+        ap.error(f"--snapshot-path {args.snapshot_path} is a single-file "
+                 "snapshot; the lifecycle runtime needs a directory "
+                 "(restore the file once via MemoryService.restore, then "
+                 "serve with a directory)")
+    return args
+
+
+def main(argv=None) -> None:
+    args = parse_args(argv)
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import (HashEmbedder, LifecyclePolicy,
+                                  MemoriClient, MemoryService)
+    from repro_torch.data.tokenizer import HashTokenizer
+    from repro_torch.models.model_api import Model
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.sampler import SamplerConfig
+
+    device = torch.device(args.device)
+    cfg = get_config(args.arch)
+    if args.host_demo:
+        cfg = cfg.reduced(layers=2, d_model=128)
+    model = Model(cfg)
+    params = model.init_params(torch.Generator(device=device).manual_seed(0))
+    tok = HashTokenizer(cfg.vocab_size)
+    engine = Engine(model, params, max_len=args.max_len, slots=2,
+                    sampler=SamplerConfig(temperature=0.8, top_k=40),
+                    tokenizer=tok)
+    policy = LifecyclePolicy(
+        flush_interval_s=args.flush_interval,
+        max_pending=args.max_pending,
+        snapshot_interval_s=args.snapshot_interval,
+        snapshot_retain=args.snapshot_retain,
+    )
+    wants_runtime = args.snapshot_path is not None or policy.wants_daemon \
+        or args.max_pending is not None
+    # one multi-tenant service fronts every conversation on this host;
+    # with --snapshot-path it picks up exactly where the last run stopped
+    embedder = HashEmbedder(device=device)
+    if args.snapshot_path is not None:
+        service = MemoryService.recover(
+            args.snapshot_path, embedder, policy=policy, device=device,
+            budget=800)
+        print(f"recovered memory store from {args.snapshot_path}: "
+              f"{service.stats()}", flush=True)
+    else:
+        service = MemoryService(embedder, budget=800, device=device,
+                                policy=policy if wants_runtime else None)
+
+    def _shutdown(signum, frame):
+        # unwind via SystemExit (flush's all-or-nothing guard restores the
+        # queue if it lands mid-batch) and let the `finally` below run the
+        # single close path — the handler itself must not flush or rotate,
+        # it may be interrupting a commit
+        print(f"signal {signum}: shutting down", flush=True)
+        raise SystemExit(0)
+
+    signal.signal(signal.SIGTERM, _shutdown)
+    signal.signal(signal.SIGINT, _shutdown)
+
+    lock = (service.runtime.lock if service.runtime is not None
+            else contextlib.nullcontext())
+
+    def llm(prompt: str) -> str:
+        # the engine's first step captures a CUDA graph, and a capture
+        # forbids device work from any other thread: the runtime's lock
+        # keeps the background flusher off the device meanwhile
+        with lock:
+            return engine.generate([prompt[-500:]], max_new_tokens=12)[0]
+
+    client = MemoriClient(llm, service.namespace("u0/demo"))
+    try:
+        print(client.chat("I work as a translator and I live in Cusco."),
+              flush=True)
+        client.end_session()
+        [ctx] = service.retrieve_batch(
+            [("u0/demo", "Where does the user live?")])
+        print(f"retrieved {len(ctx.triples)} triples, "
+              f"{ctx.token_count} tokens", flush=True)
+        print("service:", service.stats(), flush=True)
+        print("engine:", engine.stats, flush=True)
+    finally:
+        try:
+            service.close(final_snapshot=args.snapshot_path is not None)
+            if args.snapshot_path is not None:
+                print(f"final snapshot rotation -> {args.snapshot_path}",
+                      flush=True)
+        except Exception as e:
+            # the WAL already holds every durable flush; recovery replays
+            # it even when the final rotation could not be written
+            print(f"clean close failed ({e!r}); durable WAL state in "
+                  f"{args.snapshot_path} remains recoverable", flush=True)
+
+
+if __name__ == "__main__":
+    main()

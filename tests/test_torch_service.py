@@ -168,13 +168,14 @@ def test_evict_and_compact_keep_parity():
 
 
 def test_slices_to_come_raise_not_implemented():
+    # durability (data_dir= / runtime=) came with its slice: see
+    # tests/test_torch_durability.py
     emb = HashEmbedder(device="cpu")
-    for kw in (dict(data_dir="/nonexistent"), dict(runtime=object()),
-               dict(shards=2)):
-        with pytest.raises(NotImplementedError):
+    for kw in (dict(shards=2), dict(mesh=object())):
+        with pytest.raises(NotImplementedError, match="sharding slice"):
             MemoryService(emb, device="cpu", **kw)
     svc = MemoryService(emb, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="serving slice"):
         svc.start_scheduler()
 
 
