@@ -49,7 +49,40 @@ line per phase and fails (nonzero exit) on any failed check:
                  hot/warm tier cycle: demotion, a B=64 batch of demoted
                  namespaces answered by host fallback, promotion, the batch
                  again.
-5. durability  — on the serve phase's f32 store (all rows back on the
+5. scheduler   — the serve phase's f32 store (all rows hot again) behind the
+                 request scheduler (`MemoryService.start_scheduler`, K1
+                 answering every tick): 1, 8 and 64 closed-loop client
+                 threads, each issuing one RetrieveRequest at a time (the
+                 planted-fact question and other namespaces; hybrid and
+                 dense-only), direct (one execute a request, the executes
+                 taken in turns through one lock) and scheduled (tick 2 ms,
+                 max batch 64), 200 requests or more a run: requests/s,
+                 latency p50/p99, the medians of queued_s and service_s,
+                 tick batch sizes, K1 launches a tick.  Every response must
+                 be ok, the planted fact returned with no leak, K1 launched
+                 once an execute, and each scheduled run's last tick equal
+                 to the same requests as one direct execute and 8 of them
+                 alone.  Then admission (8 closed-loop tenants, 320
+                 requests, alone and beside a tenant flooding submit_many
+                 under a per-tenant backlog cap: their p99, the
+                 rejections, every admitted request ok), HTTP in process (a
+                 MemoryFrontend: 8 conversations recorded over the wire,
+                 the transport alone as GETs of /v1/healthz, 1, 8 and 64
+                 HttpMemory threads -- latency and the host overhead over
+                 the server's queued_s + service_s for each -- and one
+                 NDJSON stream, all equal to the direct path, key
+                 isolation, /v1/metrics and /v1/stats), a fresh full-width
+                 engine's first decode step (its CUDA graph capture, in
+                 thread-local mode) beside live ticks, captured again until
+                 a tick's execute ran inside a capture (its answers equal
+                 to a direct execute), and `python -m
+                 repro_torch.launch.serve --tick-interval 0.002
+                 --http-port 0 ... --qos-rate 50 --qos-burst 100
+                 --snapshot-path D` at full width: record and retrieve over
+                 HTTP, 429s with Retry-After under a burst, SIGTERM with a
+                 final snapshot, a second boot that answers the same.  The
+                 K1 count of the phase leaves out the checks' executes.
+6. durability  — on the serve phase's f32 store (all rows back on the
                  device): mounts a LifecycleRuntime on a fresh directory
                  (the baseline snapshot generation: bytes and seconds,
                  pack, write + fsync, manifest), journals 64 conversations
@@ -67,23 +100,23 @@ line per phase and fails (nonzero exit) on any failed check:
                  `python -m repro_torch.launch.serve --snapshot-path D`
                  (full-width memori-agent) twice on one directory: the
                  second boot must recover the first's final state.
-6. serve_int8  — the same with `MemoryService(quantize="int8")` (int8 bank,
+7. serve_int8  — the same with `MemoryService(quantize="int8")` (int8 bank,
                  K2 plus the exact f32 rescore) at 2**20 rows, under the
                  hybrid and dense-only plans; K2's candidates and the
                  rescored ranking of each execute are held against the
                  plain path, and recall@10 against the exact f32 host
                  search must reach 0.95.
-7. harness     — `repro_torch.eval.locomo` at the paper's defaults on the
+8. harness     — `repro_torch.eval.locomo` at the paper's defaults on the
                  card (Table 1's four systems, Table 2, Figure 2; K1
                  through `MemoriMemory` and `RagChunkMemory`): for memori
                  and rag every question's context and token count must
                  equal the CPU run's, and the accuracy and tokens per query
                  the reference package's figures.
-8. graph_recall — `repro_torch.eval.graph_recall` on the card: recall 1/6
+9. graph_recall — `repro_torch.eval.graph_recall` on the card: recall 1/6
                  (flat) -> 2/3 (graph) on the 18 graph questions, 99 nodes
                  and 402 edges after the probe links, and no whole-lane
                  re-upload while the lanes grow within their capacity.
-9. attention   — holds the attention kernels K6 (flash_attention) and K5
+10. attention  — holds the attention kernels K6 (flash_attention) and K5
                  (decode_attention) against their plain PyTorch versions on
                  the card, f32 and bf16, over edge cases (the reference
                  tests' shapes, lengths that are no multiple of the tile,
@@ -101,7 +134,7 @@ line per phase and fails (nonzero exit) on any failed check:
                  scaled_dot_product_attention and its bound (K5 also inside
                  a graph of 100 calls; K6 with its CTA count); the served
                  instances must not spill (ptxas).
-10. lm         — `memori-agent` at full width (12 layers, d_model 768,
+11. lm         — `memori-agent` at full width (12 layers, d_model 768,
                  random weights from a seed) served by
                  `Engine(slots=8, max_len=512)` through `ContinuousBatcher`:
                  16 greedy requests of 32 new tokens, prompts from synthetic
@@ -120,7 +153,7 @@ line per phase and fails (nonzero exit) on any failed check:
                  prefill + decode against the full forward, and the greedy
                  tokens against the plain path's (a divergence must sit at
                  a counted near-tie).
-11. agent      — `MemoriClient` over `MemoryService(device="cuda")` with the
+12. agent      — `MemoriClient` over `MemoryService(device="cuda")` with the
                  engine as its LLM: users record facts through chat +
                  end_session and `retrieve_batch` must return each user's
                  fact and no other's (K1, K5 and K6 all launched);
@@ -872,7 +905,7 @@ def phase_ops(device) -> dict:
     return out
 
 
-# -- phases 4 and 6: serve -----------------------------------------------------
+# -- phases 4 and 7: serve -----------------------------------------------------
 
 PLANTED_NS = "tenant-planted"
 PLANTED_TEXT = "I work as a translator and I live in Cusco."
@@ -1431,6 +1464,800 @@ def phase_serve(device, rows: int, reps: int, templates,
     return (out, svc, questions) if keep else out
 
 
+# -- phase 5: the request scheduler, admission control and HTTP ---------------
+
+# closed-loop clients of the scheduler phase, and the requests each client
+# issues one at a time in a run: every p99 rests on 200 requests or more and
+# each scheduled run spans tens of ticks (C = 64: 20 full ticks); the
+# direct C = 64 run, 64 executes taken in turns a round, is kept to 384
+SCHED_CLIENTS = (1, 8, 64)
+SCHED_ROUNDS = {"direct": {1: 200, 8: 40, 64: 6},
+                "scheduled": {1: 200, 8: 40, 64: 20}}
+SCHED_TICK_S, SCHED_MAX_BATCH = 0.002, 64
+# requests of a scheduled run's last tick that are also answered alone
+SCHED_ALONE = 8
+# a future waits at most this long: a B = 64 hybrid tick takes ~0.42 s on
+# the 2**20-row store, a tier-demoted one seconds
+SCHED_WAIT_S = 120.0
+# admission: well-behaved closed-loop tenants beside one flooding tenant
+# that submits blocks of ADMISSION_BLOCK without waiting, under a
+# per-tenant backlog cap
+ADMISSION_CLIENTS, ADMISSION_ROUNDS = 8, 40
+ADMISSION_BLOCK, ADMISSION_CAP = 64, 128
+# the policy's fair-share window (default 0.1 s) sized to a B = 64 hybrid
+# tick on the card, for a second flooded run
+ADMISSION_WINDOW_S = 1.0
+# HTTP in process: conversations recorded over the wire by one tenant, then
+# for each C in HTTP_CLIENTS, C `HttpMemory` threads of HTTP_ROUNDS[C]
+# retrieves each; HTTP_PROBES single-client GETs of /v1/healthz time the
+# transport alone (a connection, a handler thread, no JSON body)
+HTTP_CONVS = 8
+HTTP_CLIENTS = (1, 8, 64)
+HTTP_ROUNDS = {1: 100, 8: 25, 64: 6}
+HTTP_PROBES = 100
+HTTP_KEYS = {"k-acme": "acme", "k-beta": "beta"}
+# closed-loop clients (dense-only: ticks of a few ms) that keep the
+# scheduler ticking through the engine's first decode step (its CUDA graph
+# capture); further captures of the same step, up to CAPTURE_TRIES in all,
+# until a tick's execute has run inside one
+CAPTURE_CLIENTS = 8
+CAPTURE_TRIES = 8
+# the full-width launcher on the serving path; a burst of concurrent
+# clients over its token bucket (rate 50/s, burst 100)
+SERVE_LAUNCHER_ARGS = ("--tick-interval", "0.002", "--http-port", "0",
+                       "--http-host", "127.0.0.1",
+                       "--api-keys", "k1=acme,k2=beta",
+                       "--qos-rate", "50", "--qos-burst", "100")
+LAUNCHER_BURST_CLIENTS, LAUNCHER_BURST_EACH = 64, 5
+
+
+def _ctx_key(payload):
+    """What two answers must share: the context's text, its triples' texts
+    and its token count."""
+    return (payload.text, [t.text() for t in payload.triples],
+            payload.token_count)
+
+
+def _quantiles_ms(xs) -> dict:
+    import numpy as np
+    xs = np.asarray(xs, dtype=np.float64) * 1e3
+    return {"p50": float(np.percentile(xs, 50)),
+            "p99": float(np.percentile(xs, 99)), "max": float(xs.max())}
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches made inside are a check's own, not the path's: every
+    wrapper's count is put back on the way out.  Only where no other
+    thread launches meanwhile."""
+    saved = {f: f.launches for f in wrappers().values()}
+    try:
+        yield
+    finally:
+        for f, n in saved.items():
+            f.launches = n
+
+
+def closed_loop(svc, sched, make_req, clients: int, rounds: int,
+                tenants=None) -> dict:
+    """`clients` threads, each issuing `rounds` requests one at a time:
+    through `sched` (submit, then wait on the future) or, with `sched`
+    None, directly (one `execute` per request, the executes taken in turns
+    through one lock; the wait for it is the request's queue time).
+    Returns every (client, request, response, seconds) and the wall
+    time."""
+    import threading
+    import numpy as np
+    from repro_torch.core import MemoryResponse
+    barrier = threading.Barrier(clients + 1)
+    records, errors = [], []
+    lock, turns = threading.Lock(), threading.Lock()
+
+    def direct(req):
+        t0 = time.monotonic()
+        with turns:
+            t1 = time.monotonic()
+            try:
+                payload = svc.execute([req])[0]
+            except Exception as e:
+                return MemoryResponse(payload=None, op="retrieve",
+                                      status="error", error=repr(e),
+                                      exception=e)
+            return MemoryResponse(payload=payload, op="retrieve",
+                                  queued_s=t1 - t0,
+                                  service_s=time.monotonic() - t1,
+                                  batch_size=1,
+                                  token_count=payload.token_count)
+
+    def client(c):
+        rng = np.random.default_rng(1000 + c)
+        tenant = None if tenants is None else tenants(c)
+        mine = []
+        try:
+            barrier.wait()
+            for _ in range(rounds):
+                req = make_req(c, rng)
+                t = time.perf_counter()
+                if sched is None:
+                    resp = direct(req)
+                else:
+                    resp = sched.submit(req, tenant=tenant).result(
+                        timeout=SCHED_WAIT_S)
+                mine.append((c, req, resp, time.perf_counter() - t))
+        except Exception as e:          # surfaced below: fails the run
+            errors.append(repr(e))
+        with lock:
+            records.extend(mine)
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(clients)]
+    for t in threads:
+        t.start()
+    barrier.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        fail(f"scheduler: a client failed: {errors[:3]}")
+    return {"records": records, "wall": wall}
+
+
+def check_answers(records, what: str) -> None:
+    """Every response ok; the planted question (client 0) answered with the
+    planted fact; no other client's context holds it."""
+    for c, req, resp, _ in records:
+        if not resp.ok:
+            fail(f"{what}: request {req} failed: {resp.error}")
+        text = resp.payload.text
+        if c == 0 and PLANTED_LINE not in text:
+            fail(f"{what}: the planted fact did not come back:\n{text}")
+        if c != 0 and "(user;" in text:
+            fail(f"{what}: {req.namespace}'s context holds the planted "
+                 "namespace's fact")
+
+
+def loop_stats(run, ticks) -> dict:
+    """Requests/s, latency p50/p99, the medians of queued_s and service_s,
+    and the executes' batch sizes (`ticks`), from one closed-loop run."""
+    import numpy as np
+    recs = run["records"]
+    return {"requests": len(recs),
+            "requests_per_s": len(recs) / run["wall"],
+            "latency_ms": _quantiles_ms([r[3] for r in recs]),
+            "queued_ms_p50": float(np.median(
+                [r[2].queued_s for r in recs])) * 1e3,
+            "service_ms_p50": float(np.median(
+                [r[2].service_s for r in recs])) * 1e3,
+            "ticks": len(ticks), "tick_batch_mean": float(np.mean(ticks)),
+            "tick_batch_max": int(max(ticks))}
+
+
+def phase_scheduler(device, svc, questions, src: str) -> dict:
+    """The serve phase's f32 store (all rows hot) behind the request
+    scheduler: closed loops direct and scheduled, admission under a flood,
+    HTTP in process, a CUDA graph capture beside live ticks, and the
+    full-width launcher (see the module docstring)."""
+    import gc
+    import threading
+    import numpy as np
+    import torch
+    from repro_torch.core import (AdmissionError, AdmissionPolicy,
+                                  RetrieveRequest, TenantPolicy)
+    from repro_torch.kernels import topk_mips as tk
+    t_phase = time.perf_counter()
+    # the serve phase's tier cycle left half the rows warm (answered by the
+    # host fallback): every row comes back to the device and the manager
+    # is detached, so K1 answers every request
+    vi = svc.vindex
+    promoted = vi.promote_rows(np.flatnonzero(~vi.resident_mask()))
+    svc.store.tiers = None
+    k1 = tk.topk_mips_masked
+    names = sorted(questions)
+    stages = {"hybrid": None, "dense_only": ("dense", "budget")}
+
+    def request_maker(plan):
+        def make(c, rng):
+            if c == 0:
+                ns, q = PLANTED_NS, PLANTED_QUESTION
+            else:
+                ns = str(names[int(rng.integers(len(names)))])
+                q = str(questions[ns][int(rng.integers(len(questions[ns])))])
+            if stages[plan] is None:
+                return RetrieveRequest(ns, q)
+            return RetrieveRequest(ns, q, stages=stages[plan])
+        return make
+
+    # every execute's requests and payloads, for the checks of each
+    # scheduled run's last tick (references only)
+    executes = []
+    execute = svc.execute
+
+    def spy_execute(reqs, plan=None):
+        out = execute(reqs, plan=plan)
+        executes.append((list(reqs), out))
+        return out
+
+    svc.execute = spy_execute
+    reset_counts()          # the phase's path: every count from 0
+    runs, tick_checks = {}, {}
+    for plan in stages:
+        for C in SCHED_CLIENTS:
+            for mode in ("direct", "scheduled"):
+                key = f"{plan}_{mode}_C{C}"
+                executes.clear()
+                k1_before = k1.launches
+                sched = (svc.start_scheduler(tick_interval_s=SCHED_TICK_S,
+                                             max_batch=SCHED_MAX_BATCH)
+                         if mode == "scheduled" else None)
+                run = closed_loop(svc, sched, request_maker(plan), C,
+                                  SCHED_ROUNDS[mode][C])
+                if sched is not None:
+                    st = sched.stats()
+                    sched.close()
+                    if sched.last_error is not None:
+                        fail(f"scheduler {key}: a tick failed: "
+                             f"{sched.last_error!r}")
+                k1_run = k1.launches - k1_before
+                check_answers(run["records"], f"scheduler {key}")
+                ticks = [len(r) for r, _ in executes]
+                out = loop_stats(run, ticks)
+                n = len(run["records"])
+                if mode == "scheduled":
+                    if st["retrieves"] != n or \
+                            st["retrieve_launches"] != len(ticks):
+                        fail(f"scheduler {key}: {st['retrieves']} retrieves "
+                             f"in {st['retrieve_launches']} launches, "
+                             f"{n} requests in {len(ticks)} executes")
+                    # the last tick in full as one direct execute, and
+                    # SCHED_ALONE of its requests each alone (the
+                    # scheduler is closed: no other thread launches)
+                    reqs, payloads = executes[-1]
+                    with uncounted():
+                        again = execute(reqs)
+                        alone = [execute([r])[0]
+                                 for r in reqs[:SCHED_ALONE]]
+                    for r, p, a in zip(reqs, payloads, again):
+                        if _ctx_key(p) != _ctx_key(a):
+                            fail(f"scheduler {key}: {r} answered in a "
+                                 "tick differs from a direct execute")
+                    for r, p, a in zip(reqs, payloads, alone):
+                        if _ctx_key(p) != _ctx_key(a):
+                            fail(f"scheduler {key}: {r} answered in a "
+                                 "tick differs from the request alone")
+                    tick_checks[key] = {"last_tick": len(reqs),
+                                        "alone": len(alone)}
+                # one K1 launch an execute, as the serve phase holds
+                if k1_run != len(ticks):
+                    fail(f"scheduler {key}: K1 launched {k1_run} times for "
+                         f"{len(ticks)} executes")
+                out["k1_launches"] = k1_run
+                out["k1_per_tick"] = k1_run / len(ticks)
+                runs[key] = out
+
+    # admission: ADMISSION_CLIENTS closed-loop tenants alone, then beside a
+    # tenant that floods submit_many without waiting, under the default
+    # fair-share window and under one sized to the card's ticks
+    cap = TenantPolicy(max_queued=ADMISSION_CAP)
+    policies = {"alone": AdmissionPolicy(default=cap),
+                "flooded": AdmissionPolicy(default=cap),
+                "flooded_window": AdmissionPolicy(
+                    default=cap, share_window_s=ADMISSION_WINDOW_S)}
+    make = request_maker("hybrid")
+    flood_reqs = [RetrieveRequest(str(ns), str(questions[ns][0]))
+                  for ns in np.random.default_rng(5).choice(
+                      [n for n in names if n.startswith("fill-")],
+                      ADMISSION_BLOCK, replace=False)]
+    admission = {}
+    for key, policy in policies.items():
+        flooded = key != "alone"
+        sched = svc.start_scheduler(tick_interval_s=SCHED_TICK_S,
+                                    max_batch=SCHED_MAX_BATCH,
+                                    admission=policy)
+        stop, flood_futs, rejected = threading.Event(), [], [0]
+
+        def flood():
+            while not stop.is_set():
+                try:
+                    flood_futs.extend(sched.submit_many(
+                        flood_reqs, tenant="flood"))
+                except AdmissionError:
+                    rejected[0] += 1
+                    time.sleep(0.001)      # a rejected client backs off 1 ms
+
+        flooder = threading.Thread(target=flood)
+        executes.clear()
+        k1_before = k1.launches
+        if flooded:
+            flooder.start()
+            while not flood_futs:
+                time.sleep(0.001)
+        run = closed_loop(svc, sched, make, ADMISSION_CLIENTS,
+                          ADMISSION_ROUNDS, tenants=lambda c: f"client-{c}")
+        stop.set()
+        if flooded:
+            flooder.join()
+        flood_resps = [f.result(timeout=SCHED_WAIT_S) for f in flood_futs]
+        st = sched.stats()
+        sched.close()
+        check_answers(run["records"], "scheduler admission")
+        if not all(r.ok for r in flood_resps):
+            fail("scheduler admission: an admitted flood request failed")
+        k1_run = k1.launches - k1_before
+        if k1_run != len(executes):
+            fail(f"scheduler admission {key}: K1 launched {k1_run} times "
+                 f"for {len(executes)} executes")
+        admission[key] = dict(loop_stats(run, [len(r) for r, _ in executes]),
+                              k1_launches=k1_run,
+                              flood_admitted=len(flood_futs),
+                              flood_rejected_blocks=rejected[0],
+                              shed=st["admission"]["shed"])
+    for key in ("flooded", "flooded_window"):
+        admission[key]["p99_vs_alone"] = (
+            admission[key]["latency_ms"]["p99"]
+            / admission["alone"]["latency_ms"]["p99"])
+
+    http = phase_scheduler_http(svc, execute)
+    capture = capture_beside_ticks(device, svc, request_maker("dense_only"),
+                                   execute)
+    # the phase's path in process, read just after: ticks and direct
+    # executes (the checks' own executes were made uncounted)
+    launches = counts()
+    del svc.execute                     # back to the class's method
+    gc.collect()
+    torch.cuda.empty_cache()
+    launcher = serve_launcher(src)
+    out = {"phase": "scheduler", "rows": svc.vindex.n,
+           "promoted_rows": promoted,
+           "tick_interval_s": SCHED_TICK_S, "max_batch": SCHED_MAX_BATCH,
+           "closed_loop": runs, "checked_ticks": tick_checks,
+           "launches": launches, "admission": admission, "http": http,
+           "capture": capture, "launcher": launcher,
+           "seconds": time.perf_counter() - t_phase, "gpu": gpu_line()}
+    emit(out)
+    return out
+
+
+def phase_scheduler_http(svc, execute) -> dict:
+    """A MemoryFrontend over the scheduled service: HTTP_CONVS conversations
+    recorded over the wire by tenant acme (the planted fact in c0); the
+    transport alone (HTTP_PROBES single-client GETs of /v1/healthz); then
+    for each C in HTTP_CLIENTS, C `HttpMemory` threads of HTTP_ROUNDS[C]
+    retrieves each, and one NDJSON streaming batch, every answer equal to
+    the direct path's; the second key sees nothing of acme's; /v1/metrics
+    and /v1/stats parse.  Each retrieve's time in the frontend's handler
+    (`_dispatch`, keyed by request id) splits its host overhead into the
+    handler's own work and the client's with the transport.  `execute`
+    is the service's own (unspied) execute."""
+    import threading
+    import urllib.request
+    import numpy as np
+    from repro_torch.core import HttpMemory, Message, RetrieveRequest
+    from repro_torch.data.locomo_synth import generate_conversation
+    from repro_torch.kernels import topk_mips as tk
+    from repro_torch.serving.frontend import MemoryFrontend
+    k1 = tk.topk_mips_masked
+    sched = svc.start_scheduler(tick_interval_s=SCHED_TICK_S,
+                                max_batch=SCHED_MAX_BATCH)
+    fe = MemoryFrontend(svc, HTTP_KEYS).start()
+    runs, handled = {}, {}
+    dispatch = fe._dispatch
+
+    def timed_dispatch(handler, method):
+        t = time.perf_counter()
+        try:
+            return dispatch(handler, method)
+        finally:
+            if handler.path == "/v1/retrieve":
+                handled[handler.memori_request_id] = time.perf_counter() - t
+
+    fe._dispatch = timed_dispatch
+    try:
+        convs = {}
+        t0 = time.perf_counter()
+        for i in range(HTTP_CONVS):
+            conv = generate_conversation(seed=40_000 + i)
+            mem = HttpMemory(fe.address, "k-acme", namespace=f"c{i}")
+            for sid, msgs in conv.sessions:
+                mem.record_session(conv.conversation_id, sid, msgs)
+            convs[f"c{i}"] = [qq.question for qq in conv.questions]
+        HttpMemory(fe.address, "k-acme", namespace="c0").record_session(
+            "c0", "s-planted",
+            [Message("user", PLANTED_TEXT, conv.sessions[-1][1][0].timestamp)])
+        record_s = time.perf_counter() - t0
+        probes = []
+        for _ in range(HTTP_PROBES):
+            t = time.perf_counter()
+            _http_get(fe.address + "/v1/healthz", "k-acme")
+            probes.append(time.perf_counter() - t)
+        got = []
+        for C in HTTP_CLIENTS:
+            k1_before = k1.launches
+            st0 = sched.stats()
+            mine_all, errors = [], []
+            barrier = threading.Barrier(C + 1)
+
+            def client(c):
+                rng = np.random.default_rng(2000 + c)
+                ns = f"c{c % HTTP_CONVS}"
+                mem = HttpMemory(fe.address, "k-acme", namespace=ns)
+                mine = []
+                try:
+                    barrier.wait()
+                    for _ in range(HTTP_ROUNDS[C]):
+                        q = (PLANTED_QUESTION if c == 0 else
+                             convs[ns][int(rng.integers(len(convs[ns])))])
+                        t = time.perf_counter()
+                        ctx = mem.retrieve(q)
+                        mine.append((ns, q, ctx, time.perf_counter() - t,
+                                     dict(mem.last_timing)))
+                except Exception as e:
+                    errors.append(repr(e))
+                mine_all.extend(mine)
+
+            threads = [threading.Thread(target=client, args=(c,))
+                       for c in range(C)]
+            for t in threads:
+                t.start()
+            barrier.wait()
+            t0 = time.perf_counter()
+            for t in threads:
+                t.join()
+            wall = time.perf_counter() - t0
+            if errors:
+                fail(f"scheduler http C={C}: a client failed: {errors[:3]}")
+            st1 = sched.stats()
+            k1_run = k1.launches - k1_before
+            ticks = st1["retrieve_launches"] - st0["retrieve_launches"]
+            if k1_run != ticks or \
+                    st1["retrieves"] - st0["retrieves"] != len(mine_all):
+                fail(f"scheduler http C={C}: K1 launched {k1_run} times in "
+                     f"{ticks} retrieve ticks for {len(mine_all)} requests")
+            lat = np.asarray([g[3] for g in mine_all])
+            server = np.asarray([g[4]["queued_s"] + g[4]["service_s"]
+                                 for g in mine_all])
+            handler = np.asarray([handled[g[4]["request_id"]]
+                                  for g in mine_all])
+            runs[f"C{C}"] = {
+                "requests": len(mine_all),
+                "requests_per_s": len(mine_all) / wall,
+                "latency_ms": _quantiles_ms(lat),
+                "server_ms_p50": float(np.median(server)) * 1e3,
+                "http_overhead_ms": _quantiles_ms(lat - server),
+                "handler_own_ms": _quantiles_ms(handler - server),
+                "client_and_transport_ms": _quantiles_ms(lat - handler),
+                "ticks": ticks, "k1_launches": k1_run}
+            got.extend(mine_all)
+        # one NDJSON streaming batch across acme's namespaces
+        stream_q = [(f"c{i}", convs[f"c{i}"][0]) for i in range(HTTP_CONVS)]
+        body = {"stream": True, "queries": [{"namespace": ns, "query": q}
+                                            for ns, q in stream_q]}
+        req = urllib.request.Request(
+            fe.address + "/v1/retrieve", data=json.dumps(body).encode(),
+            headers={"Authorization": "Bearer k-acme"})
+        with urllib.request.urlopen(req, timeout=SCHED_WAIT_S) as r:
+            events = [json.loads(ln) for ln in r.read().decode().splitlines()
+                      if ln.strip()]
+        results = {e["index"]: e["response"] for e in events
+                   if e["event"] == "result"}
+        if events[-1] != {"event": "done", "count": HTTP_CONVS,
+                          "errors": 0} or len(results) != HTTP_CONVS:
+            fail(f"scheduler http: the streamed batch ended {events[-1]}")
+        # every answer against the direct path on the same requests (no
+        # request in flight: the ticks launch nothing meanwhile)
+        pairs = sorted({(ns, q) for ns, q, _, _, _ in got} | set(stream_q))
+        want = {}
+        with uncounted():
+            for i in range(0, len(pairs), SCHED_MAX_BATCH):
+                chunk = pairs[i: i + SCHED_MAX_BATCH]
+                for p, a in zip(chunk, execute(
+                        [RetrieveRequest(f"acme/{ns}", q)
+                         for ns, q in chunk])):
+                    want[p] = a
+        for ns, q, ctx, _, _ in got:
+            if _ctx_key(ctx) != _ctx_key(want[(ns, q)]):
+                fail(f"scheduler http: acme/{ns} {q!r} over HTTP differs "
+                     "from the direct path")
+            if ns == "c0" and q == PLANTED_QUESTION \
+                    and PLANTED_LINE not in ctx.text:
+                fail("scheduler http: the planted fact did not come back")
+        for i, (ns, q) in enumerate(stream_q):
+            pay = results[i]["payload"]
+            if (pay["text"], pay["token_count"]) != (
+                    want[(ns, q)].text, want[(ns, q)].token_count):
+                fail(f"scheduler http: streamed acme/{ns} differs")
+        beta = HttpMemory(fe.address, "k-beta", namespace="c0").retrieve(
+            PLANTED_QUESTION)
+        if beta.triples or "(user;" in beta.text:
+            fail("scheduler http: the second key saw acme's memories")
+        stats = json.loads(_http_get(fe.address + "/v1/stats", "k-acme"))
+        metrics = {}
+        for ln in _http_get(fe.address + "/v1/metrics",
+                            "k-acme").splitlines():
+            if ln and not ln.startswith("#"):
+                name, value = ln.rsplit(" ", 1)
+                metrics[name] = float(value)
+        if metrics.get("memori_scheduler_retrieves") is None or \
+                stats["scheduler"]["retrieves"] < len(got):
+            fail("scheduler http: /v1/metrics or /v1/stats lack the "
+                 "scheduler's retrieves")
+    finally:
+        fe.close()
+        sched.close()
+    return {"record_seconds": record_s,
+            "healthz_ms": _quantiles_ms(probes), "runs": runs,
+            "streamed": len(results), "metrics_samples": len(metrics)}
+
+
+def _http_get(url: str, key: str) -> str:
+    import urllib.request
+    req = urllib.request.Request(url,
+                                 headers={"Authorization": f"Bearer {key}"})
+    with urllib.request.urlopen(req, timeout=SCHED_WAIT_S) as r:
+        return r.read().decode()
+
+
+def capture_beside_ticks(device, svc, make, execute) -> dict:
+    """A fresh full-width engine takes its first decode step (the CUDA
+    graph capture, in the engine's thread-local mode) while
+    CAPTURE_CLIENTS closed-loop clients keep a scheduler on the same
+    service ticking; further captures of the same step follow, up to
+    CAPTURE_TRIES in all, until a tick's execute has run inside one.
+    Every response ok; each execute that overlapped a capture equal to its
+    requests executed again afterwards (`execute`, the service's own); the
+    last captured step replayed equal to an eager one (as the lm phase
+    holds it)."""
+    import threading
+    import numpy as np
+    import torch
+    import repro_torch.serving.engine as engine_mod
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokenizer import HashTokenizer
+    from repro_torch.kernels import topk_mips as tk
+    from repro_torch.models.model_api import Model
+    from repro_torch.serving.requests import Request
+    cfg = get_config("memori-agent")
+    model = Model(cfg)
+    params = model.init_params(torch.Generator(device=device).manual_seed(0))
+    tok = HashTokenizer(cfg.vocab_size)
+    engine = engine_mod.Engine(model, params, max_len=LM_MAX_LEN,
+                               slots=LM_SLOTS, tokenizer=tok)
+    prompts = lm_prompts(tok, LM_SLOTS)
+    sched = svc.start_scheduler(tick_interval_s=SCHED_TICK_S,
+                                max_batch=SCHED_MAX_BATCH)
+    k1 = tk.topk_mips_masked
+    k1_before = k1.launches
+    # each capture proper (begin to end) and its mode; each tick's execute
+    windows, spans = [], []
+    cuda_graph, inner = torch.cuda.graph, svc.execute
+
+    class TimedCapture(cuda_graph):
+        def __enter__(self):
+            out = super().__enter__()
+            windows.append([time.monotonic(), None,
+                            getattr(self, "capture_error_mode", None)])
+            return out
+
+        def __exit__(self, *exc):
+            windows[-1][1] = time.monotonic()
+            return super().__exit__(*exc)
+
+    def timed(reqs, plan=None):
+        t0 = time.monotonic()
+        out = inner(reqs, plan=plan)
+        spans.append((t0, time.monotonic(), list(reqs), out))
+        return out
+
+    def inside():
+        return [sp for sp in spans
+                if any(sp[0] < w[1] and sp[1] > w[0] for w in windows)]
+
+    stop, resps, errors = threading.Event(), [], []
+
+    def client(c):
+        rng = np.random.default_rng(3000 + c)
+        try:
+            while not stop.is_set():
+                resps.append((c, sched.submit(make(c, rng)).result(
+                    timeout=SCHED_WAIT_S)))
+        except Exception as e:
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(CAPTURE_CLIENTS)]
+    torch.cuda.graph, svc.execute = TimedCapture, timed
+    try:
+        for t in threads:
+            t.start()
+        while sched.stats()["ticks"] < 2:
+            time.sleep(0.01)
+        got, wall, _, _ = greedy_run(engine, [
+            Request(tok.encode(p), LM_NEW_TOKENS) for p in prompts])
+        while not inside() and len(windows) < CAPTURE_TRIES:
+            engine.graph = engine_mod.CountedGraph(engine.decode)
+        time.sleep(0.2)                 # more ticks after the captures
+    finally:
+        stop.set()
+        for t in threads:
+            t.join()
+        torch.cuda.graph, svc.execute = cuda_graph, inner
+    ticks = sched.stats()["ticks"]
+    sched.close()
+    # K1 once a tick's execute: a launch during a capture is the tick's,
+    # neither lost nor replayed with the decode graph
+    k1_run = k1.launches - k1_before
+    if errors:
+        fail(f"scheduler capture: a client failed: {errors[:3]}")
+    if k1_run != len(spans):
+        fail(f"scheduler capture: K1 launched {k1_run} times for "
+             f"{len(spans)} executes")
+    if engine.graph is None or not windows:
+        fail("scheduler capture: the engine captured no decode graph")
+    for c, resp in resps:
+        if not resp.ok:
+            fail(f"scheduler capture: a retrieve failed: {resp.error}")
+        if c == 0 and PLANTED_LINE not in resp.payload.text:
+            fail("scheduler capture: the planted fact did not come back")
+    during = inside()
+    if not during:
+        fail(f"scheduler capture: no tick ran inside any of {len(windows)} "
+             "captures")
+    if not any(sp[0] > windows[-1][1] for sp in spans):
+        fail("scheduler capture: no tick after the captures")
+    with uncounted():                   # the scheduler is closed
+        for _, _, reqs, payloads in during:
+            for r, p, a in zip(reqs, payloads, execute(reqs)):
+                if _ctx_key(p) != _ctx_key(a):
+                    fail(f"scheduler capture: {r} answered inside a "
+                         "capture differs from a direct execute")
+    if not all(r.tokens for r in got):
+        fail("scheduler capture: a request generated nothing")
+    with uncounted():
+        err = replay_vs_eager(engine, tok, prompts)
+    if not err <= LOGIT_TOL:
+        fail(f"scheduler capture: replayed decode graph vs eager "
+             f"decode_step differ by {err} > {LOGIT_TOL}")
+    out = {"captures": len(windows),
+           "capture_ms": [(w[1] - w[0]) * 1e3 for w in windows],
+           "capture_error_mode": windows[0][2],
+           "executes_inside": len(during),
+           "requests_inside": sum(len(sp[2]) for sp in during),
+           "retrieves": len(resps), "ticks": ticks,
+           "executes": len(spans), "k1_launches": k1_run,
+           "generate_wall_s": wall, "replay_vs_eager": err}
+    del engine, params, model
+    return out
+
+
+def serve_launcher(src: str) -> dict:
+    """`python -m repro_torch.launch.serve` on the serving path at full
+    width (SERVE_LAUNCHER_ARGS and a snapshot directory): it prints its
+    address; acme records and retrieves through `HttpMemory`, the second
+    key sees nothing of it; a burst of concurrent clients over the token
+    bucket gets 429s with Retry-After; SIGTERM exits 0 with a final
+    snapshot, and a second boot on the directory answers the same."""
+    import queue
+    import shutil
+    import signal
+    import tempfile
+    import threading
+    import urllib.error
+    import urllib.request
+    from repro_torch.core import HttpMemory, Message
+    workdir = tempfile.mkdtemp(prefix="memori-serve-")
+    d = os.path.join(workdir, "memori.d")
+    env = dict(os.environ, PYTHONPATH=src)
+
+    def boot():
+        t = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.serve",
+             *SERVE_LAUNCHER_ARGS, "--snapshot-path", d],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=env, cwd=ROOT)
+        lines = queue.Queue()
+
+        def pump():
+            for ln in proc.stdout:
+                lines.put(ln)
+            lines.put(None)
+
+        threading.Thread(target=pump, daemon=True).start()
+        while True:
+            try:
+                ln = lines.get(timeout=300)
+            except queue.Empty:
+                ln = None
+            if ln is None:
+                proc.kill()
+                fail(f"scheduler launcher: no address:\n"
+                     f"{proc.stderr.read()[-3000:]}")
+            if ln.startswith("memory layer serving on "):
+                return proc, lines, ln.split()[4], time.perf_counter() - t
+
+    def stop(proc, lines):
+        proc.send_signal(signal.SIGTERM)
+        try:
+            rc = proc.wait(timeout=300)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            fail("scheduler launcher: no exit after SIGTERM")
+        rest = []
+        while (ln := lines.get(timeout=60)) is not None:
+            rest.append(ln)
+        if rc != 0 or f"final snapshot rotation -> {d}\n" not in rest:
+            fail(f"scheduler launcher exited {rc}: {rest[-5:]}\n"
+                 f"{proc.stderr.read()[-3000:]}")
+
+    def post(addr):
+        req = urllib.request.Request(
+            addr + "/v1/retrieve",
+            data=json.dumps({"namespace": "conv0",
+                             "query": PLANTED_QUESTION}).encode(),
+            headers={"Authorization": "Bearer k1"})
+        try:
+            with urllib.request.urlopen(req, timeout=SCHED_WAIT_S) as r:
+                return r.status, json.loads(r.read().decode()), None
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read().decode()), \
+                e.headers.get("Retry-After")
+
+    try:
+        proc, lines, addr, boot_s = boot()
+        try:
+            acme = HttpMemory(addr, "k1", namespace="conv0")
+            acme.record_session("conv0", "s0",
+                                [Message("user", PLANTED_TEXT, 1.7e9)])
+            first = acme.retrieve(PLANTED_QUESTION)
+            if PLANTED_LINE not in first.text:
+                fail(f"scheduler launcher: the planted fact did not come "
+                     f"back:\n{first.text}")
+            beta = HttpMemory(addr, "k2", namespace="conv0").retrieve(
+                PLANTED_QUESTION)
+            if beta.triples:
+                fail("scheduler launcher: the second key saw acme's facts")
+            codes, bad = [], []
+
+            def burst():
+                for _ in range(LAUNCHER_BURST_EACH):
+                    st, body, retry = post(addr)
+                    codes.append(st)
+                    if st == 429 and not (retry and int(retry) >= 1
+                                          and body["reason"]
+                                          == "rate_limited"):
+                        bad.append((st, body, retry))
+                    elif st not in (200, 429) or (
+                            st == 200 and body["status"] != "ok"):
+                        bad.append((st, body, retry))
+
+            threads = [threading.Thread(target=burst)
+                       for _ in range(LAUNCHER_BURST_CLIENTS)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            burst_s = time.perf_counter() - t0
+            if bad or 429 not in codes:
+                fail(f"scheduler launcher: burst answered {bad[:3]}, "
+                     f"{codes.count(429)} of {len(codes)} were 429")
+        finally:
+            stop(proc, lines)
+        proc, lines, addr, boot2_s = boot()
+        try:
+            again = HttpMemory(addr, "k1", namespace="conv0").retrieve(
+                PLANTED_QUESTION)
+        finally:
+            stop(proc, lines)
+        if _ctx_key(again) != _ctx_key(first):
+            fail("scheduler launcher: the second boot answers differently")
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return {"boot_seconds": boot_s, "second_boot_seconds": boot2_s,
+            "burst_requests": len(codes), "burst_429": codes.count(429),
+            "burst_seconds": burst_s}
+
+
 # -- phase 6: durability -------------------------------------------------------
 
 # conversations journaled one segment each after the baseline; group
@@ -1964,7 +2791,7 @@ def phase_durability(device, svc, questions, reps: int, src: str) -> dict:
     return out
 
 
-# -- phases 7 and 8: the paper's harness and the graph bench ------------------
+# -- phases 8 and 9: the paper's harness and the graph bench ------------------
 
 # the reference package's figures (benchmarks/common.evaluate at the
 # paper's defaults on the synthetic LoCoMo data): LoCoMo-weighted accuracy
@@ -2051,7 +2878,7 @@ def phase_graph_recall(device) -> dict:
     return res
 
 
-# -- phase 9: the attention kernels --------------------------------------------
+# -- phase 10: the attention kernels -------------------------------------------
 
 def attention_bound_ms(n_q_heads_pairs: int, bytes_moved: int, D: int):
     """Least time on the card for attention over `n_q_heads_pairs` allowed
@@ -2446,7 +3273,7 @@ def phase_attention(device, reps: int, build_log=None) -> dict:
     return out
 
 
-# -- phases 10 and 11: the agent's LM, and the agent loop ------------------------
+# -- phases 11 and 12: the agent's LM, and the agent loop ------------------------
 
 @contextlib.contextmanager
 def plain_attention():
@@ -3048,6 +3875,8 @@ def main(argv=None) -> int:
     reps = max(3, args.reps // 4)
     serve, svc, questions = phase_serve(device, args.rows, reps, templates,
                                         keep=True)
+    sched = phase_scheduler(device, svc, questions,
+                            os.path.abspath(args.src))
     durable = phase_durability(device, svc, questions, reps,
                                os.path.abspath(args.src))
     del svc, questions
@@ -3072,8 +3901,9 @@ def main(argv=None) -> int:
     for name, (replaces, _, _, _) in KERNELS.items():
         r = kern[name]
         launches = path_launches[name][name]
-        if name == "topk_mips_masked":     # the harness, graph bench and
-            launches += (harness["launches"][name]     # recovered service
+        if name == "topk_mips_masked":     # the scheduler, the harness,
+            launches += (sched["launches"][name]       # graph bench and
+                         + harness["launches"][name]   # recovered service
                          + graph_bench["launches"][name]
                          + durable["launches"][name])
         if launches < 1:

@@ -45,9 +45,14 @@ persistence, the background flusher with backpressure, auto-compaction
 and snapshot rotation — lives in `core/lifecycle.py`'s LifecycleRuntime;
 pass `policy=`/`data_dir=` to mount one (or `MemoryService.recover(
 data_dir, ...)` to come back after a crash), and the service routes
-writes, maintenance and the read path through its lock.  Sharding and the
-request scheduler arrive with later slices of the port and raise
-NotImplementedError here.
+writes, maintenance and the read path through its lock.
+
+Concurrent clients are served through a `MemoryScheduler`
+(`start_scheduler()`, core/scheduler.py) and the sync read wrappers
+(`retrieve`, `retrieve_batch`): every client's single request coalesces
+with its concurrent peers into one `execute` — one masked top-k launch —
+per scheduler tick.  Sharding arrives with a later slice of the port and
+raises NotImplementedError here.
 """
 from __future__ import annotations
 
@@ -60,6 +65,7 @@ import numpy as np
 import torch
 
 from repro_torch.common.utils import next_pow2
+from repro_torch.core.admission import AdmissionError
 from repro_torch.core.api import (RawRetrieval, RetrievalPlan,
                                   RetrieveRequest, as_retrieve_request)
 from repro_torch.core.budget import TokenBudgeter
@@ -74,7 +80,6 @@ from repro_torch.data.tokenizer import HashTokenizer
 from repro_torch.obs.telemetry import (GRAPH_EXPAND_LATENCY, RECORD_LATENCY,
                                        RETRIEVE_LATENCY, get_telemetry)
 
-_SLICE_SERVING = "the serving slice of the port"
 _SLICE_SHARDING = "the sharding slice of the port"
 
 # graph-stage fallbacks when neither the request nor the plan sets them:
@@ -136,6 +141,9 @@ class MemoryService:
         self.pool = pool
         self.flush_every = flush_every
         self.plan = plan or RetrievalPlan()
+        # a mounted MemoryScheduler (core/scheduler.py) re-routes the sync
+        # read wrappers through its cross-client micro-batching ticks
+        self.scheduler = None
         if runtime is not None:
             if runtime.store is not self.store:
                 raise ValueError("runtime is mounted on a different store")
@@ -210,14 +218,23 @@ class MemoryService:
         return self.runtime.rotate()
 
     def close(self, *, final_snapshot: bool = True) -> None:
-        """Stop the background runtime (final flush + snapshot when
-        durable).  Safe to call on a runtime-less service.  Idempotent."""
+        """Stop the mounted scheduler (drains queued requests) and the
+        background runtime (final flush + snapshot when durable).  Safe to
+        call on a scheduler-less / runtime-less service.  Idempotent."""
+        if self.scheduler is not None:
+            self.scheduler.close()
         if self.runtime is not None:
             self.runtime.close(final_snapshot=final_snapshot)
 
     def start_scheduler(self, **kwargs):
-        raise NotImplementedError(
-            f"the request scheduler comes with {_SLICE_SERVING}")
+        """Mount a MemoryScheduler: from here on the sync read wrappers
+        (`retrieve`, `retrieve_batch`) coalesce with every other client's
+        concurrent requests into one device launch per tick.  Returns the
+        scheduler (also available as `self.scheduler`; the constructor
+        refuses to mount over a live one).  Build it on the thread whose
+        CUDA stream the read path uses: its ticks run there."""
+        from repro_torch.core.scheduler import MemoryScheduler
+        return MemoryScheduler(self, **kwargs)
 
     def __enter__(self) -> "MemoryService":
         return self
@@ -284,7 +301,9 @@ class MemoryService:
     def retrieve(self, namespace: str, query: str,
                  top_k: Optional[int] = None, **options) -> RetrievedContext:
         """Single-tenant retrieve.  Extra keyword options (`dense_weight`,
-        `sparse_weight`, `stages`) become RetrieveRequest fields."""
+        `sparse_weight`, `stages`) become RetrieveRequest fields.  With a
+        mounted scheduler this coalesces with every other client's
+        concurrent request into one device launch."""
         req = RetrieveRequest(namespace=namespace, query=query, top_k=top_k,
                               **options)
         return self.retrieve_batch([req])[0]
@@ -294,10 +313,31 @@ class MemoryService:
         """Requests -> per-request payloads (RetrievedContext, or
         RawRetrieval for no-budget plans).  Each request is a (namespace,
         query) tuple or a `RetrieveRequest`; `top_k` is the per-request
-        default.  Results equal sequential retrieve() calls."""
+        default.
+
+        With a mounted MemoryScheduler the batch is submitted to it, so it
+        fuses with whatever other clients queued in the same tick;
+        otherwise (or with an explicit `plan`) it executes directly.  Either
+        way the results equal sequential retrieve() calls."""
         reqs = [as_retrieve_request(r, top_k) for r in requests]
         if not reqs:
             return []
+        sched = self.scheduler
+        if plan is None and sched is not None and sched.can_submit():
+            try:
+                futures = sched.submit_many(reqs)
+            except AdmissionError:
+                # a QoS rejection (rate limit / shed) must surface, not
+                # sneak through the direct engine — falling back would let
+                # every rate-limited caller bypass admission control
+                raise
+            except RuntimeError:
+                # the scheduler closed between can_submit() and the
+                # submission (service shutdown racing a reader) — the
+                # direct engine still answers
+                pass
+            else:
+                return [f.result().result() for f in futures]
         return self.execute(reqs, plan=plan)
 
     def execute(self, requests: Sequence[RetrieveRequest],

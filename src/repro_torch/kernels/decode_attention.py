@@ -49,6 +49,7 @@ from typing import Dict, NamedTuple
 import torch
 
 from repro_torch.common.utils import sm_count
+from repro_torch.kernels import count_launch
 from repro_torch.kernels.flash_attention import (DTYPES, MAX_HEAD_DIM,
                                                  NEG_INF, check_operand,
                                                  cp_async_ok, padded_head_dim)
@@ -200,7 +201,7 @@ def _launch(q, k, v, kv_len, window: int, scale: float):
     if rc != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
                            f"error {rc}")
-    decode_attention.launches += 1
+    count_launch(decode_attention)
     return out
 
 

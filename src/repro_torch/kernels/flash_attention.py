@@ -43,6 +43,8 @@ import functools
 
 import torch
 
+from repro_torch.kernels import count_launch
+
 NEG_INF = -2.0e38
 MAX_HEAD_DIM = 256
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -197,7 +199,7 @@ def _launch(q, k, v, causal: bool, window: int, scale: float):
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {rc}")
-    flash_attention.launches += 1
+    count_launch(flash_attention)
     flash_attention.rows_per_cta = rows.value
     return out
 

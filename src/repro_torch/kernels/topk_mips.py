@@ -39,6 +39,7 @@ import functools
 import torch
 
 from repro_torch.common.utils import sm_count
+from repro_torch.kernels import count_launch
 
 NEG_INF = -2.0e38
 MAX_K = 2048         # the scan kernel's list length bound (kScanMaxK)
@@ -320,7 +321,7 @@ def _launch(fn, queries, bank, scales, q_ns, bank_ns, k, n_valid):
         ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
-    fn.launches += 1
+    count_launch(fn)
     return out_s, out_i
 
 

@@ -25,52 +25,44 @@ every prompt length differs.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, List, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.data.tokenizer import EOS_ID, HashTokenizer, default_tokenizer
+from repro_torch.kernels import captured_launches, count_launch
 from repro_torch.models.model_api import Model
 from repro_torch.serving.requests import Request, Response
 from repro_torch.serving.sampler import SamplerConfig, sample
 
 
-def counted_kernels():
-    """Every kernel wrapper of the port that counts its launches."""
-    from repro_torch.kernels import decode_attention as da
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import topk_mips as tk
-    return (*tk.KERNELS, fa.flash_attention, da.decode_attention)
-
-
 class CountedGraph:
     """`fn` captured as a CUDA graph whose replays count kernel launches as
     eager calls would.  Capturing runs fn's Python once, so each wrapper it
-    calls adds to its `launches` though nothing ran on the device: the
-    capture takes those deltas back out, and every `replay` adds them
-    again.  `graph` and `capture` default to `torch.cuda.CUDAGraph()` and
-    `torch.cuda.graph`."""
+    calls counts a launch that did not run: the capture collects this
+    thread's counts apart (`kernels.captured_launches`), and every
+    `replay` adds them.  `graph` and `capture` default to
+    `torch.cuda.CUDAGraph()` and `torch.cuda.graph` in thread-local capture
+    mode: only this thread's unsafe calls break the capture, so the memory
+    layer's scheduler tick, lifecycle daemon and frontend handlers go on
+    working on the device (on their own streams) while it runs, with no
+    lock, and their launches meanwhile count as theirs."""
 
     def __init__(self, fn: Callable, *, graph=None, capture=None):
         self.graph = graph if graph is not None else torch.cuda.CUDAGraph()
-        capture = capture if capture is not None else torch.cuda.graph
-        kernels = counted_kernels()
-        before = [f.launches for f in kernels]
-        try:
-            with capture(self.graph):
-                self.output = fn()
-        finally:
-            deltas = [f.launches - n for f, n in zip(kernels, before)]
-            for f, n in zip(kernels, before):
-                f.launches = n
-        self.deltas = {f: d for f, d in zip(kernels, deltas) if d}
+        capture = capture if capture is not None else functools.partial(
+            torch.cuda.graph, capture_error_mode="thread_local")
+        with captured_launches() as tally, capture(self.graph):
+            self.output = fn()
+        self.deltas = dict(tally)
 
     def replay(self):
         """Run the captured work once; returns the static output."""
         self.graph.replay()
         for f, d in self.deltas.items():
-            f.launches += d
+            count_launch(f, d)
         return self.output
 
 

@@ -30,7 +30,8 @@ from repro_torch.core import (HashEmbedder, LMEmbedder, LMExtractor,
                               MemoriClient, MemoryService, Message)
 from repro_torch.data.tokenizer import HashTokenizer
 from repro_torch.models.model_api import Model, params_from_numpy
-from repro_torch.serving.engine import CountedGraph, Engine, counted_kernels
+from repro_torch.kernels import count_launch
+from repro_torch.serving.engine import CountedGraph, Engine
 from repro_torch.serving.requests import Request
 from repro_torch.serving.sampler import SamplerConfig, sample
 from repro_torch.serving.scheduler import ContinuousBatcher
@@ -125,36 +126,93 @@ def _fake_capture(graph):
 
 def test_graph_replays_count_the_captured_launches():
     """Capturing runs the step's Python once, so every kernel wrapper it
-    calls counts launches that never ran: `CountedGraph` takes them back
-    out and adds them again on each replay — 12 K5 launches a replayed
-    memori-agent step, as an eager step counts."""
+    calls counts launches that never ran: `CountedGraph` keeps them out of
+    the counts and adds them on each replay — 12 K5 launches a replayed
+    memori-agent step, as an eager step counts.  A launch that another
+    thread makes during the capture counts once, as its own, and is not
+    replayed."""
+    import threading
+
     from repro_torch.kernels import decode_attention as tda
     from repro_torch.kernels import flash_attention as tfa
-    kernels = counted_kernels()
-    assert tda.decode_attention in kernels and tfa.flash_attention in kernels
+    from repro_torch.kernels import topk_mips as ttk
+    kernels = (tda.decode_attention, tfa.flash_attention,
+               ttk.topk_mips_masked)
     before = {f: f.launches for f in kernels}
 
     def step():                       # what a capture of the step records
-        tda.decode_attention.launches += 12
+        for _ in range(12):
+            count_launch(tda.decode_attention)
+        tick = threading.Thread(target=count_launch,
+                                args=(ttk.topk_mips_masked,))
+        tick.start()
+        tick.join()
         return "logits"
 
     g = CountedGraph(step, graph=_FakeGraph(), capture=_fake_capture)
-    assert {f: f.launches for f in kernels} == before
+    assert {f: f.launches for f in kernels} == {
+        **before, ttk.topk_mips_masked: before[ttk.topk_mips_masked] + 1}
     assert g.deltas == {tda.decode_attention: 12}
     for _ in range(3):
         assert g.replay() == "logits"
     assert g.graph.replays == 3
     assert tda.decode_attention.launches == before[tda.decode_attention] + 36
     assert tfa.flash_attention.launches == before[tfa.flash_attention]
+    assert ttk.topk_mips_masked.launches == \
+        before[ttk.topk_mips_masked] + 1
     tda.decode_attention.launches = before[tda.decode_attention]
+    ttk.topk_mips_masked.launches = before[ttk.topk_mips_masked]
 
     def failing():
-        tda.decode_attention.launches += 5
+        count_launch(tda.decode_attention)
         raise RuntimeError("capture failed")
 
     with pytest.raises(RuntimeError, match="capture failed"):
         CountedGraph(failing, graph=_FakeGraph(), capture=_fake_capture)
     assert tda.decode_attention.launches == before[tda.decode_attention]
+    count_launch(tda.decode_attention)    # the tally is closed again
+    assert tda.decode_attention.launches == before[tda.decode_attention] + 1
+    tda.decode_attention.launches = before[tda.decode_attention]
+
+
+def test_launch_counts_add_up_across_threads():
+    """Launches counted from several threads at once (a tick beside a
+    capture, schedulerless frontend handlers) add up exactly."""
+    import threading
+
+    from repro_torch.kernels import topk_mips as ttk
+    fn = ttk.topk_mips_masked
+    before = fn.launches
+
+    def launch():
+        for _ in range(5000):
+            count_launch(fn)
+
+    threads = [threading.Thread(target=launch) for _ in range(8)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert fn.launches == before + 40000
+    fn.launches = before
+
+
+def test_graph_capture_is_thread_local(monkeypatch):
+    """The decode step is captured with `torch.cuda.graph` in thread-local
+    mode: only the capturing thread's unsafe calls break the capture, so
+    the memory layer's scheduler ticks and lifecycle daemon keep working on
+    the device (on their own streams) beside it, with no lock."""
+    seen = []
+
+    @contextlib.contextmanager
+    def graph(g, **kw):
+        seen.append((g, kw))
+        yield g
+
+    monkeypatch.setattr(torch.cuda, "graph", graph)
+    fake = _FakeGraph()
+    CountedGraph(lambda: "logits", graph=fake)
+    assert seen == [(fake, {"capture_error_mode": "thread_local"})]
 
 
 def test_all_requests_finish(models):

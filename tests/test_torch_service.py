@@ -174,9 +174,15 @@ def test_slices_to_come_raise_not_implemented():
     for kw in (dict(shards=2), dict(mesh=object())):
         with pytest.raises(NotImplementedError, match="sharding slice"):
             MemoryService(emb, device="cpu", **kw)
+    # the request scheduler came with the serving slice: it mounts, routes
+    # retrieve_batch, and closes with the service
     svc = MemoryService(emb, device="cpu")
-    with pytest.raises(NotImplementedError, match="serving slice"):
-        svc.start_scheduler()
+    sched = svc.start_scheduler(tick_interval_s=0.001)
+    assert svc.scheduler is sched and sched.can_submit()
+    assert svc.retrieve_batch([("a/c0", "q")])[0].triples == []
+    assert sched.stats()["retrieves"] == 1
+    svc.close()
+    assert sched.closed and svc.scheduler is None
 
 
 # -- the int8 device bank --------------------------------------------------
