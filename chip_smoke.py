@@ -82,7 +82,34 @@ line per phase and fails (nonzero exit) on any failed check:
                  HTTP, 429s with Retry-After under a burst, SIGTERM with a
                  final snapshot, a second boot that answers the same.  The
                  K1 count of the phase leaves out the checks' executes.
-6. durability  — on the serve phase's f32 store (all rows back on the
+6. sharded     — the serve store's snapshot arrays into
+                 `MemoryStore.from_arrays(..., shards=8)` (the same global
+                 row ids): the slab layout (rebuild and upload seconds,
+                 per-shard rows, capacity, bytes, peak memory); at B in
+                 {1, 8, 64} under the hybrid and dense-only plans and B=64
+                 under the graph plan, contexts, token counts and dense
+                 ranking byte-equal to the unsharded store's for the same
+                 requests (the ranking also against K1's plain version
+                 over the slabs), K1 once an execute, p50 beside the
+                 unsharded store's, peak memory with and without the graph
+                 plan (which uploads the index's own bank beside the
+                 slabs); `sharded_topk` at Q=64 over the slab bank (masked
+                 k=64, unmasked k=256, and k above a shard's rows) against
+                 one K1/K3 over the whole bank, S launches a call;
+                 degraded serving with the planted namespace's shard down
+                 (victims flagged empty, survivors byte-equal, mark_down/up
+                 times, /v1/readyz 503 then 200, and the shard taken down
+                 from a thread while 8 closed-loop scheduler clients run:
+                 every answer healthy-equal or flagged); writes into the
+                 down shard's namespaces over 5 flush+retrieve cycles with
+                 no bank-sized upload, surfacing after mark_up; then a
+                 LifecycleRuntime (a ShardedWal) with a sync follower, 64
+                 conversations, 8 group commits, a rotation in the middle,
+                 a crash, shard-03/ deleted, `restore_missing_from_follower`
+                 and `MemoryService.recover` (8 shards autodetected; seconds
+                 by stage): byte-equal contexts, tokens, dense ranking and
+                 bank SHA-256 (mirror and slabs), K1 launched.
+7. durability  — on the serve phase's f32 store (all rows back on the
                  device): mounts a LifecycleRuntime on a fresh directory
                  (the baseline snapshot generation: bytes and seconds,
                  pack, write + fsync, manifest), journals 64 conversations
@@ -100,23 +127,23 @@ line per phase and fails (nonzero exit) on any failed check:
                  `python -m repro_torch.launch.serve --snapshot-path D`
                  (full-width memori-agent) twice on one directory: the
                  second boot must recover the first's final state.
-7. serve_int8  — the same with `MemoryService(quantize="int8")` (int8 bank,
+8. serve_int8  — the same with `MemoryService(quantize="int8")` (int8 bank,
                  K2 plus the exact f32 rescore) at 2**20 rows, under the
                  hybrid and dense-only plans; K2's candidates and the
                  rescored ranking of each execute are held against the
                  plain path, and recall@10 against the exact f32 host
                  search must reach 0.95.
-8. harness     — `repro_torch.eval.locomo` at the paper's defaults on the
+9. harness     — `repro_torch.eval.locomo` at the paper's defaults on the
                  card (Table 1's four systems, Table 2, Figure 2; K1
                  through `MemoriMemory` and `RagChunkMemory`): for memori
                  and rag every question's context and token count must
                  equal the CPU run's, and the accuracy and tokens per query
                  the reference package's figures.
-9. graph_recall — `repro_torch.eval.graph_recall` on the card: recall 1/6
+10. graph_recall — `repro_torch.eval.graph_recall` on the card: recall 1/6
                  (flat) -> 2/3 (graph) on the 18 graph questions, 99 nodes
                  and 402 edges after the probe links, and no whole-lane
                  re-upload while the lanes grow within their capacity.
-10. attention  — holds the attention kernels K6 (flash_attention) and K5
+11. attention  — holds the attention kernels K6 (flash_attention) and K5
                  (decode_attention) against their plain PyTorch versions on
                  the card, f32 and bf16, over edge cases (the reference
                  tests' shapes, lengths that are no multiple of the tile,
@@ -134,7 +161,7 @@ line per phase and fails (nonzero exit) on any failed check:
                  scaled_dot_product_attention and its bound (K5 also inside
                  a graph of 100 calls; K6 with its CTA count); the served
                  instances must not spill (ptxas).
-11. lm         — `memori-agent` at full width (12 layers, d_model 768,
+12. lm         — `memori-agent` at full width (12 layers, d_model 768,
                  random weights from a seed) served by
                  `Engine(slots=8, max_len=512)` through `ContinuousBatcher`:
                  16 greedy requests of 32 new tokens, prompts from synthetic
@@ -153,7 +180,7 @@ line per phase and fails (nonzero exit) on any failed check:
                  prefill + decode against the full forward, and the greedy
                  tokens against the plain path's (a divergence must sit at
                  a counted near-tie).
-12. agent      — `MemoriClient` over `MemoryService(device="cuda")` with the
+13. agent      — `MemoriClient` over `MemoryService(device="cuda")` with the
                  engine as its LLM: users record facts through chat +
                  end_session and `retrieve_batch` must return each user's
                  fact and no other's (K1, K5 and K6 all launched);
@@ -2385,39 +2412,47 @@ def sha(a) -> str:
     return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
 
 
+def answers_with_dense(svc, reqs, plan):
+    """One execute of `reqs` under `plan`, with the dense ranking its
+    search returned (the sharded store's `sharded_search`, else the index's
+    `search_batch`): (payloads, (scores, ids) or None, host ms to the end of
+    a synchronize)."""
+    import torch
+    seen = {}
+    owner, attr = ((svc.store, "sharded_search")
+                   if svc.store.sharded is not None
+                   else (svc.vindex, "search_batch"))
+    search = getattr(owner, attr)
+
+    def spy(*a, **kw):
+        seen["dense"] = search(*a, **kw)
+        return seen["dense"]
+
+    setattr(owner, attr, spy)
+    try:
+        t = time.perf_counter()
+        out = svc.retrieve_batch(reqs, plan=plan)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+    finally:
+        delattr(owner, attr)
+    return out, seen.get("dense"), ms
+
+
 def durable_answers(svc, reqs, reps: int):
     """One B = len(reqs) hybrid execute kept for the checks (contexts, token
     counts, the dense ranking its K1 search returned) and the host-clock
     p50 of `reps` more, each ending in a synchronize; (answers, the first
     execute's ms, the p50 ms)."""
     import numpy as np
-    import torch
     from repro_torch.core import RetrievalPlan
-    plan, vi, seen = RetrievalPlan.hybrid(), svc.vindex, {}
-    search = vi.search_batch
-
-    def spy(*a, **kw):
-        seen["dense"] = search(*a, **kw)
-        return seen["dense"]
-
-    vi.search_batch = spy
-    try:
-        t = time.perf_counter()
-        out = svc.retrieve_batch(reqs, plan=plan)
-        torch.cuda.synchronize()
-        first = (time.perf_counter() - t) * 1e3
-        got = {"texts": [o.text for o in out],
-               "tokens": [o.token_count for o in out],
-               "dense_ids": seen["dense"][1].cpu().numpy().copy()}
-        times = []
-        for _ in range(reps):
-            t = time.perf_counter()
-            svc.retrieve_batch(reqs, plan=plan)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t)
-    finally:
-        del vi.search_batch
-    return got, first, float(np.median(times)) * 1e3
+    plan = RetrievalPlan.hybrid()
+    out, dense, first = answers_with_dense(svc, reqs, plan)
+    got = {"texts": [o.text for o in out],
+           "tokens": [o.token_count for o in out],
+           "dense_ids": dense[1].cpu().numpy().copy()}
+    times = [answers_with_dense(svc, reqs, plan)[2] for _ in range(reps)]
+    return got, first, float(np.median(times))
 
 
 def crash_case(device, src: str, workdir: str) -> dict:
@@ -2787,6 +2822,557 @@ def phase_durability(device, svc, questions, reps: int, src: str) -> dict:
            "hybrid_B64_p50_ms": {"live": live_p50, "recovered": rec_p50},
            "launches": launches, "rotation": rotation, "kill9": kill9,
            "launcher": launcher, "gpu": gpu_line()}
+    emit(out)
+    return out
+
+
+# -- phase 7: sharding and replication on the serve store ---------------------
+
+# the serve store laid out over SHARDS namespace-affine slabs (core/shards.py)
+SHARDS = 8
+SHARDED_B = (1, 8, 64)
+# sharded_topk at Q = 64 over the slab bank: (k, masked); then k above the
+# shard's rows on a bank of SMALL_SLAB rows a shard
+SHARDED_TOPK = ((64, True), (256, False))
+SMALL_SLAB = 128
+# closed-loop scheduler clients beside a shard marked down from a thread
+SHARD_CLIENTS, SHARD_ROUNDS = 8, 40
+# conversations recorded into the down shard's namespaces, and the
+# flush+retrieve cycles that must move no bank-sized buffer to the device
+N_DOWN_CONVS, DOWN_CYCLES = 8, 5
+# the journal of the lost-disk case: conversations before and after the
+# rotation (one segment each), then group commits of GROUP_CONVS each
+N_FOLLOW_CONVS = 64
+LOST_SHARD = 3
+
+
+def _status(url: str) -> int:
+    """HTTP status of an unauthenticated GET."""
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(url, timeout=SCHED_WAIT_S) as r:
+            return r.status
+    except urllib.error.HTTPError as e:
+        return e.code
+
+
+def _same_payloads(got, want, what: str) -> None:
+    for i, (g, w) in enumerate(zip(got, want)):
+        if (g.text, g.token_count) != (w.text, w.token_count):
+            fail(f"{what}: request {i} answered differently:\n{g.text}\n"
+                 f"{w.text}")
+
+
+def check_sharded_dense(sh, reqs, dense, what: str) -> float:
+    """Hold the ranking a sharded execute's K1 returned against K1's plain
+    version over the same slab bank and labels, on queries rebuilt from the
+    requests; both lists mapped to global rows.  Returns the largest score
+    difference."""
+    from repro_torch.kernels.topk_mips import topk_mips_masked_ref
+    sb = sh.store.sharded
+    qmat, q_ns = rebuild_queries(sh, reqs)
+    s_r, i_r = topk_mips_masked_ref(qmat, sb._bank_dev, q_ns, sb._labels_dev,
+                                    k=sh.pool, n_valid=sb.n_slots)
+    s_k, i_k = _sentinel(*dense)
+    return compare_topk(s_k, i_k, s_r, sb.slots_to_rows(i_r), what)
+
+
+def sharded_topk_cases(sh, qmat, q_ns, reps: int) -> dict:
+    """`sharded_topk` at Q = 64 over the slab bank (masked k = 64,
+    unmasked k = 256) and with k above the shard's rows, each against one
+    K1/K3 over the whole bank (ids equal, scores within rtol): its launches
+    (one a slab), its CUDA-event ms beside the one-launch search's.  Only
+    the first call of each case counts as the path's."""
+    import torch
+    from repro_torch.core.vector_index import sharded_topk
+    from repro_torch.kernels import topk_mips as tk
+    sb = sh.store.sharded
+    bank, labels, C = sb._bank_dev, sb._labels_dev, sb.C
+    small = torch.cat([bank[s * C: s * C + SMALL_SLAB]
+                       for s in range(SHARDS)])
+    small_labels = torch.cat([labels[s * C: s * C + SMALL_SLAB]
+                              for s in range(SHARDS)])
+    cases = [(f"{'masked' if m else 'unmasked'}_k{k}", bank, labels, k, m)
+             for k, m in SHARDED_TOPK]
+    cases += [(f"{'masked' if m else 'unmasked'}_k256_over_{SMALL_SLAB}_rows",
+               small, small_labels, 256, m) for m in (True, False)]
+    out = {}
+    for name, b, lab, k, masked in cases:
+        kw = dict(q_ns=q_ns, bank_ns=lab) if masked else {}
+        wrapper = tk.topk_mips_masked if masked else tk.topk_mips
+        before = wrapper.launches
+        s_sh, i_sh = sharded_topk(qmat, b, k, SHARDS, **kw)
+        torch.cuda.synchronize()
+        launched = wrapper.launches - before
+        if launched != SHARDS:
+            fail(f"sharded_topk {name}: {launched} launches, expected "
+                 f"{SHARDS} (one a slab)")
+        with uncounted():
+            if masked:
+                s_one, i_one = tk.topk_mips_masked(qmat, b, q_ns, lab, k=k)
+            else:
+                s_one, i_one = tk.topk_mips(qmat, b, k=k)
+            if not torch.equal(i_sh, i_one):
+                fail(f"sharded_topk {name}: ids differ from one search "
+                     "over the whole bank")
+            live = i_one >= 0
+            tol = RTOL * s_one.abs() + ATOL
+            if not torch.all((s_sh - s_one).abs()[live] <= tol[live]):
+                fail(f"sharded_topk {name}: scores beyond rtol={RTOL}")
+            ms = time_ms(lambda: sharded_topk(qmat, b, k, SHARDS, **kw),
+                         reps)
+            if masked:
+                one_ms = time_ms(lambda: tk.topk_mips_masked(
+                    qmat, b, q_ns, lab, k=k), reps)
+            else:
+                one_ms = time_ms(lambda: tk.topk_mips(qmat, b, k=k), reps)
+        out[name] = {"Q": int(qmat.shape[0]), "bank_rows": int(b.shape[0]),
+                     "shard_rows": int(b.shape[0]) // SHARDS, "k": k,
+                     "launches_per_call": launched,
+                     "max_abs_err": float((s_sh - s_one).abs()[live].max())
+                     if live.any() else 0.0,
+                     "ms": ms, "one_search_ms": one_ms,
+                     "live_slots": int(live.sum())}
+    return out
+
+
+def phase_sharded(device, svc, questions, reps: int) -> dict:
+    """The serve store laid out over SHARDS slabs (see the module
+    docstring): layout, parity with the unsharded store, sharded_topk,
+    degraded serving, writes while a shard is down, and a lost shard's
+    disk restored from the follower and recovered."""
+    import shutil
+    import tempfile
+    import threading
+    import numpy as np
+    import torch
+    import repro_torch.checkpoint.io as ckpt_io
+    import repro_torch.checkpoint.packing as packing
+    import repro_torch.core.shards as shards_mod
+    import repro_torch.core.vector_index as vi_mod
+    from repro_torch.checkpoint.replication import (
+        DirectorySink, ShardedWal, restore_missing_from_follower)
+    from repro_torch.core import (HashEmbedder, LifecyclePolicy,
+                                  LifecycleRuntime, MemoryService,
+                                  RetrievalPlan, RetrieveRequest)
+    from repro_torch.core.extraction import Message
+    from repro_torch.core.store import MemoryStore
+    from repro_torch.data.locomo_synth import generate_conversation
+    from repro_torch.serving.frontend import MemoryFrontend
+    t_phase = time.perf_counter()
+    vi = svc.vindex
+    promoted = vi.promote_rows(np.flatnonzero(~vi.resident_mask()))
+    svc.store.tiers = None
+    reset_counts()          # the phase's path: every count from 0
+
+    # 1. layout: the serve store's snapshot arrays into a sharded store (the
+    # same global row ids), then its slab layout and upload
+    t0 = time.perf_counter()
+    arrays = svc.store.snapshot_arrays()
+    t_arrays = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    store = MemoryStore.from_arrays(arrays, HashEmbedder(device=device),
+                                    device=device, shards=SHARDS)
+    t_from = time.perf_counter() - t0
+    del arrays
+    gc.collect()
+    sh = MemoryService(store=store, budget=svc.budgeter.budget)
+    sb = store.sharded
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sb.rebuild(store.vindex)
+    t_rebuild = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sb.bank_device()
+    torch.cuda.synchronize()
+    t_upload = time.perf_counter() - t0
+    st = sb.stats()
+    slab_bytes = sb.n_slots * (sb.dim * 4 + 4 + 4)
+    layout = {"snapshot_arrays_seconds": t_arrays,
+              "from_arrays_seconds": t_from, "rebuild_seconds": t_rebuild,
+              "upload_seconds": t_upload, "rows": store.vindex.n,
+              "per_shard_rows": st["per_shard_rows"],
+              "per_shard_capacity": sb.C, "total_slots": sb.n_slots,
+              "slab_bank_bytes": slab_bytes,
+              "allocated_before_bytes": held,
+              "peak_after_upload_bytes": torch.cuda.max_memory_allocated()}
+    if sum(st["per_shard_rows"]) != store.vindex.n_alive:
+        fail(f"sharded: {st['per_shard_rows']} slab rows for "
+             f"{store.vindex.n_alive} live rows")
+
+    # 2. parity with the unsharded serve store, request for request
+    rng = np.random.default_rng(11)
+    names = sorted(questions)
+
+    def batch(B):
+        reqs = [(PLANTED_NS, PLANTED_QUESTION)]
+        for ns in rng.choice(names, B - 1, replace=False):
+            reqs.append((str(ns), str(rng.choice(questions[ns]))))
+        return reqs
+
+    k1 = wrappers()["topk_mips_masked"]
+    plans = {"hybrid": RetrievalPlan.hybrid(),
+             "dense_only": RetrievalPlan.dense_only(),
+             "graph": RetrievalPlan.graph_expanded()}
+    runs = [(B, p) for B in SHARDED_B for p in ("hybrid", "dense_only")]
+    runs.append((64, "graph"))
+    p50, checked, peak, err = {}, {}, {}, 0.0
+    for B, pname in runs:
+        key = f"{pname}_B{B}"
+        if pname == "graph":
+            # the graph stage reads the vector index's device labels: the
+            # index's own bank goes up beside the slabs (as the reference)
+            peak["dense_and_hybrid_bytes"] = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        times = {"sharded": [], "unsharded": []}
+        for rep in range(reps + 1):
+            reqs = batch(B)
+            before = k1.launches
+            got, dense, ms = answers_with_dense(sh, reqs, plans[pname])
+            if k1.launches - before != 1:
+                fail(f"sharded {key}: K1 launched {k1.launches - before} "
+                     "times in one execute")
+            with uncounted():
+                want, want_dense, ms_u = answers_with_dense(svc, reqs,
+                                                         plans[pname])
+            _same_payloads(got, want, f"sharded {key}")
+            if not torch.equal(dense[1], want_dense[1]):
+                fail(f"sharded {key}: the dense ranking differs from the "
+                     "unsharded store's")
+            if any(o.degraded for o in got):
+                fail(f"sharded {key}: a healthy batch came back degraded")
+            if rep:
+                times["sharded"].append(ms)
+                times["unsharded"].append(ms_u)
+        err = max(err, check_sharded_dense(sh, reqs, dense,
+                                           f"sharded {key} dense ids"))
+        checked[key] = B
+        p50[key] = {k: float(np.median(v)) for k, v in times.items()}
+    peak["graph_bytes"] = torch.cuda.max_memory_allocated()
+    peak["allocated_after_graph_bytes"] = torch.cuda.memory_allocated()
+    peak["index_bank_on_device_after_graph"] = \
+        store.vindex._bank_dev is not None
+    profiled = {f"{p}_B64": profile_execute(sh, batch(64), plans[p],
+                                            "topk_mips_masked")
+                for p in ("hybrid", "dense_only")}
+
+    # 3. sharded_topk over the slab bank (the last B = 64 batch's queries)
+    qmat, q_ns = rebuild_queries(sh, reqs)
+    topk = sharded_topk_cases(sh, qmat, q_ns, reps)
+
+    # 4. degraded serving: the planted namespace's shard down
+    down = store.shard_of_namespace(PLANTED_NS)
+    reqs = batch(64)
+    victims = [i for i, (ns, _) in enumerate(reqs)
+               if store.shard_of_namespace(ns) == down]
+    healthy, _, _ = answers_with_dense(sh, reqs, plans["hybrid"])
+    fe = MemoryFrontend(sh, HTTP_KEYS).start()
+    try:
+        ready = {"before": _status(fe.address + "/v1/readyz")}
+        t0 = time.perf_counter()
+        sh.set_shard_down(down)
+        torch.cuda.synchronize()
+        t_down = time.perf_counter() - t0
+        ready["down"] = _status(fe.address + "/v1/readyz")
+        got, _, ms_degraded = answers_with_dense(sh, reqs, plans["hybrid"])
+        t0 = time.perf_counter()
+        sh.set_shard_up(down)
+        torch.cuda.synchronize()
+        t_up = time.perf_counter() - t0
+        ready["up"] = _status(fe.address + "/v1/readyz")
+    finally:
+        fe.close()
+    if ready != {"before": 200, "down": 503, "up": 200}:
+        fail(f"sharded: /v1/readyz answered {ready}")
+    for i, (g, h) in enumerate(zip(got, healthy)):
+        if i in victims:
+            if not g.degraded or g.triples:
+                fail(f"sharded degraded: victim {reqs[i]} not flagged empty")
+        elif g.degraded or _ctx_key(g) != _ctx_key(h):
+            fail(f"sharded degraded: survivor {reqs[i]} differs from the "
+                 "healthy batch")
+    healed, _, _ = answers_with_dense(sh, reqs, plans["hybrid"])
+    _same_payloads(healed, healthy, "sharded after mark_up")
+
+    # once, the shard goes down from another thread while SHARD_CLIENTS
+    # closed-loop clients run through the scheduler: every answer is ok and
+    # either the healthy one or flagged empty
+    pool = batch(64)                 # one request a namespace
+    with uncounted():
+        pool_healthy = dict(zip(
+            (ns for ns, _ in pool),
+            sh.execute([RetrieveRequest(ns, q) for ns, q in pool])))
+    sched = sh.start_scheduler(tick_interval_s=SCHED_TICK_S,
+                               max_batch=SCHED_MAX_BATCH)
+
+    def make(c, rng_c):
+        return RetrieveRequest(*pool[int(rng_c.integers(len(pool)))])
+
+    def take_down():                 # a quarter of the way through
+        while sched.stats()["retrieves"] < SHARD_CLIENTS * SHARD_ROUNDS // 4:
+            time.sleep(0.001)
+        sh.set_shard_down(down)
+
+    downer = threading.Thread(target=take_down)
+    before = k1.launches
+    downer.start()
+    run = closed_loop(sh, sched, make, SHARD_CLIENTS, SHARD_ROUNDS)
+    downer.join()
+    ticks = sched.stats()["retrieve_launches"]
+    sched.close()
+    sh.set_shard_up(down)
+    if k1.launches - before != ticks:
+        fail(f"sharded concurrent: K1 launched {k1.launches - before} "
+             f"times for {ticks} ticks")
+    flagged = 0
+    for _, req, resp, _ in run["records"]:
+        if not resp.ok:
+            fail(f"sharded concurrent: {req} failed: {resp.error}")
+        if resp.degraded:
+            flagged += 1
+            if store.shard_of_namespace(req.namespace) != down or \
+                    resp.payload.triples:
+                fail(f"sharded concurrent: {req} flagged wrongly")
+        elif _ctx_key(resp.payload) != _ctx_key(
+                pool_healthy[req.namespace]):
+            fail(f"sharded concurrent: {req} answered neither healthy nor "
+                 "flagged")
+    if not flagged:
+        fail("sharded concurrent: no response saw the shard down")
+    recs = run["records"]
+    concurrent = {"requests": len(recs), "flagged": flagged, "ticks": ticks,
+                  "requests_per_s": len(recs) / run["wall"],
+                  "latency_ms": _quantiles_ms([r[3] for r in recs])}
+
+    # 5. writes while down: conversations into the down shard's namespaces
+    # stay out of retrieval until mark_up, then surface; no cycle moves a
+    # bank-sized buffer to the device
+    mine = [ns for ns in names if ns.startswith("fill-")
+            and store.shard_of_namespace(ns) == down][:N_DOWN_CONVS]
+    bank_bytes = sb.n_slots * sb.dim * 4
+    uploads, undo = [], []
+    for mod in (shards_mod, vi_mod):
+        real = mod.to_device
+
+        def to_device(a, dev, _real=real, _mod=mod):
+            if np.asarray(a).nbytes >= bank_bytes:
+                uploads.append((_mod.__name__, np.shape(a)))
+            return _real(a, dev)
+        mod.to_device = to_device
+        undo.append((mod, real))
+    ptr, counters = sb._bank_dev.data_ptr(), dict(sb.counters)
+    n_before = store.vindex.n
+    sh.set_shard_down(down)
+    cycle_ms = []
+    try:
+        for c in range(DOWN_CYCLES):
+            if c == 0:
+                for j, ns in enumerate(mine):
+                    conv = generate_conversation(seed=50_000 + j)
+                    for sid, msgs in conv.sessions:
+                        sh.enqueue(ns, sid, msgs)
+            else:
+                sh.enqueue(mine[c], f"s-down-{c}", [Message(
+                    "user", f"I adopted a gecko named Gex{c}.", 1.8e9)])
+            t0 = time.perf_counter()
+            sh.flush()
+            out, _, _ = answers_with_dense(
+                sh, [(ns, PLANTED_QUESTION) for ns in mine], plans["hybrid"])
+            cycle_ms.append((time.perf_counter() - t0) * 1e3)
+            if not all(o.degraded and not o.triples for o in out):
+                fail("sharded writes while down: a down namespace answered")
+    finally:
+        for mod, real in undo:
+            mod.to_device = real
+    if uploads or sb._bank_dev.data_ptr() != ptr or \
+            sb.counters["rebuilds"] != counters["rebuilds"] or \
+            sb.counters["grows"] != counters["grows"]:
+        fail(f"sharded writes while down: bank-sized uploads {uploads}, "
+             f"counters {sb.counters} (were {counters})")
+    sh.set_shard_up(down)
+    new_rows = np.arange(n_before, store.vindex.n)
+    row_ns = store.row_namespaces()
+    reqs = [(ns, PLANTED_QUESTION) for ns in mine]
+    out, dense, _ = answers_with_dense(sh, reqs, plans["dense_only"])
+    ranked = dense[1].cpu().numpy()
+    for i, ns in enumerate(mine):
+        theirs = new_rows[row_ns[new_rows] == store.get(ns).ns_id]
+        if out[i].degraded or not np.isin(theirs, ranked[i]).any():
+            fail(f"sharded writes while down: {ns}'s new rows did not "
+                 "surface after mark_up")
+    err = max(err, check_sharded_dense(sh, reqs, dense,
+                                       "sharded after writes dense ids"))
+    writes = {"namespaces": len(mine), "new_rows": int(new_rows.size),
+              "cycles": DOWN_CYCLES, "cycle_ms": cycle_ms,
+              "bank_sized_uploads": 0, "slab_bank_kept": True}
+
+    # 6. a lost shard's disk: journal with a follower, crash, lose
+    # shard-NN/, restore from the follower, recover
+    work = tempfile.mkdtemp(prefix="memori-sharded-")
+    try:
+        data, follower = os.path.join(work, "data"), \
+            os.path.join(work, "follower")
+        t0 = time.perf_counter()
+        # one retained generation, so the rotation reaps the covered
+        # coordinator and shard segments
+        rt = LifecycleRuntime(store, data_dir=data, start=False,
+                              policy=LifecyclePolicy(snapshot_retain=1))
+        t_mount = time.perf_counter() - t0
+        if not isinstance(rt.wal, ShardedWal) or rt.wal.n_shards != SHARDS:
+            fail(f"sharded: the runtime mounted {type(rt.wal).__name__}")
+        live = MemoryService(runtime=rt, budget=svc.budgeter.budget)
+        shipper = live.attach_follower(DirectorySink(follower))
+        wal_qs = {}
+
+        def record(ns, seed):
+            conv = generate_conversation(seed=seed)
+            for sid, msgs in conv.sessions:
+                live.enqueue(ns, sid, msgs)
+            wal_qs[ns] = [qq.question for qq in conv.questions]
+
+        t0 = time.perf_counter()
+        for i in range(N_FOLLOW_CONVS):
+            record(f"shard-wal-{i}", 60_000 + i)
+            live.flush()
+            if i == N_FOLLOW_CONVS // 2 - 1:
+                t_r = time.perf_counter()
+                rot = live.rotate()
+                t_rotate = time.perf_counter() - t_r
+        for g in range(N_GROUPS):
+            with rt.group_commit():
+                for j in range(GROUP_CONVS):
+                    record(f"shard-group-{g}-{j}",
+                           70_000 + GROUP_CONVS * g + j)
+                    live.flush()
+                t = live.store.get(f"shard-group-{g}-0").triples.get(0)
+                live.store.link(f"shard-group-{g}-0", t.subject, t.object,
+                                "entity", 0.5)
+        t_journal = time.perf_counter() - t0 - t_rotate
+        shard_dir = os.path.join(data, f"shard-{LOST_SHARD:02d}")
+        lost = sorted(os.listdir(shard_dir))
+        if not lost:
+            fail(f"sharded: shard-{LOST_SHARD:02d}/ holds no segment to lose")
+        old = [n for n in names if n != PLANTED_NS]
+        new = list(wal_qs)
+        n_new = min(len(new), DURABLE_B // 2)      # the rest from before
+        picks = ([PLANTED_NS]
+                 + list(rng.choice(old, DURABLE_B - 1 - n_new, replace=False))
+                 + list(rng.choice(new, n_new, replace=False)))
+        reqs = [(PLANTED_NS, PLANTED_QUESTION)] + [
+            (str(n), str(rng.choice({**questions, **wal_qs}[n])))
+            for n in picks[1:]]
+        want, _, live_p50 = durable_answers(live, reqs, reps)
+        live_sha = {"mirror": sha(store.vindex.bank),
+                    "slabs": sha(sb._bank_dev.cpu().numpy())}
+        shipped = dict(shipper.counters)
+
+        # the crash: nothing closed, nothing flushed; then the disk goes
+        del live, rt, sh, store, sb, shipper, fe, sched
+        gc.collect()
+        torch.cuda.empty_cache()
+        shutil.rmtree(shard_dir)
+        t0 = time.perf_counter()
+        restored = restore_missing_from_follower(DirectorySink(follower),
+                                                 data)
+        t_restore = time.perf_counter() - t0
+        got_back = sorted(r.split("/", 1)[1] for r in restored
+                          if r.startswith(f"shard-{LOST_SHARD:02d}/"))
+        if not set(lost) <= set(got_back):
+            fail(f"sharded: restored {got_back}, lost {lost}")
+
+        torch.cuda.synchronize()
+        held_r = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        clock = StageClock()
+        clock.wrap(ckpt_io, "load_raw", "load_raw")
+        clock.wrap(packing, "unpackb",
+                   lambda stack: {"load_raw": "decode_snapshot",
+                                  "from_arrays": "decode_meta"}.get(
+                                      stack[-1] if stack else "",
+                                      "decode_wal"))
+        clock.wrap(MemoryStore, "from_arrays", "from_arrays")
+        clock.wrap(MemoryStore, "apply_wal", "apply_wal")
+        t0 = time.perf_counter()
+        try:
+            rec = MemoryService.recover(data, HashEmbedder(device=device),
+                                        device=device,
+                                        budget=svc.budgeter.budget)
+            torch.cuda.synchronize()
+        finally:
+            clock.undo()
+        t_recover = time.perf_counter() - t0
+        sec = clock.seconds
+        if rec.store.shards != SHARDS:
+            fail(f"sharded: recovery found {rec.store.shards} shards")
+        recovery = {
+            "seconds": t_recover,
+            "read_and_copy_seconds": sec["load_raw"] - sec["decode_snapshot"],
+            "decode_snapshot_arrays_seconds": sec["decode_snapshot"],
+            "decode_meta_seconds": sec["decode_meta"],
+            "from_arrays_seconds": sec["from_arrays"] - sec["decode_meta"],
+            "replay_seconds": t_recover - sec["load_raw"]
+            - sec["from_arrays"],
+            "replay_apply_seconds": sec["apply_wal"],
+            "replay_decode_seconds": sec["decode_wal"],
+            "replayed_records": clock.calls["apply_wal"]}
+        before = k1.launches
+        t0 = time.perf_counter()
+        got, first_ms, rec_p50 = durable_answers(rec, reqs, reps)
+        recovery["first_execute_with_rebuild_ms"] = first_ms
+        recovery["peak_device_bytes_over_held"] = \
+            torch.cuda.max_memory_allocated() - held_r
+        if k1.launches - before != reps + 1:
+            fail(f"sharded: K1 launched {k1.launches - before} times in "
+                 f"{reps + 1} recovered executes")
+        for key in ("texts", "tokens"):
+            if got[key] != want[key]:
+                bad = [i for i, (a, b) in enumerate(zip(got[key], want[key]))
+                       if a != b]
+                fail(f"sharded: recovered {key} differ at requests {bad}")
+        if not np.array_equal(got["dense_ids"], want["dense_ids"]):
+            fail("sharded: the recovered dense ranking differs")
+        rec_sha = {"mirror": sha(rec.vindex.bank),
+                   "slabs": sha(rec.store.sharded._bank_dev.cpu().numpy())}
+        if rec_sha != live_sha:
+            fail(f"sharded: bank SHA-256 {rec_sha} vs live {live_sha}")
+        rec.close(final_snapshot=False)
+        del rec
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches = counts()
+    out = {"phase": "sharded", "shards": SHARDS, "promoted_rows": promoted,
+           "layout": layout, "parity": {"checked": checked,
+                                         "dense_vs_plain_max_abs_err": err},
+           "p50_ms": p50, "peak_bytes": peak, "profiled": profiled,
+           "sharded_topk": topk,
+           "degraded": {"shard": down, "victims": len(victims),
+                        "survivors": len(healthy) - len(victims),
+                        "mark_down_ms": t_down * 1e3,
+                        "mark_up_ms": t_up * 1e3,
+                        "degraded_B64_ms": ms_degraded, "readyz": ready,
+                        "concurrent": concurrent},
+           "writes_while_down": writes,
+           "lost_disk": {"lost_shard": LOST_SHARD, "lost_segments": lost,
+                         "mount_seconds": t_mount,
+                         "journal_seconds": t_journal,
+                         "rotation_seconds": t_rotate,
+                         "rotation_reaped_shard_segments":
+                             rot["truncated_shard_segments"],
+                         "shipped": shipped,
+                         "restore_seconds": t_restore,
+                         "restored_files": len(restored),
+                         "recovery": recovery,
+                         "hybrid_B64_p50_ms": {"live": live_p50,
+                                               "recovered": rec_p50},
+                         "answers_equal": len(reqs),
+                         "bank_sha256_equal": True},
+           "launches": launches,
+           "seconds": time.perf_counter() - t_phase, "gpu": gpu_line()}
     emit(out)
     return out
 
@@ -3877,6 +4463,9 @@ def main(argv=None) -> int:
                                         keep=True)
     sched = phase_scheduler(device, svc, questions,
                             os.path.abspath(args.src))
+    sharded = phase_sharded(device, svc, questions, reps)
+    gc.collect()
+    torch.cuda.empty_cache()
     durable = phase_durability(device, svc, questions, reps,
                                os.path.abspath(args.src))
     del svc, questions
@@ -3894,7 +4483,9 @@ def main(argv=None) -> int:
                      "topk_mips_quant_masked": serve8["launches"],
                      "topk_mips": ops["launches"],
                      "topk_mips_quant": ops["launches"]}
-    path_err = {"topk_mips_masked": serve["dense_vs_plain"]["max_abs_err"],
+    path_err = {"topk_mips_masked": max(
+                    serve["dense_vs_plain"]["max_abs_err"],
+                    sharded["parity"]["dense_vs_plain_max_abs_err"]),
                 "topk_mips_quant_masked":
                     serve8["dense_vs_plain"]["max_abs_err"]}
     summary = []
@@ -3906,6 +4497,8 @@ def main(argv=None) -> int:
                          + harness["launches"][name]   # recovered service
                          + graph_bench["launches"][name]
                          + durable["launches"][name])
+        if name in ("topk_mips_masked", "topk_mips"):  # sharded store,
+            launches += sharded["launches"][name]      # sharded_topk
         if launches < 1:
             fail(f"{name} was not launched on its path")
         summary.append({

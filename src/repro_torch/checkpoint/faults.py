@@ -1,7 +1,7 @@
 """Filesystem fault injection for durability testing.
 
 Every crash-durability-relevant filesystem mutation in the checkpoint layer
-(`wal.py`, `io.py`) routes through the module-level active
+(`wal.py`, `io.py`, `replication.py`) routes through the module-level active
 `FilesystemOps` — `RealFS` in production (a zero-overhead passthrough), or a
 `FaultyFS` installed by tests.  `FaultyFS` does two things:
 

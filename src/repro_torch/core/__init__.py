@@ -1,7 +1,8 @@
 # The Memori persistent memory layer: Advanced Augmentation (triples +
 # summaries), hybrid retrieval over the device-resident vector index +
 # hashed BM25, token budgeting, the multi-tenant service, its request
-# scheduler with admission control, and the SDK (in process and over HTTP).
+# scheduler with admission control, shard-wise placement, and the SDK (in
+# process and over HTTP).
 from repro_torch.core.admission import (PRIORITY_HIGH,  # noqa: F401
                                         PRIORITY_LOW, PRIORITY_NORMAL,
                                         AdmissionController, AdmissionError,
@@ -25,6 +26,7 @@ from repro_torch.core.scheduler import MemoryScheduler  # noqa: F401
 from repro_torch.core.sdk import (HttpMemory, MemoriClient,  # noqa: F401
                                   MemoryLike, RetryPolicy)
 from repro_torch.core.service import MemoryService, NamespaceView  # noqa: F401
+from repro_torch.core.shards import ShardedBank  # noqa: F401
 from repro_torch.core.store import (MemoryStore, StoreInvariantError,  # noqa: F401
                                     TenantState)
 from repro_torch.core.summaries import Summary, SummaryStore  # noqa: F401

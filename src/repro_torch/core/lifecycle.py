@@ -38,8 +38,10 @@ escape hatches (`flush`, `compact`, `rotate`); `run_maintenance_once()` is
 the daemon's body, exposed so tests and embedders without threads can
 drive the same policy deterministically.
 
-Replicating segments to a follower (`attach_follower`) and sharded logs
-come with the sharding slice of the port and raise here.
+A sharded store (`shards > 1`) journals through a `ShardedWal` (per-shard
+logs behind a coordinator log, checkpoint/replication.py), and
+`attach_follower` streams every sealed segment to a follower so that a
+lost disk is restored from it (`restore_missing_from_follower`).
 """
 from __future__ import annotations
 
@@ -53,13 +55,13 @@ from typing import Optional, Sequence
 
 import torch
 
-from repro_torch.checkpoint.replication import open_wal
+from repro_torch.checkpoint.replication import (DirectorySink,
+                                                SegmentShipper, open_wal)
 from repro_torch.core.extraction import Extractor, Message
+from repro_torch.core.shards import MESH_SLICE
 from repro_torch.core.store import MemoryStore
 from repro_torch.core.tiering import TierPolicy
 from repro_torch.obs.telemetry import get_telemetry
-
-_SLICE_SHARDING = "the sharding slice of the port"
 
 
 class BackpressureError(RuntimeError):
@@ -109,8 +111,15 @@ class LifecycleRuntime:
                  start: bool = True, _recovered: bool = False):
         self.store = store
         self.policy = policy or LifecyclePolicy()
-        # the plain log; a directory holding a sharded layout is refused
-        self.wal = open_wal(data_dir) if data_dir else None
+        # a sharded store journals through a ShardedWal (per-shard logs +
+        # cross-shard commit records); unsharded stores keep the plain log.
+        # Autodetect covers mounting over a directory whose layout is known
+        # only from disk.
+        self.wal = (open_wal(data_dir,
+                             shards=(store.shards if store.shards > 1
+                                     else None))
+                    if data_dir else None)
+        self.shipper: Optional[SegmentShipper] = None
         # the stream the read path runs on (the building thread's): the
         # daemon's device work goes there (see the module docstring)
         self._stream = (torch.cuda.current_stream(store.device)
@@ -191,18 +200,20 @@ class LifecycleRuntime:
         are fallbacks if the newest fails to load) + ordered replay of
         every valid WAL segment past its coverage, through the store's own
         commit path, on `device`.  The recovered bank is f32, as the
-        snapshot is.  A sharded directory (or `shards > 1`, or a `mesh`)
-        raises NotImplementedError."""
+        snapshot is.  `shards=None` autodetects the on-disk WAL layout, so a
+        sharded directory recovers into a sharded store without the caller
+        restating the topology."""
         if mesh is not None:
-            raise NotImplementedError(f"mesh= comes with {_SLICE_SHARDING}")
+            raise NotImplementedError(f"mesh= comes with {MESH_SLICE}")
         wal = open_wal(data_dir, shards=shards)
+        n_shards = getattr(wal, "n_shards", 1)
         store, after = None, 0
         for wal_through, path in reversed(wal.snapshots()):
             try:
                 store = MemoryStore.restore(path, embedder,
                                             extractor=extractor,
                                             tokenizer=tokenizer,
-                                            device=device)
+                                            device=device, shards=n_shards)
                 after = wal_through
                 break
             except Exception as e:           # fall back a generation
@@ -213,7 +224,8 @@ class LifecycleRuntime:
                               stacklevel=2)
         if store is None:
             store = MemoryStore(embedder, extractor, dim=dim,
-                                tokenizer=tokenizer, device=device)
+                                tokenizer=tokenizer, device=device,
+                                shards=n_shards)
         poison_file = None
         for seq, record in wal.replay_records(after_seq=after):
             try:
@@ -250,11 +262,23 @@ class LifecycleRuntime:
         return rt
 
     # -- replication --------------------------------------------------------
-    def attach_follower(self, sink, mode: str = "sync"):
-        """Stream every sealed WAL segment to a follower `sink`: the
-        segment shipper comes with the sharding slice of the port."""
-        raise NotImplementedError(
-            f"attach_follower (segment shipping) comes with {_SLICE_SHARDING}")
+    def attach_follower(self, sink, mode: str = "sync") -> SegmentShipper:
+        """Stream every sealed WAL segment (coordinator and shard logs
+        alike) to `sink` — a directory path or any object with
+        put/has/list — and backfill whatever history the sink is missing.
+        Local fsync stays the durability point; the follower is async
+        replication whose lag is the disaster-recovery RPO.  Returns the
+        shipper (counters: shipped/failed/queued)."""
+        if self.wal is None:
+            raise RuntimeError("attach_follower needs a durable data_dir")
+        if isinstance(sink, str):
+            sink = DirectorySink(sink)
+        shipper = SegmentShipper(self.wal.dir, sink, mode=mode)
+        with self.lock:
+            self.wal.on_seal = shipper
+            self.shipper = shipper
+        shipper.ship_existing()
+        return shipper
 
     # -- write path with backpressure --------------------------------------
     def enqueue(self, namespace: str, session_id: str,
@@ -496,6 +520,8 @@ class LifecycleRuntime:
             if self.store.wal_sink is not None and self.wal is not None:
                 self.store.wal_sink = None
             self.store.on_flush_commit = None
+        if self.shipper is not None:
+            self.shipper.close()         # async mode: drain the queue
 
     def __enter__(self) -> "LifecycleRuntime":
         return self
@@ -516,5 +542,6 @@ class LifecycleRuntime:
             "lifecycle": dict(self.counters,
                               daemon_running=self.running,
                               durable=self.wal is not None),
-            "replication": None,         # no follower in this slice
+            "replication": (dict(self.shipper.counters)
+                            if self.shipper is not None else None),
         }

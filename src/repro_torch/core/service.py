@@ -51,8 +51,14 @@ Concurrent clients are served through a `MemoryScheduler`
 (`start_scheduler()`, core/scheduler.py) and the sync read wrappers
 (`retrieve`, `retrieve_batch`): every client's single request coalesces
 with its concurrent peers into one `execute` — one masked top-k launch —
-per scheduler tick.  Sharding arrives with a later slice of the port and
-raises NotImplementedError here.
+per scheduler tick.
+
+`shards=N` places the bank shard-major (core/shards.py): the dense stage
+is one K1 launch over the slab bank (`store.sharded_search`), and a shard
+marked down (`set_shard_down`) answers its tenants' requests empty with
+`degraded=True` while the rest of the batch answers as if they were not
+in it.  `attach_follower` streams the journal's sealed segments to a
+follower (checkpoint/replication.py).
 """
 from __future__ import annotations
 
@@ -79,8 +85,6 @@ from repro_torch.core.triples import Triple
 from repro_torch.data.tokenizer import HashTokenizer
 from repro_torch.obs.telemetry import (GRAPH_EXPAND_LATENCY, RECORD_LATENCY,
                                        RETRIEVE_LATENCY, get_telemetry)
-
-_SLICE_SHARDING = "the sharding slice of the port"
 
 # graph-stage fallbacks when neither the request nor the plan sets them:
 # 2 hops reaches friend-of-a-fact chains, causal/temporal edges slightly
@@ -119,9 +123,6 @@ class MemoryService:
                  runtime: Optional[LifecycleRuntime] = None,
                  quantize: str = "none", rescore: int = 4, shards: int = 1,
                  mesh=None):
-        if shards != 1 or mesh is not None:
-            raise NotImplementedError(
-                f"shards= / mesh= come with {_SLICE_SHARDING}")
         if store is None and runtime is not None:
             store = runtime.store
         if store is None:
@@ -129,7 +130,8 @@ class MemoryService:
                 raise ValueError("MemoryService needs an embedder or a store")
             store = MemoryStore(embedder, extractor, dim=dim,
                                 tokenizer=tokenizer, quantize=quantize,
-                                rescore=rescore, device=device)
+                                rescore=rescore, device=device,
+                                shards=shards, mesh=mesh)
         self.store = store
         self.embedder = store.embedder
         self.extractor = store.extractor
@@ -174,12 +176,15 @@ class MemoryService:
                 **service_kwargs) -> "MemoryService":
         """Rebuild a service from a version-2 snapshot written by either
         package: the restored service answers `retrieve_batch` identically
-        to the one that wrote it.  `quantize=`/`rescore=` in service_kwargs
-        pick the restored index's device bank mode (snapshots are f32)."""
+        to the one that wrote it.  `quantize=`/`rescore=`/`shards=` in
+        service_kwargs pick the restored index's device bank mode and
+        placement (snapshots are f32 and placement-agnostic)."""
         store = MemoryStore.restore(
             path, embedder, extractor=extractor, tokenizer=tokenizer,
             quantize=service_kwargs.pop("quantize", "none"),
-            rescore=service_kwargs.pop("rescore", 4), device=device)
+            rescore=service_kwargs.pop("rescore", 4), device=device,
+            shards=service_kwargs.pop("shards", 1),
+            mesh=service_kwargs.pop("mesh", None))
         return cls(store=store, **service_kwargs)
 
     @classmethod
@@ -194,8 +199,8 @@ class MemoryService:
         WAL replay on `device`.  The recovered service answers
         `retrieve_batch` identically to the pre-crash one up to the last
         durable flush, and keeps journaling to the same directory.  `dim`
-        matters only when the directory holds no snapshot yet.  A sharded
-        directory raises NotImplementedError."""
+        matters only when the directory holds no snapshot yet.
+        `shards=None` autodetects the sharded WAL layout on disk."""
         rt = LifecycleRuntime.recover(data_dir, embedder,
                                       extractor=extractor, policy=policy,
                                       device=device, dim=dim,
@@ -386,6 +391,16 @@ class MemoryService:
                 for t in tenants:
                     if t is not None:
                         tiers.note_retrieve(t.ns_id)
+            # graceful degradation: a request whose placement shard is down
+            # answers empty with degraded=True — all its rankings are
+            # masked below, so the surviving requests in the batch are
+            # bit-identical to a batch that never contained it.  `down` is
+            # read before the dense launch and again after it (`_downed`):
+            # a shard taken down or brought back by another thread
+            # meanwhile counts as down, so a request whose launch may have
+            # read the shard's -1 label slab is always flagged.
+            sharded = self.store.sharded
+            down_before = sharded.down if sharded is not None else frozenset()
             B = len(reqs)
             # fuse at the pow2 ceiling of the largest requested k; each row is
             # then sliced to its own k (the prefix of a wider fusion is the
@@ -408,8 +423,14 @@ class MemoryService:
                         qmat = torch.zeros((Bp, qv.shape[1]),
                                            dtype=torch.float32, device=device)
                         qmat[dense_rows] = qv
-                        _, dense_ids = vindex.search_batch(qmat, q_ns,
-                                                           k=self.pool)
+                        if sharded is not None:
+                            # shard-wise placement: one K1 launch over the
+                            # slab bank; ids come back in global-row space
+                            _, dense_ids = self.store.sharded_search(
+                                qmat, q_ns, k=self.pool)
+                        else:
+                            _, dense_ids = vindex.search_batch(qmat, q_ns,
+                                                               k=self.pool)
                         if tiers is not None:
                             # a demoted namespace's rows are absent from the
                             # device bank: answer those requests from the
@@ -428,12 +449,17 @@ class MemoryService:
                                     hi.astype(np.int32)).to(device)
                                 for i in fb:
                                     tiers.note_host_fallback(tenants[i].ns_id)
+                        downed = self._downed(tenants, down_before)
                         dense_ids = self._mask_ranking(
-                            dense_ids, [r.dense for r in res], Bp)
+                            dense_ids,
+                            [r.dense and not d for r, d in zip(res, downed)],
+                            Bp)
                     rankings.append(dense_ids)
                     weight_cols.append(
                         [r.dense_weight for r in res]
                         + [self.dense_weight] * (Bp - B))
+                if not dense_rows:
+                    downed = self._downed(tenants, down_before)
                 if any(r.sparse for r in res):
                     with tel.span("plan.sparse", batch=Bp, pool=self.pool,
                                   launches=1):
@@ -441,7 +467,9 @@ class MemoryService:
                             [r.query for r in reqs] + [""] * (Bp - B),
                             k=self.pool, namespaces=ns_pad)
                         sparse_ids = self._mask_ranking(
-                            sparse_ids, [r.sparse for r in res], Bp)
+                            sparse_ids,
+                            [r.sparse and not d for r, d in zip(res, downed)],
+                            Bp)
                     rankings.append(sparse_ids)
                     weight_cols.append(
                         [r.sparse_weight for r in res]
@@ -452,13 +480,15 @@ class MemoryService:
                 # own weight column.  Requests that skip the stage get it
                 # masked to -1, so they fuse exactly like a graph-less batch.
                 # Hop depth is per request; the loop runs to the pow2 bucket
-                # of the batch max.
-                graph_wants = [r.graph for r in res]
+                # of the batch max.  A request whose shard is down skips it.
+                graph_wants = [r.graph and not d
+                               for r, d in zip(res, downed)]
                 if any(graph_wants) and rankings:
                     g = self.store.graph
                     t_g = time.perf_counter()
                     hops_arr = np.zeros((Bp,), np.int32)
-                    hops_arr[:B] = [rr.hops if rr.graph else 0 for rr in res]
+                    hops_arr[:B] = [rr.hops if w else 0
+                                    for rr, w in zip(res, graph_wants)]
                     tw = np.zeros((Bp, 3), np.float32)
                     tw[:B] = [rr.edge_weights for rr in res]
                     max_hops = next_pow2(max(1, int(hops_arr.max())))
@@ -493,6 +523,7 @@ class MemoryService:
                     fused_ids = fused_ids.cpu().numpy()[:B]
                     fused_scores = fused_scores.cpu().numpy()[:B]
             else:
+                downed = self._downed(tenants, down_before)
                 fused_ids = np.full((B, k_fuse), -1, np.int32)
                 fused_scores = np.zeros((B, k_fuse), np.float32)
             out: List[Any] = []
@@ -518,12 +549,20 @@ class MemoryService:
                         text = render(ctx.triples, ctx.summaries)
                         out.append(RetrievedContext(
                             ctx.triples, ctx.summaries, text,
-                            self.tokenizer.count(text)))
+                            self.tokenizer.count(text), degraded=downed[r]))
                     else:
                         rows = [int(g) for g in ids if g >= 0]
                         out.append(RawRetrieval(
                             rows, [self.store.row_tid(g) for g in rows],
-                            [float(s) for g, s in zip(ids, scs) if g >= 0]))
+                            [float(s) for g, s in zip(ids, scs) if g >= 0],
+                            degraded=downed[r]))
+            n_down = sum(downed)
+            if n_down:
+                tel.inc("memori_degraded_responses", n_down,
+                        help="requests answered empty because their "
+                             "placement shard was down")
+                tel.event("degraded_response", count=n_down,
+                          shards=sorted(down_before | sharded.down))
             tel.observe(RETRIEVE_LATENCY, time.perf_counter() - t_exec,
                         n=B, help="end-to-end execute() latency per request")
             return out
@@ -552,6 +591,16 @@ class MemoryService:
             hops=int(req.hops or plan.hops or _GRAPH_HOPS),
             edge_weights=tuple(float(w) for w in ew),
             graph_weight=float(gw))
+
+    def _downed(self, tenants, down_before) -> List[bool]:
+        """Per request: is its tenant's placement shard down — in the set
+        read before the dense launch or in the one read now."""
+        sharded = self.store.sharded
+        down = down_before | sharded.down if sharded is not None else ()
+        if not down:
+            return [False] * len(tenants)
+        return [t is not None and sharded.shard_of(t.ns_id) in down
+                for t in tenants]
 
     @staticmethod
     def _mask_ranking(ids: torch.Tensor, wants: List[bool], Bp: int):
@@ -583,9 +632,27 @@ class MemoryService:
         with self._guard():
             return self.store.evict_superseded(namespace)
 
+    # -- shard lifecycle ---------------------------------------------------
+    def set_shard_down(self, shard: int) -> None:
+        """Mark one placement shard unavailable: its device label slab goes
+        to -1 (its rows stop matching any query) and requests owned by it
+        answer empty with `degraded=True` while the rest of the batch
+        answers normally — the batch never fails wholesale."""
+        with self._guard():
+            self.store.shard_down(shard)
+        get_telemetry().event("shard_down", shard=int(shard))
+
+    def set_shard_up(self, shard: int) -> None:
+        """Bring a recovered shard back: restore its device labels from the
+        host mirror and stop degrading its tenants' responses."""
+        with self._guard():
+            self.store.shard_up(shard)
+        get_telemetry().event("shard_up", shard=int(shard))
+
     def attach_follower(self, sink, mode: str = "sync"):
-        """Stream every sealed WAL segment to a follower: comes with the
-        sharding slice of the port (raises)."""
+        """Stream every sealed WAL segment to `sink` (a directory path or
+        any object with put/has/list — see checkpoint/replication.py), so
+        recovery survives losing this host's disk.  Returns the shipper."""
         if self.runtime is None:
             raise RuntimeError("attach_follower needs a lifecycle runtime "
                                "(construct the service with data_dir/runtime)")

@@ -31,7 +31,12 @@ mapping as one consistent unit:
   writer's up to the last durable record.  The records are the reference
   package's, byte for byte.
 
-The port's store is unsharded: a sharded flush record raises.
+**sharding** — `shards > 1` mounts a shard-major device bank
+(core/shards.py): namespace-affine placement, searched by one masked top-k
+over the slab bank (`sharded_search`), with shards taken down and brought
+back (`shard_down`/`shard_up`).  A flush groups its sessions by shard and
+journals one `sharded_flush` record of per-shard parts, the reference
+package's record byte for byte.
 
 Layout invariant (checked, raising StoreInvariantError): global row id ==
 BM25 doc id == position in the row tables; tenant-local `rows[tid]` maps a
@@ -53,6 +58,7 @@ from repro_torch.core.bm25 import BM25Index
 from repro_torch.core.extraction import Extractor, Message, RuleExtractor
 from repro_torch.core.graph import (EDGE_TYPE_IDS, GraphInvariantError,
                                     MemoryGraph)
+from repro_torch.core.shards import MESH_SLICE, ShardedBank
 from repro_torch.core.summaries import Summary, SummaryStore
 from repro_torch.core.triples import Triple, TripleStore
 from repro_torch.core.vector_index import VectorIndex
@@ -99,7 +105,17 @@ class PendingSession:
 class MemoryStore:
     def __init__(self, embedder, extractor: Optional[Extractor] = None,
                  dim: int = 256, tokenizer: HashTokenizer | None = None,
-                 quantize: str = "none", rescore: int = 4, device="cuda"):
+                 quantize: str = "none", rescore: int = 4, device="cuda",
+                 shards: int = 1, mesh=None):
+        if shards < 1:
+            raise ValueError(f"shards must be >= 1, got {shards}")
+        if shards > 1 and quantize != "none":
+            raise ValueError(
+                "sharded placement and the quantized device bank are "
+                "mutually exclusive (the shard slabs hold f32 rows)")
+        if mesh is not None:
+            raise NotImplementedError(f"mesh= comes with {MESH_SLICE}")
+        self.shards = int(shards)
         self.embedder = embedder
         self.extractor = extractor or RuleExtractor()
         self.tokenizer = tokenizer or default_tokenizer()
@@ -110,6 +126,12 @@ class MemoryStore:
         # K2 with an exact f32 rescore of the top rescore*k candidates
         self.vindex = VectorIndex(dim=dim, device=self.device,
                                   quantize=quantize, rescore=rescore)
+        # shards > 1 mounts a shard-major device bank (core/shards.py); the
+        # VectorIndex host mirror stays the ground truth for WAL, snapshot
+        # and compaction either way
+        self.sharded: Optional[ShardedBank] = (
+            ShardedBank(dim, self.shards, device=self.device)
+            if self.shards > 1 else None)
         self.bm25 = BM25Index(tokenizer=self.tokenizer, device=self.device)
         self.graph = MemoryGraph(device=self.device)
         # hot/warm tier manager (core/tiering.py) — attach_tiers() mounts
@@ -173,6 +195,9 @@ class MemoryStore:
         from repro_torch.core.tiering import TierManager
         if self.tiers is not None:
             raise ValueError("a TierManager is already attached")
+        if self.sharded is not None:
+            raise ValueError(
+                "hot/warm tiering is not supported on a sharded bank")
         kwargs = {} if clock is None else {"clock": clock}
         self.tiers = TierManager(self.vindex, policy=policy, **kwargs)
         return self.tiers
@@ -217,6 +242,19 @@ class MemoryStore:
                     triples, summary = self.extractor.extract(
                         p.conversation_id, p.session_id, p.messages)
                     batch.append((p, triples, summary))
+                if self.sharded is not None:
+                    # pin namespace ids in enqueue order before grouping —
+                    # replay sees sessions grouped by shard, so the record
+                    # carries the live assignment or recovered ids would
+                    # drift
+                    for p, _, _ in batch:
+                        self._ns_ids.setdefault(p.namespace,
+                                                len(self._ns_ids))
+                    # stable sort: shard-contiguous parts, enqueue order
+                    # within
+                    batch = sorted(
+                        batch, key=lambda b:
+                        self._ns_ids[b[0].namespace] % self.shards)
                 flat = [tr for _, triples, _ in batch for tr in triples]
                 vecs = self.embedder.embed_texts(            # one embed call
                     [tr.text() for tr in flat]) if flat else None
@@ -225,7 +263,9 @@ class MemoryStore:
                 if self.wal_sink is not None:  # durability point: WAL first
                     if isinstance(vecs, torch.Tensor):
                         vecs = vecs.to(torch.float32).cpu().numpy()
-                    self.wal_sink(self._flush_record(sessions, vecs))
+                    self.wal_sink(self._sharded_flush_record(sessions, vecs)
+                                  if self.sharded is not None
+                                  else self._flush_record(sessions, vecs))
             except BaseException:
                 # restore the queue (ahead of anything enqueued since)
                 self._pending = pending + self._pending
@@ -283,6 +323,12 @@ class MemoryStore:
             raise StoreInvariantError(
                 f"graph row-incidence lanes ({self.graph.n_rows}) out of "
                 f"sync with the row tables ({len(self._row_tid)})")
+        if self.sharded is not None:     # mirror into the shard layout
+            # the rows just appended, from the host mirror (one copy of
+            # the vectors whatever device they came from)
+            self.sharded.append(
+                rows, self.vindex.bank[int(rows[0]): int(rows[-1]) + 1],
+                [t.ns_id for t in tenants])
 
     # -- incremental persistence (WAL records) ------------------------------
     def _flush_record(self, sessions, vecs) -> dict:
@@ -305,6 +351,31 @@ class MemoryStore:
             "vecs": (np.asarray(vecs, "<f4").tobytes()
                      if n_rows else b""),
         }
+
+    def _sharded_flush_record(self, sessions, vecs) -> dict:
+        """Sharded flush record: the (shard-grouped) sessions split into
+        per-shard parts — each part a plain flush record of that shard's
+        contiguous session run — plus the namespace-id table.  The WAL
+        layer (`checkpoint/replication.ShardedWal`) lands each part in its
+        shard's own log and journals one cross-shard commit record; the
+        ns_ids table rides along because ids were assigned in enqueue
+        order, which the grouped parts alone cannot reconstruct."""
+        parts = []
+        cursor = 0
+        by_shard: Dict[int, list] = {}
+        for ns, summary, triples in sessions:
+            s = self._ns_ids[ns] % self.shards
+            by_shard.setdefault(s, []).append((ns, summary, triples))
+        for s in sorted(by_shard):       # ascending shard == grouped order
+            group = by_shard[s]
+            cnt = sum(len(triples) for _, _, triples in group)
+            part_vecs = (np.asarray(vecs, np.float32)[cursor: cursor + cnt]
+                         if cnt else None)
+            cursor += cnt
+            parts.append([s, self._flush_record(group, part_vecs)])
+        return {"op": "sharded_flush",
+                "ns_ids": {ns: int(i) for ns, i in self._ns_ids.items()},
+                "parts": parts}
 
     def _apply_flush_record(self, record: dict) -> None:
         sessions = [
@@ -331,9 +402,16 @@ class MemoryStore:
         if op == "flush":
             self._apply_flush_record(record)
         elif op == "sharded_flush":
-            raise NotImplementedError(
-                "a sharded_flush WAL record (a sharded store's journal) "
-                "replays with the sharding slice of the port")
+            # pin the live run's namespace-id assignment first: ids were
+            # handed out in enqueue order, the parts arrive shard-grouped
+            for ns, nid in record.get("ns_ids", {}).items():
+                got = self._ns_ids.setdefault(str(ns), int(nid))
+                if got != int(nid):
+                    raise StoreInvariantError(
+                        f"replayed namespace id for {ns!r} is {nid}, "
+                        f"store already assigned {got}")
+            for _shard, part in record["parts"]:
+                self._apply_flush_record(part)
         elif op == "graph_edge":
             self._apply_link(record["namespace"], record["subject"],
                              record["object"], record["etype"],
@@ -399,6 +477,8 @@ class MemoryStore:
                 if tid not in t.evicted and row >= 0]
         self.vindex.delete(live)
         self.bm25.remove(live)
+        if self.sharded is not None:
+            self.sharded.delete(live)
         return len(live)
 
     def evict_superseded(self, namespace: str) -> int:
@@ -414,6 +494,8 @@ class MemoryStore:
         rows = [t.rows[tid] for tid in fresh]
         self.vindex.delete([r for r in rows if r >= 0])
         self.bm25.remove([r for r in rows if r >= 0])
+        if self.sharded is not None:
+            self.sharded.delete([r for r in rows if r >= 0])
         t.evicted.update(fresh)
         return len(fresh)
 
@@ -440,6 +522,8 @@ class MemoryStore:
             self.graph.compact_rows(old_to_new)
         except GraphInvariantError as e:
             raise StoreInvariantError(str(e)) from e
+        if self.sharded is not None:     # global row ids moved wholesale
+            self.sharded.invalidate()
         return {"rows_before": int(before), "rows_after": int(self.vindex.n),
                 "dropped": int(before - self.vindex.n)}
 
@@ -451,6 +535,12 @@ class MemoryStore:
         `io.save` — the lifecycle runtime's rotation uses both, so a crash
         mid-snapshot never clobbers the previous generation.  Returns bytes
         written."""
+        return ckpt_io.save(path, self.snapshot_arrays(), atomic=atomic,
+                            fsync=fsync)
+
+    def snapshot_arrays(self) -> Dict[str, np.ndarray]:
+        """The flat {name: ndarray} dict `snapshot` writes (and `from_arrays`
+        reads back), pending sessions flushed first."""
         self.flush()
         n = self.vindex.n
         triple_fields = [f.name for f in dataclasses.fields(Triple)]
@@ -492,26 +582,29 @@ class MemoryStore:
                 f"snapshot: row tables ({arrays['row_tid'].shape[0]}) or "
                 f"graph lanes ({self.graph.n_rows}) out of sync with the "
                 f"bank ({n})")
-        return ckpt_io.save(path, arrays, atomic=atomic, fsync=fsync)
+        return arrays
 
     @classmethod
     def from_arrays(cls, arrays: Dict[str, np.ndarray], embedder, *,
                     extractor: Optional[Extractor] = None,
                     tokenizer: HashTokenizer | None = None,
                     quantize: str = "none", rescore: int = 4,
-                    device="cuda") -> "MemoryStore":
+                    device="cuda", shards: int = 1,
+                    mesh=None) -> "MemoryStore":
         """Build a store from the flat {name: ndarray} dict a version-2
         snapshot loads to (either package's `checkpoint.io.load_raw`).  The
         result answers retrieval identically to the store that wrote it.
-        `quantize`/`rescore` pick the restored index's device bank mode; the
-        snapshot itself is always f32."""
+        `quantize`/`rescore`/`shards` pick the restored index's device bank
+        mode and placement; the snapshot itself is always f32 and
+        placement-agnostic (a sharded store lays its slabs out on the first
+        search)."""
         meta = packing.unpackb(np.asarray(arrays["meta"]).tobytes())
         if meta["version"] != SNAPSHOT_VERSION:
             raise StoreInvariantError(
                 f"snapshot version {meta['version']} != {SNAPSHOT_VERSION}")
         store = cls(embedder, extractor, dim=int(meta["dim"]),
                     tokenizer=tokenizer, quantize=quantize, rescore=rescore,
-                    device=device)
+                    device=device, shards=shards, mesh=mesh)
         store.vindex.load_rows(arrays["bank"], arrays["bank_alive"],
                                ns=arrays["row_ns"])
         bm = meta["bm25"]
@@ -551,6 +644,42 @@ class MemoryStore:
         either package).  Keyword arguments go to `from_arrays`."""
         return cls.from_arrays(ckpt_io.load_raw(path), embedder, **kwargs)
 
+    # -- sharded retrieval --------------------------------------------------
+    def sharded_search(self, queries, q_ns, k: int):
+        """Namespace-masked top-k over the shard-major device bank: one K1
+        launch, returns device (scores (Q, k) f32, rows (Q, k) i32 global
+        ids).  Rebuilds the shard layout lazily when stale (first search,
+        after compaction or restore)."""
+        if self.sharded is None:
+            raise StoreInvariantError("store was built with shards=1")
+        if self.sharded.stale:
+            self.sharded.rebuild(self.vindex)
+        return self.sharded.search(queries, q_ns, k)
+
+    def shard_of_namespace(self, namespace: str) -> Optional[int]:
+        """Which shard owns a namespace's rows (None if unknown tenant or
+        unsharded)."""
+        if self.sharded is None:
+            return None
+        t = self._tenants.get(namespace)
+        return None if t is None else t.ns_id % self.shards
+
+    def shard_down(self, shard: int) -> None:
+        """Take one shard out of retrieval (graceful degradation: surviving
+        shards keep answering, the service stamps affected responses
+        `degraded`)."""
+        if self.sharded is None:
+            raise StoreInvariantError("store was built with shards=1")
+        self.sharded.mark_down(shard)
+
+    def shard_up(self, shard: int) -> None:
+        if self.sharded is None:
+            raise StoreInvariantError("store was built with shards=1")
+        self.sharded.mark_up(shard)
+
+    def down_shards(self) -> List[int]:
+        return sorted(self.sharded.down) if self.sharded is not None else []
+
     # -- stats -------------------------------------------------------------
     def stats(self) -> dict:
         per_ns = {
@@ -584,4 +713,6 @@ class MemoryStore:
         }
         if self.tiers is not None:
             out["tiering"] = self.tiers.stats()
+        if self.sharded is not None:
+            out["shards"] = self.sharded.stats()
         return out

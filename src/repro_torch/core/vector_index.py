@@ -45,7 +45,8 @@ import numpy as np
 import torch
 
 from repro_torch.common.utils import next_pow2, resolve_device, to_device
-from repro_torch.kernels.topk_mips import (NEG_INF, topk_mips_masked,
+from repro_torch.kernels.topk_mips import (NEG_INF, topk_mips,
+                                           topk_mips_masked,
                                            topk_mips_quant_masked)
 
 
@@ -603,6 +604,51 @@ class VectorIndex:
         s, i, kk = self._run_search(queries, self._q_ns(q_ns), k,
                                     labels=to_device(eff, self.device))
         return self._to_host(s, i, k, kk)
+
+
+def sharded_topk(queries, bank, k: int, n_shards: int, *, q_ns=None,
+                 bank_ns=None):
+    """Top-k over a bank of `n_shards` equal slabs (shard s owns rows
+    [s*R, (s+1)*R)): a local top-k of `k_local = min(k, R)` on each slab —
+    K1 with the slab's labels when `q_ns`/`bank_ns` are given (both or
+    neither), K3 otherwise —, its ids offset into global rows (-1
+    sentinels kept), then the lists concatenated in shard order and
+    re-ranked to k by a stable descending sort, so ties rank by global row
+    as in one search over the whole bank.  Returns (scores (Q, k) f32, ids
+    (Q, k) i32), equal to one K1/K3 over the whole bank; an unfilled slot
+    is (NEG_INF, -1)."""
+    N = bank.shape[0]
+    if n_shards < 1 or N % n_shards:
+        raise ValueError(f"{N} bank rows do not split into {n_shards} "
+                         "equal shards")
+    masked = q_ns is not None or bank_ns is not None
+    if masked and (q_ns is None or bank_ns is None):
+        raise ValueError("q_ns and bank_ns must be given together")
+    R = N // n_shards
+    k_local = min(k, R)
+    scores, ids = [], []
+    for s in range(n_shards):
+        slab = bank[s * R: (s + 1) * R]
+        if masked:
+            sc, i = topk_mips_masked(queries, slab, q_ns,
+                                     bank_ns[s * R: (s + 1) * R], k=k_local)
+            # -1 sentinels (masked-out slots) must not become real ids
+            i = torch.where(i >= 0, i + s * R, i)
+        else:
+            sc, i = topk_mips(queries, slab, k=k_local)
+            i = i + s * R
+        scores.append(sc)
+        ids.append(i)
+    s_all, i_all = torch.cat(scores, dim=1), torch.cat(ids, dim=1)
+    top_s, pos = torch.sort(s_all, dim=1, descending=True, stable=True)
+    top_s, pos = top_s[:, :k], pos[:, :k]
+    top_i = torch.gather(i_all, 1, pos)
+    top_i = torch.where(top_s > NEG_INF / 2, top_i, torch.full_like(top_i, -1))
+    if top_s.shape[1] < k:                 # k beyond the whole bank
+        pad = k - top_s.shape[1]
+        top_s = torch.nn.functional.pad(top_s, (0, pad), value=NEG_INF)
+        top_i = torch.nn.functional.pad(top_i, (0, pad), value=-1)
+    return top_s, top_i
 
 
 def _as_numpy(x) -> np.ndarray:

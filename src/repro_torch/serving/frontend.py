@@ -61,8 +61,7 @@ read path's CUDA stream.  Without one, a handler runs its request on the
 direct engine on its own thread, as the reference does.  The
 service's stats hold host numbers only, so `/v1/stats` and `/v1/metrics`
 never wait on the device.  `/v1/readyz` reads the placement shards through
-`store.sharded`; the port's store has one placement, so `shards_down` is
-always empty.
+`store.sharded` (a sharded store's down shards, host state only).
 """
 from __future__ import annotations
 
@@ -562,12 +561,10 @@ class MemoryFrontend:
         """Readiness (unauthenticated): 503 while the deployment is
         degraded — any placement shard marked down, or the lifecycle
         queue rejecting writes under backpressure — so a load balancer
-        stops routing here before clients see degraded answers.  A store
-        without a sharded placement (the port's, today) has no shard to
-        be down."""
+        stops routing here before clients see degraded answers.  An
+        unsharded store has no shard to be down."""
         sharded = getattr(self.service.store, "sharded", None)
-        shards_down = (sorted(sharded.down)
-                       if sharded is not None and sharded.down else [])
+        shards_down = sorted(sharded.down) if sharded is not None else []
         rt = getattr(self.service, "runtime", None)
         rejecting = bool(rt is not None and rt.rejecting)
         if shards_down or rejecting:

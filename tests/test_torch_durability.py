@@ -377,18 +377,36 @@ def test_what_later_slices_bring_still_raises(tmp_path):
     assert svc.scheduler is sched and sched.can_submit() is False
     svc.close(final_snapshot=False)
     assert sched.closed and svc.scheduler is None and rt.closed
+    # the sharding slice brought the follower, the sharded directory and
+    # the sharded_flush record: all three now work
     svc, rt = _mounted(tmp_path / "next")
-    with pytest.raises(NotImplementedError, match="sharding slice"):
-        svc.attach_follower(str(tmp_path / "follower"))
+    svc.record("a/c0", "s0", _session(["I live in Oslo."]))
+    shipper = svc.attach_follower(str(tmp_path / "follower"))
+    assert shipper.counters["shipped"] == 1          # the backfill
+    assert sorted(os.listdir(tmp_path / "follower")) == \
+        ["wal-00000001.msgpack"]
     sharded = tmp_path / "sharded"
     (sharded / "shard-00").mkdir(parents=True)
     (sharded / "shard-01").mkdir()
-    with pytest.raises(NotImplementedError, match="sharding slice"):
-        _recover(sharded)
-    with pytest.raises(NotImplementedError, match="sharding slice"):
-        LifecycleRuntime(_store(), data_dir=str(sharded), start=False)
-    with pytest.raises(NotImplementedError, match="sharding slice"):
-        _store().apply_wal({"op": "sharded_flush", "parts": []})
+    empty = _recover(sharded)                        # autodetects 2 shards
+    assert empty.store.shards == 2 and empty.store.sharded is not None
+    empty.record("b/c0", "s0", _session(["I live in Quito."]))
+    again = _recover(sharded)
+    ctx = again.retrieve("b/c0", "Which city does the user live in?")
+    assert any(t.object == "quito" for t in ctx.triples)
+    mounted = LifecycleRuntime(MemoryStore(_emb(), device="cpu", shards=2),
+                               data_dir=str(tmp_path / "sharded2"),
+                               start=False)
+    assert mounted.wal.n_shards == 2
+    src = MemoryStore(_emb(), device="cpu", shards=2)
+    records = []
+    src.wal_sink = records.append
+    src.ingest("c/c0", "s0", _session(["I live in Lima."]))
+    assert records[0]["op"] == "sharded_flush"
+    replayed = _store()
+    replayed.apply_wal(records[0])
+    np.testing.assert_array_equal(replayed.vindex.bank, src.vindex.bank)
+    assert replayed.namespaces() == ["c/c0"]
 
 
 # -- crash recovery: kill -9 between WAL append and snapshot -------------------

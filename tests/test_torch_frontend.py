@@ -4,9 +4,8 @@ tests/test_frontend.py on the port — a real ThreadingHTTPServer over a
 real service + scheduler, driven through urllib: record -> retrieve ->
 stream round trips, api-key tenancy isolation, the error contract (401 /
 400 / 404 / 429 + Retry-After), metrics, health, request ids, traces, and
-the SDK's HttpMemory client speaking the same wire format.  The
-reference's shard-down readiness case waits for the port's sharding
-slice (one placement here: `shards_down` is always empty).  The last case
+the SDK's HttpMemory client speaking the same wire format, and readiness
+while a placement shard is down.  The last case
 drives one sequence through a JAX-package frontend and a port frontend
 and requires equal envelopes (timings and request ids aside) and equal
 `/v1/metrics` metric names."""
@@ -412,6 +411,23 @@ def test_healthz_and_readyz_unauthenticated(frontend):
     assert st == 200 and body["status"] == "ok"
     st, body, _ = _call_raw(frontend, "/v1/readyz")
     assert st == 200 and body["status"] == "ok"
+
+
+def test_readyz_503_while_shard_down():
+    svc = _service(shards=2)
+    fe = MemoryFrontend(svc, KEYS).start()
+    try:
+        st, _, _ = _call_raw(fe, "/v1/readyz")
+        assert st == 200
+        svc.set_shard_down(1)
+        st, body, _ = _call_raw(fe, "/v1/readyz")
+        assert st == 503 and body["status"] == "unavailable"
+        assert body["shards_down"] == [1]
+        svc.set_shard_up(1)
+        st, _, _ = _call_raw(fe, "/v1/readyz")
+        assert st == 200
+    finally:
+        fe.close()
 
 
 def test_readyz_503_under_reject_backpressure():

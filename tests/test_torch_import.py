@@ -32,7 +32,9 @@ def test_every_port_module_imports_without_jax_or_msgpack():
     mods = _port_modules()
     for m in ("repro_torch.core.service", "repro_torch.core.tiering",
               "repro_torch.kernels.ops", "repro_torch.models.model_api",
-              "repro_torch.serving.engine", "repro_torch.core.sdk"):
+              "repro_torch.serving.engine", "repro_torch.core.sdk",
+              "repro_torch.core.shards",
+              "repro_torch.checkpoint.replication"):
         assert m in mods
     code = ("import sys\n"
             "sys.modules['jax'] = None\n"

@@ -169,11 +169,17 @@ def test_evict_and_compact_keep_parity():
 
 def test_slices_to_come_raise_not_implemented():
     # durability (data_dir= / runtime=) came with its slice: see
-    # tests/test_torch_durability.py
+    # tests/test_torch_durability.py; sharding came with its own
+    # (tests/test_torch_sharded_service.py): shards=2 builds and answers,
+    # while placing the slabs over a device mesh waits for M7
     emb = HashEmbedder(device="cpu")
-    for kw in (dict(shards=2), dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="sharding slice"):
-            MemoryService(emb, device="cpu", **kw)
+    sharded = MemoryService(emb, device="cpu", shards=2)
+    sharded.record("a/c0", "s0", [Message("A", "I live in Oslo.", 1.7e9)])
+    ctx = sharded.retrieve("a/c0", "Which city does the user live in?")
+    assert any(t.object == "oslo" for t in ctx.triples) and not ctx.degraded
+    assert sharded.stats()["shards"]["n_shards"] == 2
+    with pytest.raises(NotImplementedError, match="M7"):
+        MemoryService(emb, device="cpu", mesh=object())
     # the request scheduler came with the serving slice: it mounts, routes
     # retrieve_batch, and closes with the service
     svc = MemoryService(emb, device="cpu")
