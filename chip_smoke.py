@@ -160,7 +160,13 @@ line per phase and fails (nonzero exit) on any failed check:
                  S = T = 4096) beside its plain version,
                  scaled_dot_product_attention and its bound (K5 also inside
                  a graph of 100 calls; K6 with its CTA count); the served
-                 instances must not spill (ptxas).
+                 instances must not spill (ptxas).  Also the zoo's
+                 variants, f32 and bf16: K5 with slot positions (ring
+                 caches before, at and past a lap, emptied slots, windows
+                 0 / 20 / T) and with int8 codes and scales (and both),
+                 K6's prefix mask (scalar and per row), cross-attention at
+                 1500 keys; every rejected key filled with garbage must
+                 leave the output bit-equal.
 12. lm         — `memori-agent` at full width (12 layers, d_model 768,
                  random weights from a seed) served by
                  `Engine(slots=8, max_len=512)` through `ContinuousBatcher`:
@@ -188,6 +194,41 @@ line per phase and fails (nonzero exit) on any failed check:
                  `LMEmbedder` (memori-embedder width) embeds the recorded
                  triples through K6 (bidirectional): each call held against
                  the plain version, the embeddings against the plain path.
+
+14. zoo        — the rest of the model zoo at full width in bf16, random
+                 weights from a seed (attention projections at unit score
+                 spread, see `unit_scores`), one arch at a time, freed
+                 before the next: phi3.5-moe (4 of 32 layers; MoE top-2 of
+                 16) and deepseek-v3 (4 of 61: 3 dense + the first MoE
+                 layer, MLA, 256 experts top-8 + the shared one, MTP
+                 specs) through `Engine` (phi3.5 again with the int8 KV
+                 cache: K5's int8 variant), recurrentgemma-9b (38 layers,
+                 RG-LRU + local attention, max_len 4096, prompts past 2048
+                 tokens: the ring cache, K5's slot-position variant) and
+                 mamba2-2.7b (64 layers, SSD) through `Engine`,
+                 whisper-small (12 + 12: the encoder and cross-attention
+                 through K6, cross decode through K5) and paligemma-3b (18;
+                 the 256-position image prefix: K6's prefix variant)
+                 through `Model.prefill` / `decode_step` with seeded stub
+                 audio / images.  For each: launch counters reset around
+                 the main path (K5 once an attention layer a decode step,
+                 each variant too; K6 once an attention layer a prefill),
+                 prefill ms a request, decode step ms, tokens/s, peak
+                 memory; a replayed step against an eager one; a profiled
+                 step and the MoE / SSM / RG-LRU / MLA-decode / K5 share of
+                 an eager step; every K5/K6 call of a teacher-forced run
+                 against its plain version, the teacher-forced logits
+                 against the plain path (within 2**-5 of the logit scale)
+                 and prefill + decode against the full forward (2**-5;
+                 mamba2 2**-5 per 16 layers, its bf16 roundings adding up
+                 over 64 layers, with the same weights at f32 held to
+                 2**-10), and greedy tokens against the plain path (a
+                 divergence must sit at a near-tie); phi3.5 all of it again
+                 with the int8 cache (against the full forward within the
+                 reference's int8 gate, 5%).  Then each variant's ms a call
+                 at its arch's shape beside its plain version, its bound
+                 (bf16 operations at the bf16 tensor-core rate) and
+                 `scaled_dot_product_attention` where one call computes it.
 
 Before the phases one line records the host (Python, torch, CUDA, and
 whether `import msgpack` works there: the port does not need it).  The
@@ -218,10 +259,12 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(ROOT, "src")
 
-# published H100 SXM rates (NVIDIA data sheet): HBM3 bandwidth and the
-# plain (non-tensor-core) FP32 rate, the only rate an exact-f32 kernel uses
+# published H100 SXM rates (NVIDIA data sheet, dense): HBM3 bandwidth, the
+# plain (non-tensor-core) FP32 rate, the only rate an exact-f32 kernel uses,
+# and the bf16 tensor-core rate, the least time for bf16 operands
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 RTOL, ATOL = 1e-5, 1e-6
 NEG_INF = -2.0e38
 F32_EPS = 2.0 ** -24          # unit roundoff of float32
@@ -259,6 +302,13 @@ ATTN_KERNELS = {
                         "src/repro_torch/csrc/flash_attention.cu"),
     "decode_attention": ("src/repro/kernels/decode_attention.py:25",
                          "src/repro_torch/csrc/decode_attention.cu"),
+}
+# the K5 / K6 variants of the zoo (other template instances of K5, a mask
+# of K6): the TPU kernel each replaces and its source
+ATTN_VARIANTS = {
+    "decode_attention[slot_pos]": ATTN_KERNELS["decode_attention"],
+    "decode_attention[int8]": ATTN_KERNELS["decode_attention"],
+    "flash_attention[prefix]": ATTN_KERNELS["flash_attention"],
 }
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # the reference tests'
 # the agent's shapes: memori-agent's 4 kv-heads x 3 grouped heads of 64;
@@ -304,12 +354,16 @@ def gpu_line() -> str:
 
 
 def wrappers():
+    """Every launch counter: the kernels' wrappers, and the K5/K6 variants'
+    counters (counted besides their kernel's)."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import topk_mips as tk
     out = {name: getattr(tk, name) for name in KERNELS}
     out.update(flash_attention=fa.flash_attention,
                decode_attention=da.decode_attention)
+    out.update({c.__name__: c for c in (da.slot_launches, da.int8_launches,
+                                        fa.prefix_launches)})
     return out
 
 
@@ -337,12 +391,15 @@ def ptxas_entries(report: str) -> dict:
             mangled = m.group(1)
             t = re.search(r"([A-Za-z][A-Za-z_]*_kernel)(I?)", mangled)
             name = t.group(1)
-            if t.group(2):      # template arguments: a type, then literals
-                a = re.match(r"(f|\d+__nv_bfloat16)?((?:L[bi]\d+E)*)",
-                             mangled[t.end():])
-                args = re.findall(r"L[bi](\d+)E", a.group(2))
-                if a.group(1):
-                    args.insert(0, "f32" if a.group(1) == "f" else "bf16")
+            if t.group(2):      # template arguments: types, then literals
+                a = re.match(r"((?:f|a|\d+__nv_bfloat16|S\d*_)*)"
+                             r"((?:L[bi]\d+E)*)", mangled[t.end():])
+                # float, signed char, __nv_bfloat16 (a repeat of it is a
+                # substitution S_: the only substitutable type here)
+                types = [{"f": "f32", "a": "i8"}.get(x, "bf16") for x in
+                         re.findall(r"f|a|\d+__nv_bfloat16|S\d*_",
+                                    a.group(1))]
+                args = types + re.findall(r"L[bi](\d+)E", a.group(2))
                 name += "<" + ",".join(args) + ">"
             while name in out:      # other template arguments, same name
                 name += "'"
@@ -3466,11 +3523,14 @@ def phase_graph_recall(device) -> dict:
 
 # -- phase 10: the attention kernels -------------------------------------------
 
-def attention_bound_ms(n_q_heads_pairs: int, bytes_moved: int, D: int):
+def attention_bound_ms(n_q_heads_pairs: int, bytes_moved: int, D: int,
+                       peak: float = FP32_FLOPS_PER_S):
     """Least time on the card for attention over `n_q_heads_pairs` allowed
-    (query head, key) pairs: 4*D FP32 flops each (q.k and p.v), against the
-    bytes that must move once; returns (ms, "bytes" | "operations")."""
-    t_ops = 4.0 * D * n_q_heads_pairs / FP32_FLOPS_PER_S * 1e3
+    (query head, key) pairs: 4*D flops each (q.k and p.v) at the `peak`
+    rate of the operands' type (FP32_FLOPS_PER_S for f32, BF16_FLOPS_PER_S
+    for bf16, int8 codes dequantised to bf16 included), against the bytes
+    that must move once; returns (ms, "bytes" | "operations")."""
+    t_ops = 4.0 * D * n_q_heads_pairs / peak * 1e3
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ("bytes" if t_bytes >= t_ops
                                  else "operations")
@@ -3511,12 +3571,13 @@ def _rand(shape, gen, device, dtype):
 
 
 def check_flash(gen, device, dtype, B, K, G, S, T, D, causal, window,
-                strided=False, path=None) -> float:
+                strided=False, path=None, prefix=None) -> float:
     """One K6 case against its plain version; returns the largest error.
     With `path` ("wide" or "narrow", whether K/V go by cp.async), the case
     must take that path: `flash_grid` and `cp_async_ok` must say so, and the
     C launcher must report the rows per CTA of the shape `flash_grid`
-    names."""
+    names.  `prefix` (an int, or a list of B per-row lengths passed as an
+    int32 tensor) sets the prefix-LM mask."""
     import torch
     from repro_torch.common.utils import sm_count
     from repro_torch.kernels import flash_attention as fa
@@ -3530,9 +3591,13 @@ def check_flash(gen, device, dtype, B, K, G, S, T, D, causal, window,
         k = _rand((B, K, T, D), gen, device, dtype)
         v = _rand((B, K, T, D), gen, device, dtype)
     what = (f"flash_attention {str(dtype)[6:]} B={B} K={K} G={G} S={S} T={T} "
-            f"D={D} causal={causal} window={window} strided={strided}")
+            f"D={D} causal={causal} window={window} strided={strided} "
+            f"prefix={prefix}")
+    if isinstance(prefix, list):
+        prefix = torch.tensor(prefix, dtype=torch.int32, device=device)
     fa.flash_attention.rows_per_cta = 0
-    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    got = fa.flash_attention(q, k, v, causal=causal, window=window,
+                             prefix_len=prefix)
     if path is not None:
         narrow, rows, _, _ = fa.flash_grid(B, K, G, S, D, sm_count(device))
         planned = ("narrow" if narrow else "wide",
@@ -3543,7 +3608,8 @@ def check_flash(gen, device, dtype, B, K, G, S, T, D, causal, window,
         if ran != rows:
             fail(f"{what}: launched CTAs of {ran} rows, flash_grid "
                  f"says {rows} ({path[0]})")
-    want = fa.flash_attention_ref(q, k, v, causal=causal, window=window)
+    want = fa.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                  prefix_len=prefix)
     torch.cuda.synchronize()
     if got.shape != want.shape or got.dtype != want.dtype:
         fail(f"{what}: {tuple(got.shape)} {got.dtype} vs "
@@ -3588,8 +3654,9 @@ def check_decode(gen, device, dtype, B, K, G, T, D, lens, window,
     if path is not None:
         n_split = da.plan_splits(T, B, K, sm_count(device))
         planned = (n_split == 1, fa.cp_async_ok(D, q.element_size(), k, v))
-        used = {p.dims[7:9] for p in da._plans.values()
-                if p.dims[:5] == (B, K, G, T, D)}
+        used = {p.dims[7:9] for key, p in da._plans.items()     # the base
+                if p.dims[:5] == (B, K, G, T, D)                 # instance:
+                and key[-3:] == (None, None, None)}              # no variant
         if planned != path or used != {(n_split, int(planned[1]))}:
             fail(f"{what}: plan (one split, cp.async) {planned}, launch "
                  f"plans (splits, cp.async) {used}; the case is for {path}")
@@ -3602,6 +3669,87 @@ def check_decode(gen, device, dtype, B, K, G, T, D, lens, window,
     return err
 
 
+def ring_slots(q_pos, T: int, holes: int, gen, device):
+    """Slot positions of a ring-buffer cache of T slots (B, T) int32 for
+    rows whose query sits at q_pos[b]: slot i holds the latest position
+    p <= q_pos[b] with p = i (mod T), or -1 if there is none yet; then
+    `holes` random slots of each row are emptied (-1) and the row's own
+    slot kept, so masking by slot position is exercised beyond the ring's
+    order."""
+    import torch
+    i = torch.arange(T, device=device)[None, :]
+    qp = torch.tensor(q_pos, device=device)[:, None]
+    pos = qp - ((qp - i) % T)
+    pos = torch.where(pos >= 0, pos, torch.full_like(pos, -1))
+    if holes:
+        drop = torch.rand(pos.shape, generator=gen, device=device) < holes / T
+        drop &= pos != qp
+        pos = torch.where(drop, torch.full_like(pos, -1), pos)
+    return pos.to(torch.int32)
+
+
+def quant_cache(B, K, T, D, gen, device):
+    """int8 codes (B, K, T, D) as permuted views of a (B, T, K, D) cache and
+    f32 scales (B, K, T) as views of (B, T, K), as the model holds them."""
+    import torch
+    codes = torch.randint(-127, 128, (B, T, K, D), generator=gen,
+                          device=device, dtype=torch.int32).to(torch.int8)
+    scales = torch.rand((B, T, K), generator=gen, device=device) * 0.05 + 1e-3
+    return codes.permute(0, 2, 1, 3), scales.permute(0, 2, 1)
+
+
+def check_decode_variant(gen, device, dtype, B, K, G, T, D, q_pos, window,
+                         slots: bool, quant: bool, holes: int = 0) -> float:
+    """One case of K5's slot-position and/or int8 variant against the plain
+    version, then again with garbage (finite) in every slot the mask
+    rejects, or past kv_len: the output must not move by a bit.  Returns the
+    largest error."""
+    import torch
+    from repro_torch.kernels import decode_attention as da
+    q = _rand((B, 1, K * G, D), gen, device, dtype).view(B, K, G, D)
+    kv_len = torch.tensor([p + 1 for p in q_pos], dtype=torch.int32,
+                          device=device)
+    kw = {"window": window}
+    if quant:
+        k, kw["k_scale"] = quant_cache(B, K, T, D, gen, device)
+        v, kw["v_scale"] = quant_cache(B, K, T, D, gen, device)
+    else:
+        k = _rand((B, T, K, D), gen, device, dtype).permute(0, 2, 1, 3)
+        v = _rand((B, T, K, D), gen, device, dtype).permute(0, 2, 1, 3)
+    qp = kv_len[:, None].long() - 1
+    if slots:
+        kw["slot_pos"] = sp = ring_slots(q_pos, T, holes, gen, device)
+        allowed = (sp >= 0) & (sp <= qp)
+    else:
+        sp = torch.arange(T, device=device)[None, :]
+        allowed = sp <= qp
+    if window > 0:
+        allowed &= sp > qp - window
+    got = da.decode_attention(q, k, v, kv_len, **kw)
+    want = da.decode_attention_ref(q, k, v, kv_len, **kw)
+    junk = (~allowed)[:, None, :, None]                     # (B, 1, T, 1)
+    fill = 99 if quant else 999.0                  # stay finite: p * v = 0
+    k2 = torch.where(junk, torch.full_like(k, fill), k)
+    v2 = torch.where(junk, torch.full_like(v, -fill), v)
+    got2 = da.decode_attention(q, k2, v2, kv_len, **kw)
+    torch.cuda.synchronize()
+    what = (f"decode_attention {str(dtype)[6:]} B={B} K={K} G={G} T={T} "
+            f"D={D} q_pos={q_pos} window={window} slots={slots} "
+            f"quant={quant} holes={holes}")
+    # the output is a convex combination of value rows, rounded to q's
+    # dtype: the tolerance scales with the largest |v| (dequantised codes
+    # reach ~6)
+    vmax = float((da.dequantize(v, kw["v_scale"], dtype) if quant
+                  else v).float().abs().max())
+    tol = ATTN_TOL[str(dtype)[6:]] * max(1.0, vmax)
+    err = float((got.float() - want.float()).abs().max())
+    if got.shape != want.shape or not err <= tol:
+        fail(f"{what}: max error {err} > {tol}")
+    if not torch.equal(got, got2):
+        fail(f"{what}: rows the mask rejects changed the output")
+    return err
+
+
 def sdpa_gqa(q, k, v, **kw):
     """One `scaled_dot_product_attention` call on the kernels' grouped
     layout: (B, K, G, S, D) queries over (B, K, T, D) keys."""
@@ -3611,17 +3759,36 @@ def sdpa_gqa(q, k, v, **kw):
         q.reshape(B, K * G, S, D), k, v, enable_gqa=True, **kw)
 
 
+# the K5 / K6 instances the served paths run: memori-agent (f32, D = 64)
+# and the zoo (bf16: phi3.5-moe D = 128, also with the int8 cache;
+# recurrentgemma D = 256 on the ring; paligemma D = 256; whisper D = 64;
+# deepseek's decompressed prefill at D = 192 -> 256), each K6 instance in
+# its two CTA shapes
+SERVED_INSTANCES = {
+    "decode_attention": ("decode_attention_kernel<f32,f32,64,0>",
+                         "decode_attention_kernel<bf16,bf16,64,0>",
+                         "decode_attention_kernel<bf16,bf16,128,0>",
+                         "decode_attention_kernel<bf16,i8,128,0>",
+                         "decode_attention_kernel<bf16,bf16,256,0>",
+                         "decode_attention_kernel<bf16,bf16,256,1>"),
+    "flash_attention": ("flash_fwd_kernel<f32,64,", "flash_fwd_kernel<bf16,64,",
+                        "flash_fwd_kernel<bf16,128,",
+                        "flash_fwd_kernel<bf16,256,")}
+
+
 def attention_instances(entries: dict, name: str) -> dict:
     """The ptxas entries of `name`'s instances that the served paths run
-    (memori-agent is f32 with D = 64): K5's one, K6's two CTA shapes."""
-    from repro_torch.kernels import flash_attention as fa
-    dp = fa.padded_head_dim(LM_D)
-    want = {"decode_attention": (f"decode_attention_kernel<f32,{dp}>", 1),
-            "flash_attention": (f"flash_fwd_kernel<f32,{dp},", 2)}[name]
-    found = {i: e for i, e in entries.items() if i.startswith(want[0])}
-    if len(found) != want[1]:
-        fail(f"{name}: ptxas entries {sorted(found)}, want {want[1]} "
-             f"starting {want[0]!r}")
+    (SERVED_INSTANCES: one entry each for K5, two CTA shapes each for
+    K6)."""
+    found = {}
+    for want in SERVED_INSTANCES[name]:
+        got = {i: e for i, e in entries.items()
+               if i == want or (want.endswith(",") and i.startswith(want))}
+        n = 2 if want.endswith(",") else 1
+        if len(got) != n:
+            fail(f"{name}: ptxas entries {sorted(got)}, want {n} "
+                 f"matching {want!r}")
+        found.update(got)
     return found
 
 
@@ -3702,7 +3869,7 @@ def phase_attention(device, reps: int, build_log=None) -> dict:
     gen = torch.Generator(device=device).manual_seed(2)
     res = {name: {"cases": 0, "max_abs_err": {"float32": 0.0,
                                               "bfloat16": 0.0}}
-           for name in ATTN_KERNELS}
+           for name in (*ATTN_KERNELS, *ATTN_VARIANTS)}
 
     def note(name, dtype, err):
         r = res[name]
@@ -3746,6 +3913,22 @@ def phase_attention(device, reps: int, build_log=None) -> dict:
          [1, 2, 63, 64, 65, 170, 511, 512]),
         (2, 2, 8, 300, 128, [1, 300]), (2, 1, 16, 100, 256, [37, 100]),
         (3, 4, 3, LONG_S, 64, [LONG_S, 1, LONG_S // 2 + 1])]
+    # (B, K, G, T, D) of the K5 variants: the reference tests' shapes, the
+    # agent's, recurrentgemma's ring (G = 16, D = 256, 2048 slots) and
+    # phi3.5-moe's int8 cache (G = 4, D = 128)
+    variant_shapes = [(1, 1, 1, 64, 16), (3, 2, 4, 200, 32),
+                      (LM_SLOTS, LM_K, LM_G, LM_MAX_LEN, LM_D),
+                      (ZOO_SLOTS, 1, 16, 2048, 256),
+                      (ZOO_SLOTS, 8, 4, ZOO_MAX_LEN, 128),
+                      (34, 8, 2, 100, 64)]
+    # (B, K, G, S, D) of K6's prefix mask: paligemma's 256 image tokens +
+    # text (G = 8, D = 256), and others off the tiles
+    prefix_shapes = [(ZOO_BATCH, 1, 8, 256 + ZOO_PROMPT, 256),
+                     (2, 2, 3, 150, 64), (1, 4, 2, 70, 50),
+                     (4, 4, 8, 130, 128)]
+    # (B, K, G, S, T, D) of cross-attention: whisper's decoder over 1500
+    # frames (K = 12, D = 64)
+    cross_shapes = [(ZOO_BATCH, 12, 1, ZOO_PROMPT, 1500, 64)]
     for dtype in (torch.float32, torch.bfloat16):
         for B, K, G, S, T, D in flash_shapes:
             for causal in (True, False):
@@ -3774,6 +3957,35 @@ def phase_attention(device, reps: int, build_log=None) -> dict:
                 note("decode_attention", dtype, check_decode(
                     gen, device, dtype, B, K, G, T, D, lens, window,
                     path=path))
+        # the zoo's variants: slot positions (the ring: query positions
+        # before, at and past a lap of the T slots, emptied slots), int8
+        # codes (and both), the prefix mask (scalar and per row), and
+        # cross-attention S != T at whisper's 1500 frames
+        for B, K, G, T, D in variant_shapes:
+            lap = [(37 * (b + 3) * 7) % (2 * T) for b in range(B)]
+            for window in (0, 20, T):
+                for slots, quant in ((True, False), (False, True),
+                                     (True, True)):
+                    if window == T and not slots:
+                        continue
+                    q_pos = lap if slots else [p % T for p in lap]
+                    for holes in ((0, 5) if slots else (0,)):
+                        name = ("decode_attention[int8]" if quant else
+                                "decode_attention[slot_pos]")
+                        note(name, dtype, check_decode_variant(
+                            gen, device, dtype, B, K, G, T, D, q_pos,
+                            window, slots, quant, holes))
+        for B, K, G, S, D in prefix_shapes:
+            for prefix in (16, S - 64, [(37 * b) % S for b in range(B)]):
+                for window in (0, 16):
+                    note("flash_attention[prefix]", dtype, check_flash(
+                        gen, device, dtype, B, K, G, S, S, D, True, window,
+                        prefix=prefix))
+        for B, K, G, S, T, D in cross_shapes:
+            note("flash_attention", dtype, check_flash(
+                gen, device, dtype, B, K, G, S, T, D, False, 0))
+            note("decode_attention", dtype, check_decode(
+                gen, device, dtype, B, K, G, T, D, [T] * B, 0))
 
     # timings at the agent's shapes
     f32 = torch.float32
@@ -4027,16 +4239,18 @@ def profile_decode(engine, tok, prompts) -> dict:
 def checked_attention(errs: list):
     """Hold every attention kernel call against its plain version on the
     very same inputs: each call appends (kernel, max error, tolerance) to
-    `errs`, the tolerance being ATTN_TOL's f32 value scaled by the largest
-    |v| (the output is a convex combination of value rows)."""
+    `errs`, the tolerance being ATTN_TOL's value for the output's dtype
+    scaled by the largest |v| (the output is a convex combination of value
+    rows; int8 codes are dequantised first)."""
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.models.layers import attention as attn
     flash, decode = attn.flash_attention, attn.decode_attention
 
     def note(name, got, want, v):
-        tol = ATTN_TOL["float32"] * max(1.0, float(v.abs().max()))
-        errs.append((name, float((got - want).abs().max()), tol))
+        tol = ATTN_TOL[str(got.dtype)[6:]] * max(1.0, float(v.abs().max()))
+        errs.append((name, float((got.float() - want.float()).abs().max()),
+                     tol))
 
     def checked_flash(q, k, v, **kw):
         got = flash(q, k, v, **kw)
@@ -4045,8 +4259,10 @@ def checked_attention(errs: list):
 
     def checked_decode(q, k, v, kv_len, **kw):
         got = decode(q, k, v, kv_len, **kw)
+        values = (v if kw.get("v_scale") is None else
+                  da.dequantize(v, kw["v_scale"], q.dtype))
         note("decode_attention", got,
-             da.decode_attention_ref(q, k, v, kv_len, **kw), v)
+             da.decode_attention_ref(q, k, v, kv_len, **kw), values)
         return got
 
     attn.flash_attention, attn.decode_attention = checked_flash, checked_decode
@@ -4103,13 +4319,14 @@ def replay_vs_eager(engine, tok, prompts) -> float:
     with torch.no_grad():
         eager, _ = engine.model.decode_step(
             engine.params, engine._inputs[:, :1].clone(), copies,
-            engine._inputs[:, 1].clone())
+            engine._inputs[:, 1].clone(),
+            window_override=engine.window_override)
     replayed = engine.graph.replay()
     torch.cuda.synchronize()
     err = float((replayed - eager).abs().max())
     for cp, layer in zip(copies, engine.caches):   # the graph wrote in place
         for n, x in layer.items():
-            err = max(err, float((cp[n] - x).abs().max()))
+            err = max(err, float((cp[n].float() - x.float()).abs().max()))
     engine.slot_active[:] = False          # release the slots
     engine.slot_req = [None] * engine.slots
     engine.slot_out = [[] for _ in range(engine.slots)]
@@ -4415,6 +4632,696 @@ def phase_agent(device, engine) -> dict:
     return out
 
 
+# -- phase 14: the rest of the model zoo ----------------------------------------
+
+# each arch at full width in its config's dtype (bf16), random weights from
+# a seed: the layers on the card (None: all), how it is driven (the
+# continuous-batching Engine, or Model.prefill / decode_step for the
+# encoder-decoder and the image prefix), its Engine's max_len and the
+# prompt lengths in tokens; `int8`: served and checked again with the int8
+# KV cache; `f32_witness`: also run at f32 (zoo_f32_witness)
+ZOO = {
+    "phi3.5-moe-42b-a6.6b": {"layers": 4, "engine": True, "int8": True},
+    "deepseek-v3-671b": {"layers": 4, "engine": True},
+    "recurrentgemma-9b": {"layers": None, "engine": True, "max_len": 4096,
+                          "prompt": (2100, 2400)},
+    "mamba2-2.7b": {"layers": None, "engine": True, "f32_witness": True},
+    "whisper-small": {"layers": None, "engine": False},
+    "paligemma-3b": {"layers": None, "engine": False},
+}
+ZOO_SLOTS, ZOO_REQUESTS, ZOO_NEW_TOKENS, ZOO_MAX_LEN = 4, 8, 16, 512
+# whisper / paligemma: a batch of ZOO_BATCH prompts of ZOO_PROMPT tokens,
+# ZOO_STEPS greedy decode steps
+ZOO_BATCH, ZOO_PROMPT, ZOO_STEPS = 2, 64, 16
+# teacher-forced runs: ZOO_TF sequences, ZOO_TF_STEPS decode steps
+ZOO_TF, ZOO_TF_STEPS = 4, 8
+# bf16 end to end: logits of two correct paths (kernel / plain, prefill +
+# decode / full forward) differ by bf16 roundings (2**-8 relative each)
+# carried through the layers.  Kernel against plain path: held to 2**-5 of
+# the largest |logit|, and a greedy divergence to a plain top-two margin
+# under the same bound, and prefill + decode against the full forward.
+# For mamba2-2.7b the latter rounds the SSD's chunked prefill and its
+# recurrent decode in other orders at each of 64 layers (~6% of the logit
+# scale on an H100; the reference's own bf16 model parts as far, see
+# tests/test_torch_zoo.py::test_ssd_depth_gap_matches_the_reference):
+# held to 2**-5 per 16 layers, and the same weights at f32 to 2**-10
+ZOO_REL_TOL = 2.0 ** -5
+ZOO_DEPTH_TOL_LAYERS = 16
+ZOO_F32_TOL = 2.0 ** -10
+# the int8 KV cache's prefill + decode against the full forward (no
+# cache): the reference's gate for int8 against f32 caches
+# (tests/test_perf_variants.py), 5% of the logit scale
+ZOO_INT8_TOL = 0.05
+
+
+def zoo_config(arch):
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    layers = ZOO[arch]["layers"]
+    return dataclasses.replace(cfg, num_layers=layers) if layers else cfg
+
+
+def unit_scores(params, cfg):
+    """The lm phase's `conditioned` for every attention of the zoo: query
+    and key projections rescaled so that each q and k element has unit
+    spread over a unit-variance input (wq by sqrt(H / d), wk by
+    sqrt(K / d); MLA's up-projections by sqrt(H / rank)) and q.k * D**-0.5
+    has unit spread.  At the reference's init (fan_in = shape[-2], the
+    head count) scores spread by ~100-250 at these widths: attention is a
+    hard max and rounding alone parts two correct paths."""
+    d, H, K = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
+
+    def attn(p):
+        if "wuq" in p:                       # MLA
+            m = cfg.mla
+            return {**p, "wuq": p["wuq"] * (H / m.q_lora_rank) ** 0.5,
+                    "wuk": p["wuk"] * (H / m.kv_lora_rank) ** 0.5}
+        return {**p, "wq": p["wq"] * (H / d) ** 0.5,
+                "wk": p["wk"] * (K / d) ** 0.5}
+
+    def layers(ls):
+        return [{**b, **{n: attn(b[n]) for n in ("attn", "cross_attn")
+                         if n in b}} for b in ls]
+
+    out = {**params, "layers": layers(params["layers"])}
+    if "encoder" in params:
+        out["encoder"] = {**params["encoder"],
+                          "layers": layers(params["encoder"]["layers"])}
+    return out
+
+
+def long_prompts(tokenizer, n: int, lo: int, hi: int):
+    """n prompts of lo to hi tokens: consecutive turns of one synthetic
+    LoCoMo conversation each (a conversation holds ~22k tokens)."""
+    import numpy as np
+    from repro_torch.data.locomo_synth import generate_conversation
+    rng = np.random.default_rng(8)
+    prompts = []
+    for i in range(n):
+        conv = generate_conversation(seed=31_000 + i)
+        msgs = [m for _, ms in conv.sessions for m in ms]
+        target = int(rng.integers(lo, hi))
+        lines, count = [], 0
+        for m in msgs:
+            line = f"{m.speaker}: {m.text}"
+            c = len(tokenizer.encode(line))
+            if count + c > target:
+                break
+            lines.append(line)
+            count += c
+        prompts.append("\n".join(lines))
+    return prompts
+
+
+def zoo_extra(cfg, n: int, gen, device):
+    """Seeded stub inputs of n rows: image patch embeddings (paligemma) or
+    audio frames (whisper), else {}."""
+    import torch
+    from repro_torch.models.model_api import cfg_vision_dim
+    if cfg.num_image_tokens:
+        return {"images": torch.randn(
+            (n, cfg.num_image_tokens, cfg_vision_dim(cfg)), generator=gen,
+            device=device)}
+    if cfg.is_encoder_decoder:
+        return {"audio": torch.randn((n, cfg.encoder_seq_len, cfg.d_model),
+                                     generator=gen, device=device)}
+    return {}
+
+
+def zoo_teacher_forced(model, params, seqs, extra, prefix, steps, max_len,
+                       device):
+    """The engine's dataflow for any arch, teacher-forced: sequence i
+    prefilled alone on its first prefix[i] tokens (with row i of `extra`)
+    into slot i of batched caches, then `steps` batched decode steps at
+    per-slot positions (after an image prefix of P positions).  Returns
+    (prefill logits (n, V), decode logits (steps, n, V))."""
+    import torch
+    n, P = len(seqs), model.cfg.num_image_tokens or 0
+    caches = model.init_caches(n, max_len, device=device)
+    first = []
+    for i, seq in enumerate(seqs):
+        batch = {"tokens": seq[None, :prefix[i]],
+                 **{k: v[i:i + 1] for k, v in extra.items()}}
+        lg, pre = model.prefill(params, batch)
+        first.append(lg[0, -1])
+        pre = model.prepare_decode_caches(pre, P + prefix[i], max_len)
+        for full, single in zip(caches, pre):
+            for name, x in single.items():
+                full[name][i].copy_(x[0])
+    pos = torch.tensor(prefix, device=device) + P
+    out = []
+    for step in range(steps):
+        toks = torch.stack([seq[p + step] for seq, p in zip(seqs, prefix)])
+        lg, caches = model.decode_step(params, toks[:, None], caches,
+                                       pos + step)
+        out.append(lg[:, 0])
+    return torch.stack(first), torch.stack(out)
+
+
+def zoo_greedy(model, params, batch, steps, max_len, margins=None):
+    """Model.prefill on a batch, then `steps` greedy decode steps (eager);
+    with `margins`, the top-two logit margin of every sampled token is
+    recorded under (row, token index).  Returns (tokens (B, steps + 1),
+    prefill seconds, decode seconds per step)."""
+    import torch
+    P = model.cfg.num_image_tokens or 0
+    B, S = batch["tokens"].shape
+
+    def pick(lg, j):
+        lg = lg[:, -1].float()
+        if margins is not None:
+            top2 = torch.topk(lg, 2, dim=-1).values
+            for b, g in enumerate((top2[:, 0] - top2[:, 1]).tolist()):
+                margins[(b, j)] = g
+        return lg.argmax(-1)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lg, pre = model.prefill(params, batch)
+    toks = [pick(lg, 0)]
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    caches = model.prepare_decode_caches(pre, P + S, max_len)
+    t0 = time.perf_counter()
+    for j in range(steps):
+        lg, caches = model.decode_step(params, toks[-1][:, None], caches,
+                                       P + S + j)
+        toks.append(pick(lg, j + 1))
+    torch.cuda.synchronize()
+    return (torch.stack(toks, 1), t_prefill,
+            (time.perf_counter() - t0) / steps)
+
+
+def module_shares(engine) -> dict:
+    """The share of the MoE FFN, the SSM and RG-LRU mixers, MLA's absorbed
+    decode and K5 in one eager `Engine.decode` (its device span between
+    CUDA events; each module's span between events recorded around its
+    calls on the same stream), after the served run (slots released)."""
+    import torch
+    from repro_torch.models.layers import attention, mla, moe, rglru, ssm
+    targets = {"moe": (moe, "apply"), "ssm": (ssm, "apply"),
+               "rglru": (rglru, "apply"), "mla_decode": (mla, "apply"),
+               "decode_attention": (attention, "decode_attention")}
+    saved = {k: getattr(m, a) for k, (m, a) in targets.items()}
+    spans = {k: [] for k in targets}
+
+    def wrap(key, fn):
+        def run(*a, **kw):
+            s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            s.record()
+            out = fn(*a, **kw)
+            e.record()
+            spans[key].append((s, e))
+            return out
+        return run
+
+    engine.decode()                       # warm (the caches hold garbage)
+    for k, (m, a) in targets.items():
+        setattr(m, a, wrap(k, saved[k]))
+    try:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        engine.decode()
+        end.record()
+        torch.cuda.synchronize()
+    finally:
+        for k, (m, a) in targets.items():
+            setattr(m, a, saved[k])
+    total = start.elapsed_time(end)
+    return {"eager_step_ms": total,
+            "share": {k: sum(s.elapsed_time(e) for s, e in v) / total
+                      for k, v in spans.items() if v}}
+
+
+def zoo_rel_check(what, got, want, scale, tol=ZOO_REL_TOL) -> float:
+    """max |got - want| against `tol` of the logit scale; returns the error
+    relative to that scale."""
+    err = float((got.float() - want.float()).abs().max()) / max(1.0, scale)
+    if not err <= tol:
+        fail(f"zoo {what}: relative max difference {err} > {tol}")
+    return err
+
+
+def check_greedy(what, got, plain, margins, scale) -> dict:
+    """Greedy tokens of the kernel path against the plain path's: a row may
+    leave them only at a step where the plain path's top-two margin is
+    within ZOO_REL_TOL of the logit scale (a near-tie)."""
+    tie = ZOO_REL_TOL * max(1.0, scale)
+    diverged = {}
+    for i, (a, b) in enumerate(zip(got, plain)):
+        diff = [j for j, (x, y) in enumerate(zip(a, b)) if x != y]
+        if not diff:
+            continue
+        j = diff[0]
+        diverged[i] = {"index": j, "plain_margin": margins[(i, j)]}
+        if margins[(i, j)] >= tie:
+            fail(f"zoo {what}: row {i} token {j}: kernel path {a[j]}, plain "
+                 f"path {b[j]}, plain top-two margin {margins[(i, j)]} >= "
+                 f"{tie}")
+    return {"rows_equal": len(got) - len(diverged),
+            "near_tie_threshold": tie,
+            "plain_near_tie_steps": sum(1 for m in margins.values()
+                                        if m < tie),
+            "sampled_steps": len(margins), "diverged_at_near_tie": diverged}
+
+
+def zoo_engine_run(arch, cfg, model, params, tok, device, prompts,
+                   quant=False) -> dict:
+    """The served path: an Engine (ZOO_SLOTS slots) over ZOO_REQUESTS
+    greedy requests, counters reset just before and read just after; the
+    decode step must be a replayed CUDA graph, K5 once an attention layer a
+    decode step (each variant too), K6 once an attention layer a prefill.
+    Then a replayed step against an eager one, a profiled step and the
+    modules' shares."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.models.model_api import Model
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.requests import Request
+    if quant:
+        cfg = dataclasses.replace(cfg, kv_cache_quant="int8")
+        model = Model(cfg)
+    max_len = ZOO[arch].get("max_len", ZOO_MAX_LEN)
+    engine = Engine(model, params, max_len=max_len, slots=ZOO_SLOTS,
+                    tokenizer=tok)
+
+    def requests():
+        return [Request(tok.encode(p), ZOO_NEW_TOKENS) for p in prompts]
+
+    greedy_run(engine, requests()[:2])      # warm up: the graph's capture
+    torch.cuda.reset_peak_memory_stats()
+    steps0, admitted0 = (engine.stats["decode_steps"],
+                         engine.stats["admitted"])
+    reset_counts()
+    got, wall, prefill_s, step_s = greedy_run(engine, requests())
+    launches = counts()
+    max_memory = torch.cuda.max_memory_allocated()
+    steps = engine.stats["decode_steps"] - steps0
+    admitted = engine.stats["admitted"] - admitted0
+    if engine.graph is None:
+        fail(f"zoo {arch}: the decode step was not captured as a CUDA graph")
+    n_attn = sum(1 for k in cfg.layer_kinds() if k[0] == "attn")
+    ring = any("pos" in c for c in engine.caches)
+    want = {"decode_attention": steps * n_attn * (not cfg.use_mla),
+            "flash_attention": admitted * n_attn,
+            "decode_attention[slot_pos]": steps * n_attn * ring,
+            "decode_attention[int8]": steps * n_attn * quant}
+    for name, n in want.items():
+        if launches[name] != n:
+            fail(f"zoo {arch}: {name} counted {launches[name]} launches on "
+                 f"the served path, want {n} ({steps} decode steps, "
+                 f"{admitted} prefills, {n_attn} attention layers)")
+    replay_err = replay_vs_eager(engine, tok, prompts)
+    if not replay_err <= LOGIT_TOL:
+        fail(f"zoo {arch}: replayed decode graph vs eager decode_step "
+             f"differ by {replay_err} > {LOGIT_TOL}")
+    profiled = profile_decode(engine, tok, prompts)
+    shares = module_shares(engine)
+    tokens_out = sum(len(r.tokens) for r in got)
+    out = {"slots": ZOO_SLOTS, "max_len": max_len,
+           "requests": len(prompts), "new_tokens": ZOO_NEW_TOKENS,
+           "kv_cache_quant": cfg.kv_cache_quant or None,
+           "ring_cache": ring, "launches": launches,
+           "decode_steps": steps, "prefills": admitted,
+           "prefill_ms_per_request": float(np.mean(prefill_s)) * 1e3,
+           "prefill_ms_median": float(np.median(prefill_s)) * 1e3,
+           "decode_step_ms_at_full_slots": float(np.median(step_s)) * 1e3,
+           "tokens_per_s": tokens_out / wall, "wall_s": wall,
+           "max_memory_allocated_bytes": max_memory,
+           "decode_graph": {"replayed_vs_eager_max_abs": replay_err,
+                            "captured_launches": {
+                                f.__name__: d for f, d in
+                                engine.graph.deltas.items()}},
+           "profiled_step": profiled, "modules": shares}
+    return out, engine, requests
+
+
+def zoo_hold(what, cfg, params, seqs, extra, max_len, device, full_tol,
+             greedy):
+    """Teacher-forced runs of `cfg` (ragged prefixes): every K5/K6 call
+    against its plain version, the kernel path's logits against the plain
+    path's (ZOO_REL_TOL) and prefill + decode against the full forward
+    (`full_tol`); then `greedy(model)`'s tokens against the plain path's.
+    MoE runs drop-free in the teacher-forced runs (capacity factor E / k,
+    as the reference's consistency test): a prefill and a full forward of
+    other lengths would drop other tokens at capacity.  Returns (teacher-
+    forced record, greedy record, (prefill + decode logits, full forward
+    logits) per sequence)."""
+    import dataclasses
+    import torch
+    from repro_torch.models.model_api import Model
+    model = tf_model = Model(cfg)
+    if cfg.use_moe:
+        m = cfg.moe
+        tf_model = Model(dataclasses.replace(cfg, moe=dataclasses.replace(
+            m, capacity_factor=m.num_experts / m.experts_per_token)))
+    prefix = [len(sq) - ZOO_TF_STEPS for sq in seqs]
+    errs = []
+    with torch.no_grad():
+        with checked_attention(errs):
+            k_first, k_dec = zoo_teacher_forced(
+                tf_model, params, seqs, extra, prefix, ZOO_TF_STEPS, max_len,
+                device)
+        per_call = check_kernel_calls(errs, f"zoo {what}")
+        with plain_attention():
+            p_first, p_dec = zoo_teacher_forced(
+                tf_model, params, seqs, extra, prefix, ZOO_TF_STEPS, max_len,
+                device)
+        full = zoo_full_forward(tf_model, params, seqs, extra, prefix)
+    if not all(torch.isfinite(x).all() for x in (k_first, k_dec)):
+        fail(f"zoo {what}: non-finite logits")
+    scale = float(p_dec.float().abs().max())
+    rel_plain = max(zoo_rel_check(f"{what} prefill vs plain", k_first,
+                                  p_first, scale),
+                    zoo_rel_check(f"{what} decode vs plain", k_dec, p_dec,
+                                  scale))
+    have = [torch.cat([k_first[i][None], k_dec[:, i]])
+            for i in range(len(seqs))]
+    rel_full = max(zoo_rel_check(f"{what} prefill + decode vs full forward",
+                                 h, f, scale, full_tol)
+                   for h, f in zip(have, full))
+    record = {
+        "sequences": len(seqs), "prefix_tokens": prefix,
+        "decode_steps": ZOO_TF_STEPS, "kernel_calls_vs_plain": per_call,
+        "logit_scale": scale,
+        "logits_vs_plain_rel": rel_plain,
+        "decode_vs_full_forward_rel": rel_full,
+        "tolerance": {"vs_plain": ZOO_REL_TOL, "vs_full_forward": full_tol}}
+    got, plain, margins = greedy(model)
+    return (record, check_greedy(what, got, plain, margins, scale),
+            (have, full))
+
+
+def zoo_full_forward(model, params, seqs, extra, prefix):
+    """The full forward's logits of each sequence from the position of its
+    last prefill token (after an image prefix) to its end."""
+    P = model.cfg.num_image_tokens or 0
+    return [model(params, {"tokens": sq[None],
+                           **{k: v[i:i + 1] for k, v in extra.items()}}
+                  )[0, P + prefix[i] - 1:].clone()
+            for i, sq in enumerate(seqs)]
+
+
+def zoo_f32_witness(arch, cfg, params, seqs, extra, max_len, device,
+                    bf16) -> dict:
+    """The bf16 weights widened to f32 and run at f32 at the same depth:
+    prefill + decode against the full forward within ZOO_F32_TOL of the
+    logit scale, so that the bf16 gap is rounding and not a fault.  Also
+    how far each bf16 path (`bf16` = (prefill + decode, full forward) per
+    sequence) lies from the f32 full forward: both about as far when the
+    gap between them is rounding."""
+    import dataclasses
+    import torch
+    from repro_torch.common.module import tree_map
+    from repro_torch.models.model_api import Model
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    model = Model(cfg32)
+    p32 = tree_map(lambda x: x.float() if x.is_floating_point() else x,
+                   params)
+    prefix = [len(sq) - ZOO_TF_STEPS for sq in seqs]
+    with torch.no_grad():
+        first, dec = zoo_teacher_forced(model, p32, seqs, extra, prefix,
+                                        ZOO_TF_STEPS, max_len, device)
+        full = zoo_full_forward(model, p32, seqs, extra, prefix)
+    del p32
+    scale = float(dec.abs().max())
+    rel = max(zoo_rel_check(f"{arch} f32 prefill + decode vs full forward",
+                            torch.cat([first[i][None], dec[:, i]]), f,
+                            scale, ZOO_F32_TOL)
+              for i, f in enumerate(full))
+
+    def gap(xs):
+        return max(float((x.float() - f).abs().max())
+                   for x, f in zip(xs, full)) / max(1.0, scale)
+    return {"logit_scale": scale, "decode_vs_full_forward_rel": rel,
+            "tolerance": ZOO_F32_TOL,
+            "bf16_prefill_decode_vs_f32_full_rel": gap(bf16[0]),
+            "bf16_full_vs_f32_full_rel": gap(bf16[1])}
+
+
+def zoo_arch(arch, device) -> dict:
+    """One arch of the zoo phase: its main path, every K5/K6 call of a
+    teacher-forced run against the plain version, teacher-forced logits
+    against the plain path, prefill + decode against the full forward, and
+    greedy tokens against the plain path."""
+    import dataclasses
+    import torch
+    from repro_torch.data.tokenizer import HashTokenizer
+    from repro_torch.models.model_api import Model
+    from repro_torch.serving.engine import Engine
+    t0 = time.perf_counter()
+    spec = ZOO[arch]
+    cfg = zoo_config(arch)
+    model = Model(cfg)
+    gen = torch.Generator(device=device).manual_seed(21)
+    torch.cuda.reset_peak_memory_stats()
+    params = unit_scores(model.init_params(gen), cfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    param_bytes = torch.cuda.memory_allocated()
+    tok = HashTokenizer(cfg.vocab_size)
+    max_len = spec.get("max_len", ZOO_MAX_LEN)
+    out = {"arch": arch, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "dtype": cfg.compute_dtype,
+           "params": cfg.param_count(), "param_bytes_on_card": param_bytes,
+           "init_seconds": init_s}
+
+    if spec["engine"]:
+        lo, hi = spec.get("prompt", (100, 250))
+        prompts = (long_prompts(tok, ZOO_REQUESTS, lo, hi) if "prompt" in spec
+                   else lm_prompts(tok, ZOO_REQUESTS))
+        out["prompt_tokens"] = [len(tok.encode(p)) for p in prompts]
+        served, engine, requests = zoo_engine_run(arch, cfg, model, params,
+                                                  tok, device, prompts)
+        out["served"] = served
+        del engine
+        if spec.get("int8"):                 # the same engine, int8 cache
+            served8, engine8, _ = zoo_engine_run(arch, cfg, model, params,
+                                                 tok, device, prompts,
+                                                 quant=True)
+            out["served_int8"] = served8
+            del engine8
+        seqs = [torch.tensor(tok.encode(p), device=device)
+                for p in prompts[:ZOO_TF]]
+        extra = {}
+    else:
+        # the main path: Model.prefill of a batch (with its stub images /
+        # audio) and greedy decode steps, counters reset around it
+        ids = torch.randint(4, cfg.vocab_size, (ZOO_BATCH, ZOO_PROMPT),
+                            generator=gen, device=device)
+        extra = zoo_extra(cfg, ZOO_BATCH, gen, device)
+        batch = {"tokens": ids, **extra}
+        zoo_greedy(model, params, batch, 2, max_len)         # warm up
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        toks, t_pre, t_step = zoo_greedy(model, params, batch, ZOO_STEPS,
+                                         max_len)
+        torch.cuda.synchronize()
+        launches = counts()
+        n_attn = cfg.num_layers
+        n_enc = cfg.encoder_layers if cfg.is_encoder_decoder else 0
+        n_cross = cfg.num_layers if cfg.is_encoder_decoder else 0
+        want = {"flash_attention": n_attn + n_enc + n_cross,
+                "decode_attention": ZOO_STEPS * (n_attn + n_cross),
+                "flash_attention[prefix]": n_attn * bool(cfg.num_image_tokens)}
+        for name, n in want.items():
+            if launches[name] != n:
+                fail(f"zoo {arch}: {name} counted {launches[name]} launches "
+                     f"on the main path, want {n}")
+        out["served"] = {
+            "batch": ZOO_BATCH, "prompt_tokens": ZOO_PROMPT,
+            "prefix_positions": cfg.num_image_tokens or 0,
+            "encoder_frames": cfg.encoder_seq_len if n_enc else 0,
+            "decode_steps": ZOO_STEPS, "launches": launches,
+            "prefill_ms_per_request": t_pre / ZOO_BATCH * 1e3,
+            "prefill_ms_batch": t_pre * 1e3, "decode_step_ms": t_step * 1e3,
+            "tokens_per_s": ZOO_BATCH * (ZOO_STEPS + 1) / (t_pre + t_step *
+                                                          ZOO_STEPS),
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+        seqs = [torch.cat([ids[i % ZOO_BATCH], torch.randint(
+            4, cfg.vocab_size, (ZOO_TF_STEPS + 8 * i,), generator=gen,
+            device=device)]) for i in range(ZOO_TF)]
+        extra = {k: v[torch.arange(ZOO_TF, device=device) % ZOO_BATCH]
+                 for k, v in extra.items()}
+
+    def greedy(m):
+        """Greedy tokens of model `m` on the kernel path and on the plain
+        path, and the plain path's top-two margins."""
+        margins = {}
+        if spec["engine"]:
+            def served(rec=None):
+                return [r.tokens for r in greedy_run(
+                    Engine(m, params, max_len=max_len, slots=ZOO_SLOTS,
+                           tokenizer=tok), requests(), rec)[0]]
+            got = served()
+            with plain_attention():
+                plain = served(margins)
+        else:
+            got = zoo_greedy(m, params, batch, ZOO_STEPS, max_len)[0]
+            with plain_attention():
+                plain = zoo_greedy(m, params, batch, ZOO_STEPS, max_len,
+                                   margins)[0]
+            got, plain = got.tolist(), plain.tolist()
+        return got, plain, margins
+
+    # prefill + decode against the full forward: 2**-5 of the logit scale,
+    # per 16 layers where an f32 run of the same weights shows the gap is
+    # bf16 rounding (ZOO_F32_TOL)
+    depth = cfg.num_layers + (cfg.encoder_layers
+                              if cfg.is_encoder_decoder else 0)
+    full_tol = (ZOO_REL_TOL * max(1.0, depth / ZOO_DEPTH_TOL_LAYERS)
+                if spec.get("f32_witness") else ZOO_REL_TOL)
+    out["teacher_forced"], out["greedy_vs_plain"], tf = zoo_hold(
+        arch, cfg, params, seqs, extra, max_len, device, full_tol, greedy)
+    if spec.get("int8"):                    # the int8 cache's served path
+        cfg8 = dataclasses.replace(cfg, kv_cache_quant="int8")
+        out["teacher_forced_int8"], out["greedy_vs_plain_int8"], _ = zoo_hold(
+            f"{arch} int8", cfg8, params, seqs, extra, max_len, device,
+            ZOO_INT8_TOL, greedy)
+    if spec.get("f32_witness"):
+        out["f32_witness"] = zoo_f32_witness(arch, cfg, params, seqs, extra,
+                                             max_len, device, tf)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def zoo_variant_times(device, reps: int) -> dict:
+    """Each K5/K6 variant of the zoo at the shape its arch gives it, bf16:
+    CUDA-event ms a call beside its plain version, its bound (the bytes its
+    inputs need, the operations of its allowed pairs at the bf16 rate) and
+    one PyTorch call of the same function where there is one
+    (`scaled_dot_product_attention` with the mask as a boolean input; none
+    for int8 codes).  Also K6 at
+    deepseek's decompressed MLA prefill (D = 192 -> 256, K = 128) and at
+    whisper's cross-attention, and K5 at whisper's cross decode."""
+    import torch
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device=device).manual_seed(23)
+    bf = torch.bfloat16
+    out = {}
+
+    def entry(run, plain, library, pairs, nbytes, D, shape):
+        bound, by = attention_bound_ms(pairs, nbytes, D, BF16_FLOPS_PER_S)
+        return {"shape": shape, "ms": time_ms(run, reps),
+                "plain_ms": time_ms(plain, max(1, reps // 4)),
+                "library_ms": (time_ms(library, reps) if library is not None
+                               else None),
+                "bound_ms": bound, "bound_by": by}
+
+    # recurrentgemma's local attention on the ring: 16 heads on one kv
+    # head, D = 256, 2048 slots, queries past the first lap
+    B, K, G, T, D = ZOO_SLOTS, 1, 16, 2048, 256
+    q = _rand((B, K, G, D), gen, device, bf)
+    k = _rand((B, T, K, D), gen, device, bf).permute(0, 2, 1, 3)
+    v = _rand((B, T, K, D), gen, device, bf).permute(0, 2, 1, 3)
+    q_pos = [2100 + 97 * b for b in range(B)]
+    kv_len = torch.tensor([p + 1 for p in q_pos], dtype=torch.int32,
+                          device=device)
+    sp = ring_slots(q_pos, T, 0, gen, device)
+    ok = (sp >= 0) & (sp <= kv_len[:, None] - 1) & (sp > kv_len[:, None] - 1 - T)
+    rows = int(ok.sum())
+    mask = ok[:, None, None, :]
+    out["decode_attention[slot_pos]"] = entry(
+        lambda: da.decode_attention(q, k, v, kv_len, window=T, slot_pos=sp),
+        lambda: da.decode_attention_ref(q, k, v, kv_len, window=T,
+                                        slot_pos=sp),
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q.reshape(B, K * G, 1, D), k, v, attn_mask=mask, enable_gqa=True),
+        rows * K * G, 2 * (2 * q.numel() + 2 * rows * K * D) + 4 * B * T, D,
+        {"B": B, "K": K, "G": G, "T": T, "D": D, "window": T})
+    # phi3.5-moe's int8 cache: 8 kv heads x 4, D = 128, ~200 positions
+    B, K, G, T, D = ZOO_SLOTS, 8, 4, ZOO_MAX_LEN, 128
+    q = _rand((B, K, G, D), gen, device, bf)
+    kc, ks = quant_cache(B, K, T, D, gen, device)
+    vc, vs = quant_cache(B, K, T, D, gen, device)
+    kv_len = torch.full((B,), DECODE_KV_LEN + 30, dtype=torch.int32,
+                        device=device)
+    rows = B * (DECODE_KV_LEN + 30)
+    out["decode_attention[int8]"] = entry(
+        lambda: da.decode_attention(q, kc, vc, kv_len, k_scale=ks,
+                                    v_scale=vs),
+        lambda: da.decode_attention_ref(q, kc, vc, kv_len, k_scale=ks,
+                                        v_scale=vs),
+        None, rows * K * G,
+        2 * 2 * q.numel() + 2 * rows * K * (D + 4) + 4 * B, D,
+        {"B": B, "K": K, "G": G, "T": T, "D": D, "kv_len": DECODE_KV_LEN + 30})
+    # paligemma's prefill: 256 image positions + text, 8 heads on one kv
+    # head, D = 256, the prefix mask
+    B, K, G, S, D, P = 1, 1, 8, 256 + ZOO_PROMPT, 256, 256
+    q = _rand((B, K, G, S, D), gen, device, bf)
+    k = _rand((B, K, S, D), gen, device, bf)
+    v = _rand((B, K, S, D), gen, device, bf)
+    t = torch.arange(S, device=device)
+    ok = (t[None, :] <= t[:, None]) | (t[None, :] < P)
+    out["flash_attention[prefix]"] = entry(
+        lambda: fa.flash_attention(q, k, v, prefix_len=P),
+        lambda: fa.flash_attention_ref(q, k, v, prefix_len=P),
+        lambda: sdpa_gqa(q, k, v, attn_mask=ok),
+        int(ok.sum()) * K * G, 2 * (2 * q.numel() + k.numel() + v.numel()), D,
+        {"B": B, "K": K, "G": G, "S": S, "T": S, "D": D, "prefix": P})
+    # deepseek's decompressed MLA prefill: 128 heads of 192 (v padded)
+    B, K, G, S, D = 1, 128, 1, 200, 192
+    q = _rand((B, K, G, S, D), gen, device, bf)
+    k = _rand((B, K, S, D), gen, device, bf)
+    v = _rand((B, K, S, D), gen, device, bf)
+    out["flash_attention mla_prefill"] = entry(
+        lambda: fa.flash_attention(q, k, v), lambda: fa.flash_attention_ref(
+            q, k, v), lambda: sdpa_gqa(q, k, v, is_causal=True),
+        K * G * flash_pairs(S, S, True, 0),
+        2 * (2 * q.numel() + k.numel() + v.numel()), D,
+        {"B": B, "K": K, "G": G, "S": S, "T": S, "D": D})
+    # whisper's cross-attention: 64 text positions over 1500 frames
+    B, K, G, S, T, D = ZOO_BATCH, 12, 1, ZOO_PROMPT, 1500, 64
+    q = _rand((B, K, G, S, D), gen, device, bf)
+    k = _rand((B, K, T, D), gen, device, bf)
+    v = _rand((B, K, T, D), gen, device, bf)
+    out["flash_attention cross"] = entry(
+        lambda: fa.flash_attention(q, k, v, causal=False),
+        lambda: fa.flash_attention_ref(q, k, v, causal=False),
+        lambda: sdpa_gqa(q, k, v), B * K * G * S * T,
+        2 * (2 * q.numel() + k.numel() + v.numel()), D,
+        {"B": B, "K": K, "G": G, "S": S, "T": T, "D": D})
+    qd = q[:, :, :, 0]
+    full = torch.full((B,), T, dtype=torch.int32, device=device)
+    out["decode_attention cross"] = entry(
+        lambda: da.decode_attention(qd, k, v, full),
+        lambda: da.decode_attention_ref(qd, k, v, full),
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            qd.reshape(B, K * G, 1, D), k, v, enable_gqa=True),
+        B * K * G * T, 2 * (2 * qd.numel() + 2 * B * K * T * D), D,
+        {"B": B, "K": K, "G": G, "T": T, "D": D})
+    return out
+
+
+def phase_zoo(device, reps: int) -> dict:
+    """The rest of the zoo at full width (ZOO), one arch at a time, each
+    built from a seed on the card and freed before the next; then the
+    variants' times."""
+    import torch
+    t0 = time.perf_counter()
+    archs = {}
+    totals = {name: 0 for name in wrappers()}
+    for arch in ZOO:
+        r = archs[arch] = zoo_arch(arch, device)
+        for part in ("served", "served_int8"):
+            if part in r:
+                for name, n in r[part]["launches"].items():
+                    totals[name] += n
+        emit({"phase": "zoo", "arch": arch, **r, "gpu": gpu_line()})
+        gc.collect()
+        torch.cuda.empty_cache()
+    times = zoo_variant_times(device, reps)
+    out = {"phase": "zoo", "launches": totals, "variant_times": times,
+           "seconds": time.perf_counter() - t0, "gpu": gpu_line()}
+    emit(out)
+    out["archs"] = archs
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=1 << 20,
@@ -4479,6 +5386,10 @@ def main(argv=None) -> int:
     graph_bench = phase_graph_recall(device)
     lm, engine = phase_lm(device)
     agent = phase_agent(device, engine)
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    zoo = phase_zoo(device, args.reps)
     path_launches = {"topk_mips_masked": serve["launches"],
                      "topk_mips_quant_masked": serve8["launches"],
                      "topk_mips": ops["launches"],
@@ -4521,6 +5432,17 @@ def main(argv=None) -> int:
             "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"]})
+    for name, (replaces, source) in ATTN_VARIANTS.items():
+        r, t = attn[name], zoo["variant_times"][name]
+        if zoo["launches"][name] < 1:
+            fail(f"{name} was not launched on the zoo's served path")
+        summary.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": zoo["launches"][name],
+            "max_abs_err": max(r["max_abs_err"].values()),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]})
     emit({"seconds": time.perf_counter() - t_start})
     emit({"kernels": summary})
     print(gpu_line(), flush=True)

@@ -5,10 +5,10 @@ axes + init law) — nested dicts, lists and tuples.  `materialize` turns a
 spec tree into the same tree of tensors, drawing every random leaf from one
 `torch.Generator` in tree order (dict insertion order, then list order), so
 a seed fixes every weight.  The init laws are the reference's
-(`repro/common/module.py`) for the layers this port carries (the
-recurrent mixers' laws come with them); the random bits are torch's, not
-JAX's, so a test that compares the two packages carries one set of weights
-across (`models.model_api.params_from_numpy`) instead of seeding both.
+(`repro/common/module.py`), the recurrent mixers' uniform laws included;
+the random bits are torch's, not JAX's, so a test that compares the two
+packages carries one set of weights across
+(`models.model_api.params_from_numpy`) instead of seeding both.
 """
 from __future__ import annotations
 
@@ -65,9 +65,25 @@ def _init_leaf(gen: torch.Generator, spec: ParamSpec,
     if spec.init == "scaled_normal":
         fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
         std = spec.scale / math.sqrt(max(1, fan_in))
-        return (normal() * std).to(dtype)
+        return normal().mul_(std).to(dtype)     # in place: one f32 temporary
     if spec.init == "normal":
-        return (normal() * spec.scale).to(dtype)
+        return normal().mul_(spec.scale).to(dtype)
+
+    def uniform(lo, hi):
+        u = torch.rand(shape, generator=gen, device=dev, dtype=torch.float32)
+        return lo + (hi - lo) * u
+
+    if spec.init == "rglru_lambda":
+        # RG-LRU Λ: uniform such that a = sigmoid(Λ) lies in [0.9, 0.999]
+        u = uniform(0.9, 0.999)
+        return torch.log(u / (1.0 - u)).to(dtype)
+    if spec.init == "ssm_alog":
+        # Mamba2 A_log: A uniform in [1, 16], stored as log A
+        return torch.log(uniform(1.0, 16.0)).to(dtype)
+    if spec.init == "ssm_dt_bias":
+        # dt bias such that softplus(dt_bias) lies in [1e-3, 1e-1]
+        dt = torch.exp(uniform(math.log(1e-3), math.log(1e-1)))
+        return (dt + torch.log(-torch.expm1(-dt))).to(dtype)
     raise ValueError(f"unknown init {spec.init!r}")
 
 

@@ -12,23 +12,40 @@
 // never read.  bf16 converts on the way out of shared memory; all arithmetic
 // is plain FP32.
 //
+// Two variants of the same kernel, as template arguments:
+//   * slot positions (kSlots, the ring-buffer cache of a sliding window):
+//     slot_pos (B, T) int32 holds the true position of the token in each
+//     cache slot (-1 for an empty slot) and the query's position is
+//     kv_len[b] - 1.  Slot t is allowed where 0 <= slot_pos[b, t] <= q_pos
+//     and, with a window, slot_pos[b, t] > q_pos - window.  The splits then
+//     cut all T slots and each key is masked by its slot's position;
+//   * int8 codes (CT = int8_t, the quantised cache): k and v hold int8
+//     codes (B, K, T, D) and k_scale / v_scale f32 (B, K, T) per-row
+//     scales, read through their strides.  A row is dequantised while it is
+//     staged into shared memory, as the reference's `dequantize_kv` does:
+//     code * scale in f32, rounded to q's dtype (then widened for the dot).
+//     These rows go by plain loads, not cp.async.
+//
 // What bounds it: bytes.  Each allowed cache row is read once for all G
 // heads, 2 * D * 4 bytes per (row, kv-head) in f32, against 4 * G * D flops:
 // G/2 flops per byte, far below the card's ~20 FP32 flops per byte.  At the
 // agent's decode step (8 slots, K=4, kv_len ~170, D=64) that is ~3 MB, ~1 us
-// at 3.35 TB/s, so latency and launches cost more than the work.
+// at 3.35 TB/s, so latency and launches cost more than the work.  The int8
+// cache moves D + 4 bytes a row instead of 4 D (f32) or 2 D (bf16).
 //
 // Design (the TPU kernel walks T in order inside one core; a CTA per
 // (b, kv-head) would leave most of 132 SMs idle at 8 slots x 4 kv-heads):
 //   * one launch, grid (split, kv-head, batch row) fixed by the shape, so a
 //     CUDA graph can hold it.  Each CTA reads kv_len[b] on the device and
 //     takes split `blockIdx.x` of the allowed range
-//     [max(0, kv_len - window), min(kv_len, T)) cut into n_split near-equal
-//     pieces (`split_range`, mirrored by kernels/decode_attention.py), so
-//     every CTA of a (b, kv-head) has about the same rows whatever kv_len;
+//     [max(0, kv_len - window), min(kv_len, T)) — all of [0, T) with slot
+//     positions — cut into n_split near-equal pieces (`split_range`,
+//     mirrored by kernels/decode_attention.py), so every CTA of a
+//     (b, kv-head) has about the same rows whatever kv_len;
 //   * 32-row tiles of K and V stream through a ring of 2-3 tiles in shared
 //     memory by 16-byte cp.async (plain loads when a row is not 16-byte
-//     aligned), so the next tile's copy overlaps this tile's math;
+//     aligned, or holds int8 codes), so the next tile's copy overlaps this
+//     tile's math;
 //   * warp w owns heads w, w+4, w+8, w+12; lane j scores key j of the tile
 //     for those heads (float4 reads of its K row against the broadcast
 //     query), the warp keeps the running max and sum with shuffles, and
@@ -45,6 +62,7 @@
 
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 #include "attention_common.cuh"
 
@@ -58,10 +76,13 @@ constexpr int kHeadsPerWarp = kMaxG / kWarps;
 constexpr int kMaxSplits = 32;  // splits of one (b, kv-head)
 
 struct Strides {  // element strides; D has stride 1
-  long long q[3];  // b, k, g
-  long long k[3];  // b, k, t
-  long long v[3];  // b, k, t
-  long long o[3];  // b, k, g
+  long long q[3];   // b, k, g
+  long long k[3];   // b, k, t
+  long long v[3];   // b, k, t
+  long long o[3];   // b, k, g
+  long long sp[2];  // slot_pos: b, t
+  long long ks[3];  // k_scale: b, k, t
+  long long vs[3];  // v_scale: b, k, t
 };
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -76,7 +97,8 @@ __device__ __forceinline__ float warp_sum(float x) {
 }
 
 // Split `split` of n_split of the allowed range [max(0, kv_len - window),
-// min(kv_len, T)) of n rows: rows [n * split / n_split, n * (split + 1) /
+// min(kv_len, T)) of n rows (the caller passes kl = T and no window for the
+// slot-position variant, whose range is every slot): rows [n * split / n_split, n * (split + 1) /
 // n_split) of it, so the pieces differ by at most one row and none is
 // empty while n >= n_split.  kernels/decode_attention.py `split_range` is
 // the same.
@@ -97,19 +119,41 @@ __host__ __device__ constexpr int row_elems() { return DP + 16 / (int)sizeof(T);
 template <int DP>
 __host__ __device__ constexpr int ring_stages() { return DP >= 256 ? 2 : 3; }
 
+// Rows [t0, t0 + rows) of one kv-head's int8 K and V codes, dequantised
+// into the shared-memory tiles: code * scale in f32, rounded to T (plain
+// loads).  Commits an (empty) cp.async group, as stage_tile does.
+template <typename T, int RS>
+__device__ __forceinline__ void stage_tile_int8(T* Ks, T* Vs, const int8_t* kb, const int8_t* vb,
+                                                long long sk, long long sv, const float* ksb,
+                                                const float* vsb, long long sks, long long svs,
+                                                int t0, int rows, int D, int tid) {
+  for (int i = tid; i < rows * D; i += kThreads) {
+    const int row = i / D, d = i % D;
+    const long long t = t0 + row;
+    store(Ks + row * RS + d, (float)kb[t * sk + d] * ksb[t * sks]);
+    store(Vs + row * RS + d, (float)vb[t * sv + d] * vsb[t * svs]);
+  }
+  cp_async_commit();
+}
+
 template <typename T, int DP>
 constexpr size_t smem_bytes(int G) {
   return (size_t)G * DP * sizeof(float) +
          (size_t)ring_stages<DP>() * 2 * kKeys * row_elems<T, DP>() * sizeof(T);
 }
 
-template <typename T, int DP>
+// T: q's (and the shared-memory rows') type; CT: the cache's, T or int8_t
+// (codes, dequantised at staging); kSlots: keys masked by slot_pos
+template <typename T, typename CT, int DP, bool kSlots>
 __global__ void __launch_bounds__(kThreads, 1)
-decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const int* __restrict__ kv_len,
-                        T* __restrict__ out, int G, int T_len, int D, float scale,
-                        int window, int vec, Strides st, float* __restrict__ part_ml,
-                        float* __restrict__ part_acc, int* __restrict__ counters) {
+decode_attention_kernel(const T* __restrict__ q, const CT* __restrict__ k,
+                        const CT* __restrict__ v, const int* __restrict__ kv_len,
+                        const int* __restrict__ slot_pos, const float* __restrict__ k_scale,
+                        const float* __restrict__ v_scale, T* __restrict__ out, int G,
+                        int T_len, int D, float scale, int window, int vec, Strides st,
+                        float* __restrict__ part_ml, float* __restrict__ part_acc,
+                        int* __restrict__ counters) {
+  constexpr bool kQuant = std::is_same<CT, int8_t>::value;
   constexpr int RS = row_elems<T, DP>();
   constexpr int NS = ring_stages<DP>();
   constexpr int CH = DP / 4;                   // float4 columns of a row
@@ -127,8 +171,10 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int n_split = gridDim.x;
   const int bk = b * gridDim.y + kh;
   const int lg = lane / CH % LG, col = CH < 32 ? lane % CH : lane;
+  const int kl = kv_len[b];
+  const int q_pos = kl - 1;  // the query's position (slot-position variant)
   int lo, hi;
-  split_range(kv_len[b], T_len, window, n_split, split, &lo, &hi);
+  split_range(kSlots ? T_len : kl, T_len, kSlots ? 0 : window, n_split, split, &lo, &hi);
   const int n = max(0, hi - lo);
 
   float m[kHeadsPerWarp], l[kHeadsPerWarp];
@@ -143,14 +189,20 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (n > 0) {
     const T* qb = q + b * st.q[0] + kh * st.q[1];
-    const T* kb = k + b * st.k[0] + kh * st.k[1];
-    const T* vb = v + b * st.v[0] + kh * st.v[1];
+    const CT* kb = k + b * st.k[0] + kh * st.k[1];
+    const CT* vb = v + b * st.v[0] + kh * st.v[1];
     const int ntiles = (n + kKeys - 1) / kKeys;
     auto stage = [&](int t) {
       T* Ks = ring + (size_t)(t % NS) * 2 * kKeys * RS;
       const int r0 = lo + t * kKeys;
-      stage_tile<T, RS, kThreads>(Ks, Ks + kKeys * RS, kb, vb, st.k[2], st.v[2], r0,
-                                  min(kKeys, hi - r0), D, vec, tid);
+      if constexpr (kQuant)
+        stage_tile_int8<T, RS>(Ks, Ks + kKeys * RS, kb, vb, st.k[2], st.v[2],
+                               k_scale + b * st.ks[0] + kh * st.ks[1],
+                               v_scale + b * st.vs[0] + kh * st.vs[1], st.ks[2], st.vs[2], r0,
+                               min(kKeys, hi - r0), D, tid);
+      else
+        stage_tile<T, RS, kThreads>(Ks, Ks + kKeys * RS, kb, vb, st.k[2], st.v[2], r0,
+                                    min(kKeys, hi - r0), D, vec, tid);
     };
 #pragma unroll
     for (int t = 0; t < NS - 1; ++t) {
@@ -174,7 +226,13 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const T* Ks = ring + (size_t)(t % NS) * 2 * kKeys * RS;
       const T* Vs = Ks + kKeys * RS;
       const int rows = min(kKeys, hi - (lo + t * kKeys));
-      const bool valid = lane < rows;
+      bool valid = lane < rows;
+      if constexpr (kSlots) {  // the key's slot must hold an allowed position
+        if (valid) {
+          const int sp = slot_pos[b * st.sp[0] + (long long)(lo + t * kKeys + lane) * st.sp[1]];
+          valid = sp >= 0 && sp <= q_pos && (window <= 0 || sp > q_pos - window);
+        }
+      }
 
       float sc[kHeadsPerWarp];
 #pragma unroll
@@ -325,39 +383,55 @@ decode_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int DP>
-cudaError_t launch(const void* q, const void* k, const void* v, const int* kv_len,
-                   void* out, int B, int K, int G, int T_len, int D, float scale,
-                   int window, int n_split, int vec, const Strides& st,
-                   float* part_ml, float* part_acc, int* counters, cudaStream_t stream) {
+struct Args {  // one call's operands besides the template choice
+  const void *q, *k, *v;
+  const int *kv_len, *slot_pos;
+  const float *k_scale, *v_scale;
+  void* out;
+  int B, K, G, T_len, D;
+  float scale;
+  int window, n_split, vec;
+  Strides st;
+  float *part_ml, *part_acc;
+  int* counters;
+  cudaStream_t stream;
+};
+
+template <typename T, typename CT, int DP, bool kSlots>
+cudaError_t launch(const Args& a) {
   static int attr_device = -1;  // the shared-memory ceiling is per device
   int device;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
   if (device != attr_device) {
-    err = cudaFuncSetAttribute(decode_attention_kernel<T, DP>,
+    err = cudaFuncSetAttribute(decode_attention_kernel<T, CT, DP, kSlots>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem_bytes<T, DP>(kMaxG));
     if (err != cudaSuccess) return err;
     attr_device = device;
   }
-  decode_attention_kernel<T, DP><<<dim3(n_split, K, B), kThreads, smem_bytes<T, DP>(G),
-                                   stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      kv_len, static_cast<T*>(out), G, T_len, D, scale, window, vec, st, part_ml,
-      part_acc, counters);
+  decode_attention_kernel<T, CT, DP, kSlots>
+      <<<dim3(a.n_split, a.K, a.B), kThreads, smem_bytes<T, DP>(a.G), a.stream>>>(
+          static_cast<const T*>(a.q), static_cast<const CT*>(a.k), static_cast<const CT*>(a.v),
+          a.kv_len, a.slot_pos, a.k_scale, a.v_scale, static_cast<T*>(a.out), a.G, a.T_len, a.D,
+          a.scale, a.window, a.vec, a.st, a.part_ml, a.part_acc, a.counters);
   return cudaGetLastError();
 }
 
+template <typename T, typename CT, bool kSlots>
+cudaError_t launch_dp(const Args& a) {
+  if (a.D <= 32) return launch<T, CT, 32, kSlots>(a);
+  if (a.D <= 64) return launch<T, CT, 64, kSlots>(a);
+  if (a.D <= 128) return launch<T, CT, 128, kSlots>(a);
+  return launch<T, CT, 256, kSlots>(a);
+}
+
 template <typename T>
-cudaError_t launch_dtype(const void* q, const void* k, const void* v, const int* kv_len,
-                         void* out, int B, int K, int G, int T_len, int D, float scale,
-                         int window, int n_split, int vec, const Strides& st,
-                         float* part_ml, float* part_acc, int* counters, cudaStream_t s) {
-  if (D <= 32) return launch<T, 32>(q, k, v, kv_len, out, B, K, G, T_len, D, scale, window, n_split, vec, st, part_ml, part_acc, counters, s);
-  if (D <= 64) return launch<T, 64>(q, k, v, kv_len, out, B, K, G, T_len, D, scale, window, n_split, vec, st, part_ml, part_acc, counters, s);
-  if (D <= 128) return launch<T, 128>(q, k, v, kv_len, out, B, K, G, T_len, D, scale, window, n_split, vec, st, part_ml, part_acc, counters, s);
-  return launch<T, 256>(q, k, v, kv_len, out, B, K, G, T_len, D, scale, window, n_split, vec, st, part_ml, part_acc, counters, s);
+cudaError_t launch_dtype(const Args& a) {
+  const bool quant = a.k_scale != nullptr, slots = a.slot_pos != nullptr;
+  if (quant)
+    return slots ? launch_dp<T, int8_t, true>(a) : launch_dp<T, int8_t, false>(a);
+  return slots ? launch_dp<T, T, true>(a) : launch_dp<T, T, false>(a);
 }
 
 }  // namespace
@@ -370,38 +444,46 @@ int decode_attention_max_group() { return kMaxG; }
 int decode_attention_max_head_dim() { return 256; }
 int decode_attention_max_splits() { return kMaxSplits; }
 
-// Launch on `stream`.  dtype 0 = f32, 1 = bf16 (q, k, v and out alike).
-// `strides` holds 12 element strides: q (b, k, g), k (b, k, t), v (b, k, t),
-// out (b, k, g).  `vec` = 1 when k and v may be copied by 16-byte cp.async
-// (D * element size, the b/k/t strides in bytes and both bases are 16-byte
-// multiples).  With n_split > 1: part_ml holds B*K*n_split*G*2 and part_acc
+// Launch on `stream`.  dtype 0 = f32, 1 = bf16 (q and out; k and v too
+// unless k_scale is given).  `strides` holds 20 element strides: q (b, k,
+// g), k (b, k, t), v (b, k, t), out (b, k, g), slot_pos (b, t), k_scale (b,
+// k, t), v_scale (b, k, t); those of an absent operand are ignored.
+// slot_pos (B, T) int32 or null selects the slot-position variant; k_scale
+// and v_scale (both or neither) select int8 codes in k and v.  `vec` = 1
+// when k and v may be copied by 16-byte cp.async (D * element size, the
+// b/k/t strides in bytes and both bases are 16-byte multiples; unused for
+// int8 codes).  With n_split > 1: part_ml holds B*K*n_split*G*2 and part_acc
 // B*K*n_split*G*DP floats (DP = D rounded up to 32, 64, 128 or 256), and
 // counters B*K ints that are 0 before the call and 0 again after it.
 // Returns the CUDA error code (0 on success).
 int decode_attention_launch(int dtype, const void* q, const void* k, const void* v,
-                            const int* kv_len, void* out, int B, int K, int G,
+                            const int* kv_len, const int* slot_pos, const float* k_scale,
+                            const float* v_scale, void* out, int B, int K, int G,
                             int T_len, int D, float scale, int window, int n_split,
                             int vec, const long long* strides, float* part_ml,
                             float* part_acc, int* counters, void* stream) {
   if (B < 0 || K < 0 || G < 0 || G > kMaxG || T_len < 1 || D < 1 || D > 256 ||
       window < 0 || n_split < 1 || n_split > kMaxSplits || strides == nullptr ||
-      (dtype != 0 && dtype != 1))
+      (dtype != 0 && dtype != 1) || ((k_scale == nullptr) != (v_scale == nullptr)))
     return (int)cudaErrorInvalidValue;
   if (B == 0 || K == 0 || G == 0) return 0;
   if (K > 65535 || B > 65535 || kv_len == nullptr ||
       (n_split > 1 && (part_ml == nullptr || part_acc == nullptr || counters == nullptr)))
     return (int)cudaErrorInvalidValue;
-  Strides st;
+  Args a{q, k, v, kv_len, slot_pos, k_scale, v_scale, out, B, K, G, T_len, D, scale,
+         window, n_split, k_scale != nullptr ? 0 : vec, Strides{}, part_ml, part_acc,
+         counters, static_cast<cudaStream_t>(stream)};
   for (int i = 0; i < 3; ++i) {
-    st.q[i] = strides[i];
-    st.k[i] = strides[3 + i];
-    st.v[i] = strides[6 + i];
-    st.o[i] = strides[9 + i];
+    a.st.q[i] = strides[i];
+    a.st.k[i] = strides[3 + i];
+    a.st.v[i] = strides[6 + i];
+    a.st.o[i] = strides[9 + i];
+    a.st.ks[i] = strides[14 + i];
+    a.st.vs[i] = strides[17 + i];
   }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      dtype == 0 ? launch_dtype<float>(q, k, v, kv_len, out, B, K, G, T_len, D, scale, window, n_split, vec, st, part_ml, part_acc, counters, s)
-                 : launch_dtype<__nv_bfloat16>(q, k, v, kv_len, out, B, K, G, T_len, D, scale, window, n_split, vec, st, part_ml, part_acc, counters, s);
+  a.st.sp[0] = strides[12];
+  a.st.sp[1] = strides[13];
+  const cudaError_t err = dtype == 0 ? launch_dtype<float>(a) : launch_dtype<__nv_bfloat16>(a);
   return (int)err;
 }
 

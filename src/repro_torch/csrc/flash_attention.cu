@@ -6,7 +6,8 @@
 // unit stride on D (the model's (B, S, H, D) projections and the (B, T, K, D)
 // cache are read in place, no transposed copy).  For query position s and
 // key t of the same (b, kv-head): score = (q . k) * scale, allowed where
-// t < T, and t <= s when causal, and t > s - window when window > 0.  Output
+// t < T, and t <= s (or t < prefix_len, the prefix-LM mask of an image
+// prefix) when causal, and t > s - window when window > 0.  Output
 // = softmax over the allowed keys . v, finalised as acc / max(l, 1e-37), in
 // q's dtype (0 for a query with no allowed key).  bf16 converts on the way
 // out of shared memory; all arithmetic is plain FP32 (no TF32, no tensor
@@ -35,7 +36,9 @@
 //     reads shared memory half as often per FMA but takes 255 registers and
 //     one 4-warp CTA an SM, and measured slower at S = T = 4096 (PERF.md);
 //   * a 1-D grid ordered by row block, the heaviest causal blocks first, so
-//     the long diagonal CTAs start before the short ones;
+//     the long diagonal CTAs start before the short ones (a block's keys,
+//     max(s_hi + 1, prefix_len), never fall with the block index, so the
+//     order holds with a prefix too);
 //   * K/V tiles double-buffered by 16-byte cp.async (plain loads when a row
 //     is not 16-byte aligned): the next tile's copy is issued right after
 //     the barrier that frees its buffer and overlaps this tile's products;
@@ -47,7 +50,8 @@
 //   * P goes to shared memory key-major and P.V reads each thread's rows of
 //     P and its float4 columns of V, the accumulator in registers.  With a
 //     window the key loop starts at the first tile any row can see; causal,
-//     it stops at the block's last position.
+//     it stops at the block's last position or the prefix's end, whichever
+//     is later.
 
 #include <cuda_runtime.h>
 
@@ -94,7 +98,7 @@ __global__ void __launch_bounds__(RG * kKeyGroups, 1)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out, int K, int B, int G,
                  int S, int T_len, int D, float scale, int causal, int window,
-                 int vec, Strides st) {
+                 int prefix_len, const int* __restrict__ prefix_rows, int vec, Strides st) {
   using C = Cfg<T, DP, RT, RG, KC>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* Qs = reinterpret_cast<float*>(smem_raw);
@@ -127,7 +131,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int s_lo = r0 / G;
   const int s_hi = (min(r0 + C::kRows, R) - 1) / G;
-  const int t_end = causal ? min(T_len, s_hi + 1) : T_len;
+  // the prefix: keys t < P are visible to every row (causal only)
+  const int P = prefix_rows != nullptr ? prefix_rows[b] : prefix_len;
+  const int t_end = causal ? min(T_len, max(s_hi + 1, P)) : T_len;
   int t_begin = window > 0 ? max(0, s_lo - window + 1) : 0;
   t_begin -= t_begin % C::kKeys;
 
@@ -182,7 +188,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < KC; ++c) {
         const int t = t0 + tx + kKeyGroups * c;
-        ok[c] = s >= 0 && t < T_len && (!causal || t <= s) && (window <= 0 || t > s - window);
+        ok[c] = s >= 0 && t < T_len && (!causal || t <= s || t < P) &&
+                (window <= 0 || t > s - window);
         sc[i][c] *= scale;
         if (ok[c]) mx = fmaxf(mx, sc[i][c]);
       }
@@ -279,8 +286,8 @@ int sm_count(int device) {
 template <typename T, int DP, bool kNarrow>
 cudaError_t launch_shape(int device, const void* q, const void* k, const void* v, void* out,
                          int B, int K, int G, int S, int T_len, int D, float scale, int causal,
-                         int window, int vec, const Strides& st, cudaStream_t stream,
-                         int* rows_per_cta) {
+                         int window, int prefix_len, const int* prefix_rows, int vec,
+                         const Strides& st, cudaStream_t stream, int* rows_per_cta) {
   using Sh = Shape<DP, kNarrow>;
   using C = Cfg<T, DP, Sh::RT, Sh::RG, Sh::KC>;
   static int attr_device = -1;  // the shared-memory ceiling is per device
@@ -296,7 +303,8 @@ cudaError_t launch_shape(int device, const void* q, const void* k, const void* v
   flash_fwd_kernel<T, DP, Sh::RT, Sh::RG, Sh::KC><<<(unsigned)blocks, C::kThreads, C::kSmem,
                                                    stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), K, B, G, S, T_len, D, scale, causal, window, vec, st);
+      static_cast<T*>(out), K, B, G, S, T_len, D, scale, causal, window, prefix_len, prefix_rows,
+      vec, st);
   const cudaError_t err = cudaGetLastError();
   if (err == cudaSuccess && rows_per_cta != nullptr) *rows_per_cta = C::kRows;
   return err;
@@ -307,7 +315,8 @@ cudaError_t launch_shape(int device, const void* q, const void* k, const void* v
 template <typename T, int DP>
 cudaError_t launch_dp(const void* q, const void* k, const void* v, void* out, int B, int K,
                       int G, int S, int T_len, int D, float scale, int causal, int window,
-                      int vec, const Strides& st, cudaStream_t s, int* rows_per_cta) {
+                      int prefix_len, const int* prefix_rows, int vec, const Strides& st,
+                      cudaStream_t s, int* rows_per_cta) {
   int device;
   const cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
@@ -315,19 +324,21 @@ cudaError_t launch_dp(const void* q, const void* k, const void* v, void* out, in
   const long long wide = (long long)((G * S + kWideRows - 1) / kWideRows) * K * B;
   if (wide >= sm_count(device))
     return launch_shape<T, DP, false>(device, q, k, v, out, B, K, G, S, T_len, D, scale,
-                                      causal, window, vec, st, s, rows_per_cta);
+                                      causal, window, prefix_len, prefix_rows, vec, st, s,
+                                      rows_per_cta);
   return launch_shape<T, DP, true>(device, q, k, v, out, B, K, G, S, T_len, D, scale, causal,
-                                   window, vec, st, s, rows_per_cta);
+                                   window, prefix_len, prefix_rows, vec, st, s, rows_per_cta);
 }
 
 template <typename T>
 cudaError_t launch_dtype(const void* q, const void* k, const void* v, void* out, int B, int K,
                          int G, int S, int T_len, int D, float scale, int causal, int window,
-                         int vec, const Strides& st, cudaStream_t s, int* rows_per_cta) {
-  if (D <= 32) return launch_dp<T, 32>(q, k, v, out, B, K, G, S, T_len, D, scale, causal, window, vec, st, s, rows_per_cta);
-  if (D <= 64) return launch_dp<T, 64>(q, k, v, out, B, K, G, S, T_len, D, scale, causal, window, vec, st, s, rows_per_cta);
-  if (D <= 128) return launch_dp<T, 128>(q, k, v, out, B, K, G, S, T_len, D, scale, causal, window, vec, st, s, rows_per_cta);
-  return launch_dp<T, 256>(q, k, v, out, B, K, G, S, T_len, D, scale, causal, window, vec, st, s, rows_per_cta);
+                         int prefix_len, const int* prefix_rows, int vec, const Strides& st,
+                         cudaStream_t s, int* rows_per_cta) {
+  if (D <= 32) return launch_dp<T, 32>(q, k, v, out, B, K, G, S, T_len, D, scale, causal, window, prefix_len, prefix_rows, vec, st, s, rows_per_cta);
+  if (D <= 64) return launch_dp<T, 64>(q, k, v, out, B, K, G, S, T_len, D, scale, causal, window, prefix_len, prefix_rows, vec, st, s, rows_per_cta);
+  if (D <= 128) return launch_dp<T, 128>(q, k, v, out, B, K, G, S, T_len, D, scale, causal, window, prefix_len, prefix_rows, vec, st, s, rows_per_cta);
+  return launch_dp<T, 256>(q, k, v, out, B, K, G, S, T_len, D, scale, causal, window, prefix_len, prefix_rows, vec, st, s, rows_per_cta);
 }
 
 }  // namespace
@@ -341,15 +352,18 @@ int flash_attention_max_head_dim() { return 256; }
 // k, v and out alike).  `strides` holds 14 element strides: q (b, k, g, s),
 // k (b, k, t), v (b, k, t), out (b, k, g, s).  `vec` = 1 when k and v may be
 // copied by 16-byte cp.async (D * element size, the b/k/t strides in bytes
-// and both bases are 16-byte multiples).  On a launch, writes the rows per
-// CTA of the shape it launched to `rows_per_cta` unless that is null.
-// Returns the CUDA error code (0 on success).
+// and both bases are 16-byte multiples).  With `causal`, keys t <
+// prefix_rows[b] (a (B,) int32 array on the device) or, when that is null,
+// t < prefix_len are visible to every query row (0: none).  On a launch,
+// writes the rows per CTA of the shape it launched to `rows_per_cta` unless
+// that is null.  Returns the CUDA error code (0 on success).
 int flash_attention_launch(int dtype, const void* q, const void* k, const void* v, void* out,
                            int B, int K, int G, int S, int T_len, int D, float scale,
-                           int causal, int window, int vec, const long long* strides,
-                           void* stream, int* rows_per_cta) {
+                           int causal, int window, int prefix_len, const int* prefix_rows,
+                           int vec, const long long* strides, void* stream,
+                           int* rows_per_cta) {
   if (B < 0 || K < 0 || G < 0 || S < 0 || T_len < 1 || D < 1 || D > 256 ||
-      window < 0 || strides == nullptr || (dtype != 0 && dtype != 1))
+      window < 0 || prefix_len < 0 || strides == nullptr || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   if (B == 0 || K == 0 || G == 0 || S == 0) return 0;
   Strides st;
@@ -360,9 +374,10 @@ int flash_attention_launch(int dtype, const void* q, const void* k, const void* 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       dtype == 0 ? launch_dtype<float>(q, k, v, out, B, K, G, S, T_len, D, scale, causal, window,
-                                       vec, st, s, rows_per_cta)
+                                       prefix_len, prefix_rows, vec, st, s, rows_per_cta)
                  : launch_dtype<__nv_bfloat16>(q, k, v, out, B, K, G, S, T_len, D, scale, causal,
-                                               window, vec, st, s, rows_per_cta);
+                                               window, prefix_len, prefix_rows, vec, st, s,
+                                               rows_per_cta);
   return (int)err;
 }
 

@@ -35,3 +35,13 @@ def captured_launches():
         yield tally
     finally:
         _capture.tally = None
+
+
+class VariantCounter:
+    """The launch count of one variant of a kernel (K5's slot-position and
+    int8 instances, K6's prefix mask): `count_launch` takes it as it takes
+    a wrapper, so graph replays count its launches too."""
+
+    def __init__(self, name: str):
+        self.__name__ = name
+        self.launches = 0

@@ -4,7 +4,8 @@ Replaces the reference's Pallas TPU kernel
 src/repro/kernels/decode_attention.py `_kernel` (pallas_call :80) with the
 hand-written CUDA kernel `csrc/decode_attention.cu`:
 
-  decode_attention(q, k, v, kv_len, *, scale=None, window=0)
+  decode_attention(q, k, v, kv_len, *, scale=None, window=0,
+                   slot_pos=None, k_scale=None, v_scale=None)
       q (B, K, G, D), k and v (B, K, T, D), f32 or bf16, kv_len (B,) int32
       -> (B, K, G, D)
 
@@ -12,6 +13,17 @@ For batch row b the allowed cache positions are t < kv_len[b] (the new
 token already written), and t > kv_len[b] - 1 - window when window > 0;
 output = softmax((q . k) * scale) over them . v, in q's dtype.  Rows past
 kv_len never reach the output, whatever they hold.
+
+Two variants of the same kernel (template instances of it):
+
+  * `slot_pos` (B, T) int32, the ring-buffer cache of a sliding window:
+    slot t holds the token at position slot_pos[b, t] (-1: empty) and the
+    query sits at position kv_len[b] - 1.  Slot t is allowed where
+    0 <= slot_pos[b, t] <= kv_len[b] - 1 and, with a window,
+    slot_pos[b, t] > kv_len[b] - 1 - window.  Every slot is read.
+  * `k_scale`, `v_scale` (B, K, T) f32 with int8 codes in k and v, the
+    quantised cache: each row is dequantised as the reference's
+    `dequantize_kv` does, code * scale in f32 rounded to q's dtype.
 
 What bounds it on an H100: bytes — every allowed cache row is read once
 for the G heads that share it, 2·D·4 bytes per (row, kv-head) in f32
@@ -38,7 +50,8 @@ them: two calls of one shape on two streams at once would race.
 
 A CPU tensor runs the plain PyTorch version (`decode_attention_ref`, the
 reference's oracle `ref.decode_attention_ref`); a CUDA tensor launches the
-kernel or the call raises.  `decode_attention.launches` counts launches.
+kernel or the call raises.  `decode_attention.launches` counts launches,
+and `slot_launches` / `int8_launches` those of each variant.
 """
 from __future__ import annotations
 
@@ -49,7 +62,7 @@ from typing import Dict, NamedTuple
 import torch
 
 from repro_torch.common.utils import sm_count
-from repro_torch.kernels import count_launch
+from repro_torch.kernels import VariantCounter, count_launch
 from repro_torch.kernels.flash_attention import (DTYPES, MAX_HEAD_DIM,
                                                  NEG_INF, check_operand,
                                                  cp_async_ok, padded_head_dim)
@@ -59,18 +72,32 @@ MAX_SPLITS = 32     # splits of one (b, kv-head) (kMaxSplits in the source)
 CTAS_PER_SM = 2     # the split plan's target occupancy
 
 
-def decode_attention_ref(q, k, v, kv_len, *, scale=None, window: int = 0):
-    """Plain version: (B,K,G,D) against (B,K,T,D) with per-row lengths, by
-    one masked softmax over f32 scores.  A row with no allowed position
-    (kv_len 0, or a window past the cache) outputs 0, as the kernel — and
-    the reference's Pallas kernel — do."""
+def dequantize(codes, scales, dtype):
+    """int8 codes (..., D) times f32 scales (...,) in f32, rounded to
+    `dtype`: the reference's `dequantize_kv`."""
+    return (codes.float() * scales.float()[..., None]).to(dtype)
+
+
+def decode_attention_ref(q, k, v, kv_len, *, scale=None, window: int = 0,
+                         slot_pos=None, k_scale=None, v_scale=None):
+    """Plain version: (B,K,G,D) against (B,K,T,D) with per-row lengths (or
+    slot positions), by one masked softmax over f32 scores; int8 codes are
+    dequantised first.  A row with no allowed position (kv_len 0, or a
+    window past the cache) outputs 0, as the kernel — and the reference's
+    Pallas kernel — do."""
     B, K, G, D = q.shape
     T = k.shape[2]
     scale = scale if scale is not None else D ** -0.5
+    if k_scale is not None:
+        k, v = dequantize(k, k_scale, q.dtype), dequantize(v, v_scale, q.dtype)
     s = torch.einsum("bkgd,bktd->bkgt", q.float(), k.float()) * scale
-    pos = torch.arange(T, device=q.device)[None, None, None, :]
     kl = kv_len.to(q.device).long()[:, None, None, None]
-    ok = pos < kl
+    if slot_pos is None:
+        pos = torch.arange(T, device=q.device)[None, None, None, :]
+        ok = pos < kl
+    else:
+        pos = slot_pos.to(q.device).long()[:, None, None, :]
+        ok = (pos >= 0) & (pos <= kl - 1)
     if window > 0:
         ok = ok & (pos > kl - 1 - window)
     s = torch.where(ok, s, torch.full_like(s, NEG_INF))
@@ -94,7 +121,8 @@ def split_range(kv_len: int, T: int, window: int, n_split: int,
     [max(0, kv_len - window), min(kv_len, T)), rows [n * split // n_split,
     n * (split + 1) // n_split) — pieces that differ by at most one row,
     none empty while n >= n_split.  The kernel's `split_range` does the
-    same arithmetic on the device."""
+    same arithmetic on the device; with slot positions it cuts all T slots
+    (kv_len = T, no window)."""
     hi_all = max(0, min(kv_len, T))
     lo_all = max(0, kv_len - window) if window > 0 else 0
     n = max(0, hi_all - lo_all)
@@ -107,9 +135,9 @@ def _library():
     from repro_torch.kernels.build import load
     lib = load("decode_attention")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.decode_attention_launch.argtypes = [i, p, p, p, p, p, i, i, i, i, i,
-                                            ctypes.c_float, i, i, i, p, p, p,
-                                            p, p]
+    lib.decode_attention_launch.argtypes = [i, p, p, p, p, p, p, p, p, i, i,
+                                            i, i, i, ctypes.c_float, i, i, i,
+                                            p, p, p, p, p]
     lib.decode_attention_launch.restype = i
     for name in ("max_group", "max_head_dim", "max_splits"):
         getattr(lib, f"decode_attention_{name}").restype = i
@@ -136,7 +164,8 @@ class _Plan(NamedTuple):
 _plans: Dict[tuple, _Plan] = {}
 
 
-def _make_plan(q, k, v, kv_len, window: int, scale: float, vec: bool):
+def _make_plan(q, k, v, kv_len, slot_pos, k_scale, v_scale, window: int,
+               scale: float, vec: bool):
     device = q.device
     if torch.cuda.is_current_stream_capturing():
         raise RuntimeError("decode_attention: no launch plan for this shape "
@@ -144,9 +173,12 @@ def _make_plan(q, k, v, kv_len, window: int, scale: float, vec: bool):
                            "graph (the plan allocates its workspace)")
     if q.dtype not in DTYPES:
         raise TypeError(f"decode_attention takes f32 or bf16, got {q.dtype}")
+    quant = k_scale is not None
+    if quant != (v_scale is not None):
+        raise ValueError("k_scale and v_scale go together")
     check_operand("q", q, q.dtype, 4, device)
-    check_operand("k", k, q.dtype, 4, device)
-    check_operand("v", v, q.dtype, 4, device)
+    check_operand("k", k, torch.int8 if quant else q.dtype, 4, device)
+    check_operand("v", v, torch.int8 if quant else q.dtype, 4, device)
     check_operand("kv_len", kv_len, torch.int32, 1, device)
     B, K, G, D = q.shape
     T = k.shape[2]
@@ -155,6 +187,19 @@ def _make_plan(q, k, v, kv_len, window: int, scale: float, vec: bool):
                          f"match q {tuple(q.shape)}")
     if kv_len.shape[0] != B:
         raise ValueError(f"{kv_len.shape[0]} lengths for {B} batch rows")
+    if slot_pos is not None:
+        check_operand("slot_pos", slot_pos, torch.int32, 2, device,
+                      unit_last=False)
+        if tuple(slot_pos.shape) != (B, T):
+            raise ValueError(f"slot_pos {tuple(slot_pos.shape)}, want "
+                             f"{(B, T)}")
+    if quant:
+        for what, sc in (("k_scale", k_scale), ("v_scale", v_scale)):
+            check_operand(what, sc, torch.float32, 3, device,
+                          unit_last=False)
+            if tuple(sc.shape) != (B, K, T):
+                raise ValueError(f"{what} {tuple(sc.shape)}, want "
+                                 f"{(B, K, T)}")
     if not 1 <= D <= MAX_HEAD_DIM:
         raise ValueError(f"head dim {D} outside [1, {MAX_HEAD_DIM}]")
     if G > MAX_GROUP:
@@ -170,8 +215,12 @@ def _make_plan(q, k, v, kv_len, window: int, scale: float, vec: bool):
                            device=device)
     counters = torch.zeros((B, K), dtype=torch.int32, device=device)
     out_strides = (K * G * D, G * D, D)
-    strides = (ctypes.c_longlong * 12)(
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out_strides)
+    sp = slot_pos.stride() if slot_pos is not None else (0, 0)
+    ks = k_scale.stride() if quant else (0, 0, 0)
+    vs = v_scale.stride() if quant else (0, 0, 0)
+    strides = (ctypes.c_longlong * 20)(
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out_strides, *sp,
+        *ks, *vs)
     return _Plan(
         fn=_library().decode_attention_launch,
         dims=(B, K, G, T, D, float(scale), int(window), n_split, int(vec)),
@@ -181,40 +230,63 @@ def _make_plan(q, k, v, kv_len, window: int, scale: float, vec: bool):
         tensors=(part_ml, part_acc, counters), out_shape=(B, K, G, D))
 
 
-def _launch(q, k, v, kv_len, window: int, scale: float):
-    vec = cp_async_ok(q.shape[-1], q.element_size(), k, v)
+def _meta(t):
+    """What a launch plan depends on of an optional operand."""
+    return None if t is None else (t.dtype, t.device, t.shape, t.stride())
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch(q, k, v, kv_len, slot_pos, k_scale, v_scale, window: int,
+            scale: float):
+    vec = k_scale is None and cp_async_ok(q.shape[-1], q.element_size(), k, v)
     key = (q.device, q.dtype, k.dtype, v.dtype, kv_len.dtype, k.device,
            v.device, kv_len.device, q.shape, k.shape, v.shape, kv_len.shape,
            q.stride(), k.stride(), v.stride(), kv_len.stride(), window,
-           scale, vec)
+           scale, vec, _meta(slot_pos), _meta(k_scale), _meta(v_scale))
     plan = _plans.get(key)
     if plan is None:
-        plan = _plans[key] = _make_plan(q, k, v, kv_len, window, scale, vec)
+        plan = _plans[key] = _make_plan(q, k, v, kv_len, slot_pos, k_scale,
+                                        v_scale, window, scale, vec)
     out = torch.empty(plan.out_shape, dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
     B, K, G, T, D, fscale, win, n_split, ivec = plan.dims
     rc = plan.fn(DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 kv_len.data_ptr(), out.data_ptr(), B, K, G, T, D, fscale,
+                 kv_len.data_ptr(), _ptr(slot_pos), _ptr(k_scale),
+                 _ptr(v_scale), out.data_ptr(), B, K, G, T, D, fscale,
                  win, n_split, ivec, plan.strides, *plan.workspace,
                  torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
                            f"error {rc}")
     count_launch(decode_attention)
+    if slot_pos is not None:
+        count_launch(slot_launches)
+    if k_scale is not None:
+        count_launch(int8_launches)
     return out
 
 
-def decode_attention(q, k, v, kv_len, *, scale=None, window: int = 0):
-    """K5.  q (B, K, G, D), k and v (B, K, T, D), f32 or bf16, kv_len (B,)
-    int32 -> (B, K, G, D) in q's dtype (see the module docstring)."""
+def decode_attention(q, k, v, kv_len, *, scale=None, window: int = 0,
+                     slot_pos=None, k_scale=None, v_scale=None):
+    """K5.  q (B, K, G, D), k and v (B, K, T, D), f32 or bf16 (or int8
+    codes with k_scale / v_scale (B, K, T) f32), kv_len (B,) int32,
+    slot_pos (B, T) int32 or None -> (B, K, G, D) in q's dtype (see the
+    module docstring)."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, kv_len, scale=scale,
-                                    window=window)
+                                    window=window, slot_pos=slot_pos,
+                                    k_scale=k_scale, v_scale=v_scale)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: unsupported device {q.device}")
-    return _launch(q, k, v, kv_len, window, scale)
+    return _launch(q, k, v, kv_len, slot_pos, k_scale, v_scale, window, scale)
 
 
 decode_attention.launches = 0
+# launches of the two variants, counted besides decode_attention.launches
+slot_launches = VariantCounter("decode_attention[slot_pos]")
+int8_launches = VariantCounter("decode_attention[int8]")

@@ -4,14 +4,18 @@ Replaces the reference's Pallas TPU kernel
 src/repro/kernels/flash_attention.py `_kernel` (pallas_call :93) with the
 hand-written CUDA kernel `csrc/flash_attention.cu`:
 
-  flash_attention(q, k, v, *, causal=True, window=0, scale=None)
+  flash_attention(q, k, v, *, causal=True, window=0, scale=None,
+                  prefix_len=None)
       q (B, K, G, S, D), k and v (B, K, T, D), f32 or bf16 -> (B, K, G, S, D)
 
 For query position s and key t of the same (b, kv-head): score =
-(q . k) * scale (default D**-0.5), allowed where t <= s when causal and
-t > s - window when window > 0; output = softmax over the allowed keys
-. v, in q's dtype.  Positions count from 0 on both sides, so prefill of a
-whole prompt and the encoder's bidirectional pass are exactly this function.
+(q . k) * scale (default D**-0.5), allowed where t <= s when causal (or
+t < prefix_len: the prefix-LM mask of an image prefix, a scalar or a (B,)
+int32 tensor of per-row prefixes) and t > s - window when window > 0;
+output = softmax over the allowed keys . v, in q's dtype.  Positions count
+from 0 on both sides, so prefill of a whole prompt, the encoder's
+bidirectional pass and cross-attention (bidirectional, S != T) are exactly
+this function.
 
 What bounds it on an H100: operations, 4·K·G·D·S·T flops (halved when
 causal) in plain FP32 — 25.8 GFLOP, 0.39 ms at 67 TFLOP/s, for the
@@ -32,7 +36,8 @@ folds back to (B, S, H, D) without a copy.
 
 A CPU tensor runs the plain PyTorch version (`flash_attention_ref`, the
 reference's oracle `ref.flash_attention_ref`); a CUDA tensor launches the
-kernel or the call raises.  `flash_attention.launches` counts launches,
+kernel or the call raises.  `flash_attention.launches` counts launches
+(`prefix_launches` those with a prefix),
 and `flash_attention.rows_per_cta` holds the query rows per CTA of the
 shape the C launcher last launched.
 """
@@ -43,15 +48,24 @@ import functools
 
 import torch
 
-from repro_torch.kernels import count_launch
+from repro_torch.kernels import VariantCounter, count_launch
 
 NEG_INF = -2.0e38
 MAX_HEAD_DIM = 256
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+def _prefix_rows(prefix_len, B: int, device):
+    """A prefix length as a (B, 1, 1) long tensor (0: no prefix)."""
+    if prefix_len is None:
+        prefix_len = 0
+    if isinstance(prefix_len, torch.Tensor):
+        return prefix_len.to(device).long().reshape(-1, 1, 1).expand(B, 1, 1)
+    return torch.full((B, 1, 1), int(prefix_len), device=device)
+
+
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
-                        scale=None):
+                        scale=None, prefix_len=None):
     """Plain version: (B,K,G,S,D) x (B,K,T,D) -> (B,K,G,S,D) by one masked
     softmax over f32 scores.  A query with no allowed key (only possible
     with a window and S > T) outputs 0, as the kernel does: masked keys get
@@ -61,22 +75,26 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     T = k.shape[2]
     scale = scale if scale is not None else D ** -0.5
     s = torch.einsum("bkgsd,bktd->bkgst", q.float(), k.float()) * scale
-    q_pos = torch.arange(S, device=q.device)[:, None]
-    k_pos = torch.arange(T, device=q.device)[None, :]
-    ok = torch.ones((S, T), dtype=torch.bool, device=q.device)
+    q_pos = torch.arange(S, device=q.device)[None, :, None]
+    k_pos = torch.arange(T, device=q.device)[None, None, :]
+    ok = torch.ones((B, S, T), dtype=torch.bool, device=q.device)
     if causal:
-        ok = ok & (k_pos <= q_pos)
+        ok = ok & ((k_pos <= q_pos)
+                   | (k_pos < _prefix_rows(prefix_len, B, q.device)))
     if window > 0:
         ok = ok & (k_pos > q_pos - window)
+    ok = ok[:, None, None]                              # (B, 1, 1, S, T)
     s = torch.where(ok, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1) * ok.any(-1, keepdim=True)
     out = torch.einsum("bkgst,bktd->bkgsd", p, v.float())
     return out.to(q.dtype)
 
 
-def check_operand(what: str, t, dtype, ndim: int, device) -> None:
+def check_operand(what: str, t, dtype, ndim: int, device, *,
+                  unit_last: bool = True) -> None:
     """Raise unless `t` is an `ndim`-D tensor of `dtype` on `device` with a
-    unit stride on its last axis (any other strides are read in place)."""
+    unit stride on its last axis when `unit_last` (any other strides are
+    read in place)."""
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{what} must be a torch.Tensor")
     if t.device != device:
@@ -85,7 +103,7 @@ def check_operand(what: str, t, dtype, ndim: int, device) -> None:
         raise TypeError(f"{what} dtype {t.dtype}, q's is {dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{what} must be {ndim}-D, got {tuple(t.shape)}")
-    if t.shape[-1] > 1 and t.stride(-1) != 1:
+    if unit_last and t.shape[-1] > 1 and t.stride(-1) != 1:
         raise ValueError(f"{what}'s last axis must have stride 1")
 
 
@@ -122,14 +140,15 @@ def flash_grid(B: int, K: int, G: int, S: int, D: int, sms: int):
 
 
 def flash_key_range(r0: int, rows: int, keys: int, G: int, S: int, T: int,
-                    causal: bool, window: int):
+                    causal: bool, window: int, prefix_len: int = 0):
     """Keys [t_begin, t_end) that the CTA of rows [r0, r0 + rows) walks in
     tiles of `keys` (t_begin a tile boundary): from the first tile a
-    window lets any of its rows see, to the block's last position when
-    causal.  The kernel does the same arithmetic on the device."""
+    window lets any of its rows see, to the block's last position (or the
+    prefix's end, if later) when causal.  The kernel does the same
+    arithmetic on the device."""
     s_lo = r0 // G
     s_hi = (min(r0 + rows, G * S) - 1) // G
-    t_end = min(T, s_hi + 1) if causal else T
+    t_end = min(T, max(s_hi + 1, prefix_len)) if causal else T
     t_begin = max(0, s_lo - window + 1) if window > 0 else 0
     return t_begin - t_begin % keys, t_end
 
@@ -152,8 +171,8 @@ def _library():
     lib = load("flash_attention")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.flash_attention_launch.argtypes = [i, p, p, p, p, i, i, i, i, i, i,
-                                           ctypes.c_float, i, i, i, p, p,
-                                           ctypes.POINTER(i)]
+                                           ctypes.c_float, i, i, i, p, i, p,
+                                           p, ctypes.POINTER(i)]
     lib.flash_attention_launch.restype = i
     lib.flash_attention_max_head_dim.restype = i
     if lib.flash_attention_max_head_dim() != MAX_HEAD_DIM:
@@ -162,7 +181,7 @@ def _library():
     return lib
 
 
-def _launch(q, k, v, causal: bool, window: int, scale: float):
+def _launch(q, k, v, causal: bool, window: int, scale: float, prefix_len):
     device = q.device
     if q.dtype not in DTYPES:
         raise TypeError(f"flash_attention takes f32 or bf16, got {q.dtype}")
@@ -182,6 +201,17 @@ def _launch(q, k, v, causal: bool, window: int, scale: float):
         raise ValueError(f"shape {tuple(q.shape)} beyond the kernel's grid")
     if window < 0:
         raise ValueError(f"window={window} < 0")
+    prefix_rows, prefix_int = None, 0
+    if isinstance(prefix_len, torch.Tensor):
+        check_operand("prefix_len", prefix_len, torch.int32, 1, device)
+        if prefix_len.shape[0] != B or not prefix_len.is_contiguous():
+            raise ValueError(f"prefix_len {tuple(prefix_len.shape)}: want "
+                             f"a contiguous ({B},) tensor")
+        prefix_rows = prefix_len.data_ptr()
+    elif prefix_len is not None:
+        prefix_int = int(prefix_len)
+        if prefix_int < 0:
+            raise ValueError(f"prefix_len={prefix_int} < 0")
     out = torch.empty((B, S, K, G, D), dtype=q.dtype,
                       device=device).permute(0, 2, 3, 1, 4)
     if out.numel() == 0:
@@ -194,28 +224,32 @@ def _launch(q, k, v, causal: bool, window: int, scale: float):
     rc = _library().flash_attention_launch(
         DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), B, K, G, S, T, D, float(scale), int(bool(causal)),
-        int(window), int(vec), strides, ctypes.c_void_p(stream),
-        ctypes.byref(rows))
+        int(window), prefix_int, prefix_rows, int(vec), strides,
+        ctypes.c_void_p(stream), ctypes.byref(rows))
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
                            f"error {rc}")
     count_launch(flash_attention)
+    if prefix_rows is not None or prefix_int > 0:
+        count_launch(prefix_launches)
     flash_attention.rows_per_cta = rows.value
     return out
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    scale=None):
+                    scale=None, prefix_len=None):
     """K6.  q (B, K, G, S, D), k and v (B, K, T, D), f32 or bf16 ->
     (B, K, G, S, D) in q's dtype (see the module docstring)."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   scale=scale)
+                                   scale=scale, prefix_len=prefix_len)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    return _launch(q, k, v, causal, window, scale)
+    return _launch(q, k, v, causal, window, scale, prefix_len)
 
 
 flash_attention.launches = 0
+# launches with a prefix mask, counted besides flash_attention.launches
+prefix_launches = VariantCounter("flash_attention[prefix]")
 flash_attention.rows_per_cta = 0

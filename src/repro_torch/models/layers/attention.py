@@ -1,24 +1,31 @@
-"""Multi-head attention with GQA, partial RoPE, qk-norm and sliding-window
-masking — the attention module of the dense LM and of the embedder.
+"""Multi-head attention with GQA, partial RoPE, qk-norm, sliding-window,
+prefix-LM and cross-attention — the one attention module of every
+attention-bearing architecture of the zoo, as the reference's
+`repro/models/layers/attention.py`.
 
-The reference (`repro/models/layers/attention.py`) computes attention with
-pure-JAX SDPA (direct, or chunked online-softmax for long sequences) and
-says its Pallas kernels "implement the same contract for real TPU
-hardware".  Here the attention call IS the kernel's function:
+The reference computes attention with pure-JAX SDPA (direct, or chunked
+online-softmax for long sequences) and says its Pallas kernels "implement
+the same contract for real TPU hardware".  Here the attention call IS the
+kernel's function:
 
-  * train / prefill with a causal or bidirectional mask and positions
-    0..S-1 on both sides -> `kernels.flash_attention` (K6);
-  * decode against the full (non-ring) cache -> `kernels.decode_attention`
-    (K5) with kv_len = cache_pos + 1.
+  * train / prefill (causal, bidirectional or prefix-LM self-attention;
+    cross-attention over an encoder's output, bidirectional with S != T),
+    with query and key positions 0..S-1 and 0..T-1 ->
+    `kernels.flash_attention` (K6);
+  * decode against the full cache -> `kernels.decode_attention` (K5) with
+    kv_len = cache_pos + 1; against the ring-buffer cache of a sliding
+    window -> K5 with the cache's slot positions; against the int8 cache
+    -> K5 on the codes and their scales; cross decode -> K5 over the whole
+    encoder cache.
 
 A CPU tensor runs each kernel's plain PyTorch version, a CUDA tensor the
 CUDA kernel.  Grouped heads go to the kernels as strided views of the
 (B, S, H, D) projections and of the (B, T, K, D) cache, not as copies.
 The decode cache is updated in place: `apply(mode="decode")` writes the
-new token's k/v into the cache tensors it was given and returns the same
-dict.  Prefix-LM masks, the ring-buffer and the int8 KV caches raise
-NotImplementedError (later slices of the port); cross-attention (the
-encoder-decoder configs) comes with its own slice.
+new token's k/v (codes and scales; its slot position) into the cache
+tensors it was given, then attends, and returns the same dict.  So no
+query row of a decode is ever without an allowed key: its own token is
+in the cache.
 """
 from __future__ import annotations
 
@@ -33,12 +40,8 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.layers import rope as rope_lib
 from repro_torch.models.layers.norms import rms_norm
 
-SLICE_RING = "the ring-buffer KV cache slice of the port"
-SLICE_QUANT = "the int8 KV cache slice of the port"
-SLICE_PREFIX = "the image-prefix (VLM) slice of the port"
 
-
-def specs(cfg):
+def specs(cfg, *, cross: bool = False):
     d, h, kv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     s = {
         "wq": ParamSpec((d, h, hd), ("embed", "heads", "head_dim"),
@@ -50,7 +53,7 @@ def specs(cfg):
         "wo": ParamSpec((h, hd, d), ("heads", "head_dim", "embed"),
                         init="scaled_normal", scale=1.0),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         s["bq"] = ParamSpec((h, hd), ("heads", "head_dim"), init="zeros")
         s["bk"] = ParamSpec((kv, hd), ("kv_heads", "head_dim"), init="zeros")
         s["bv"] = ParamSpec((kv, hd), ("kv_heads", "head_dim"), init="zeros")
@@ -71,28 +74,37 @@ def _grouped_q(q, K: int):
 
 
 def attend(q, k, v, *, kind: str = "causal", window: int = 0,
-           scale: Optional[float] = None):
-    """Self-attention over a whole sequence whose query and key positions
-    are both 0..S-1.  q: (B,S,H,D), k/v: (B,S,K,D) -> (B,S,H,D)."""
-    if kind not in ("causal", "bidir"):
-        raise NotImplementedError(f"mask kind {kind!r}: {SLICE_PREFIX}")
+           prefix_len=None, scale: Optional[float] = None):
+    """Attention over whole sequences whose query and key positions are
+    0..S-1 and 0..T-1.  q: (B,S,H,D), k/v: (B,T,K,D) -> (B,S,H,D).  kind
+    "causal", "bidir" or "prefix" (causal, and keys t < prefix_len seen by
+    every query; no prefix_len is plain causal, as the reference)."""
+    if kind not in ("causal", "bidir", "prefix"):
+        raise ValueError(f"mask kind {kind!r}")
     B, S, H, D = q.shape
     out = flash_attention(_grouped_q(q, k.shape[2]), k.permute(0, 2, 1, 3),
-                          v.permute(0, 2, 1, 3), causal=kind == "causal",
-                          window=window, scale=scale)
+                          v.permute(0, 2, 1, 3), causal=kind != "bidir",
+                          window=window, scale=scale,
+                          prefix_len=prefix_len if kind == "prefix" else None)
     # the kernel's output is (B, S, K, G, D) in memory: this is a view
     return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, D)
 
 
 def attend_decode(q, k_cache, v_cache, kv_len, *, window: int = 0,
-                  scale: Optional[float] = None):
-    """One new token per row against the full cache.  q: (B,1,H,D),
-    k/v cache: (B,T,K,D), kv_len: (B,) int32 -> (B,1,H,D)."""
+                  scale: Optional[float] = None, slot_pos=None,
+                  k_scale=None, v_scale=None):
+    """One new token per row against a cache.  q: (B,1,H,D), k/v cache:
+    (B,T,K,D) (int8 codes with k/v_scale (B,T,K)), kv_len: (B,) int32,
+    slot_pos (B,T) int32 or None -> (B,1,H,D)."""
     B, _, H, D = q.shape
     K = k_cache.shape[2]
+    scales = {}
+    if k_scale is not None:
+        scales = {"k_scale": k_scale.permute(0, 2, 1),
+                  "v_scale": v_scale.permute(0, 2, 1)}
     out = decode_attention(q.reshape(B, K, H // K, D), k_cache.permute(0, 2, 1, 3),
                            v_cache.permute(0, 2, 1, 3), kv_len, scale=scale,
-                           window=window)
+                           window=window, slot_pos=slot_pos, **scales)
     return out.view(B, 1, H, D)
 
 
@@ -100,11 +112,21 @@ def attend_decode(q, k_cache, v_cache, kv_len, *, window: int = 0,
 # Module apply.
 # ---------------------------------------------------------------------------
 
-def _project_qkv(params, cfg, x, *, positions):
+def _project_q(params, cfg, x):
+    """The query of cross decode (cross-attention has no biases)."""
+    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(x.dtype))
+    if "q_norm" in params:
+        q = rms_norm(q, params["q_norm"], cfg.norm_eps)
+    return q
+
+
+def _project_qkv(params, cfg, x, kv_x=None, *, use_rope=True, positions=None,
+                 kv_positions=None, theta=None):
+    kv_x = x if kv_x is None else kv_x
     dt = x.dtype
     q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(dt))
-    k = torch.einsum("btd,dhk->bthk", x, params["wk"].to(dt))
-    v = torch.einsum("btd,dhk->bthk", x, params["wv"].to(dt))
+    k = torch.einsum("btd,dhk->bthk", kv_x, params["wk"].to(dt))
+    v = torch.einsum("btd,dhk->bthk", kv_x, params["wv"].to(dt))
     if "bq" in params:
         q = q + params["bq"].to(dt)
         k = k + params["bk"].to(dt)
@@ -112,46 +134,54 @@ def _project_qkv(params, cfg, x, *, positions):
     if "q_norm" in params:
         q = rms_norm(q, params["q_norm"], cfg.norm_eps)
         k = rms_norm(k, params["k_norm"], cfg.norm_eps)
-    q = rope_lib.apply_rope(q, positions, theta=cfg.rope_theta,
-                            pct=cfg.rope_pct)
-    k = rope_lib.apply_rope(k, positions, theta=cfg.rope_theta,
-                            pct=cfg.rope_pct)
+    if use_rope:
+        th = theta if theta is not None else cfg.rope_theta
+        q = rope_lib.apply_rope(q, positions, theta=th, pct=cfg.rope_pct)
+        k = rope_lib.apply_rope(k, kv_positions, theta=th, pct=cfg.rope_pct)
     return q, k, v
 
 
-def _check_positions(positions, S: int) -> None:
+def _check_positions(positions, S: int, what: str = "query") -> None:
     """The kernels count positions from 0: the train/prefill path takes
-    positions equal to arange(S) per row.  Checked where it is cheap (a CPU
-    tensor); on the card the check would cost a device sync per layer."""
+    positions equal to arange(S) per row on each side (the prompt, an image
+    prefix and its text, an encoder's frames).  Checked where it is cheap
+    (a CPU tensor); on the card the check would cost a device sync per
+    layer.  An offset window of positions raises."""
     if positions.device.type == "cpu" and not torch.equal(
             positions.long(), torch.arange(S).expand_as(positions)):
         raise NotImplementedError(
-            "train/prefill positions must be 0..S-1 (an offset query "
-            f"window is {SLICE_RING})")
+            f"train/prefill {what} positions must be 0..S-1: the kernels "
+            "count from 0 (an offset query window is not served)")
 
 
 def apply(params, cfg, x, *, positions, mode: str = "train",
           cache=None, cache_pos=None, mask_kind: str = "causal",
-          window: int = 0, return_cache: bool = False):
-    """Unified self-attention entry point; returns (out (B,S,D),
-    cache|None).  In decode mode `cache` is updated in place and
-    returned."""
+          window: int = 0, prefix_len=None, kv_x=None, kv_positions=None,
+          use_rope: bool = True, theta=None, return_cache: bool = False):
+    """Unified attention entry point; returns (out (B,S,D), cache|None).
+    In decode mode `cache` is updated in place and returned; cross decode
+    returns its cache untouched."""
     B = x.shape[0]
     dt = x.dtype
     new_cache = None
 
     if mode in ("train", "prefill"):
+        kv_pos = kv_positions if kv_positions is not None else positions
         _check_positions(positions, x.shape[1])
-        q, k, v = _project_qkv(params, cfg, x, positions=positions)
-        out = attend(q, k, v, kind=mask_kind, window=window)
+        if kv_x is not None:
+            _check_positions(kv_pos, kv_x.shape[1], "key")
+        q, k, v = _project_qkv(params, cfg, x, kv_x, use_rope=use_rope,
+                               positions=positions, kv_positions=kv_pos,
+                               theta=theta)
+        out = attend(q, k, v, kind="bidir" if kv_x is not None else mask_kind,
+                     window=window, prefix_len=prefix_len)
         if return_cache:
             new_cache = {"k": k, "v": v}
     elif mode == "decode":
-        if "pos" in cache:
-            raise NotImplementedError(f"ring-buffer cache: {SLICE_RING}")
-        if "k_scale" in cache:
-            raise NotImplementedError(f"int8 KV cache: {SLICE_QUANT}")
-        q, k_new, v_new = _project_qkv(params, cfg, x, positions=positions)
+        T = cache["k"].shape[1]
+        q, k_new, v_new = _project_qkv(
+            params, cfg, x, None, use_rope=use_rope, positions=positions,
+            kv_positions=positions, theta=theta)
         # per-row cache positions (continuous batching: each slot has its
         # own sequence length); a scalar cache_pos broadcasts
         pos = torch.as_tensor(cache_pos, device=x.device)
@@ -159,11 +189,36 @@ def apply(params, cfg, x, *, positions, mode: str = "train",
             pos = pos.expand(B)
         pos = pos.long()
         rows = torch.arange(B, device=x.device)
-        cache["k"][rows, pos] = k_new[:, 0].to(cache["k"].dtype)
-        cache["v"][rows, pos] = v_new[:, 0].to(cache["v"].dtype)
+        ring = "pos" in cache                  # ring-buffer sliding window
+        idx = pos % T if ring else pos
+        scales = {}
+        if "k_scale" in cache:                 # int8 codes + per-row scales
+            for name, new in (("k", k_new), ("v", v_new)):
+                codes, sc = quantize_kv(new[:, 0])
+                cache[name][rows, idx] = codes
+                cache[name + "_scale"][rows, idx] = sc
+            scales = {"k_scale": cache["k_scale"], "v_scale": cache["v_scale"]}
+            k_use, v_use = cache["k"], cache["v"]
+        else:
+            cache["k"][rows, idx] = k_new[:, 0].to(cache["k"].dtype)
+            cache["v"][rows, idx] = v_new[:, 0].to(cache["v"].dtype)
+            k_use, v_use = cache["k"].to(dt), cache["v"].to(dt)
+        slot_pos = None
+        if ring:
+            # fixed window-sized cache, write slot = pos % W; each slot's
+            # true position is kept so the mask stays exact
+            cache["pos"][rows, idx] = pos.to(torch.int32)
+            slot_pos = cache["pos"]
         kv_len = (pos + 1).to(torch.int32)
-        out = attend_decode(q, cache["k"].to(dt), cache["v"].to(dt), kv_len,
-                            window=window)
+        out = attend_decode(q, k_use, v_use, kv_len, window=window,
+                            slot_pos=slot_pos, **scales)
+        new_cache = cache
+    elif mode == "cross_decode":
+        q = _project_q(params, cfg, x)
+        k, v = cache["k"].to(dt), cache["v"].to(dt)
+        kv_len = torch.full((B,), k.shape[1], dtype=torch.int32,
+                            device=x.device)
+        out = attend_decode(q, k, v, kv_len)
         new_cache = cache
     else:
         raise ValueError(mode)
@@ -172,23 +227,42 @@ def apply(params, cfg, x, *, positions, mode: str = "train",
     return proj, new_cache
 
 
+def quantize_kv(x):
+    """Symmetric per-(token, head) int8 quantisation.  x: (..., D) ->
+    (int8 codes, f32 scales (...,)); rounds half to even, as `jnp.round`."""
+    xf = x.float()
+    scale = torch.clamp(xf.abs().amax(dim=-1) / 127.0, min=1e-8)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
 def cache_specs(cfg, batch: int, max_len: int, dtype, *, window: int = 0):
-    """(shape, logical_axes, dtype) per cache entry: the full (B, T, K, D)
-    layout.  The reference's ring-buffer layout (0 < window < max_len) and
-    int8 cache (cfg.kv_cache_quant) raise NotImplementedError."""
-    if window and 0 < window < max_len:
-        raise NotImplementedError(f"ring-buffer cache (window {window} < "
-                                  f"max_len {max_len}): {SLICE_RING}")
-    if cfg.kv_cache_quant == "int8":
-        raise NotImplementedError(f"int8 KV cache: {SLICE_QUANT}")
-    shape = (batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim)
+    """(shape, logical_axes, dtype) per cache entry.  window > 0 and
+    < max_len selects the ring-buffer layout (a window-sized cache and the
+    slot positions "pos"); cfg.kv_cache_quant == "int8" stores int8 codes
+    and per-(token, head) f32 scales."""
+    kv, hd = cfg.num_kv_heads, cfg.resolved_head_dim
+    ring = bool(window) and 0 < window < max_len
+    quant = cfg.kv_cache_quant == "int8"
+    T = window if ring else max_len
+    shape = (batch, T, kv, hd)
     axes = ("batch", "seq", "kv_heads", "head_dim")
-    return {"k": (shape, axes, dtype), "v": (shape, axes, dtype)}
+    kv_dtype = torch.int8 if quant else dtype
+    out = {"k": (shape, axes, kv_dtype), "v": (shape, axes, kv_dtype)}
+    if quant:
+        out["k_scale"] = ((batch, T, kv), ("batch", "seq", "kv_heads"),
+                          torch.float32)
+        out["v_scale"] = ((batch, T, kv), ("batch", "seq", "kv_heads"),
+                          torch.float32)
+    if ring:
+        out["pos"] = ((batch, T), ("batch", "seq"), torch.int32)
+    return out
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype, *, window: int = 0,
                device="cuda"):
     device = resolve_device(device)
-    return {name: torch.zeros(shape, dtype=dt, device=device)
+    return {name: torch.full(shape, -1 if name == "pos" else 0, dtype=dt,
+                             device=device)
             for name, (shape, _axes, dt) in cache_specs(
                 cfg, batch, max_len, dtype, window=window).items()}

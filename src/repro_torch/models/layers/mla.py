@@ -1,0 +1,152 @@
+"""Multi-head Latent Attention (DeepSeek-V2/V3, arXiv:2412.19437) — the
+reference's `repro/models/layers/mla.py` in torch.
+
+Train/prefill use the decompressed form: the per-head K (nope part from the
+latent, rope part shared) and V are rebuilt and attention runs through K6.
+K6 takes one head width for q, k and v, so v (v_head_dim wide) goes in
+zero-padded to the q/k width (qk_nope + qk_rope) and the output is sliced
+back: a zero column of v adds nothing to any output column.  Decode uses
+the absorbed form against the compressed latent cache:
+
+    score[h,t] = (W_UK[h]^T q_nope[h]) . c_kv[t]  +  q_rope[h] . k_rope[t]
+
+so the per-token cache is only (kv_lora_rank + qk_rope_head_dim) wide.
+That decode runs as torch einsums, as the reference computes it outside
+any kernel: its latent (576 wide at full size, all 128 heads on one shared
+kv head) is beyond K5's head width and grouped-query limits.  The latent
+cache is written in place.  The absorbed form in train/prefill
+(`mla_absorbed_train`) comes with the training slice (M7) and raises.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.common.module import ParamSpec
+from repro_torch.common.utils import resolve_device
+from repro_torch.models.layers import rope as rope_lib
+from repro_torch.models.layers.attention import attend
+from repro_torch.models.layers.norms import rms_norm
+
+NEG_INF = -2.0e38
+SLICE_TRAIN = "the training slice of the port (M7)"
+
+
+def specs(cfg):
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.num_heads
+    qk_hd = m.qk_nope_head_dim + m.qk_rope_head_dim
+    return {
+        "wdq": ParamSpec((d, m.q_lora_rank), ("embed", None), init="scaled_normal", scale=1.0),
+        "q_norm": ParamSpec((m.q_lora_rank,), (None,), init="ones"),
+        "wuq": ParamSpec((m.q_lora_rank, h, qk_hd), (None, "heads", "head_dim"),
+                         init="scaled_normal", scale=1.0),
+        "wdkv": ParamSpec((d, m.kv_lora_rank), ("embed", None), init="scaled_normal", scale=1.0),
+        "kv_norm": ParamSpec((m.kv_lora_rank,), (None,), init="ones"),
+        "wkr": ParamSpec((d, m.qk_rope_head_dim), ("embed", "head_dim"),
+                         init="scaled_normal", scale=1.0),
+        "wuk": ParamSpec((m.kv_lora_rank, h, m.qk_nope_head_dim), (None, "heads", "head_dim"),
+                         init="scaled_normal", scale=1.0),
+        "wuv": ParamSpec((m.kv_lora_rank, h, m.v_head_dim), (None, "heads", "head_dim"),
+                         init="scaled_normal", scale=1.0),
+        "wo": ParamSpec((h, m.v_head_dim, d), ("heads", "head_dim", "embed"),
+                        init="scaled_normal", scale=1.0),
+    }
+
+
+def _q_proj(params, cfg, x, positions):
+    m = cfg.mla
+    dt = x.dtype
+    cq = torch.einsum("bsd,dr->bsr", x, params["wdq"].to(dt))
+    cq = rms_norm(cq, params["q_norm"], cfg.norm_eps)
+    q = torch.einsum("bsr,rhk->bshk", cq, params["wuq"].to(dt))
+    q_nope = q[..., : m.qk_nope_head_dim]
+    q_rope = rope_lib.apply_rope(q[..., m.qk_nope_head_dim:], positions,
+                                 theta=cfg.rope_theta, pct=1.0)
+    return q_nope, q_rope
+
+
+def _latent_proj(params, cfg, x, positions):
+    dt = x.dtype
+    ckv = torch.einsum("bsd,dr->bsr", x, params["wdkv"].to(dt))
+    ckv = rms_norm(ckv, params["kv_norm"], cfg.norm_eps)
+    k_rope = torch.einsum("bsd,dk->bsk", x, params["wkr"].to(dt))
+    k_rope = rope_lib.apply_rope(k_rope, positions, theta=cfg.rope_theta,
+                                 pct=1.0)
+    return ckv, k_rope
+
+
+def apply(params, cfg, x, *, positions, mode: str = "train", cache=None,
+          cache_pos=None, window: int = 0, return_cache: bool = False,
+          mask_kind: str = "causal", prefix_len=None):
+    m = cfg.mla
+    dt = x.dtype
+    B = x.shape[0]
+    qk_hd = m.qk_nope_head_dim + m.qk_rope_head_dim
+    scale = qk_hd ** -0.5
+    new_cache = None
+
+    if mode in ("train", "prefill"):
+        if cfg.mla_absorbed_train:
+            raise NotImplementedError(
+                f"mla_absorbed_train: {SLICE_TRAIN}")
+        q_nope, q_rope = _q_proj(params, cfg, x, positions)
+        ckv, k_rope = _latent_proj(params, cfg, x, positions)
+        # decompressed K/V: (B,S,H,*)
+        k_nope = torch.einsum("bsr,rhk->bshk", ckv, params["wuk"].to(dt))
+        v = torch.einsum("bsr,rhk->bshk", ckv, params["wuv"].to(dt))
+        H = k_nope.shape[2]
+        k = torch.cat([k_nope, k_rope[:, :, None].expand(
+            *k_rope.shape[:2], H, k_rope.shape[-1])], dim=-1)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        v_pad = torch.nn.functional.pad(v, (0, qk_hd - m.v_head_dim))
+        out = attend(q, k, v_pad, kind=mask_kind, window=window,
+                     prefix_len=prefix_len, scale=scale)[..., : m.v_head_dim]
+        if return_cache:
+            new_cache = {"ckv": ckv, "k_rope": k_rope}
+    elif mode == "decode":
+        # absorbed decode against the latent cache, written in place
+        q_nope, q_rope = _q_proj(params, cfg, x, positions)        # (B,1,H,*)
+        ckv_new, kr_new = _latent_proj(params, cfg, x, positions)  # (B,1,r)
+        pos = torch.as_tensor(cache_pos, device=x.device)
+        if pos.dim() == 0:
+            pos = pos.expand(B)
+        pos = pos.long()
+        rows = torch.arange(B, device=x.device)
+        cache["ckv"][rows, pos] = ckv_new[:, 0].to(cache["ckv"].dtype)
+        cache["k_rope"][rows, pos] = kr_new[:, 0].to(cache["k_rope"].dtype)
+        ckv, k_rope = cache["ckv"].to(dt), cache["k_rope"].to(dt)
+        T = ckv.shape[1]
+        q_eff = torch.einsum("bshk,rhk->bshr", q_nope, params["wuk"].to(dt))
+        s_nope = torch.einsum("bshr,btr->bhst", q_eff, ckv)
+        s_rope = torch.einsum("bshk,btk->bhst", q_rope, k_rope)
+        scores = (s_nope + s_rope).float() * scale                 # (B,H,1,T)
+        t_idx = torch.arange(T, device=x.device)[None, None, None, :]
+        posb = pos[:, None, None, None]
+        ok = t_idx <= posb
+        if window and window > 0:
+            ok = ok & (t_idx > posb - window)
+        scores = torch.where(ok, scores, torch.full_like(scores, NEG_INF))
+        probs = torch.softmax(scores, dim=-1).to(dt)
+        o_lat = torch.einsum("bhst,btr->bshr", probs, ckv)         # (B,1,H,r)
+        out = torch.einsum("bshr,rhk->bshk", o_lat, params["wuv"].to(dt))
+        new_cache = cache
+    else:
+        raise ValueError(mode)
+
+    proj = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(dt))
+    return proj, new_cache
+
+
+def cache_specs(cfg, batch: int, max_len: int, dtype):
+    m = cfg.mla
+    return {
+        "ckv": ((batch, max_len, m.kv_lora_rank), ("batch", "seq", None), dtype),
+        "k_rope": ((batch, max_len, m.qk_rope_head_dim), ("batch", "seq", None), dtype),
+    }
+
+
+def init_cache(cfg, batch: int, max_len: int, dtype, *, device="cuda"):
+    device = resolve_device(device)
+    return {name: torch.zeros(shape, dtype=dt, device=device)
+            for name, (shape, _axes, dt) in cache_specs(
+                cfg, batch, max_len, dtype).items()}

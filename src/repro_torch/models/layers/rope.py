@@ -30,3 +30,18 @@ def apply_rope(x, positions, *, theta: float = 10000.0, pct: float = 1.0):
     rotated = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
                         dim=-1).to(x.dtype)
     return torch.cat([rotated, xp], dim=-1) if rot < head_dim else rotated
+
+
+def sinusoidal_positions(seq_len: int, dim: int, dtype=torch.float32,
+                         device="cpu"):
+    """Whisper-style sinusoidal embeddings (seq_len, dim), used by the
+    encoder and the decoder of the encoder-decoder config."""
+    return sinusoidal_at(torch.arange(seq_len, device=device), dim).to(dtype)
+
+
+def sinusoidal_at(positions, dim: int):
+    """The same embedding at arbitrary (N,) positions, in f32: (N, dim)."""
+    inv = 1.0 / (10000.0 ** (torch.arange(0, dim, 2, dtype=torch.float32,
+                                          device=positions.device) / dim))
+    ang = positions.float()[:, None] * inv[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)[:, :dim]

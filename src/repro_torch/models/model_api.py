@@ -1,99 +1,184 @@
-"""Model facade for the dense decoder LMs of the zoo (memori-agent, and the
-dense configs whose blocks this slice carries):
+"""Model facade: one API over the whole zoo, as the reference's
+`repro/models/model_api.py`:
 
   model = Model(cfg)
   params = model.init_params(generator)          # or params_from_numpy(...)
-  logits = model(params, tokens)                 # full forward, (B, S, V)
-  logits, caches = model.prefill(params, {"tokens": tokens})
+  logits = model(params, batch)                  # full forward, (B, S, V)
+  logits, caches = model.prefill(params, batch)
   caches = model.prepare_decode_caches(caches, prefill_len, max_len)
   logits, caches = model.decode_step(params, tokens, caches, cache_pos)
 
+Batches are dicts (a bare (B, S) token tensor is taken as {"tokens"}):
+  tokens  (B, S) int                        — always
+  images  (B, P, vision_dim)                — vlm (stub SigLIP patch embeds)
+  audio   (B, F, d_model)                   — audio (stub conv/mel frames)
+
 Parameters are a plain tree: {"embed": {...}, "layers": [block dicts],
-"final_norm": {...}}, every tensor on one device.  Attention runs through
-the kernels K6 (prefill, full forward) and K5 (decode) on CUDA tensors and
-through their plain versions on CPU tensors.  Decode updates the caches in
-place.  Configs with experts, MLA, SSM / RG-LRU mixers, an encoder, image
-prefixes or multi-token prediction raise NotImplementedError at
-construction; training (`train_loss`) arrives with the training slice.
+"final_norm": {...}}, plus {"encoder": {"layers", "final_norm"}} for the
+encoder-decoder, {"img_proj": {"w", "b"}} for image prefixes and {"mtp":
+{...}} for multi-token prediction, every tensor on one device.  Attention
+runs through the kernels K6 (prefill, full forward, the encoder) and K5
+(decode) on CUDA tensors and through their plain versions on CPU tensors.
+Decode updates the caches in place.  Training (`train_loss`, the MTP loss)
+comes with the training slice (M7) and raises NotImplementedError.
 """
 from __future__ import annotations
 
-from typing import Any
+import dataclasses
+from typing import Any, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.common.module import materialize, tree_map
+from repro_torch.common.module import ParamSpec, materialize, tree_map
 from repro_torch.common.utils import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import blocks, transformer
 from repro_torch.models.config import ModelConfig, plan_segments
-from repro_torch.models.layers import embedding
+from repro_torch.models.layers import embedding, norms
+from repro_torch.models.layers import rope as rope_lib
+from repro_torch.models.layers.mla import SLICE_TRAIN
 
 PyTree = Any
 
-SLICE_ENCDEC = "the encoder-decoder slice of the port"
-SLICE_VLM = "the image-prefix (VLM) slice of the port"
-SLICE_MTP = "the training slice of the port (multi-token prediction)"
+
+def encoder_cfg(cfg: ModelConfig) -> ModelConfig:
+    return dataclasses.replace(
+        cfg, num_layers=cfg.encoder_layers, arch_type="dense", use_moe=False,
+        use_mla=False, hybrid_period=0, first_k_dense=0, mtp_depth=0,
+        sliding_window=0, is_encoder_decoder=False)
+
+
+def cfg_vision_dim(cfg) -> int:
+    return 1152  # SigLIP-so400m patch embedding width (stub frontend)
 
 
 class Model(nn.Module):
     """A stateless facade (the parameters are passed in, as in the
-    reference); `forward` is the full causal forward to logits."""
+    reference); `forward` is the full forward to logits."""
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
         self.cfg = cfg
-        self.param_specs()      # raises for what this slice does not carry
+        self.param_specs()
 
     # -- specs / init --------------------------------------------------------
     def param_specs(self) -> PyTree:
         cfg = self.cfg
+        s = {"embed": embedding.specs(cfg),
+             **transformer.decoder_specs(cfg, cross=cfg.is_encoder_decoder)}
         if cfg.is_encoder_decoder:
-            raise NotImplementedError(f"{cfg.name}: {SLICE_ENCDEC}")
+            s["encoder"] = transformer.decoder_specs(encoder_cfg(cfg))
         if cfg.num_image_tokens:
-            raise NotImplementedError(f"{cfg.name}: {SLICE_VLM}")
+            s["img_proj"] = {
+                "w": ParamSpec((cfg_vision_dim(cfg), cfg.d_model),
+                               (None, "embed"), init="scaled_normal",
+                               scale=1.0),
+                "b": ParamSpec((cfg.d_model,), ("embed",), init="zeros"),
+            }
         if cfg.mtp_depth:
-            raise NotImplementedError(f"{cfg.name}: {SLICE_MTP}")
-        return {"embed": embedding.specs(cfg),
-                **transformer.decoder_specs(cfg)}
+            s["mtp"] = {
+                "proj": ParamSpec((2 * cfg.d_model, cfg.d_model),
+                                  ("embed", None), init="scaled_normal",
+                                  scale=1.0),
+                "norm_h": norms.specs(cfg),
+                "norm_e": norms.specs(cfg),
+                "block": blocks.block_specs(cfg, ("attn", "mlp")),
+                "final_norm": norms.specs(cfg),
+            }
+        return s
 
     def init_params(self, generator: torch.Generator) -> PyTree:
         """Random init on the generator's device, in the config's dtype."""
         return materialize(generator, self.param_specs(), self.cfg.pdtype)
 
-    # -- forward ---------------------------------------------------------------
-    @staticmethod
-    def _positions(tokens):
-        B, S = tokens.shape
-        return torch.arange(S, device=tokens.device).expand(B, S)
-
-    def hidden(self, params, tokens, *, mask_kind: str = "causal"):
-        """Final-norm hidden states (B, S, d) of a whole sequence."""
-        x = embedding.embed(params["embed"], self.cfg, tokens)
-        h, _ = transformer.decoder_apply(
-            params, self.cfg, x, mode="train", positions=self._positions(tokens),
-            mask_kind=mask_kind)
-        return h
-
-    def forward(self, params, tokens):
-        """Full causal forward: logits (B, S, V) of every position."""
-        return embedding.logits(params["embed"], self.cfg,
-                                self.hidden(params, tokens))
-
-    # -- serving ---------------------------------------------------------------
-    def prefill(self, params, batch):
-        """batch {"tokens": (B, S)} -> (logits of the last position
-        (B, 1, V), per-layer caches of S positions)."""
+    # -- embedding front-ends ------------------------------------------------
+    def _embed_inputs(self, params, batch):
+        """-> (x (B,S,d), positions (B,S), prefix_len, enc_out, enc_pos)."""
         cfg = self.cfg
         tokens = batch["tokens"]
+        B = tokens.shape[0]
         x = embedding.embed(params["embed"], cfg, tokens)
-        h, caches = transformer.decoder_apply(
-            params, cfg, x, mode="prefill", positions=self._positions(tokens),
-            return_cache=True)
+        prefix_len = None
+        enc_out = enc_pos = None
+        if cfg.num_image_tokens and "images" in batch:
+            dt = cfg.cdtype
+            img = torch.einsum("bpv,vd->bpd", batch["images"].to(dt),
+                               params["img_proj"]["w"].to(dt))
+            img = img + params["img_proj"]["b"].to(dt)
+            x = torch.cat([img, x], dim=1)
+            prefix_len = cfg.num_image_tokens
+        S = x.shape[1]
+        positions = torch.arange(S, device=x.device).expand(B, S)
+        if cfg.is_encoder_decoder and "audio" in batch:
+            enc_out, enc_pos = self.encode(params, batch["audio"])
+            # whisper-style decoder: sinusoidal absolute positions, no rope
+            x = x + rope_lib.sinusoidal_positions(
+                S, cfg.d_model, cfg.cdtype, device=x.device)[None]
+        return x, positions, prefix_len, enc_out, enc_pos
+
+    def encode(self, params, audio_frames):
+        """The encoder's bidirectional pass over (B, F, d) frames (K6) ->
+        (enc_out (B, F, d), positions (B, F))."""
+        cfg = self.cfg
+        B, F, _ = audio_frames.shape
+        x = audio_frames.to(cfg.cdtype)
+        x = x + rope_lib.sinusoidal_positions(F, cfg.d_model, cfg.cdtype,
+                                              device=x.device)[None]
+        pos = torch.arange(F, device=x.device).expand(B, F)
+        h, _, _ = transformer.decoder_apply(
+            params["encoder"], encoder_cfg(cfg), x, mode="train",
+            positions=pos, mask_kind="bidir", use_rope=False)
+        return h, pos
+
+    @staticmethod
+    def _batch(batch):
+        return batch if isinstance(batch, dict) else {"tokens": batch}
+
+    def hidden(self, params, batch, *, mask_kind: Optional[str] = None):
+        """Final-norm hidden states (B, S, d) of a whole sequence (image
+        prefix positions first); `mask_kind` overrides the config's mask
+        (the bidirectional embedder)."""
+        cfg = self.cfg
+        x, positions, prefix_len, enc_out, enc_pos = self._embed_inputs(
+            params, self._batch(batch))
+        if mask_kind is None:
+            mask_kind = "prefix" if prefix_len is not None else "causal"
+        h, _, _ = transformer.decoder_apply(
+            params, cfg, x, mode="train", positions=positions,
+            mask_kind=mask_kind, prefix_len=prefix_len, enc_out=enc_out,
+            enc_positions=enc_pos, use_rope=not cfg.is_encoder_decoder)
+        return h
+
+    def forward(self, params, batch):
+        """Full forward: logits (B, S, V) of every position."""
+        return embedding.logits(params["embed"], self.cfg,
+                                self.hidden(params, batch))
+
+    # -- training (M7) -----------------------------------------------------------
+    def train_loss(self, params, batch, *, rules=None):
+        raise NotImplementedError(f"train_loss: {SLICE_TRAIN}")
+
+    def _mtp_loss(self, params, cfg, h, tokens, positions):
+        raise NotImplementedError(f"multi-token prediction loss: {SLICE_TRAIN}")
+
+    # -- serving ---------------------------------------------------------------
+    def prefill(self, params, batch, *, window_override=None):
+        """batch {"tokens": (B, S)[, "images" | "audio"]} -> (logits of the
+        last position (B, 1, V), per-layer caches of the P + S positions)."""
+        cfg = self.cfg
+        x, positions, prefix_len, enc_out, enc_pos = self._embed_inputs(
+            params, self._batch(batch))
+        h, caches, _ = transformer.decoder_apply(
+            params, cfg, x, mode="prefill", positions=positions,
+            mask_kind="prefix" if prefix_len is not None else "causal",
+            prefix_len=prefix_len, enc_out=enc_out, enc_positions=enc_pos,
+            window_override=window_override, return_cache=True,
+            use_rope=not cfg.is_encoder_decoder)
         return embedding.logits(params["embed"], cfg, h[:, -1:]), caches
 
-    def decode_step(self, params, tokens, caches, cache_pos):
+    def decode_step(self, params, tokens, caches, cache_pos, *,
+                    window_override=None):
         """tokens: (B, 1); caches from prepare_decode_caches/init_caches,
         updated in place; cache_pos a scalar or a per-slot (B,) vector
         (continuous batching).  -> (logits (B, 1, V), caches)."""
@@ -103,18 +188,46 @@ class Model(nn.Module):
         pos = torch.as_tensor(cache_pos, device=tokens.device)
         if pos.dim() == 0:
             pos = pos.expand(B)
-        h, caches = transformer.decoder_apply(
+        if cfg.is_encoder_decoder:
+            # absolute sinusoidal position = cache_pos (per row)
+            x = x + rope_lib.sinusoidal_at(pos, cfg.d_model).to(
+                cfg.cdtype)[:, None]
+        h, caches, _ = transformer.decoder_apply(
             params, cfg, x, mode="decode", positions=pos[:, None],
-            caches=caches, cache_pos=pos)
+            caches=caches, cache_pos=pos, window_override=window_override,
+            use_rope=not cfg.is_encoder_decoder)
         return embedding.logits(params["embed"], cfg, h), caches
 
-    def prepare_decode_caches(self, caches, prefill_len, max_len):
-        return transformer.prepare_decode_caches(self.cfg, caches,
-                                                 prefill_len, max_len)
+    def prepare_decode_caches(self, caches, prefill_len, max_len, *,
+                              window_override=None):
+        return transformer.prepare_decode_caches(
+            self.cfg, caches, prefill_len, max_len,
+            window_override=window_override)
 
-    def init_caches(self, batch, max_len, *, device="cuda"):
-        return transformer.init_caches(self.cfg, batch, max_len,
-                                       self.cfg.cdtype, device=device)
+    def init_caches(self, batch, max_len, *, window_override=None,
+                    device="cuda"):
+        cfg = self.cfg
+        return transformer.init_caches(
+            cfg, batch, max_len, cfg.cdtype, cross=cfg.is_encoder_decoder,
+            enc_len=cfg.encoder_seq_len, window_override=window_override,
+            device=device)
+
+
+def _layers_from_numpy(cfg: ModelConfig, segments, tensor):
+    """The reference's segments (each a tuple of period blocks, stacked on
+    a leading `repeats` axis when repeats > 1) unstacked into one dict per
+    layer, in `layer_kinds()` order."""
+    layers = []
+    for seg, (period, repeats) in zip(segments,
+                                      plan_segments(cfg.layer_kinds())):
+        for r in range(repeats):
+            for b_i in range(len(period)):
+                layers.append(tree_map(
+                    lambda a: tensor(a[r] if repeats > 1 else a), seg[b_i]))
+    if len(layers) != cfg.num_layers:
+        raise ValueError(f"{len(layers)} layers in the tree, config has "
+                         f"{cfg.num_layers}")
+    return layers
 
 
 def params_from_numpy(cfg: ModelConfig, tree: PyTree,
@@ -122,24 +235,25 @@ def params_from_numpy(cfg: ModelConfig, tree: PyTree,
     """The reference's parameter tree (after `jax.tree.map(np.asarray,
     params)`: nested dicts and tuples, each scanned segment stacked on a
     leading `repeats` axis) -> the port's tree, with the segments unstacked
-    into one dict per layer, every leaf a tensor on `device` ("cuda", the
-    default, or "cpu")."""
+    into one dict per layer (every segment of a multi-segment plan, e.g.
+    deepseek's dense layers then its MoE layers, or the hybrid's (rglru,
+    rglru, attn) period and its remainder), every leaf a tensor on
+    `device` ("cuda", the default, or "cpu")."""
     device = resolve_device(device)
 
     def tensor(a):
         return torch.from_numpy(np.array(a)).to(device)
 
-    layers = []
-    for seg, (period, repeats) in zip(tree["segments"],
-                                      plan_segments(cfg.layer_kinds())):
-        for r in range(repeats):
-            for b_i in range(len(period)):
-                blk = seg[b_i]
-                layers.append(tree_map(
-                    lambda a: tensor(a[r] if repeats > 1 else a), blk))
-    if len(layers) != cfg.num_layers:
-        raise ValueError(f"{len(layers)} layers in the tree, config has "
-                         f"{cfg.num_layers}")
-    return {"embed": tree_map(tensor, tree["embed"]),
-            "layers": layers,
-            "final_norm": tree_map(tensor, tree["final_norm"])}
+    out = {"embed": tree_map(tensor, tree["embed"]),
+           "layers": _layers_from_numpy(cfg, tree["segments"], tensor),
+           "final_norm": tree_map(tensor, tree["final_norm"])}
+    if cfg.is_encoder_decoder:
+        enc = tree["encoder"]
+        out["encoder"] = {
+            "layers": _layers_from_numpy(encoder_cfg(cfg), enc["segments"],
+                                         tensor),
+            "final_norm": tree_map(tensor, enc["final_norm"])}
+    for name in ("img_proj", "mtp"):
+        if name in tree:
+            out[name] = tree_map(tensor, tree[name])
+    return out

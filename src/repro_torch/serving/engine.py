@@ -22,6 +22,18 @@ fails raises: on CUDA the graph is the path, with no eager fallback.  A
 CPU engine (which a caller asks for explicitly) runs every step eagerly
 through the same static buffers and builds no graph.  Prefill stays eager:
 every prompt length differs.
+
+Every decoder-only config of the zoo serves this way: the slot's copy
+takes each cache entry of each layer whatever the layout (k/v, the ring's
+slot positions "pos", int8 codes and "k_scale"/"v_scale", MLA's
+"ckv"/"k_rope", the recurrent "conv"/"state"/"h"), every one with the
+batch on axis 0, and each mixer writes its decode state in place, so the
+captured step replays against the same tensors.  No layer reads a value
+back to the host inside the step (MoE's capacity comes from the static
+token count).  `window_override`, as the reference's engine takes it,
+sets the decode window of every attention layer (a window below max_len
+gives the ring-buffer cache); prefill runs without it, as the reference
+jits `model.prefill` without it.
 """
 from __future__ import annotations
 
@@ -69,6 +81,7 @@ class CountedGraph:
 class Engine:
     def __init__(self, model: Model, params, *, max_len: int = 512,
                  slots: int = 4, sampler: SamplerConfig = SamplerConfig(),
+                 window_override: Optional[int] = None,
                  tokenizer: Optional[HashTokenizer] = None, seed: int = 0):
         self.model = model
         self.cfg = model.cfg
@@ -77,10 +90,13 @@ class Engine:
         self.max_len = max_len
         self.slots = slots
         self.sampler = sampler
+        self.window_override = window_override
         self.tokenizer = tokenizer or default_tokenizer()
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
 
-        self.caches = model.init_caches(slots, max_len, device=self.device)
+        self.caches = model.init_caches(slots, max_len,
+                                        window_override=window_override,
+                                        device=self.device)
         self.slot_pos = np.zeros((slots,), np.int32)
         self.slot_active = np.zeros((slots,), bool)
         self.slot_req: List[Optional[Request]] = [None] * slots
@@ -110,7 +126,8 @@ class Engine:
                                         device=self.device)}
         logits, pre_caches = self.model.prefill(self.params, batch)
         self._insert_cache(slot, self.model.prepare_decode_caches(
-            pre_caches, len(toks), self.max_len))
+            pre_caches, len(toks), self.max_len,
+            window_override=self.window_override))
         first = int(sample(logits, self.generator, self.sampler)[0])
         self.slot_pos[slot] = len(toks)
         self.slot_active[slot] = True
@@ -170,8 +187,9 @@ class Engine:
     def decode(self):
         """One eager decode step on the static inputs (caches written in
         place) -> logits (slots, 1, V)."""
-        logits, _ = self.model.decode_step(self.params, self._inputs[:, :1],
-                                           self.caches, self._inputs[:, 1])
+        logits, _ = self.model.decode_step(
+            self.params, self._inputs[:, :1], self.caches, self._inputs[:, 1],
+            window_override=self.window_override)
         return logits
 
     def _warm_up_and_capture(self):

@@ -448,25 +448,289 @@ def test_attention_decode_matches_and_updates_the_cache_in_place():
 
 
 def test_attention_unsupported_paths_raise():
+    """The kernels count positions from 0: a train/prefill call whose query
+    (or cross-attention key) positions are not 0..S-1 raises."""
     _, cfg = _cfgs()
     rng = np.random.default_rng(7)
     p = {k: torch.from_numpy(v) for k, v in _attn_params(cfg, rng).items()}
     x = torch.randn(1, 4, cfg.d_model)
     pos = torch.arange(4)[None]
-    with pytest.raises(NotImplementedError, match="prefix"):
-        attention.apply(p, cfg, x, positions=pos, mode="prefill",
-                        mask_kind="prefix")
     with pytest.raises(NotImplementedError, match="0..S-1"):
         attention.apply(p, cfg, x, positions=pos + 3, mode="prefill")
-    cache = attention.init_cache(cfg, 1, 8, torch.float32, device="cpu")
-    for extra in ({"pos": torch.zeros(1, 8, dtype=torch.int32)},
-                  {"k_scale": torch.zeros(1, 8, cfg.num_kv_heads)}):
-        with pytest.raises(NotImplementedError):
-            attention.apply(p, cfg, x[:, :1], positions=pos[:, :1],
-                            mode="decode", cache={**cache, **extra},
-                            cache_pos=0)
-    with pytest.raises(NotImplementedError, match="ring"):
-        attention.cache_specs(cfg, 1, 32, torch.float32, window=8)
-    with pytest.raises(NotImplementedError, match="int8"):
-        attention.cache_specs(dataclasses.replace(cfg, kv_cache_quant="int8"),
-                              1, 32, torch.float32)
+    with pytest.raises(NotImplementedError, match="0..S-1"):
+        attention.apply(p, cfg, x, positions=pos, mode="prefill",
+                        kv_x=torch.randn(1, 6, cfg.d_model),
+                        kv_positions=torch.arange(6)[None] + 1,
+                        use_rope=False)
+
+
+# ---------------------------------------------------------------------------
+# The zoo's variants: K5 with slot positions and int8 codes, K6 with a
+# prefix and across sequences (S != T); plain versions against the
+# reference's `attend`
+# ---------------------------------------------------------------------------
+
+def _ref_attend_grouped(q, k, v, q_pos, kv_pos, **kw):
+    """The reference's `attend` on the kernels' grouped layout: q (B, K, G,
+    S, D), k/v (B, K, T, D) numpy -> (B, K, G, S, D)."""
+    B, K, G, S, D = q.shape
+    qh = jnp.asarray(q).transpose(0, 3, 1, 2, 4).reshape(B, S, K * G, D)
+    out = jattn.attend(qh, jnp.asarray(k).transpose(0, 2, 1, 3),
+                       jnp.asarray(v).transpose(0, 2, 1, 3),
+                       q_pos=jnp.asarray(q_pos), kv_pos=jnp.asarray(kv_pos),
+                       **kw)
+    return np.asarray(out).reshape(B, S, K, G, D).transpose(0, 2, 3, 1, 4)
+
+
+def _ring_positions(q_pos, T, rng, holes):
+    """Slot positions of a ring cache of T slots for queries at q_pos:
+    slot i holds the latest p <= q with p = i (mod T), -1 if none; then
+    `holes` random other slots emptied (ragged slot order, -1 slots)."""
+    i = np.arange(T)[None, :]
+    qp = np.asarray(q_pos)[:, None]
+    pos = qp - ((qp - i) % T)
+    pos[pos < 0] = -1
+    for b in range(len(q_pos)):
+        cand = np.flatnonzero(pos[b] != q_pos[b])
+        pos[b, rng.choice(cand, size=min(holes, cand.size),
+                          replace=False)] = -1
+    return pos.astype(np.int32)
+
+
+@pytest.mark.parametrize("window", [0, 5])
+@pytest.mark.parametrize("holes", [0, 3])
+def test_decode_slot_positions_match_the_reference(window, holes):
+    """K5's slot-position variant (the ring-buffer cache): slot t is
+    allowed where 0 <= slot_pos <= q_pos (and > q_pos - window), against
+    the reference's `attend` with kv_pos = the slots' positions."""
+    rng = np.random.default_rng(20 + holes)
+    B, K, G, T, D = 4, 2, 3, 16, 8
+    q_pos = [3, 15, 16, 41]                 # before, at and past one lap
+    q = rng.standard_normal((B, K, G, D)).astype(np.float32)
+    k = rng.standard_normal((B, K, T, D)).astype(np.float32)
+    v = rng.standard_normal((B, K, T, D)).astype(np.float32)
+    sp = _ring_positions(q_pos, T, rng, holes)
+    kv_len = np.asarray(q_pos, np.int32) + 1
+    got = tda.decode_attention(torch.from_numpy(q), torch.from_numpy(k),
+                               torch.from_numpy(v), torch.from_numpy(kv_len),
+                               window=window, slot_pos=torch.from_numpy(sp))
+    want = _ref_attend_grouped(q[:, :, :, None], k, v,
+                               np.asarray(q_pos)[:, None], sp, kind="causal",
+                               window=window)[:, :, :, 0]
+    _close(got, want, 2e-5)
+    # the slots' order does not matter: the same keys permuted
+    perm = rng.permutation(T)
+    got2 = tda.decode_attention(
+        torch.from_numpy(q), torch.from_numpy(k[:, :, perm]),
+        torch.from_numpy(v[:, :, perm]), torch.from_numpy(kv_len),
+        window=window, slot_pos=torch.from_numpy(sp[:, perm].copy()))
+    torch.testing.assert_close(got2, got, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("slots", [False, True])
+def test_decode_int8_codes_match_dequantize_then_attend(dtype, slots):
+    """K5's int8 variant: codes and per-row scales dequantised as the
+    reference's `dequantize_kv` (code * scale in f32, rounded to the
+    compute dtype), then the reference's `attend` — also on the ring."""
+    rng = np.random.default_rng(30)
+    B, K, G, T, D = 3, 2, 2, 12, 16
+    tdt = getattr(torch, dtype)
+    q = rng.standard_normal((B, K, G, D)).astype(np.float32)
+    kc = rng.integers(-127, 128, (B, K, T, D)).astype(np.int8)
+    vc = rng.integers(-127, 128, (B, K, T, D)).astype(np.int8)
+    ks = (rng.random((B, K, T)) * 0.05 + 1e-3).astype(np.float32)
+    vs = (rng.random((B, K, T)) * 0.05 + 1e-3).astype(np.float32)
+    q_pos = [2, 11, 30] if slots else [2, 11, 7]
+    kv_len = np.asarray(q_pos, np.int32) + 1
+    sp = _ring_positions(q_pos, T, rng, 1) if slots else None
+    tq = torch.from_numpy(q).to(tdt)
+    got = tda.decode_attention(
+        tq, torch.from_numpy(kc), torch.from_numpy(vc),
+        torch.from_numpy(kv_len), k_scale=torch.from_numpy(ks),
+        v_scale=torch.from_numpy(vs),
+        slot_pos=None if slots is False else torch.from_numpy(sp))
+    assert got.dtype == tdt
+    jq = jnp.asarray(q).astype(dtype)
+    jk = jattn.dequantize_kv(jnp.asarray(kc), jnp.asarray(ks), jq.dtype)
+    jv = jattn.dequantize_kv(jnp.asarray(vc), jnp.asarray(vs), jq.dtype)
+    kv_pos = sp if slots else np.broadcast_to(np.arange(T), (B, T))
+    kw = {} if slots else {"kv_len_valid": jnp.asarray(kv_len)}
+    want = _ref_attend_grouped(np.asarray(jq.astype(jnp.float32))[:, :, :, None],
+                               np.asarray(jk.astype(jnp.float32)),
+                               np.asarray(jv.astype(jnp.float32)),
+                               np.asarray(q_pos)[:, None], kv_pos,
+                               kind="causal", **kw)[:, :, :, 0]
+    _close(got, want, TOL[dtype])
+    # the dequantised rows are exactly the reference's, in the dtype
+    deq = tda.dequantize(torch.from_numpy(kc), torch.from_numpy(ks), tdt)
+    _close(deq, jk, 0.0)
+
+
+@pytest.mark.parametrize("prefix", [0, 6, 20, "rows"])
+@pytest.mark.parametrize("window", [0, 4])
+def test_flash_prefix_matches_the_reference(prefix, window):
+    """K6's prefix mask (t <= s or t < prefix_len, then the window), with a
+    scalar prefix and per-row prefixes, against the reference's
+    `attend(kind="prefix")`."""
+    rng = np.random.default_rng(40)
+    B, K, G, S, D = 3, 2, 2, 14, 8
+    q = rng.standard_normal((B, K, G, S, D)).astype(np.float32)
+    k = rng.standard_normal((B, K, S, D)).astype(np.float32)
+    v = rng.standard_normal((B, K, S, D)).astype(np.float32)
+    if prefix == "rows":
+        pl = np.asarray([0, 5, 14], np.int32)
+        tpl, jpl = torch.from_numpy(pl), jnp.asarray(pl)
+    else:
+        tpl = jpl = prefix
+    got = tfa.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                              torch.from_numpy(v), causal=True, window=window,
+                              prefix_len=tpl)
+    pos = np.broadcast_to(np.arange(S), (B, S))
+    want = _ref_attend_grouped(q, k, v, pos, pos, kind="prefix",
+                               window=window, prefix_len=jpl)
+    _close(got, want, 2e-5)
+
+
+def test_flash_cross_attention_s_ne_t_matches_the_reference():
+    """Cross-attention: bidirectional, queries 0..S-1 over an encoder's
+    keys 0..T-1 with S != T (both ways), against the reference's
+    `attend(kind="bidir")`."""
+    rng = np.random.default_rng(41)
+    for S, T in ((5, 23), (23, 5)):
+        B, K, G, D = 2, 3, 1, 16
+        q = rng.standard_normal((B, K, G, S, D)).astype(np.float32)
+        k = rng.standard_normal((B, K, T, D)).astype(np.float32)
+        v = rng.standard_normal((B, K, T, D)).astype(np.float32)
+        got = tfa.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                  torch.from_numpy(v), causal=False)
+        want = _ref_attend_grouped(
+            q, k, v, np.broadcast_to(np.arange(S), (B, S)),
+            np.broadcast_to(np.arange(T), (B, T)), kind="bidir")
+        _close(got, want, 2e-5)
+
+
+@pytest.mark.parametrize("causal,window,prefix", [
+    (True, 0, 40), (True, 16, 40), (True, 0, 200), (True, 16, 1)])
+def test_flash_grid_covers_every_prefix_pair_once(causal, window, prefix):
+    """With a prefix, each CTA's key loop (`flash_key_range`) reaches
+    max(s_hi + 1, prefix_len): every allowed (row, key) pair of the prefix
+    mask is visited exactly once."""
+    G, S, D = 3, 150, 64
+    for B, K in ((1, 4), (16, 4)):
+        _, rows, keys, _ = tfa.flash_grid(B, K, G, S, D, sms=132)
+        ok = _allowed(S, S, causal, 0)
+        ok[:, :prefix] = True
+        if window > 0:
+            ok &= _allowed(S, S, False, window)
+        visits = np.zeros((G * S, S), np.int8)
+        for r0 in range(0, G * S, rows):
+            t0, t1 = tfa.flash_key_range(r0, rows, keys, G, S, S, causal,
+                                         window, prefix)
+            for t in range(t0, t1, keys):
+                visits[r0:r0 + rows, t:min(t + keys, S)] += 1
+        rows_ok = np.repeat(ok, G, axis=0)
+        assert (visits[rows_ok] == 1).all() and visits.max() <= 1
+
+
+def test_quantize_kv_rounds_half_to_even_as_the_reference():
+    """quantize_kv: per-(token, head) scale max|x| / 127, codes rounded
+    half to even (`jnp.round`), clipped to +-127 — equal codes and scales."""
+    rng = np.random.default_rng(42)
+    x = rng.standard_normal((3, 7, 2, 16)).astype(np.float32)
+    x[0, 0, 0] = np.arange(16) - 7.5          # exact .5 steps
+    x[1, 1, 1] = 0.0                          # an all-zero row: scale 1e-8
+    codes, sc = attention.quantize_kv(torch.from_numpy(x))
+    jcodes, jsc = jattn.quantize_kv(jnp.asarray(x))
+    assert codes.dtype == torch.int8 and sc.dtype == torch.float32
+    np.testing.assert_array_equal(codes.numpy(), np.asarray(jcodes))
+    np.testing.assert_array_equal(sc.numpy(), np.asarray(jsc))
+
+
+@pytest.mark.parametrize("layout", ["ring", "int8", "ring_int8"])
+def test_attention_decode_layouts_match_the_reference(layout):
+    """attention.apply(mode="decode") on the ring-buffer cache (slot
+    positions written in place), the int8 cache (codes and scales written
+    in place) and both: output and every cache entry equal the
+    reference's."""
+    jcfg, cfg = _cfgs()
+    quant = "int8" in layout
+    if quant:
+        jcfg = dataclasses.replace(jcfg, kv_cache_quant="int8")
+        cfg = dataclasses.replace(cfg, kv_cache_quant="int8")
+    rng = np.random.default_rng(43)
+    p = _attn_params(cfg, rng)
+    B, T = 3, 10
+    window = 6 if "ring" in layout else 0
+    specs = attention.cache_specs(cfg, B, 64 if window else T, torch.float32,
+                                  window=window)
+    jspecs = jattn.cache_specs(jcfg, B, 64 if window else T, jnp.float32,
+                               window=window)
+    assert {n: (s, str(d)[6:]) for n, (s, _a, d) in specs.items()} ==         {n: (s, str(np.dtype(d))) for n, (s, _a, d) in jspecs.items()}
+    cache = {}
+    for name, (shape, _a, dt) in specs.items():
+        if name == "pos":
+            a = _ring_positions([4, 9, 20], window, rng, 0)
+        elif dt == torch.int8:
+            a = rng.integers(-127, 128, shape).astype(np.int8)
+        else:
+            a = (rng.random(shape) * 0.05 + 0.01).astype(np.float32) \
+                if "scale" in name else rng.standard_normal(shape).astype(
+                    np.float32)
+        cache[name] = a
+    pos = np.asarray([5, 10, 21], np.int32) if window else \
+        np.asarray([0, 5, 9], np.int32)
+    x = rng.standard_normal((B, 1, cfg.d_model)).astype(np.float32)
+    tcache = {n: torch.from_numpy(a.copy()) for n, a in cache.items()}
+    got, new = attention.apply(
+        {k: torch.from_numpy(v) for k, v in p.items()}, cfg,
+        torch.from_numpy(x), positions=torch.from_numpy(pos[:, None].copy()),
+        mode="decode", cache=tcache, cache_pos=torch.from_numpy(pos),
+        window=window)
+    want, jnew = jattn.apply(
+        {k: jnp.asarray(v) for k, v in p.items()}, jcfg, jnp.asarray(x),
+        positions=jnp.asarray(pos[:, None]), mode="decode",
+        cache={n: jnp.asarray(a) for n, a in cache.items()},
+        cache_pos=jnp.asarray(pos), window=window)
+    _close(got, want, LAYER_TOL)
+    assert new is tcache and set(new) == set(jnew)
+    for name in new:
+        tol = 0.0 if new[name].dtype in (torch.int8, torch.int32) else \
+            LAYER_TOL
+        _close(new[name], jnew[name], tol)
+
+
+def test_cross_attention_prefill_and_decode_match_the_reference():
+    """Cross-attention (no rope, no biases): prefill over an encoder's
+    output (S != T, bidirectional) returns its k/v cache, and cross decode
+    against that cache equals the reference's."""
+    jcfg = jget_config("whisper-small").reduced(layers=2, d_model=64)
+    cfg = get_config("whisper-small").reduced(layers=2, d_model=64)
+    rng = np.random.default_rng(44)
+    p = _attn_params(cfg, rng)
+    B, S, F = 2, 7, 19
+    x = rng.standard_normal((B, S, cfg.d_model)).astype(np.float32)
+    enc = rng.standard_normal((B, F, cfg.d_model)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S)).copy()
+    epos = np.broadcast_to(np.arange(F, dtype=np.int32), (B, F)).copy()
+    tp = {k: torch.from_numpy(v) for k, v in p.items()}
+    jp = {k: jnp.asarray(v) for k, v in p.items()}
+    got, cache = attention.apply(
+        tp, cfg, torch.from_numpy(x), positions=torch.from_numpy(pos),
+        kv_x=torch.from_numpy(enc), kv_positions=torch.from_numpy(epos),
+        mode="prefill", use_rope=False, return_cache=True)
+    want, jcache = jattn.apply(
+        jp, jcfg, jnp.asarray(x), positions=jnp.asarray(pos),
+        kv_x=jnp.asarray(enc), kv_positions=jnp.asarray(epos),
+        mode="prefill", use_rope=False, return_cache=True)
+    _close(got, want, LAYER_TOL)
+    _close(cache["k"], jcache["k"], LAYER_TOL)
+    xd = rng.standard_normal((B, 1, cfg.d_model)).astype(np.float32)
+    got, same = attention.apply(
+        tp, cfg, torch.from_numpy(xd), positions=torch.zeros(B, 1),
+        mode="cross_decode", cache=cache, use_rope=False)
+    want, _ = jattn.apply(jp, jcfg, jnp.asarray(xd),
+                          positions=jnp.zeros((B, 1), jnp.int32),
+                          mode="cross_decode", cache=jcache, use_rope=False)
+    _close(got, want, LAYER_TOL)
+    assert same is cache

@@ -85,6 +85,52 @@ def test_greedy_tokens_equal_the_jax_engine(models):
     assert eng.stats == jeng.stats
 
 
+# prompts of 17-24 tokens: past the reduced recurrentgemma's 16-token local
+# window, so its ring cache is prepared from S >= W and later S < W
+ZOO_PROMPTS = ["I work as a translator and I live in Cusco with two cats and "
+               "a parrot named Olive who sings",
+               "the quick brown fox jumps over the lazy dog again and again "
+               "until the farmer comes home late",
+               "a short prompt here"]
+
+
+@pytest.mark.parametrize("arch,window", [
+    ("phi3.5-moe-42b-a6.6b", None), ("phi3.5-moe-42b-a6.6b", 8),
+    ("deepseek-v3-671b", None), ("mamba2-2.7b", None),
+    ("recurrentgemma-9b", None)])
+def test_zoo_engine_greedy_tokens_equal_the_jax_engine(arch, window):
+    """The continuous-batching engine over the rest of the zoo (MoE, MLA,
+    SSM, the RG-LRU hybrid with its local-attention ring cache, phi3.5 with
+    a decode window below max_len: the ring cache) gives the JAX engine's
+    greedy tokens from the same weights, across slot reuse."""
+    layers = 3 if arch == "recurrentgemma-9b" else 2   # (rglru, rglru, attn)
+    jcfg = jget_config(arch).reduced(layers=layers, d_model=64)
+    cfg = get_config(arch).reduced(layers=layers, d_model=64)
+    jmodel = JModel(jcfg)
+    jparams = jmodel.init_params(jax.random.PRNGKey(1))
+    params = params_from_numpy(cfg, jax.tree.map(np.asarray, jparams),
+                               device="cpu")
+    jtok, tok = _tokenizers()
+    jeng = JEngine(jmodel, jparams, max_len=48, slots=2, tokenizer=jtok,
+                   window_override=window)
+    eng = Engine(Model(cfg), params, max_len=48, slots=2, tokenizer=tok,
+                 window_override=window)
+    jreqs = [JRequest(jtok.encode(p), max_new_tokens=6) for p in ZOO_PROMPTS]
+    reqs = [Request(tok.encode(p), max_new_tokens=6) for p in ZOO_PROMPTS]
+    assert max(len(r.prompt_tokens) for r in reqs) > 16
+    jout = JBatcher(jeng).run(jreqs)
+    out = ContinuousBatcher(eng).run(reqs)
+    got = [out[r.request_id].tokens for r in reqs]
+    assert got == [jout[r.request_id].tokens for r in jreqs]
+    assert eng.stats == jeng.stats
+    layouts = set().union(*(set(c) for c in eng.caches))
+    want = {"phi3.5-moe-42b-a6.6b": {"k", "v"} | ({"pos"} if window else set()),
+            "deepseek-v3-671b": {"ckv", "k_rope"},
+            "mamba2-2.7b": {"conv", "state"},
+            "recurrentgemma-9b": {"conv", "h", "k", "v", "pos"}}[arch]
+    assert layouts == want
+
+
 def test_cpu_engine_builds_no_graph_and_gives_the_jax_tokens(models):
     """A CPU engine decodes eagerly through the same static input buffers
     as the CUDA one (which replays a graph of that decode) and captures

@@ -3,8 +3,9 @@ the registry, the parameter specs and init laws, and `Model.prefill` /
 `decode_step` logits from the same weights (the JAX tree carried across
 with `params_from_numpy`), at reduced size.  Also the serving invariant of
 tests/test_decode_consistency.py for the dense configs: prefill followed
-by decode steps reproduces the port's own full forward.  Configs and cache
-layouts this slice does not carry raise NotImplementedError.
+by decode steps reproduces the port's own full forward.  The rest of the
+zoo (MoE, MLA, SSM, RG-LRU, encoder-decoder, image prefixes, the ring and
+int8 caches) is held in tests/test_torch_zoo.py.
 
 Logits (of order 1) agree to 1e-4: the same f32 weights and inputs, with
 matmul, norm and softmax summation orders that differ between the two
@@ -166,27 +167,3 @@ def test_prefill_then_decode_matches_full_forward(arch):
         got, caches = model.decode_step(params, toks[:, cur: cur + 1], caches,
                                         torch.tensor([cur, cur]))
         torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
-
-
-@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "deepseek-v3-671b",
-                                  "mamba2-2.7b", "recurrentgemma-9b",
-                                  "whisper-small", "paligemma-3b"])
-def test_configs_outside_the_slice_raise(arch):
-    with pytest.raises(NotImplementedError):
-        Model(get_config(arch).reduced())
-
-
-def test_ring_and_int8_caches_raise():
-    cfg = get_config("memori-agent").reduced(layers=2, d_model=64)
-    windowed = Model(dataclasses.replace(cfg, sliding_window=8))
-    with pytest.raises(NotImplementedError, match="ring"):
-        windowed.init_caches(1, 32, device="cpu")
-    _, caches = windowed.prefill(
-        windowed.init_params(torch.Generator().manual_seed(0)),
-        {"tokens": torch.arange(4, 14)[None]})
-    with pytest.raises(NotImplementedError, match="ring"):
-        windowed.prepare_decode_caches(caches, 10, 32)
-    windowed.init_caches(1, 8, device="cpu")   # window >= max_len: full
-    quant = Model(dataclasses.replace(cfg, kv_cache_quant="int8"))
-    with pytest.raises(NotImplementedError, match="int8"):
-        quant.init_caches(1, 32, device="cpu")
