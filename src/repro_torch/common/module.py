@@ -42,6 +42,25 @@ def tree_map(fn: Callable, tree: PyTree) -> PyTree:
     return fn(tree)
 
 
+def leaves_with_names(tree: PyTree, prefix=()):
+    """[(path, leaf)] in tree order: dict keys in insertion order, list and
+    tuple items in order; a path is the tuple of keys and indices."""
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items()
+                for x in leaves_with_names(v, prefix + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [x for i, v in enumerate(tree)
+                for x in leaves_with_names(v, prefix + (i,))]
+    return [(prefix, tree)]
+
+
+def unflatten(like: PyTree, leaves) -> PyTree:
+    """A tree shaped like `like` whose leaves are `leaves`, in the order
+    of `leaves_with_names`."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), like)
+
+
 def stack(spec_tree: PyTree, n: int) -> PyTree:
     """Prepend a stacked-layers dim to every spec in the tree."""
     return tree_map(lambda s: dataclasses.replace(

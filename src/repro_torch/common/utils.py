@@ -7,6 +7,11 @@ import numpy as np
 import torch
 
 
+# what still raises NotImplementedError names the slice it waits for
+SLICE_M7B = ("the distribution slice of the port (M7b: a torch DeviceMesh "
+             "over several GPUs)")
+
+
 def cdiv(a: int, b: int) -> int:
     return -(-a // b)
 

@@ -57,8 +57,8 @@ import torch
 
 from repro_torch.checkpoint.replication import (DirectorySink,
                                                 SegmentShipper, open_wal)
+from repro_torch.common.utils import SLICE_M7B
 from repro_torch.core.extraction import Extractor, Message
-from repro_torch.core.shards import MESH_SLICE
 from repro_torch.core.store import MemoryStore
 from repro_torch.core.tiering import TierPolicy
 from repro_torch.obs.telemetry import get_telemetry
@@ -204,7 +204,7 @@ class LifecycleRuntime:
         sharded directory recovers into a sharded store without the caller
         restating the topology."""
         if mesh is not None:
-            raise NotImplementedError(f"mesh= comes with {MESH_SLICE}")
+            raise NotImplementedError(f"mesh= comes with {SLICE_M7B}")
         wal = open_wal(data_dir, shards=shards)
         n_shards = getattr(wal, "n_shards", 1)
         store, after = None, 0

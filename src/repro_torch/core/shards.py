@@ -14,7 +14,7 @@ into whole shards' slabs.  On one card the slabs are views of one buffer:
 the `(S*C, D)` f32 bank, the `(S*C,)` i32 labels (-1 = empty, tombstone or
 down) and the `(S*C,)` i32 slot -> global row map live on the store's
 device, and `search` is one K1 launch over all of them.  Placing the slabs
-over several GPUs (`mesh=`) comes with M7, on a torch `DeviceMesh`.
+over several GPUs (`mesh=`) comes with M7b, on a torch `DeviceMesh`.
 
 Three host arrays mirror the device state: the slab-packed bank, the
 per-slot namespace labels and the slot -> global row map.  Search returns
@@ -44,12 +44,11 @@ import contextlib
 import numpy as np
 import torch
 
-from repro_torch.common.utils import next_pow2, resolve_device, to_device
+from repro_torch.common.utils import (SLICE_M7B, next_pow2, resolve_device,
+                                      to_device)
 from repro_torch.core.vector_index import _search_device
 
 MIN_SHARD_CAPACITY = 64
-MESH_SLICE = ("M7 (training and launch: the slabs placed over several GPUs "
-              "through a torch DeviceMesh)")
 
 
 class ShardedBank:
@@ -57,7 +56,7 @@ class ShardedBank:
         if n_shards < 2:
             raise ValueError("ShardedBank needs n_shards >= 2")
         if mesh is not None:
-            raise NotImplementedError(f"mesh= comes with {MESH_SLICE}")
+            raise NotImplementedError(f"mesh= comes with {SLICE_M7B}")
         self.dim = dim
         self.n_shards = int(n_shards)
         self.device = resolve_device(device)

@@ -53,12 +53,12 @@ import torch
 
 from repro_torch.checkpoint import io as ckpt_io
 from repro_torch.checkpoint import packing
-from repro_torch.common.utils import resolve_device
+from repro_torch.common.utils import SLICE_M7B, resolve_device
 from repro_torch.core.bm25 import BM25Index
 from repro_torch.core.extraction import Extractor, Message, RuleExtractor
 from repro_torch.core.graph import (EDGE_TYPE_IDS, GraphInvariantError,
                                     MemoryGraph)
-from repro_torch.core.shards import MESH_SLICE, ShardedBank
+from repro_torch.core.shards import ShardedBank
 from repro_torch.core.summaries import Summary, SummaryStore
 from repro_torch.core.triples import Triple, TripleStore
 from repro_torch.core.vector_index import VectorIndex
@@ -114,7 +114,7 @@ class MemoryStore:
                 "sharded placement and the quantized device bank are "
                 "mutually exclusive (the shard slabs hold f32 rows)")
         if mesh is not None:
-            raise NotImplementedError(f"mesh= comes with {MESH_SLICE}")
+            raise NotImplementedError(f"mesh= comes with {SLICE_M7B}")
         self.shards = int(shards)
         self.embedder = embedder
         self.extractor = extractor or RuleExtractor()

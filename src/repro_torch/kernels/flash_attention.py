@@ -40,6 +40,22 @@ kernel or the call raises.  `flash_attention.launches` counts launches
 (`prefix_launches` those with a prefix),
 and `flash_attention.rows_per_cta` holds the query rows per CTA of the
 shape the C launcher last launched.
+
+Gradients.  When grad is enabled and q, k or v requires it, the call goes
+through `FlashAttentionFn`, a `torch.autograd.Function` whose forward is
+the same dispatch (K6 on a CUDA tensor, launch-counted; the plain version
+on a CPU tensor) and whose backward (`flash_attention_bwd`) is torch ops:
+per block of at most `BWD_BLOCK` query rows it recomputes the
+probabilities from the saved q, k, v under the forward's exact mask, then
+D = rowsum(dO * O), dS = P * (dP - D), dq = dS k * scale, and dk = dS^T q
+* scale, dv = P^T dO summed over each kv head's G query heads, all in f32,
+returned in the inputs' dtype.  A query row with no allowed key has output
+0 and gradient 0.  This backward is not the port of a TPU kernel: the
+reference's K6 has no `custom_vjp`, and its training gradient is XLA's
+autodiff of the pure-JAX `_sdpa_chunked` (src/repro/models/layers/
+attention.py), computed outside any Pallas kernel, so torch ops are its
+counterpart here, as a plain product stays `torch.matmul`.  A CUDA tensor
+that needs a gradient never goes through the plain version.
 """
 from __future__ import annotations
 
@@ -236,17 +252,101 @@ def _launch(q, k, v, causal: bool, window: int, scale: float, prefix_len):
     return out
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    scale=None, prefix_len=None):
-    """K6.  q (B, K, G, S, D), k and v (B, K, T, D), f32 or bf16 ->
-    (B, K, G, S, D) in q's dtype (see the module docstring)."""
-    scale = scale if scale is not None else q.shape[-1] ** -0.5
+def _forward(q, k, v, causal: bool, window: int, scale: float, prefix_len):
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    scale=scale, prefix_len=prefix_len)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     return _launch(q, k, v, causal, window, scale, prefix_len)
+
+
+# query rows of one block of the backward: its f32 (B, K, G, rows, T)
+# probabilities and their gradient are the largest tensors it holds
+BWD_BLOCK = 256
+
+
+def flash_attention_bwd(q, k, v, out, dout, *, causal: bool, window: int,
+                        scale: float, prefix_len=None):
+    """(dq, dk, dv) of `flash_attention` for the output gradient `dout`,
+    by torch ops over query blocks of at most BWD_BLOCK rows (see the
+    module docstring).  A block's keys are cut to the range its mask can
+    allow when the prefix is an int (or absent)."""
+    B, K, G, S, D = q.shape
+    T = k.shape[2]
+    f32 = torch.float32
+    kf, vf = k.to(f32), v.to(f32)
+    dk = torch.zeros((B, K, T, D), dtype=f32, device=q.device)
+    dv = torch.zeros((B, K, T, D), dtype=f32, device=q.device)
+    dq = torch.empty((B, K, G, S, D), dtype=f32, device=q.device)
+    rows = _prefix_rows(prefix_len, B, q.device)
+    static_prefix = not isinstance(prefix_len, torch.Tensor)
+    for s0 in range(0, S, BWD_BLOCK):
+        s1 = min(S, s0 + BWD_BLOCK)
+        t0 = max(0, s0 - window + 1) if window > 0 else 0
+        t1 = (min(T, max(s1, int(prefix_len or 0)))
+              if causal and static_prefix else T)
+        if t1 <= t0:             # no key allowed anywhere in the block
+            dq[:, :, :, s0:s1] = 0.0
+            continue
+        qb = q[:, :, :, s0:s1].to(f32)
+        ob = out[:, :, :, s0:s1].to(f32)
+        gb = dout[:, :, :, s0:s1].to(f32)
+        kb, vb = kf[:, :, t0:t1], vf[:, :, t0:t1]
+        s = torch.einsum("bkgsd,bktd->bkgst", qb, kb) * scale
+        q_pos = torch.arange(s0, s1, device=q.device)[None, :, None]
+        k_pos = torch.arange(t0, t1, device=q.device)[None, None, :]
+        ok = torch.ones((B, s1 - s0, t1 - t0), dtype=torch.bool,
+                        device=q.device)
+        if causal:
+            ok = ok & ((k_pos <= q_pos) | (k_pos < rows))
+        if window > 0:
+            ok = ok & (k_pos > q_pos - window)
+        ok = ok[:, None, None]
+        s = torch.where(ok, s, torch.full_like(s, NEG_INF))
+        p = torch.softmax(s, dim=-1) * ok.any(-1, keepdim=True)
+        dsum = (gb * ob).sum(-1, keepdim=True)            # D = rowsum(dO*O)
+        dp = torch.einsum("bkgsd,bktd->bkgst", gb, vb)
+        ds = p * (dp - dsum)
+        dq[:, :, :, s0:s1] = torch.einsum("bkgst,bktd->bkgsd", ds,
+                                          kb) * scale
+        dk[:, :, t0:t1] += torch.einsum("bkgst,bkgsd->bktd", ds, qb) * scale
+        dv[:, :, t0:t1] += torch.einsum("bkgst,bkgsd->bktd", p, gb)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """K6 with a gradient: the forward is `flash_attention`'s dispatch, the
+    backward `flash_attention_bwd` (torch ops, see the module docstring)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale, prefix_len):
+        out = _forward(q, k, v, causal, window, scale, prefix_len)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.mask = (causal, window, scale, prefix_len)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        causal, window, scale, prefix_len = ctx.mask
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, out, dout, causal=causal, window=window, scale=scale,
+            prefix_len=prefix_len)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    scale=None, prefix_len=None):
+    """K6.  q (B, K, G, S, D), k and v (B, K, T, D), f32 or bf16 ->
+    (B, K, G, S, D) in q's dtype (see the module docstring); through
+    `FlashAttentionFn` when a gradient is wanted."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, causal, window, scale,
+                                      prefix_len)
+    return _forward(q, k, v, causal, window, scale, prefix_len)
 
 
 flash_attention.launches = 0

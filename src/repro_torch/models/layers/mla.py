@@ -15,20 +15,20 @@ That decode runs as torch einsums, as the reference computes it outside
 any kernel: its latent (576 wide at full size, all 128 heads on one shared
 kv head) is beyond K5's head width and grouped-query limits.  The latent
 cache is written in place.  The absorbed form in train/prefill
-(`mla_absorbed_train`) comes with the training slice (M7) and raises.
+(`mla_absorbed_train`, reached only from the reference's dry-run: K6 at
+D = 576 with G = 128) comes with the distribution slice (M7b) and raises.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.common.module import ParamSpec
-from repro_torch.common.utils import resolve_device
+from repro_torch.common.utils import SLICE_M7B, resolve_device
 from repro_torch.models.layers import rope as rope_lib
 from repro_torch.models.layers.attention import attend
 from repro_torch.models.layers.norms import rms_norm
 
 NEG_INF = -2.0e38
-SLICE_TRAIN = "the training slice of the port (M7)"
 
 
 def specs(cfg):
@@ -88,7 +88,7 @@ def apply(params, cfg, x, *, positions, mode: str = "train", cache=None,
     if mode in ("train", "prefill"):
         if cfg.mla_absorbed_train:
             raise NotImplementedError(
-                f"mla_absorbed_train: {SLICE_TRAIN}")
+                f"mla_absorbed_train: {SLICE_M7B}")
         q_nope, q_rope = _q_proj(params, cfg, x, positions)
         ckv, k_rope = _latent_proj(params, cfg, x, positions)
         # decompressed K/V: (B,S,H,*)

@@ -138,8 +138,11 @@ def apply(params, cfg, x, *, mode: str = "train", cache=None,
         ldiff = seg[..., :, None] - seg[..., None, :]              # (B,nc,H,Q,Q)
         causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
                                        device=x.device))
-        L_mat = torch.where(causal, torch.exp(ldiff),
-                            torch.zeros((), device=x.device))
+        # masked before the exp (exp(-inf) = 0, the same values): above
+        # the diagonal ldiff > 0 can overflow, and an inf there would turn
+        # the gradient of a where() around the exp into NaN
+        L_mat = torch.exp(torch.where(
+            causal, ldiff, torch.full((), float("-inf"), device=x.device)))
         y_intra = torch.einsum("bchst,bcthp->bcshp", cb * L_mat, xc.float())
 
         # chunk summary states: S_c = Σ_t e^{la_tot - la_t} B_t ⊗ x_t

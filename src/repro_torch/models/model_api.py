@@ -3,6 +3,7 @@
 
   model = Model(cfg)
   params = model.init_params(generator)          # or params_from_numpy(...)
+  loss, metrics = model.train_loss(params, batch)
   logits = model(params, batch)                  # full forward, (B, S, V)
   logits, caches = model.prefill(params, batch)
   caches = model.prepare_decode_caches(caches, prefill_len, max_len)
@@ -12,6 +13,7 @@ Batches are dicts (a bare (B, S) token tensor is taken as {"tokens"}):
   tokens  (B, S) int                        — always
   images  (B, P, vision_dim)                — vlm (stub SigLIP patch embeds)
   audio   (B, F, d_model)                   — audio (stub conv/mel frames)
+  loss_mask (B, S) f32                      — optional (training)
 
 Parameters are a plain tree: {"embed": {...}, "layers": [block dicts],
 "final_norm": {...}}, plus {"encoder": {"layers", "final_norm"}} for the
@@ -19,8 +21,15 @@ encoder-decoder, {"img_proj": {"w", "b"}} for image prefixes and {"mtp":
 {...}} for multi-token prediction, every tensor on one device.  Attention
 runs through the kernels K6 (prefill, full forward, the encoder) and K5
 (decode) on CUDA tensors and through their plain versions on CPU tensors.
-Decode updates the caches in place.  Training (`train_loss`, the MTP loss)
-comes with the training slice (M7) and raises NotImplementedError.
+Decode updates the caches in place.
+
+Training: `train_loss` runs the stack in train mode with recompute (each
+block under `torch.utils.checkpoint`; K6 with its autograd Function), the
+cross-entropy over 256-position chunks, each chunk itself recomputed in
+the backward so the (B, S, V) f32 logits are never all held, plus the MoE
+auxiliary losses and deepseek's depth-1 MTP loss.  `params_to_numpy`
+inverts `params_from_numpy`: the reference's segment-stacked tree, so a
+checkpoint (`checkpoint.io.save_params`) has the reference's keys.
 """
 from __future__ import annotations
 
@@ -30,6 +39,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.module import ParamSpec, materialize, tree_map
 from repro_torch.common.utils import resolve_device
@@ -37,7 +47,6 @@ from repro_torch.models import blocks, transformer
 from repro_torch.models.config import ModelConfig, plan_segments
 from repro_torch.models.layers import embedding, norms
 from repro_torch.models.layers import rope as rope_lib
-from repro_torch.models.layers.mla import SLICE_TRAIN
 
 PyTree = Any
 
@@ -155,12 +164,52 @@ class Model(nn.Module):
         return embedding.logits(params["embed"], self.cfg,
                                 self.hidden(params, batch))
 
-    # -- training (M7) -----------------------------------------------------------
-    def train_loss(self, params, batch, *, rules=None):
-        raise NotImplementedError(f"train_loss: {SLICE_TRAIN}")
+    # -- training ----------------------------------------------------------------
+    def train_loss(self, params, batch):
+        """-> (loss, metrics {ce, accuracy, moe_load_balance, moe_router_z,
+        moe_drop_fraction[, mtp_ce], loss}), each a 0-d f32 tensor: the
+        next-token cross-entropy over the text positions (an image prefix
+        sliced off, `loss_mask[:, 1:]` weighting the targets) plus the
+        MoE auxiliary losses and mtp_loss_weight times the MTP loss."""
+        cfg = self.cfg
+        batch = self._batch(batch)
+        x, positions, prefix_len, enc_out, enc_pos = self._embed_inputs(
+            params, batch)
+        h, _, aux = transformer.decoder_apply(
+            params, cfg, x, mode="train", positions=positions,
+            mask_kind="prefix" if prefix_len is not None else "causal",
+            prefix_len=prefix_len, enc_out=enc_out, enc_positions=enc_pos,
+            use_rope=not cfg.is_encoder_decoder, remat=True)
+        tokens = batch["tokens"]
+        P = prefix_len or 0
+        h_text = h[:, P:]                               # (B, S_text, d)
+        loss_mask = batch.get("loss_mask")
+        ce, acc = _chunked_xent(
+            params, cfg, h_text[:, :-1], tokens[:, 1:],
+            loss_mask[:, 1:] if loss_mask is not None else None)
+        total = ce + aux["moe_load_balance"] + aux["moe_router_z"]
+        metrics = {"ce": ce, "accuracy": acc, **aux}
+        if cfg.mtp_depth:
+            mtp = self._mtp_loss(params, cfg, h_text, tokens,
+                                 positions[:, P:])
+            total = total + cfg.mtp_loss_weight * mtp
+            metrics["mtp_ce"] = mtp
+        metrics["loss"] = total
+        return total, metrics
 
     def _mtp_loss(self, params, cfg, h, tokens, positions):
-        raise NotImplementedError(f"multi-token prediction loss: {SLICE_TRAIN}")
+        """DeepSeek-V3 MTP (depth 1): from h_t and emb(token_{t+1}) predict
+        token_{t+2} through one extra transformer block."""
+        mtp = params["mtp"]
+        emb_next = embedding.embed(params["embed"], cfg, tokens[:, 1:])
+        hin = torch.cat([norms.apply(mtp["norm_h"], cfg, h[:, :-1]),
+                         norms.apply(mtp["norm_e"], cfg, emb_next)], dim=-1)
+        hin = torch.einsum("bsd,de->bse", hin, mtp["proj"].to(hin.dtype))
+        hb, _, _ = blocks.apply(mtp["block"], cfg, hin, ("attn", "mlp"),
+                                mode="train", positions=positions[:, :-1])
+        hb = norms.apply(mtp["final_norm"], cfg, hb)
+        ce, _ = _chunked_xent(params, cfg, hb[:, :-1], tokens[:, 2:], None)
+        return ce
 
     # -- serving ---------------------------------------------------------------
     def prefill(self, params, batch, *, window_override=None):
@@ -213,6 +262,40 @@ class Model(nn.Module):
             device=device)
 
 
+def _xent_chunk(params, cfg, h, targets, mask):
+    """Summed cross-entropy, correct predictions and weight of one chunk:
+    h (B, c, d), targets (B, c), mask (B, c) f32."""
+    logits = embedding.logits(params["embed"], cfg, h)      # (B, c, V) f32
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    ce = (logz - gold) * mask
+    correct = (logits.argmax(-1) == targets).float() * mask
+    return ce.sum(), correct.sum().detach(), mask.sum()
+
+
+def _chunked_xent(params, cfg, h, targets, loss_mask, chunk: int = 256):
+    """(mean cross-entropy, accuracy) over `chunk`-position slices of h
+    (B, S, d) against targets (B, S), weighted by loss_mask (B, S) (all
+    ones when None).  With grad enabled each chunk runs under
+    `torch.utils.checkpoint`, so its (B, chunk, V) f32 logits are
+    recomputed in the backward, never kept."""
+    B, S, _ = h.shape
+    mask = (torch.ones((B, S), dtype=torch.float32, device=h.device)
+            if loss_mask is None else loss_mask.float())
+    grad = torch.is_grad_enabled()
+    ces, cors, cnts = [], [], []
+    for c0 in range(0, S, chunk):
+        args = (params, cfg, h[:, c0:c0 + chunk], targets[:, c0:c0 + chunk],
+                mask[:, c0:c0 + chunk])
+        ce, cor, cnt = (checkpoint(_xent_chunk, *args, use_reentrant=False)
+                        if grad else _xent_chunk(*args))
+        ces.append(ce)
+        cors.append(cor)
+        cnts.append(cnt)
+    denom = torch.clamp(torch.stack(cnts).sum(), min=1.0)
+    return torch.stack(ces).sum() / denom, torch.stack(cors).sum() / denom
+
+
 def _layers_from_numpy(cfg: ModelConfig, segments, tensor):
     """The reference's segments (each a tuple of period blocks, stacked on
     a leading `repeats` axis when repeats > 1) unstacked into one dict per
@@ -238,11 +321,17 @@ def params_from_numpy(cfg: ModelConfig, tree: PyTree,
     into one dict per layer (every segment of a multi-segment plan, e.g.
     deepseek's dense layers then its MoE layers, or the hybrid's (rglru,
     rglru, attn) period and its remainder), every leaf a tensor on
-    `device` ("cuda", the default, or "cpu")."""
+    `device` ("cuda", the default, or "cpu").  A 2-byte leaf with no
+    numpy type (bf16: '<V2' raw, or ml_dtypes' bfloat16) becomes a bf16
+    tensor of the same bits."""
     device = resolve_device(device)
 
     def tensor(a):
-        return torch.from_numpy(np.array(a)).to(device)
+        a = np.array(a)
+        if a.dtype.str.endswith("V2"):
+            return torch.from_numpy(a.view(np.int16)).view(
+                torch.bfloat16).to(device)
+        return torch.from_numpy(a).to(device)
 
     out = {"embed": tree_map(tensor, tree["embed"]),
            "layers": _layers_from_numpy(cfg, tree["segments"], tensor),
@@ -256,4 +345,54 @@ def params_from_numpy(cfg: ModelConfig, tree: PyTree,
     for name in ("img_proj", "mtp"):
         if name in tree:
             out[name] = tree_map(tensor, tree[name])
+    return out
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    """A leaf as a host array; bf16 as the raw 2-byte void array the
+    reference's `np.asarray` of a bf16 array writes ('<V2')."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.dtype("V2"))
+    return t.numpy()
+
+
+def _layers_to_numpy(cfg: ModelConfig, layers):
+    """Per-layer dicts restacked into the reference's segments."""
+    segments, i = [], 0
+    for period, repeats in plan_segments(cfg.layer_kinds()):
+        blks = []
+        for b_i in range(len(period)):
+            group = [layers[i + r * len(period) + b_i]
+                     for r in range(repeats)]
+            blks.append(tree_map(_numpy, group[0]) if repeats == 1 else
+                        _stack_trees(group))
+        segments.append(tuple(blks))
+        i += len(period) * repeats
+    return tuple(segments)
+
+
+def _stack_trees(trees):
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack_trees([t[k] for t in trees]) for k in first}
+    return np.stack([_numpy(t) for t in trees])
+
+
+def params_to_numpy(cfg: ModelConfig, params: PyTree) -> PyTree:
+    """The port's tree -> the reference's (numpy leaves): per-layer dicts
+    restacked into `segments` (a tuple of segments, each a tuple of period
+    blocks stacked on a leading `repeats` axis when repeats > 1), the
+    inverse of `params_from_numpy`."""
+    out = {"embed": tree_map(_numpy, params["embed"]),
+           "segments": _layers_to_numpy(cfg, params["layers"]),
+           "final_norm": tree_map(_numpy, params["final_norm"])}
+    if cfg.is_encoder_decoder:
+        enc = params["encoder"]
+        out["encoder"] = {
+            "segments": _layers_to_numpy(encoder_cfg(cfg), enc["layers"]),
+            "final_norm": tree_map(_numpy, enc["final_norm"])}
+    for name in ("img_proj", "mtp"):
+        if name in params:
+            out[name] = tree_map(_numpy, params[name])
     return out

@@ -8,6 +8,13 @@ i's dict — {"k", "v"} (with "pos" in the ring-buffer layout, "k_scale" /
 "v_scale" with int8 codes), {"ckv", "k_rope"} (MLA), {"conv", "state"}
 (SSM), {"conv", "h"} (RG-LRU), plus "cross_k" / "cross_v" in an
 encoder-decoder — the reference's cache tree sliced at that layer.
+
+Recompute: the reference wraps each scanned segment in `jax.checkpoint`
+when `remat` and mode == "train"; here `remat=True` runs each block of a
+train-mode stack under `torch.utils.checkpoint` (non-reentrant) while
+grad is enabled, so a block's activations are recomputed in the backward
+(its attention through K6 again) instead of kept.  Values are unchanged:
+the blocks are deterministic (the MoE top-k is a stable sort).
 """
 from __future__ import annotations
 
@@ -15,6 +22,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.utils import resolve_device
 from repro_torch.models import blocks
@@ -142,22 +150,28 @@ def decoder_apply(params, cfg: ModelConfig, x, *, mode: str, positions,
                   caches=None, cache_pos=None, mask_kind: str = "causal",
                   prefix_len=None, enc_out=None, enc_positions=None,
                   window_override: Optional[int] = None,
-                  return_cache: bool = False, use_rope: bool = True):
+                  return_cache: bool = False, use_rope: bool = True,
+                  remat: bool = False):
     """x: (B,S,d) embeddings -> (hidden (B,S,d), caches, aux).  In decode
     mode the caches are updated in place and returned; in train/prefill
     mode the new caches are returned when `return_cache`, else None.  aux
-    sums the MoE layers' auxiliary values."""
+    sums the MoE layers' auxiliary values.  `remat` recomputes each block
+    in the backward (train mode, grad enabled; see the module docstring)."""
     aux_total = blocks.zero_aux(x.device)
     new_caches = []
+    recompute = remat and mode == "train" and torch.is_grad_enabled()
     for i, (kind, blk) in enumerate(zip(cfg.layer_kinds(), params["layers"])):
-        x, nc, aux = blocks.apply(
-            blk, cfg, x, kind, mode=mode, positions=positions,
-            cache=caches[i] if caches is not None else None,
-            cache_pos=cache_pos, mask_kind=mask_kind,
-            window=_block_window(cfg, kind, window_override),
-            prefix_len=prefix_len, enc_out=enc_out,
-            enc_positions=enc_positions, return_cache=return_cache,
-            use_rope=use_rope)
+        def block(x, blk=blk, kind=kind, cache=(
+                caches[i] if caches is not None else None)):
+            return blocks.apply(
+                blk, cfg, x, kind, mode=mode, positions=positions,
+                cache=cache, cache_pos=cache_pos, mask_kind=mask_kind,
+                window=_block_window(cfg, kind, window_override),
+                prefix_len=prefix_len, enc_out=enc_out,
+                enc_positions=enc_positions, return_cache=return_cache,
+                use_rope=use_rope)
+        x, nc, aux = (checkpoint(block, x, use_reentrant=False) if recompute
+                      else block(x))
         new_caches.append(nc)
         if aux is not None:
             aux_total = {k: aux_total[k] + aux[k] for k in aux_total}

@@ -1120,7 +1120,7 @@ def test_launcher_recovers_its_directory_on_the_next_boot(tmp_path):
 @pytest.mark.parametrize("args,message", [
     (["--http-port", "8080"], "needs --api-keys"),
     (["--qos-rate", "5"], "need --tick-interval"),
-    (["--multipod"], "training and launch slice"),
+    (["--multipod"], "distribution slice of the port (M7b"),
     (["--snapshot-interval", "5"], "needs --snapshot-path"),
 ], ids=["http", "qos", "multipod", "interval"])
 def test_launcher_refuses_what_later_slices_bring(args, message, capsys):
