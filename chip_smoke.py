@@ -123,10 +123,12 @@ line per phase and fails (nonzero exit) on any failed check:
                  (SHA-256 of both mirrors and of the recovered device bank)
                  and K1 launched; times a rotation of the recovered
                  directory.  Then a kill -9 of a writer on the card, whose
-                 recovery must match what it last made durable, and
-                 `python -m repro_torch.launch.serve --snapshot-path D`
-                 (full-width memori-agent) twice on one directory: the
-                 second boot must recover the first's final state.
+                 recovery must match what it last made durable.  Beside
+                 the phase (subprocesses started at its start, joined at
+                 its end): `python -m repro_torch.launch.serve
+                 --snapshot-path D` (full-width memori-agent) twice on one
+                 directory, the second boot recovering the first's final
+                 state, and phase 15's (e).
 8. serve_int8  — the same with `MemoryService(quantize="int8")` (int8 bank,
                  K2 plus the exact f32 rescore) at 2**20 rows, under the
                  hybrid and dense-only plans; K2's candidates and the
@@ -257,14 +259,43 @@ line per phase and fails (nonzero exit) on any failed check:
                  one train step of every assigned arch, reduced, f32,
                  against the plain path (loss and every leaf's gradient).
                  (e) `python -m repro_torch.launch.train --arch
-                 internlm2-1.8b --shape train_4k --steps 3 --host-demo`.
+                 internlm2-1.8b --shape train_4k --steps 3 --host-demo`
+                 (run beside phase 7).
+
+16. dist       — the distribution slice (M7b) on a one-rank NCCL mesh
+                 (DIST_MESH: gloo moves CUDA tensors for its raw
+                 collectives here, but DTensor's functional collectives on
+                 a gloo group of CUDA tensors kill the ranks, and NCCL takes
+                 one rank a card; several ranks are the CPU tests'), in two
+                 parts.  After the sharded phase, on the serve store: its
+                 arrays into `MemoryStore.from_arrays(..., shards=8,
+                 mesh=)` — contexts, token counts and dense ranking
+                 byte-equal to the unmeshed store at B in {1, 8, 64}, hybrid
+                 and dense-only, K1 once a rank an execute, p50 beside the
+                 sharded phase's; the meshed `sharded_topk` against one K1
+                 over the bank; memori-agent (f32, conditioned) step 1's
+                 loss and every leaf's gradient on the mesh against the
+                 one-device step, 5 steps of `build_train_step(mesh)`
+                 beside the one-device step's ms; greedy tokens through
+                 `build_prefill_step` / `build_decode_step` on the mesh
+                 against the Engine's.  After the train phase: deepseek-v3
+                 at full width in bf16 with `mla_absorbed_train` (K6's
+                 D = 576 instance): a 4-layer prefill, every K6 call against
+                 its plain version, the logits against the decompressed
+                 path's (2**-5 of the scale); one train step at 2 layers
+                 (and the MTP block) through FlashAttentionFn; the instance's
+                 ms at G = 128, S = T = 512 beside its plain version, SDPA
+                 and its bound.  The attention phase holds the instance
+                 against its plain version too (ABSORBED_CASES).
 
 Before the phases one line records the host (Python, torch, CUDA, and
 whether `import msgpack` works there: the port does not need it).  The
 last three lines are the kernels' summary, the card's name and power
 limit (as nvidia-smi reports them), and `{"ok": true, "device": {...}}`.
 The script needs the repository's `src/` beside it and a CUDA card; without
-either it exits nonzero before printing any result.
+either it exits nonzero before printing any result.  The dist phase's
+process group lives in a temporary directory's FileStore (no TCP port) and
+is destroyed before the summary.
 
 `--serving-times N` only times the lm phase's serving run N times and
 prints its prefill, decode-step and tokens/s numbers; with `--src DIR` it
@@ -366,8 +397,40 @@ DECODE_TOL = 2e-3
 EMBED_TOL = 2e-5
 
 
+T_IMPORT = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also carries the script's elapsed
+    seconds (`elapsed_s`)."""
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - T_IMPORT}
     print(json.dumps(obj), flush=True)
+
+
+class Background:
+    """`fn(*args)` on a thread of its own (a check that waits on
+    subprocesses, run beside host-bound work); `result()` joins it and
+    returns its value or raises what it raised."""
+
+    def __init__(self, fn, *args):
+        import threading
+        self._out = {}
+
+        def run():
+            try:
+                self._out["value"] = fn(*args)
+            except BaseException as e:          # fail()'s SystemExit too
+                self._out["error"] = e
+
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+
+    def result(self):
+        self._thread.join()
+        if "error" in self._out:
+            raise self._out["error"]
+        return self._out["value"]
 
 
 def fail(msg: str) -> None:
@@ -2640,7 +2703,10 @@ def launcher_twice(src: str, workdir: str) -> dict:
 
 def phase_durability(device, svc, questions, reps: int, src: str) -> dict:
     """The serve phase's f32 store made durable, crashed and recovered on
-    the card; then the kill -9 case and the launcher twice."""
+    the card; then the kill -9 case.  The launcher twice and the train
+    launcher (phase 15's part (e), its result kept in `out["train_launcher"]`)
+    run as subprocesses beside the phase's host-bound work (neither shares
+    a file with it), and are joined before the phase ends."""
     import shutil
     import tempfile
     import numpy as np
@@ -2660,6 +2726,10 @@ def phase_durability(device, svc, questions, reps: int, src: str) -> dict:
     promoted = vi.promote_rows(np.flatnonzero(~vi.resident_mask()))
     svc.store.tiers = None
     work = tempfile.mkdtemp(prefix="memori-durability-")
+    os.makedirs(os.path.join(work, "launcher"))
+    beside = {"launcher": Background(launcher_twice, src,
+                                     os.path.join(work, "launcher")),
+              "train_launcher": Background(train_launcher, src)}
     try:
         data = os.path.join(work, "data")
         # 1. mount: the baseline generation of the populated store
@@ -2886,10 +2956,17 @@ def phase_durability(device, svc, questions, reps: int, src: str) -> dict:
         torch.cuda.empty_cache()
 
         kill9 = crash_case(device, src, os.path.join(work, "kill9"))
-        os.makedirs(os.path.join(work, "launcher"))
-        launcher = launcher_twice(src, os.path.join(work, "launcher"))
     finally:
+        done = {}
+        for key, job in beside.items():     # joined even on a failure, so
+            try:                            # no launcher outlives the phase
+                done[key] = job.result()
+            except BaseException as e:
+                done.setdefault("error", e)
         shutil.rmtree(work, ignore_errors=True)
+    if "error" in done:
+        raise done["error"]
+    launcher = done["launcher"]
     out = {"phase": "durability", "rows": n, "promoted_rows": promoted,
            "baseline": baseline,
            "journal": {
@@ -2909,6 +2986,7 @@ def phase_durability(device, svc, questions, reps: int, src: str) -> dict:
            "launches": launches, "rotation": rotation, "kill9": kill9,
            "launcher": launcher, "gpu": gpu_line()}
     emit(out)
+    out["train_launcher"] = done["train_launcher"]
     return out
 
 
@@ -3061,8 +3139,6 @@ def phase_sharded(device, svc, questions, reps: int) -> dict:
     store = MemoryStore.from_arrays(arrays, HashEmbedder(device=device),
                                     device=device, shards=SHARDS)
     t_from = time.perf_counter() - t0
-    del arrays
-    gc.collect()
     sh = MemoryService(store=store, budget=svc.budgeter.budget)
     sb = store.sharded
     torch.cuda.synchronize()
@@ -3460,6 +3536,9 @@ def phase_sharded(device, svc, questions, reps: int) -> dict:
            "launches": launches,
            "seconds": time.perf_counter() - t_phase, "gpu": gpu_line()}
     emit(out)
+    # the dist phase builds its meshed store from the same arrays (the serve
+    # store answers reads only in between, which leave its snapshot as it is)
+    out["snapshot_arrays"] = arrays
     return out
 
 
@@ -3898,7 +3977,7 @@ def phase_attention(device, reps: int, build_log=None) -> dict:
     gen = torch.Generator(device=device).manual_seed(2)
     res = {name: {"cases": 0, "max_abs_err": {"float32": 0.0,
                                               "bfloat16": 0.0}}
-           for name in (*ATTN_KERNELS, *ATTN_VARIANTS)}
+           for name in (*ATTN_KERNELS, *ATTN_VARIANTS, ABSORBED)}
 
     def note(name, dtype, err):
         r = res[name]
@@ -3990,6 +4069,13 @@ def phase_attention(device, reps: int, build_log=None) -> dict:
         # before, at and past a lap of the T slots, emptied slots), int8
         # codes (and both), the prefix mask (scalar and per row), and
         # cross-attention S != T at whisper's 1500 frames
+        # K6's D = 576 instance (MLA's absorbed latent: G query heads over
+        # one kv head): both CTA shapes, K/V by cp.async and by plain loads
+        # (D = 515), D padded to 576 (520), a window
+        for B, K, G, S, T, D, causal, window, path in ABSORBED_CASES:
+            note(ABSORBED, dtype, check_flash(
+                gen, device, dtype, B, K, G, S, T, D, causal, window,
+                path=path))
         for B, K, G, T, D in variant_shapes:
             lap = [(37 * (b + 3) * 7) % (2 * T) for b in range(B)]
             for window in (0, 20, T):
@@ -5853,10 +5939,11 @@ def train_launcher(src: str) -> dict:
             time.perf_counter() - t, "lines": steps}
 
 
-def phase_train(device, src: str) -> dict:
+def phase_train(device, launcher: dict) -> dict:
     """Phase 15: K6's gradient, memori-agent trained at full width,
     internlm2-1.8b at full size in bf16, every arch's reduced step against
-    the plain path, and the train launcher."""
+    the plain path, and the train launcher's result (`launcher`: it ran
+    beside the durability phase)."""
     import torch
     t0 = time.perf_counter()
     totals = {name: 0 for name in wrappers()}
@@ -5874,13 +5961,464 @@ def phase_train(device, src: str) -> dict:
               "gpu": gpu_line()})
         gc.collect()
         torch.cuda.empty_cache()
-    parts["launcher"] = train_launcher(src)
+    parts["launcher"] = launcher
     out = {"phase": "train", "launches": totals,
            "seconds": time.perf_counter() - t0, "gpu": gpu_line(),
            "allow_tf32": {"matmul": torch.backends.cuda.matmul.allow_tf32,
                           "cudnn": torch.backends.cudnn.allow_tf32}}
     emit({**out, "launcher": parts["launcher"]})
     out["parts"] = parts
+    return out
+
+
+# -- phase 16: dist ------------------------------------------------------------
+
+# The mesh of the dist phase: one NCCL rank on the card.  With torch 2.11 on
+# an H100, gloo moves CUDA tensors for its raw collectives, but DTensor's
+# functional collectives on a 2-rank gloo group of CUDA tensors on one card
+# end both ranks, and NCCL takes one rank a card, so every meshed path runs
+# on a (1, 1) ("data", "model") mesh (PERF.md §6).  Several ranks are
+# covered on the CPU (tests/test_torch_distribution*.py: 4 gloo ranks).
+DIST_BACKEND, DIST_MESH = "nccl", (1, 1)
+DIST_TRAIN_B, DIST_TRAIN_S, DIST_TRAIN_STEPS = 8, 256, 5
+DIST_LOSS_TOL, DIST_LEAF_TOL = 1e-5, 1e-4
+DIST_SERVE_B, DIST_PROMPT, DIST_NEW, DIST_MAX_LEN = 4, 96, 16, 160
+# a greedy divergence from the Engine's tokens must sit at a top-two margin
+# below this (kernel against kernel, other batch shapes, f32)
+DIST_MARGIN_TOL = 1e-3
+# deepseek-v3's absorbed MLA: prefill at the zoo's 4 layers; one train step
+# at 2 layers (the first dense layers, and the MTP block) beside bf16 moments
+MLA_LAYERS, MLA_TRAIN_LAYERS, MLA_B, MLA_S = 4, 2, 2, 64
+# the D = 576 instance timed at B = 1, G = 128 heads over one latent, S = T
+ABSORBED = "flash_attention[d576]"
+ABSORBED_TIME_S = 512
+# (B, K, G, S, T, D, causal, window, (CTA shape, K/V by cp.async)) of the
+# attention phase's D = 576 cases
+ABSORBED_CASES = [
+    (1, 1, 128, 64, 64, 576, True, 0, ("wide", True)),
+    (2, 1, 128, 32, 32, 520, True, 0, ("wide", True)),
+    (1, 1, 16, 40, 40, 576, False, 0, ("narrow", True)),
+    (1, 1, 16, 40, 40, 515, True, 0, ("narrow", False)),
+    (1, 1, 16, 70, 70, 576, True, 16, None)]
+_DIST = {}
+
+
+def dist_mesh():
+    """The dist phase's mesh (DIST_BACKEND, DIST_MESH), made once: a
+    FileStore in a temporary directory, no TCP port."""
+    if "mesh" not in _DIST:
+        import tempfile
+        import torch.distributed as dist
+        from repro_torch.launch.mesh import make_host_mesh
+        _DIST["dir"] = tempfile.TemporaryDirectory()
+        dist.init_process_group(
+            DIST_BACKEND, init_method="file://" + os.path.join(
+                _DIST["dir"].name, "store"), rank=0, world_size=1)
+        _DIST["mesh"] = make_host_mesh(*DIST_MESH, device_type="cuda")
+    return _DIST["mesh"]
+
+
+def close_dist() -> None:
+    if "mesh" in _DIST:
+        import torch.distributed as dist
+        dist.destroy_process_group()
+        _DIST.pop("mesh")
+        _DIST.pop("dir").cleanup()
+
+
+def _full(x):
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+
+def dist_store(device, svc, questions, reps: int, mesh, arrays) -> dict:
+    """The serve store's snapshot arrays (taken by the sharded phase) into
+    `MemoryStore.from_arrays(...,
+    shards=SHARDS, mesh=mesh)`: contexts, token counts and dense ranking
+    byte-equal to the unmeshed store at B in SHARDED_B, hybrid and
+    dense-only, K1 once a rank an execute; the meshed `sharded_topk`
+    against one K1 over the bank."""
+    import numpy as np
+    import torch
+    from torch.distributed.tensor import Shard
+    from repro_torch.core import HashEmbedder, MemoryService, RetrievalPlan
+    from repro_torch.core.store import MemoryStore
+    from repro_torch.core.vector_index import sharded_topk
+    from repro_torch.kernels import topk_mips as tk
+    t0 = time.perf_counter()
+    store = MemoryStore.from_arrays(arrays, HashEmbedder(device=device),
+                                    device=device, shards=SHARDS, mesh=mesh)
+    del arrays
+    msvc = MemoryService(store=store, budget=svc.budgeter.budget)
+    sb = store.sharded
+    sb.rebuild(store.vindex)
+    bank = sb.bank_device()
+    torch.cuda.synchronize()
+    layout = {"seconds": time.perf_counter() - t0,
+              "placements": [str(p) for p in bank.placements],
+              "local_rows": int(bank.to_local().shape[0]),
+              "total_slots": sb.n_slots, "stats_meshed": sb.stats()["meshed"]}
+    if tuple(bank.placements) != (Shard(0),) * mesh.ndim or \
+            not layout["stats_meshed"]:
+        fail(f"dist store: the meshed bank is laid out as {layout}")
+    rng = np.random.default_rng(23)
+    names = sorted(questions)
+
+    def batch(B):
+        reqs = [(PLANTED_NS, PLANTED_QUESTION)]
+        for ns in rng.choice(names, B - 1, replace=False):
+            reqs.append((str(ns), str(rng.choice(questions[ns]))))
+        return reqs
+
+    k1 = wrappers()["topk_mips_masked"]
+    plans = {"hybrid": RetrievalPlan.hybrid(),
+             "dense_only": RetrievalPlan.dense_only()}
+    p50 = {}
+    for B in SHARDED_B:
+        for pname, plan in plans.items():
+            times = {"meshed": [], "unmeshed": []}
+            for rep in range(reps + 1):
+                reqs = batch(B)
+                before = k1.launches
+                got, dense, ms = answers_with_dense(msvc, reqs, plan)
+                if k1.launches - before != mesh.size():
+                    fail(f"dist store {pname} B={B}: K1 launched "
+                         f"{k1.launches - before} times in one execute on "
+                         f"{mesh.size()} rank(s)")
+                with uncounted():
+                    want, want_dense, ms_u = answers_with_dense(svc, reqs,
+                                                                plan)
+                _same_payloads(got, want, f"dist store {pname} B={B}")
+                if not torch.equal(dense[1], want_dense[1]):
+                    fail(f"dist store {pname} B={B}: the dense ranking "
+                         "differs from the unmeshed store's")
+                if rep:
+                    times["meshed"].append(ms)
+                    times["unmeshed"].append(ms_u)
+            p50[f"{pname}_B{B}"] = {k: float(np.median(v))
+                                    for k, v in times.items()}
+    qmat, q_ns = rebuild_queries(msvc, reqs)
+    labels = sb._dtensor(sb._labels_dev, (sb.n_slots,))
+    before = k1.launches
+    s_m, i_m = sharded_topk(qmat, bank, 64, q_ns=q_ns, bank_ns=labels,
+                            mesh=mesh)
+    launched = k1.launches - before
+    with uncounted():
+        s_one, i_one = tk.topk_mips_masked(qmat, sb._bank_dev, q_ns,
+                                           sb._labels_dev, k=64)
+        if not torch.equal(i_m, i_one) or launched != mesh.size():
+            fail(f"dist store: the meshed sharded_topk ({launched} "
+                 "launches) differs from one K1 over the bank")
+        live = i_one >= 0
+        topk_err = (float((s_m - s_one).abs()[live].max())
+                    if live.any() else 0.0)
+    del msvc, store, sb, bank
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"layout": layout, "p50_ms": p50, "sharded_topk": {
+        "Q": int(qmat.shape[0]), "k": 64, "launches": launched,
+        "max_abs_err": topk_err}}
+
+
+def dist_train(device, mesh) -> dict:
+    """memori-agent, f32, from the conditioned weights: step 1's loss and
+    every leaf's gradient on the mesh against the one-device step, then
+    DIST_TRAIN_STEPS steps of `build_train_step(..., mesh)` beside the
+    one-device step's ms."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.common.module import leaves_with_names
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import batches
+    from repro_torch.data.tokenizer import HashTokenizer
+    from repro_torch.launch.sharding import build_train_step, place_batch
+    from repro_torch.models.config import INPUT_SHAPES
+    from repro_torch.models.model_api import Model
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_loop import loss_and_grads
+    cfg = get_config("memori-agent")
+    model = Model(cfg)
+    params = conditioned(model.init_params(
+        torch.Generator(device=device).manual_seed(0)), cfg)
+    shape = dataclasses.replace(INPUT_SHAPES["train_4k"],
+                                global_batch=DIST_TRAIN_B,
+                                seq_len=DIST_TRAIN_S)
+    bm = build_train_step(cfg, shape, mesh)
+    b1 = build_train_step(cfg, shape, device=device)
+    data = batches(DIST_TRAIN_B, DIST_TRAIN_S,
+                   tokenizer=HashTokenizer(cfg.vocab_size), device=device)
+    first = next(data)
+    dparams = bm.model.shard_params(params, mesh, bm.rules)
+    m1, g1 = loss_and_grads(model, params, first)
+    with implicit_replication():
+        mm, gm = loss_and_grads(bm.model, dparams, place_batch(first, mesh))
+    loss_err = abs(float(_full(mm["loss"])) - float(m1["loss"])) / abs(
+        float(m1["loss"]))
+    if not loss_err <= DIST_LOSS_TOL:
+        fail(f"dist train: step-1 loss {float(_full(mm['loss']))} vs "
+             f"{float(m1['loss'])} one-device ({loss_err})")
+    leaf_err = 0.0
+    for (path, a), (_, b) in zip(leaves_with_names(gm),
+                                 leaves_with_names(g1)):
+        scale = max(float(b.abs().max()), 1e-30)
+        err = float((_full(a) - b).abs().max()) / scale
+        if not err <= DIST_LEAF_TOL:
+            fail(f"dist train: {path} gradient differs by {err} of its "
+                 f"largest |g|")
+        leaf_err = max(leaf_err, err)
+    del gm, g1
+    walls = {"meshed": [], "one_device": []}
+    losses = []
+    for key, bundle, p in (("meshed", bm, dparams), ("one_device", b1,
+                                                     params)):
+        state = opt.init(bundle.opt, p)
+        for _ in range(DIST_TRAIN_STEPS):
+            b = next(data)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            p, state, m = bundle.fn(p, state, b)
+            torch.cuda.synchronize()
+            walls[key].append((time.perf_counter() - t) * 1e3)
+            if key == "meshed":
+                losses.append(float(_full(m["loss"])))
+        del p, state
+    if not all(np.isfinite(losses)):
+        fail(f"dist train: losses {losses}")
+    del params, dparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"B": DIST_TRAIN_B, "S": DIST_TRAIN_S,
+            "step1_loss_rel_err": loss_err, "max_leaf_rel_err": leaf_err,
+            "losses": losses,
+            "step_ms_p50": {k: float(np.median(v[1:]))
+                            for k, v in walls.items()},
+            "step_ms": walls}
+
+
+def dist_serve(device, mesh) -> dict:
+    """memori-agent's greedy tokens through `build_prefill_step` /
+    `build_decode_step` on the mesh against the Engine's for the same
+    prompts (cut to DIST_PROMPT tokens each)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokenizer import HashTokenizer
+    from repro_torch.launch.sharding import (build_decode_step,
+                                             build_prefill_step)
+    from repro_torch.models.config import INPUT_SHAPES
+    from repro_torch.models.model_api import Model
+    from repro_torch.serving.engine import Engine
+    from repro_torch.serving.requests import Request
+    cfg = get_config("memori-agent")
+    model = Model(cfg)
+    params = conditioned(model.init_params(
+        torch.Generator(device=device).manual_seed(0)), cfg)
+    tok = HashTokenizer(cfg.vocab_size)
+    prompts = [tok.encode(p)[:DIST_PROMPT]
+               for p in lm_prompts(tok, DIST_SERVE_B)]
+    engine = Engine(model, params, max_len=DIST_MAX_LEN,
+                    slots=DIST_SERVE_B, tokenizer=tok)
+    margins = {}
+    with uncounted():
+        want, _, _, _ = greedy_run(
+            engine, [Request(list(p), DIST_NEW) for p in prompts], margins)
+    del engine
+    pre = build_prefill_step(cfg, dataclasses.replace(
+        INPUT_SHAPES["prefill_32k"], global_batch=DIST_SERVE_B,
+        seq_len=DIST_PROMPT), mesh)
+    dec = build_decode_step(cfg, dataclasses.replace(
+        INPUT_SHAPES["decode_32k"], global_batch=DIST_SERVE_B,
+        seq_len=DIST_MAX_LEN), mesh)
+    dparams = pre.model.shard_params(params, mesh, pre.rules)
+    toks = torch.tensor(prompts, dtype=torch.int32, device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = pre.fn(dparams, {"tokens": toks})
+    caches = dec.model.prepare_decode_caches(caches, DIST_PROMPT,
+                                             DIST_MAX_LEN)
+    nxt = _full(logits)[:, -1].argmax(-1).to(torch.int32)
+    out = [nxt]
+    for t in range(DIST_NEW - 1):
+        pos = torch.full((DIST_SERVE_B,), DIST_PROMPT + t, dtype=torch.int32,
+                         device=device)
+        logits, caches = dec.fn(dparams, nxt[:, None], caches, pos)
+        nxt = _full(logits)[:, -1].argmax(-1).to(torch.int32)
+        out.append(nxt)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = torch.stack(out, 1).tolist()
+    diverged = 0
+    for i, (g, w) in enumerate(zip(got, want)):
+        w = w.tokens[:DIST_NEW]
+        if g != w:
+            j = next(j for j, (a, b) in enumerate(zip(g, w)) if a != b)
+            if not margins.get((i, j), 0.0) < DIST_MARGIN_TOL:
+                fail(f"dist serve: request {i} token {j}: {g[j]} on the "
+                     f"mesh, {w[j]} from the Engine (margin "
+                     f"{margins.get((i, j))})")
+            diverged += 1
+    del params, dparams, caches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"requests": DIST_SERVE_B, "prompt": DIST_PROMPT,
+            "new_tokens": DIST_NEW, "equal_to_engine": DIST_SERVE_B - diverged,
+            "diverged_at_near_tie": diverged, "wall_s": wall}
+
+
+def absorbed_times(device, reps: int) -> dict:
+    """The D = 576 instance at deepseek's absorbed shape (G = 128 heads over
+    one latent kv head, S = T = ABSORBED_TIME_S, bf16, causal): ms a call,
+    its plain version's, `scaled_dot_product_attention`'s on the same
+    inputs (one library call; its fused backends stop at D = 256) and the
+    bound (bf16 operations at the tensor-core rate)."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device=device).manual_seed(5)
+    S, G, D = ABSORBED_TIME_S, 128, 576
+    q = _rand((1, 1, G, S, D), gen, device, torch.bfloat16)
+    k = _rand((1, 1, S, D), gen, device, torch.bfloat16)
+    v = _rand((1, 1, S, D), gen, device, torch.bfloat16)
+    with uncounted():
+        ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=True), reps)
+        plain_ms = time_ms(lambda: fa.flash_attention_ref(q, k, v,
+                                                          causal=True), reps)
+        lib_ms = time_ms(lambda: sdpa_gqa(q, k, v, is_causal=True), reps)
+        err = float((fa.flash_attention(q, k, v, causal=True).float()
+                     - fa.flash_attention_ref(q, k, v, causal=True).float()
+                     ).abs().max())
+    tol = ATTN_TOL["bfloat16"] * max(1.0, float(v.abs().max()))
+    if not err <= tol:
+        fail(f"dist mla: the D = 576 instance at the timed shape (G {G}, "
+             f"S = T {S}) is {err} from its plain version > {tol}")
+    bound, by = attention_bound_ms(
+        G * flash_pairs(S, S, True, 0),
+        (q.numel() + 2 * k.numel() + q.numel()) * 2, D, BF16_FLOPS_PER_S)
+    return {"shape": {"B": 1, "K": 1, "G": G, "S": S, "T": S, "D": D,
+                      "dtype": "bfloat16", "causal": True},
+            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": bound, "bound_by": by, "max_abs_err": err,
+            "tolerance": tol}
+
+
+def dist_mla(device, reps: int) -> dict:
+    """deepseek-v3 at full width in bf16 with `mla_absorbed_train`: a
+    prefill at MLA_LAYERS layers, every K6 call (the D = 576 instance)
+    against its plain version and the logits against the decompressed
+    path's; one train step at MLA_TRAIN_LAYERS layers through
+    FlashAttentionFn at D = 576 (finite loss and gradient norm)."""
+    import dataclasses
+    import math
+    import torch
+    from repro_torch.data.tokenizer import HashTokenizer
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.model_api import Model
+    from repro_torch.training import optimizer as opt
+    from repro_torch.training.train_loop import TrainConfig, make_train_step
+    out = {}
+    cfg = dataclasses.replace(zoo_config("deepseek-v3-671b"),
+                              num_layers=MLA_LAYERS, mla_absorbed_train=True)
+    model = Model(cfg)
+    params = unit_scores(model.init_params(
+        torch.Generator(device=device).manual_seed(21)), cfg)
+    tok = HashTokenizer(cfg.vocab_size)
+    toks = torch.tensor([tok.encode(p)[:MLA_S]
+                         for p in lm_prompts(tok, MLA_B)],
+                        dtype=torch.int32, device=device)
+    errs = []
+    before = fa.absorbed_launches.launches
+    with torch.no_grad(), checked_attention(errs):
+        logits, _ = model.prefill(params, {"tokens": toks})
+    launched = fa.absorbed_launches.launches - before
+    with torch.no_grad(), uncounted():
+        plain, _ = Model(dataclasses.replace(
+            cfg, mla_absorbed_train=False)).prefill(params,
+                                                    {"tokens": toks})
+    scale = float(plain.float().abs().max())
+    rel = float((logits.float() - plain.float()).abs().max()) / scale
+    if launched != MLA_LAYERS:
+        fail(f"dist mla: the D = 576 instance launched {launched} times in "
+             f"a {MLA_LAYERS}-layer prefill")
+    bad = [e for e in errs if not e[1] <= e[2]]
+    if bad or not errs:
+        fail(f"dist mla: K6 calls against their plain version: {bad or errs}")
+    if not rel <= ZOO_REL_TOL:
+        fail(f"dist mla: absorbed logits {rel} of the scale from the "
+             f"decompressed path's > {ZOO_REL_TOL}")
+    out["prefill"] = {"layers": MLA_LAYERS, "B": MLA_B, "S": MLA_S,
+                      "k6_calls_checked": len(errs),
+                      "k6_max_abs_err": max(e[1] for e in errs),
+                      "d576_launches": launched,
+                      "logits_rel_err_vs_decompressed": rel}
+    del params, model, plain, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    tcfg = dataclasses.replace(cfg, num_layers=MLA_TRAIN_LAYERS)
+    tmodel = Model(tcfg)
+    params = unit_scores(tmodel.init_params(
+        torch.Generator(device=device).manual_seed(21)), tcfg)
+    ocfg = opt.OptimizerConfig(state_dtype="bfloat16")
+    step = make_train_step(tmodel, TrainConfig(opt=ocfg))
+    state = opt.init(ocfg, params)
+    before = fa.absorbed_launches.launches
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    params, state, m = step(params, state, {"tokens": toks})
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t) * 1e3
+    launched_t = fa.absorbed_launches.launches - before
+    loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+    if not (math.isfinite(loss) and math.isfinite(gnorm)) or launched_t < 1:
+        fail(f"dist mla train: loss {loss}, grad norm {gnorm}, "
+             f"{launched_t} D = 576 launches")
+    out["train"] = {"layers": MLA_TRAIN_LAYERS, "mtp_block": True,
+                    "B": MLA_B, "S": MLA_S, "loss": loss, "grad_norm": gnorm,
+                    "d576_launches": launched_t, "step_ms": step_ms,
+                    "peak_bytes": torch.cuda.max_memory_allocated()}
+    del params, state, step, tmodel
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["times"] = absorbed_times(device, reps)
+    out["launches"] = launched + launched_t
+    return out
+
+
+def phase_dist(device, svc, questions, reps: int, sharded) -> dict:
+    """Phase 16, part 1: the meshed store, the meshed train step and the
+    meshed prefill/decode on the DIST_MESH mesh (the launch counters reset
+    before each part's path)."""
+    import torch
+    t0 = time.perf_counter()
+    mesh = dist_mesh()
+    out = {"backend": DIST_BACKEND, "mesh": list(DIST_MESH),
+           "ranks": mesh.size()}
+    reset_counts()
+    out["store"] = dist_store(device, svc, questions, reps, mesh,
+                              sharded.pop("snapshot_arrays"))
+    out["store"]["sharded_phase_p50_ms"] = sharded["p50_ms"]
+    out["launches"] = counts()
+    emit({"phase": "dist", "part": "store", **out["store"],
+          "gpu": gpu_line()})
+    out["train"] = dist_train(device, mesh)
+    emit({"phase": "dist", "part": "train", **out["train"],
+          "gpu": gpu_line()})
+    out["serve"] = dist_serve(device, mesh)
+    emit({"phase": "dist", "part": "serve", **out["serve"],
+          "gpu": gpu_line()})
+    out["seconds"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_dist_mla(device, reps: int) -> dict:
+    """Phase 16, part 2 (after the zoo, when the card is free): deepseek's
+    absorbed MLA through the D = 576 instance."""
+    t0 = time.perf_counter()
+    out = dist_mla(device, reps)
+    out["seconds"] = time.perf_counter() - t0
+    emit({"phase": "dist", "part": "mla", **out, "gpu": gpu_line()})
     return out
 
 
@@ -5935,6 +6473,9 @@ def main(argv=None) -> int:
     sharded = phase_sharded(device, svc, questions, reps)
     gc.collect()
     torch.cuda.empty_cache()
+    dist_part = phase_dist(device, svc, questions, reps, sharded)
+    gc.collect()
+    torch.cuda.empty_cache()
     durable = phase_durability(device, svc, questions, reps,
                                os.path.abspath(args.src))
     del svc, questions
@@ -5954,7 +6495,11 @@ def main(argv=None) -> int:
     zoo = phase_zoo(device, args.reps)
     gc.collect()
     torch.cuda.empty_cache()
-    train = phase_train(device, os.path.abspath(args.src))
+    train = phase_train(device, durable["train_launcher"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist_mla_part = phase_dist_mla(device, args.reps)
+    close_dist()
     path_launches = {"topk_mips_masked": serve["launches"],
                      "topk_mips_quant_masked": serve8["launches"],
                      "topk_mips": ops["launches"],
@@ -5975,6 +6520,8 @@ def main(argv=None) -> int:
                          + durable["launches"][name])
         if name in ("topk_mips_masked", "topk_mips"):  # sharded store,
             launches += sharded["launches"][name]      # sharded_topk
+        if name == "topk_mips_masked":     # the meshed store
+            launches += dist_part["launches"][name]
         if launches < 1:
             fail(f"{name} was not launched on its path")
         summary.append({
@@ -6009,6 +6556,16 @@ def main(argv=None) -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
+    t = dist_mla_part["times"]
+    summary.append({
+        "name": ABSORBED, "route": "cuda",
+        "source": ATTN_KERNELS["flash_attention"][1],
+        "replaces": ATTN_KERNELS["flash_attention"][0],
+        "launches": dist_mla_part["launches"],
+        "max_abs_err": max(*attn[ABSORBED]["max_abs_err"].values(),
+                           t["max_abs_err"]),
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     emit({"seconds": time.perf_counter() - t_start})
     emit({"kernels": summary})
     print(gpu_line(), flush=True)

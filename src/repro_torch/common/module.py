@@ -111,3 +111,33 @@ def materialize(generator: torch.Generator, spec_tree: PyTree,
     """Spec tree -> tensor tree on the generator's device."""
     return tree_map(lambda s: _init_leaf(generator, s, param_dtype),
                     spec_tree)
+
+
+# ---------------------------------------------------------------------------
+# Partitioning of spec trees (the reference's `axes_of`, `spec_tree_to_
+# pspecs`, `shardings_of`, `abstract`)
+# ---------------------------------------------------------------------------
+
+def axes_of(spec_tree: PyTree) -> PyTree:
+    return tree_map(lambda s: s.axes, spec_tree)
+
+
+def spec_tree_to_pspecs(spec_tree: PyTree, rules) -> PyTree:
+    """Spec tree -> tree of `rules.spec_for` mappings (divisibility-
+    guarded), the reference's PartitionSpec tree."""
+    return tree_map(lambda s: rules.spec_for(s.axes, s.shape), spec_tree)
+
+
+def shardings_of(spec_tree: PyTree, rules) -> PyTree:
+    """Spec tree -> tree of DTensor placements on `rules.mesh`."""
+    return tree_map(lambda s: rules.placements_for(s.axes, s.shape),
+                    spec_tree)
+
+
+def abstract(spec_tree: PyTree, param_dtype: torch.dtype = torch.float32,
+             device="meta") -> PyTree:
+    """Spec tree -> tensors with no storage (the meta device), the
+    reference's ShapeDtypeStruct tree."""
+    return tree_map(lambda s: torch.empty(s.shape, dtype=s.dtype or
+                                          param_dtype, device=device),
+                    spec_tree)

@@ -57,7 +57,6 @@ import torch
 
 from repro_torch.checkpoint.replication import (DirectorySink,
                                                 SegmentShipper, open_wal)
-from repro_torch.common.utils import SLICE_M7B
 from repro_torch.core.extraction import Extractor, Message
 from repro_torch.core.store import MemoryStore
 from repro_torch.core.tiering import TierPolicy
@@ -115,10 +114,13 @@ class LifecycleRuntime:
         # cross-shard commit records); unsharded stores keep the plain log.
         # Autodetect covers mounting over a directory whose layout is known
         # only from disk.
+        # on a mesh only rank 0 journals and snapshots; the other ranks
+        # apply the same writes and leave the directory to it
+        self.mirror = bool(data_dir) and not store.durable_writer
         self.wal = (open_wal(data_dir,
                              shards=(store.shards if store.shards > 1
                                      else None))
-                    if data_dir else None)
+                    if data_dir and not self.mirror else None)
         self.shipper: Optional[SegmentShipper] = None
         # the stream the read path runs on (the building thread's): the
         # daemon's device work goes there (see the module docstring)
@@ -203,8 +205,6 @@ class LifecycleRuntime:
         snapshot is.  `shards=None` autodetects the on-disk WAL layout, so a
         sharded directory recovers into a sharded store without the caller
         restating the topology."""
-        if mesh is not None:
-            raise NotImplementedError(f"mesh= comes with {SLICE_M7B}")
         wal = open_wal(data_dir, shards=shards)
         n_shards = getattr(wal, "n_shards", 1)
         store, after = None, 0
@@ -213,7 +213,8 @@ class LifecycleRuntime:
                 store = MemoryStore.restore(path, embedder,
                                             extractor=extractor,
                                             tokenizer=tokenizer,
-                                            device=device, shards=n_shards)
+                                            device=device, shards=n_shards,
+                                            mesh=mesh)
                 after = wal_through
                 break
             except Exception as e:           # fall back a generation
@@ -225,7 +226,7 @@ class LifecycleRuntime:
         if store is None:
             store = MemoryStore(embedder, extractor, dim=dim,
                                 tokenizer=tokenizer, device=device,
-                                shards=n_shards)
+                                shards=n_shards, mesh=mesh)
         poison_file = None
         for seq, record in wal.replay_records(after_seq=after):
             try:
@@ -249,7 +250,11 @@ class LifecycleRuntime:
         # generation so nothing recovered lives only in memory.
         dead_from = (poison_file if poison_file is not None
                      else wal.replay_stopped_seq)
-        if dead_from is not None:
+        if mesh is not None and mesh.size() > 1:
+            # every rank has read the directory before rank 0 changes it
+            import torch.distributed as dist
+            dist.barrier()
+        if dead_from is not None and store.durable_writer:
             wal.quarantine_from(dead_from)
         get_telemetry().event("recovery", dir=data_dir,
                               snapshot_through=after,
@@ -269,6 +274,8 @@ class LifecycleRuntime:
         Local fsync stays the durability point; the follower is async
         replication whose lag is the disaster-recovery RPO.  Returns the
         shipper (counters: shipped/failed/queued)."""
+        if self.mirror:
+            return None              # rank 0 of the mesh ships the segments
         if self.wal is None:
             raise RuntimeError("attach_follower needs a durable data_dir")
         if isinstance(sink, str):
@@ -411,6 +418,11 @@ class LifecycleRuntime:
     def rotate(self) -> dict:
         """Flush, write a full snapshot atomically, retire old generations,
         truncate covered WAL segments."""
+        if self.mirror:              # rank 0 of the mesh writes the files
+            with self.lock:
+                self.flush()
+                self.counters["rotations"] += 1
+            return {"written_by": "rank 0 of the mesh"}
         if self.wal is None:
             raise RuntimeError("rotate() needs a durable data_dir")
         tel = get_telemetry()

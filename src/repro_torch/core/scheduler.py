@@ -79,6 +79,7 @@ from typing import List, Optional, Sequence, Union
 
 import torch
 
+from repro_torch.common.utils import require_one_rank
 from repro_torch.core.admission import (AdmissionController, AdmissionError,
                                         AdmissionPolicy, tenant_of)
 from repro_torch.core.api import (CompactRequest, EvictRequest,
@@ -110,6 +111,7 @@ class MemoryScheduler:
                  start: bool = True, mount: bool = True,
                  admission: Union[AdmissionController, AdmissionPolicy,
                                   None] = None):
+        require_one_rank(service, "MemoryScheduler")
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
         if flush_writes not in ("tick", "defer"):

@@ -13,8 +13,18 @@ per-shard capacity `C`, so the flattened `(S*C, D)` bank divides evenly
 into whole shards' slabs.  On one card the slabs are views of one buffer:
 the `(S*C, D)` f32 bank, the `(S*C,)` i32 labels (-1 = empty, tombstone or
 down) and the `(S*C,)` i32 slot -> global row map live on the store's
-device, and `search` is one K1 launch over all of them.  Placing the slabs
-over several GPUs (`mesh=`) comes with M7b, on a torch `DeviceMesh`.
+device, and `search` is one K1 launch over all of them.
+
+On a `DeviceMesh` (`mesh=`, one process per device, every rank running the
+same program and so holding the same host mirrors) the slot range splits
+evenly over the mesh's devices, as the reference's "bank" rules lay it
+out: the rank at position r of the flattened ("pod", "data", "model")
+order holds slots [r*R, (r+1)*R), R = S*C / devices, of the bank and its
+labels on its own device, and uploads only those; the slot -> row map is
+held whole on every rank.  Writes touch a rank's device slab only where
+it owns the slot.  `search` is the meshed `sharded_topk`: K1 on each
+rank's slab, the candidates all-gathered and re-ranked alike on every
+rank.  `bank_device()` is then a DTensor, Shard(0) over the mesh.
 
 Three host arrays mirror the device state: the slab-packed bank, the
 per-slot namespace labels and the slot -> global row map.  Search returns
@@ -44,9 +54,9 @@ import contextlib
 import numpy as np
 import torch
 
-from repro_torch.common.utils import (SLICE_M7B, next_pow2, resolve_device,
-                                      to_device)
-from repro_torch.core.vector_index import _search_device
+from repro_torch.common.utils import next_pow2, resolve_device, to_device
+from repro_torch.core.vector_index import (_search_device, mesh_slab,
+                                           sharded_topk)
 
 MIN_SHARD_CAPACITY = 64
 
@@ -55,8 +65,7 @@ class ShardedBank:
     def __init__(self, dim: int, n_shards: int, mesh=None, device="cuda"):
         if n_shards < 2:
             raise ValueError("ShardedBank needs n_shards >= 2")
-        if mesh is not None:
-            raise NotImplementedError(f"mesh= comes with {SLICE_M7B}")
+        self.mesh = mesh
         self.dim = dim
         self.n_shards = int(n_shards)
         self.device = resolve_device(device)
@@ -90,6 +99,18 @@ class ShardedBank:
 
     def shard_of(self, ns_id: int) -> int:
         return int(ns_id) % self.n_shards
+
+    def _local_range(self):
+        """[lo, hi): the slots this rank's device slab holds (all of them
+        with no mesh)."""
+        if self.mesh is None:
+            return 0, self.n_slots
+        r, n, _ = mesh_slab(self.mesh)
+        if self.n_slots % n:
+            raise ValueError(f"{self.n_slots} slots do not divide over {n} "
+                             "mesh devices")
+        R = self.n_slots // n
+        return r * R, (r + 1) * R
 
     def _on_stream(self):
         return (torch.cuda.stream(self._stream) if self._stream is not None
@@ -217,19 +238,39 @@ class ShardedBank:
         self._slot_of_row[rows] = -1
         if self._bank_dev is not None:
             with self._on_stream():
-                ids = to_device(slots, self.device)
-                self._bank_dev.index_fill_(0, ids, 0)
-                self._labels_dev.index_fill_(0, ids, -1)
+                ids, _, local = self._upload_slots(slots)
                 self._rows_dev.index_fill_(0, ids, -1)
+                if local is not None:
+                    self._bank_dev.index_fill_(0, local, 0)
+                    self._labels_dev.index_fill_(0, local, -1)
+
+    def _upload_slots(self, slots):
+        """(ids, mine, local): the slot ids on the device (for the row map,
+        which every rank holds whole), the mask of the slots this rank's
+        slab holds (None: all of them) and their ids within the slab (None:
+        none).  Off a mesh the slab is the whole bank and `ids` serves for
+        all three writes."""
+        ids = to_device(slots, self.device)
+        if self.mesh is None:
+            return ids, None, ids
+        lo, hi = self._local_range()
+        mine = (slots >= lo) & (slots < hi)
+        if not mine.any():
+            return ids, mine, None
+        return ids, mine, to_device(slots[mine] - lo, self.device)
 
     def _scatter_dev(self, slots, vecs, ns, rows) -> None:
+        ns = np.asarray(ns, np.int32)
         with self._on_stream():
-            ids = to_device(slots, self.device)
-            self._bank_dev.index_copy_(0, ids, to_device(vecs, self.device))
-            self._labels_dev.index_copy_(
-                0, ids, to_device(np.asarray(ns, np.int32), self.device))
+            ids, mine, local = self._upload_slots(slots)
             self._rows_dev.index_copy_(
                 0, ids, to_device(rows.astype(np.int32), self.device))
+            if local is None:
+                return
+            if mine is not None:
+                vecs, ns = vecs[mine], ns[mine]
+            self._bank_dev.index_copy_(0, local, to_device(vecs, self.device))
+            self._labels_dev.index_copy_(0, local, to_device(ns, self.device))
 
     # -- shard liveness ------------------------------------------------------
     def mark_down(self, shard: int) -> None:
@@ -242,9 +283,10 @@ class ShardedBank:
             return
         self.down = self.down | {shard}
         if self._labels_dev is not None:
-            with self._on_stream():
-                self._labels_dev[shard * self.C: (shard + 1) * self.C] \
-                    .fill_(-1)
+            lo, hi = self._slab_here(shard)
+            if lo < hi:
+                with self._on_stream():
+                    self._labels_dev[lo:hi].fill_(-1)
 
     def mark_up(self, shard: int) -> None:
         """Bring a shard back: rewrite its label slab from host truth (a
@@ -252,11 +294,22 @@ class ShardedBank:
         if shard not in self.down:
             return
         if self._labels_dev is not None:
-            lo, hi = shard * self.C, (shard + 1) * self.C
-            with self._on_stream():
-                self._labels_dev[lo:hi].copy_(
-                    to_device(self._labels_host[lo:hi], self.device))
+            lo, hi = self._slab_here(shard)
+            if lo < hi:
+                base = self._local_range()[0]
+                with self._on_stream():
+                    self._labels_dev[lo:hi].copy_(to_device(
+                        self._labels_host[base + lo: base + hi],
+                        self.device))
         self.down = self.down - {shard}
+
+    def _slab_here(self, shard: int):
+        """[lo, hi) of shard's slab within this rank's device slab (empty
+        when the rank holds none of it)."""
+        base, top = self._local_range()
+        lo = max(shard * self.C, base)
+        hi = min((shard + 1) * self.C, top)
+        return lo - base, max(lo, hi) - base
 
     # -- device residency ----------------------------------------------------
     def _effective_labels(self) -> np.ndarray:
@@ -271,16 +324,26 @@ class ShardedBank:
     def _ensure_device(self) -> None:
         if self._bank_dev is not None:
             return
+        lo, hi = self._local_range()
         with self._on_stream():
-            self._labels_dev = to_device(self._effective_labels(),
+            self._labels_dev = to_device(self._effective_labels()[lo:hi],
                                          self.device)
             self._rows_dev = to_device(self._rows_host, self.device)
-            self._bank_dev = to_device(self._bank_host, self.device)
+            self._bank_dev = to_device(self._bank_host[lo:hi], self.device)
+
+    def _dtensor(self, local, shape):
+        from torch.distributed.tensor import DTensor
+        return DTensor.from_local(local, self.mesh, mesh_slab(self.mesh)[2],
+                                  run_check=False, shape=shape,
+                                  stride=local.stride())
 
     def bank_device(self) -> torch.Tensor:
-        """The live (S*C, D) device bank."""
+        """The live (S*C, D) device bank: on a mesh, a DTensor sharded
+        over every mesh dim (each rank's slab)."""
         self._ensure_device()
-        return self._bank_dev
+        if self.mesh is None:
+            return self._bank_dev
+        return self._dtensor(self._bank_dev, (self.n_slots, self.dim))
 
     # -- search --------------------------------------------------------------
     def search(self, queries, q_ns, k: int):
@@ -305,8 +368,14 @@ class ShardedBank:
         q_ns = torch.as_tensor(q_ns, dtype=torch.int32).to(
             self.device).contiguous()
         kk = min(k, self.n_slots)
-        s, i = _search_device(self._bank_dev, self._labels_dev, queries,
-                              q_ns, self.n_slots, k=kk, uniform=False)
+        if self.mesh is not None:
+            s, i = sharded_topk(queries, self.bank_device(), kk, q_ns=q_ns,
+                                bank_ns=self._dtensor(self._labels_dev,
+                                                      (self.n_slots,)),
+                                mesh=self.mesh)
+        else:
+            s, i = _search_device(self._bank_dev, self._labels_dev, queries,
+                                  q_ns, self.n_slots, k=kk, uniform=False)
         if kk < k:
             s = torch.nn.functional.pad(s, (0, k - kk), value=-float("inf"))
             i = torch.nn.functional.pad(i, (0, k - kk), value=-1)
@@ -329,6 +398,6 @@ class ShardedBank:
             "per_shard_rows": [int(c) for c in self._count],
             "down": sorted(self.down),
             "stale": self.stale,
-            "meshed": False,
+            "meshed": self.mesh is not None,
             **self.counters,
         }

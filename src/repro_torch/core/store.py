@@ -53,7 +53,7 @@ import torch
 
 from repro_torch.checkpoint import io as ckpt_io
 from repro_torch.checkpoint import packing
-from repro_torch.common.utils import SLICE_M7B, resolve_device
+from repro_torch.common.utils import resolve_device
 from repro_torch.core.bm25 import BM25Index
 from repro_torch.core.extraction import Extractor, Message, RuleExtractor
 from repro_torch.core.graph import (EDGE_TYPE_IDS, GraphInvariantError,
@@ -113,9 +113,11 @@ class MemoryStore:
             raise ValueError(
                 "sharded placement and the quantized device bank are "
                 "mutually exclusive (the shard slabs hold f32 rows)")
-        if mesh is not None:
-            raise NotImplementedError(f"mesh= comes with {SLICE_M7B}")
         self.shards = int(shards)
+        # a DeviceMesh places the shard slabs over its devices (one process
+        # a device; core/shards.py); the unsharded index stays on `device`,
+        # as the reference keeps its VectorIndex off the mesh
+        self.mesh = mesh
         self.embedder = embedder
         self.extractor = extractor or RuleExtractor()
         self.tokenizer = tokenizer or default_tokenizer()
@@ -130,7 +132,7 @@ class MemoryStore:
         # VectorIndex host mirror stays the ground truth for WAL, snapshot
         # and compaction either way
         self.sharded: Optional[ShardedBank] = (
-            ShardedBank(dim, self.shards, device=self.device)
+            ShardedBank(dim, self.shards, mesh=mesh, device=self.device)
             if self.shards > 1 else None)
         self.bm25 = BM25Index(tokenizer=self.tokenizer, device=self.device)
         self.graph = MemoryGraph(device=self.device)
@@ -535,8 +537,18 @@ class MemoryStore:
         `io.save` — the lifecycle runtime's rotation uses both, so a crash
         mid-snapshot never clobbers the previous generation.  Returns bytes
         written."""
+        if not self.durable_writer:      # rank 0 of the mesh writes it
+            self.flush()
+            return 0
         return ckpt_io.save(path, self.snapshot_arrays(), atomic=atomic,
                             fsync=fsync)
+
+    @property
+    def durable_writer(self) -> bool:
+        """Whether this process writes the store's durable files: always
+        with no mesh; on a mesh only its rank 0 (every rank holds the same
+        host state, so one copy is written and every rank reads it)."""
+        return self.mesh is None or not any(self.mesh.get_coordinate())
 
     def snapshot_arrays(self) -> Dict[str, np.ndarray]:
         """The flat {name: ndarray} dict `snapshot` writes (and `from_arrays`

@@ -164,18 +164,23 @@ class TierManager:
 
     def _demote_coldest(self, over: int, shielded: Set[int]):
         """Demote whole namespaces, coldest (lowest decayed score) first,
-        until `over` resident rows have left the device.  One O(n) host
-        scan builds the per-namespace resident row lists — tick-time cost,
-        never on the retrieve path."""
+        until `over` resident rows have left the device.  One host sort
+        builds the per-namespace resident row lists — tick-time cost, never
+        on the retrieve path."""
         vi = self.vindex
         m = vi.n
         if m == 0:
             return 0, 0
         ns = vi.row_namespaces()
         live = vi.alive() & vi.resident_mask()
-        rows_by_ns: Dict[int, np.ndarray] = {}
-        for ns_id in np.unique(ns[live]):
-            rows_by_ns[int(ns_id)] = np.where(live & (ns == ns_id))[0]
+        # the live rows grouped by namespace with one stable sort (each
+        # group's rows ascending, the groups by ascending id)
+        idx = np.flatnonzero(live)
+        keys = ns[idx]
+        perm = np.argsort(keys, kind="stable")
+        ids, starts = np.unique(keys[perm], return_index=True)
+        rows_by_ns: Dict[int, np.ndarray] = {
+            int(i): g for i, g in zip(ids, np.split(idx[perm], starts[1:]))}
         now = self._clock()
         order = sorted(
             (nid for nid in rows_by_ns

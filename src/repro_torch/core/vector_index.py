@@ -39,7 +39,7 @@ is demoted.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -606,39 +606,10 @@ class VectorIndex:
         return self._to_host(s, i, k, kk)
 
 
-def sharded_topk(queries, bank, k: int, n_shards: int, *, q_ns=None,
-                 bank_ns=None):
-    """Top-k over a bank of `n_shards` equal slabs (shard s owns rows
-    [s*R, (s+1)*R)): a local top-k of `k_local = min(k, R)` on each slab —
-    K1 with the slab's labels when `q_ns`/`bank_ns` are given (both or
-    neither), K3 otherwise —, its ids offset into global rows (-1
-    sentinels kept), then the lists concatenated in shard order and
-    re-ranked to k by a stable descending sort, so ties rank by global row
-    as in one search over the whole bank.  Returns (scores (Q, k) f32, ids
-    (Q, k) i32), equal to one K1/K3 over the whole bank; an unfilled slot
-    is (NEG_INF, -1)."""
-    N = bank.shape[0]
-    if n_shards < 1 or N % n_shards:
-        raise ValueError(f"{N} bank rows do not split into {n_shards} "
-                         "equal shards")
-    masked = q_ns is not None or bank_ns is not None
-    if masked and (q_ns is None or bank_ns is None):
-        raise ValueError("q_ns and bank_ns must be given together")
-    R = N // n_shards
-    k_local = min(k, R)
-    scores, ids = [], []
-    for s in range(n_shards):
-        slab = bank[s * R: (s + 1) * R]
-        if masked:
-            sc, i = topk_mips_masked(queries, slab, q_ns,
-                                     bank_ns[s * R: (s + 1) * R], k=k_local)
-            # -1 sentinels (masked-out slots) must not become real ids
-            i = torch.where(i >= 0, i + s * R, i)
-        else:
-            sc, i = topk_mips(queries, slab, k=k_local)
-            i = i + s * R
-        scores.append(sc)
-        ids.append(i)
+def _rerank(scores, ids, k: int):
+    """Candidate lists concatenated in shard order -> the top k by a
+    stable descending sort (ties rank by global row, as one search over the
+    whole bank); an unfilled slot is (NEG_INF, -1)."""
     s_all, i_all = torch.cat(scores, dim=1), torch.cat(ids, dim=1)
     top_s, pos = torch.sort(s_all, dim=1, descending=True, stable=True)
     top_s, pos = top_s[:, :k], pos[:, :k]
@@ -649,6 +620,102 @@ def sharded_topk(queries, bank, k: int, n_shards: int, *, q_ns=None,
         top_s = torch.nn.functional.pad(top_s, (0, pad), value=NEG_INF)
         top_i = torch.nn.functional.pad(top_i, (0, pad), value=-1)
     return top_s, top_i
+
+
+def _local_topk(queries, slab, k_local: int, offset: int, q_ns, slab_ns):
+    """K1 (masked) or K3 over one slab, ids offset into global rows with
+    the -1 sentinels kept."""
+    if q_ns is not None:
+        sc, i = topk_mips_masked(queries, slab, q_ns, slab_ns, k=k_local)
+        return sc, torch.where(i >= 0, i + offset, i)
+    sc, i = topk_mips(queries, slab, k=k_local)
+    return sc, i + offset
+
+
+def sharded_topk(queries, bank, k: int, n_shards: Optional[int] = None, *,
+                 q_ns=None, bank_ns=None, mesh=None,
+                 axis_names=("pod", "data", "model")):
+    """Top-k over a bank of equal slabs (slab s owns rows [s*R, (s+1)*R)):
+    a local top-k of `k_local = min(k, R)` on each slab — K1 with the
+    slab's labels when `q_ns`/`bank_ns` are given (both or neither), K3
+    otherwise —, its ids offset into global rows (-1 sentinels kept), then
+    the lists concatenated in slab order and re-ranked to k by a stable
+    descending sort, so ties rank by global row as in one search over the
+    whole bank.  Returns (scores (Q, k) f32, ids (Q, k) i32), equal to one
+    K1/K3 over the whole bank; an unfilled slot is (NEG_INF, -1).
+
+    One device: `n_shards` slabs of `bank`, searched in turn.  On a mesh
+    (`mesh=`, the reference's `sharded_topk(..., mesh, axis_names)`): one
+    slab a rank, the rank at position r of the flattened `axis_names`
+    order (those of the mesh's axes, in mesh order) owning rows [r*R,
+    (r+1)*R) as `P(flat_axes)` lays them out; `bank`/`bank_ns` are
+    DTensors sharded that way (Shard(0) over those mesh dims) or whole
+    tensors (each rank reads its own rows).  Each rank runs K1/K3 on its
+    slab, the (Q, k_local) lists are all-gathered over the flattened
+    group in rank order, and every rank re-ranks them alike: every rank
+    gets the same answer."""
+    masked = q_ns is not None or bank_ns is not None
+    if masked and (q_ns is None or bank_ns is None):
+        raise ValueError("q_ns and bank_ns must be given together")
+    if mesh is not None:
+        return _sharded_topk_mesh(queries, bank, k, mesh, axis_names,
+                                  q_ns, bank_ns)
+    N = bank.shape[0]
+    if n_shards is None or n_shards < 1 or N % n_shards:
+        raise ValueError(f"{N} bank rows do not split into {n_shards} "
+                         "equal shards")
+    R = N // n_shards
+    k_local = min(k, R)
+    scores, ids = [], []
+    for s in range(n_shards):
+        sc, i = _local_topk(queries, bank[s * R: (s + 1) * R], k_local,
+                            s * R, q_ns,
+                            bank_ns[s * R: (s + 1) * R] if masked else None)
+        scores.append(sc)
+        ids.append(i)
+    return _rerank(scores, ids, k)
+
+
+def mesh_slab(mesh, axis_names=("pod", "data", "model")):
+    """(position, count) of this rank among the flattened `axis_names`
+    of `mesh` (row-major in mesh order), and the placements that shard
+    dim 0 over them."""
+    from torch.distributed.tensor import Replicate, Shard
+    names = mesh.mesh_dim_names
+    flat = [i for i, a in enumerate(names) if a in axis_names]
+    coord = mesh.get_coordinate()
+    r, n = 0, 1
+    for i in flat:
+        r = r * mesh.size(i) + coord[i]
+        n *= mesh.size(i)
+    pl = [Shard(0) if i in flat else Replicate() for i in range(len(names))]
+    return r, n, pl
+
+
+def _sharded_topk_mesh(queries, bank, k, mesh, axis_names, q_ns, bank_ns):
+    from torch.distributed.tensor import DTensor, Shard
+    r, n, pl = mesh_slab(mesh, axis_names)
+    N = bank.shape[0]
+    if N % n:
+        raise ValueError(f"{N} bank rows do not split over {n} ranks")
+    R = N // n
+
+    def local(x):
+        if isinstance(x, DTensor):
+            if tuple(x.placements) != tuple(pl):
+                raise ValueError(f"bank placements {x.placements} are not "
+                                 f"{pl} over {axis_names}")
+            return x.to_local()
+        return x[r * R: (r + 1) * R]
+
+    masked = q_ns is not None
+    sc, i = _local_topk(queries, local(bank), min(k, R), r * R, q_ns,
+                        local(bank_ns) if masked else None)
+    # the (Q, k_local) lists of every rank, side by side in rank order
+    gl = [Shard(1) if isinstance(p, Shard) else p for p in pl]
+    s_all = DTensor.from_local(sc, mesh, gl, run_check=False).full_tensor()
+    i_all = DTensor.from_local(i, mesh, gl, run_check=False).full_tensor()
+    return _rerank([s_all], [i_all], k)
 
 
 def _as_numpy(x) -> np.ndarray:

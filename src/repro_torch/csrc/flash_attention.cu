@@ -266,11 +266,20 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // The two CTA shapes per padded head dim DP: RT rows per thread, RG row
 // groups, KC keys per thread.  kernels/flash_attention.py `FLASH_CONFIGS`
 // mirrors their rows per CTA and keys per tile.
+//
+// DP = 576 is MLA's absorbed width (the latent's 512 + the 64 rope columns;
+// one kv head shared by G = 128 query heads at deepseek's width).  A thread
+// then holds 18 float4 columns of its row's accumulator, so one row a
+// thread; the K/V tiles are 16 keys (KC = 2): f32 shared memory is
+// 4 (rows x 580 + 16 x (rows + 4)) + 4 x 4 x 16 x 580 bytes, 164 KB narrow
+// (8 rows) and 183 KB wide (16 rows), under the 227 KB a block may opt
+// into (KC = 4 would need 317 KB).  The rows of one (b, kv-head) number
+// G * S (4.2 M at prefill_32k), so the grid stays far under 2^31 CTAs.
 template <int DP, bool kNarrow>
 struct Shape {
-  static constexpr int RT = kNarrow ? 1 : (DP <= 64 ? 4 : 512 / DP);
+  static constexpr int RT = (kNarrow || DP > 256) ? 1 : (DP <= 64 ? 4 : 512 / DP);
   static constexpr int RG = kNarrow ? 8 : 16;
-  static constexpr int KC = DP <= 64 ? (kNarrow ? 8 : 4) : DP <= 128 ? 8 : 4;
+  static constexpr int KC = DP > 256 ? 2 : DP <= 64 ? (kNarrow ? 8 : 4) : DP <= 128 ? 8 : 4;
 };
 
 int sm_count(int device) {
@@ -338,7 +347,8 @@ cudaError_t launch_dtype(const void* q, const void* k, const void* v, void* out,
   if (D <= 32) return launch_dp<T, 32>(q, k, v, out, B, K, G, S, T_len, D, scale, causal, window, prefix_len, prefix_rows, vec, st, s, rows_per_cta);
   if (D <= 64) return launch_dp<T, 64>(q, k, v, out, B, K, G, S, T_len, D, scale, causal, window, prefix_len, prefix_rows, vec, st, s, rows_per_cta);
   if (D <= 128) return launch_dp<T, 128>(q, k, v, out, B, K, G, S, T_len, D, scale, causal, window, prefix_len, prefix_rows, vec, st, s, rows_per_cta);
-  return launch_dp<T, 256>(q, k, v, out, B, K, G, S, T_len, D, scale, causal, window, prefix_len, prefix_rows, vec, st, s, rows_per_cta);
+  if (D <= 256) return launch_dp<T, 256>(q, k, v, out, B, K, G, S, T_len, D, scale, causal, window, prefix_len, prefix_rows, vec, st, s, rows_per_cta);
+  return launch_dp<T, 576>(q, k, v, out, B, K, G, S, T_len, D, scale, causal, window, prefix_len, prefix_rows, vec, st, s, rows_per_cta);
 }
 
 }  // namespace
@@ -346,7 +356,7 @@ cudaError_t launch_dtype(const void* q, const void* k, const void* v, void* out,
 extern "C" {
 
 // Largest head dimension the kernel takes.
-int flash_attention_max_head_dim() { return 256; }
+int flash_attention_max_head_dim() { return 576; }
 
 // Launch on `stream` (on the current device).  dtype 0 = f32, 1 = bf16 (q,
 // k, v and out alike).  `strides` holds 14 element strides: q (b, k, g, s),
@@ -362,7 +372,7 @@ int flash_attention_launch(int dtype, const void* q, const void* k, const void* 
                            int causal, int window, int prefix_len, const int* prefix_rows,
                            int vec, const long long* strides, void* stream,
                            int* rows_per_cta) {
-  if (B < 0 || K < 0 || G < 0 || S < 0 || T_len < 1 || D < 1 || D > 256 ||
+  if (B < 0 || K < 0 || G < 0 || S < 0 || T_len < 1 || D < 1 || D > 576 ||
       window < 0 || prefix_len < 0 || strides == nullptr || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   if (B == 0 || K == 0 || G == 0 || S == 0) return 0;

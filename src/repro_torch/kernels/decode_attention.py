@@ -63,10 +63,11 @@ import torch
 
 from repro_torch.common.utils import sm_count
 from repro_torch.kernels import VariantCounter, count_launch
-from repro_torch.kernels.flash_attention import (DTYPES, MAX_HEAD_DIM,
-                                                 NEG_INF, check_operand,
-                                                 cp_async_ok, padded_head_dim)
+from repro_torch.kernels.flash_attention import (DTYPES, NEG_INF,
+                                                 check_operand, cp_async_ok,
+                                                 padded_head_dim)
 
+MAX_HEAD_DIM = 256  # K5's (decode_attention_max_head_dim; K6 also takes 576)
 MAX_GROUP = 16      # query heads per kv-head (kMaxG in the source)
 MAX_SPLITS = 32     # splits of one (b, kv-head) (kMaxSplits in the source)
 CTAS_PER_SM = 2     # the split plan's target occupancy

@@ -37,7 +37,8 @@ folds back to (B, S, H, D) without a copy.
 A CPU tensor runs the plain PyTorch version (`flash_attention_ref`, the
 reference's oracle `ref.flash_attention_ref`); a CUDA tensor launches the
 kernel or the call raises.  `flash_attention.launches` counts launches
-(`prefix_launches` those with a prefix),
+(`prefix_launches` those with a prefix, `absorbed_launches` those of the
+D = 576 instance that MLA's absorbed form runs),
 and `flash_attention.rows_per_cta` holds the query rows per CTA of the
 shape the C launcher last launched.
 
@@ -67,7 +68,7 @@ import torch
 from repro_torch.kernels import VariantCounter, count_launch
 
 NEG_INF = -2.0e38
-MAX_HEAD_DIM = 256
+MAX_HEAD_DIM = 576
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -130,13 +131,14 @@ FLASH_CONFIGS = {
     64: {False: (64, 32), True: (8, 64)},
     128: {False: (64, 64), True: (8, 64)},
     256: {False: (32, 32), True: (8, 32)},
+    576: {False: (16, 16), True: (8, 16)},      # MLA absorbed (512 + 64)
 }
 
 
 def padded_head_dim(D: int) -> int:
-    """The kernels' instance for head dim D: D rounded up to 32, 64, 128
-    or 256."""
-    for dp in (32, 64, 128, 256):
+    """The kernels' instance for head dim D: D rounded up to 32, 64, 128,
+    256 or 576 (MLA's absorbed latent width)."""
+    for dp in FLASH_CONFIGS:
         if D <= dp:
             return dp
     raise ValueError(f"head dim {D} > {MAX_HEAD_DIM}")
@@ -248,6 +250,8 @@ def _launch(q, k, v, causal: bool, window: int, scale: float, prefix_len):
     count_launch(flash_attention)
     if prefix_rows is not None or prefix_int > 0:
         count_launch(prefix_launches)
+    if D > 256:
+        count_launch(absorbed_launches)
     flash_attention.rows_per_cta = rows.value
     return out
 
@@ -352,4 +356,6 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 flash_attention.launches = 0
 # launches with a prefix mask, counted besides flash_attention.launches
 prefix_launches = VariantCounter("flash_attention[prefix]")
+# launches of the D = 576 instance (MLA's absorbed latent), counted besides
+absorbed_launches = VariantCounter("flash_attention[d576]")
 flash_attention.rows_per_cta = 0

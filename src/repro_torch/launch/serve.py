@@ -42,14 +42,13 @@ serving on <address>" once it listens (`--http-port 0` picks a free
 port), serves until SIGTERM/SIGINT, then closes the frontend and the
 service.
 
-`--multipod` comes with the distribution slice of the port (M7b) and
-exits with an error that says so.
+`--multipod` is accepted and ignored: the reference's serve launcher
+parses it and never reads it, so it builds no mesh either.
 """
 import argparse
 import os
 import signal
 
-from repro_torch.common.utils import SLICE_M7B
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -100,10 +99,10 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="global backlog cap; tenants above their "
                          "weight-proportional fair share are shed first")
     ap.add_argument("--multipod", action="store_true",
-                    help=f"(comes with {SLICE_M7B})")
+                    help="accepted and ignored, as the reference's serve "
+                         "launcher parses it and never reads it (it builds "
+                         "no mesh)")
     args = ap.parse_args(argv)
-    if args.multipod:
-        ap.error(f"--multipod comes with {SLICE_M7B}")
     if args.snapshot_interval is not None and args.snapshot_path is None:
         ap.error("--snapshot-interval needs --snapshot-path (rotation "
                  "without a durable directory would silently no-op)")

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.common import partitioning as pt
 from repro_torch.models.layers import (attention, mla, mlp, moe, norms, rglru,
                                        ssm)
 
@@ -115,11 +116,15 @@ def apply(params, cfg, x, kind, *, mode, positions, cache=None, cache_pos=None,
                                cache=sub_cache, return_cache=return_cache)
     if c:
         new_cache.update(c)
+    # a meshed step reduces each sub-layer's output over `model` here (its
+    # partial sums over heads, ff or state), so the next sub-layer's
+    # products shard their weights, as tensor parallelism runs them
+    mixed = pt.batch_only(mixed)
 
     if cfg.parallel_residual and ffn_kind == "mlp":
         # stablelm-style: x + attn(n(x)) + mlp(n(x)) with a single norm
         ff = mlp.apply(params["mlp"], cfg, norms.apply(params["norm2"], cfg, x))
-        x = x + mixed + ff
+        x = x + mixed + pt.batch_only(ff)
     else:
         x = x + mixed
         if enc_out is not None or "cross_attn" in params:
@@ -139,14 +144,14 @@ def apply(params, cfg, x, kind, *, mode, positions, cache=None, cache_pos=None,
                 if cc:
                     new_cache["cross_k"] = cc["k"]
                     new_cache["cross_v"] = cc["v"]
-            x = x + cross_out
+            x = x + pt.batch_only(cross_out)
         if ffn_kind == "mlp":
-            x = x + mlp.apply(params["mlp"], cfg,
-                              norms.apply(params["norm2"], cfg, x))
+            x = x + pt.batch_only(mlp.apply(
+                params["mlp"], cfg, norms.apply(params["norm2"], cfg, x)))
         elif ffn_kind == "moe":
             y, aux = moe.apply(params["moe"], cfg,
                                norms.apply(params["norm2"], cfg, x))
-            x = x + y
+            x = x + pt.batch_only(y)
 
     if mode == "decode" and cache is not None:
         return x, cache, aux         # every entry was written in place

@@ -29,12 +29,15 @@ in the cache.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
+from torch._subclasses.fake_tensor import is_fake
 
+from repro_torch.common import partitioning as pt
 from repro_torch.common.module import ParamSpec
-from repro_torch.common.utils import resolve_device
+from repro_torch.common.utils import SLICE_M7C, resolve_device
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.layers import rope as rope_lib
@@ -78,9 +81,21 @@ def attend(q, k, v, *, kind: str = "causal", window: int = 0,
     """Attention over whole sequences whose query and key positions are
     0..S-1 and 0..T-1.  q: (B,S,H,D), k/v: (B,T,K,D) -> (B,S,H,D).  kind
     "causal", "bidir" or "prefix" (causal, and keys t < prefix_len seen by
-    every query; no prefix_len is plain causal, as the reference)."""
+    every query; no prefix_len is plain causal, as the reference).  On
+    DTensors (a meshed step) K6 runs on each rank's shard (`_meshed`)."""
     if kind not in ("causal", "bidir", "prefix"):
         raise ValueError(f"mask kind {kind!r}")
+    if pt.is_dtensor(q):
+        # a per-row prefix (B,) is sharded with the rows
+        rows = (prefix_len,) if isinstance(prefix_len, torch.Tensor) else ()
+        kw = {} if rows else {"prefix_len": prefix_len}
+        return _meshed(_attend_local, q, k, v, *rows, kind=kind,
+                       window=window, scale=scale, **kw)
+    return _attend_local(q, k, v, kind=kind, window=window,
+                         prefix_len=prefix_len, scale=scale)
+
+
+def _attend_local(q, k, v, prefix_len=None, *, kind, window, scale):
     B, S, H, D = q.shape
     out = flash_attention(_grouped_q(q, k.shape[2]), k.permute(0, 2, 1, 3),
                           v.permute(0, 2, 1, 3), causal=kind != "bidir",
@@ -90,19 +105,95 @@ def attend(q, k, v, *, kind: str = "causal", window: int = 0,
     return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, D)
 
 
+def _meshed(local_fn, q, k, v, *row_args, **kw):
+    """`local_fn` (K6's or K5's call) under `local_map` on each rank's
+    shard of DTensor q (B, S, H, D) and k/v (B, T, K, D): batch sharded on
+    the batch axes, heads on `model` where q and k/v both shard them, or
+    q's heads with the kv heads they read cut from keys every rank holds
+    (`_kv_heads`; see `partitioning.attention_placements`: a
+    head_dim-sharded operand is gathered first, where the reference's XLA
+    computes partial sums).
+    Attention is independent across batch rows and kv-head groups, so
+    every rank launches its kernel on its own shard and no collective runs
+    inside.  `row_args` are per-row (B, ...) tensors (kv_len, slot
+    positions, int8 scales (B, T, K), a per-row prefix) or None.  A key
+    sequence sharded over a mesh axis (long_context_rules' context-parallel
+    cache) needs K5 to return each split's log-sum-exp for the ranks to
+    combine: that is M7c's, and raises on real ranks; under the dry-run's
+    fake process group the cache is gathered (DTensor's all-gather, not the
+    reference's LSE combine)."""
+    from torch.distributed.tensor import Partial, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+    k, v = pt.replicated(k, mesh), pt.replicated(v, mesh)
+    if any(isinstance(p, Shard) and p.dim == 1 for p in k.placements) \
+            and not pt.fake_collectives(mesh):
+        raise NotImplementedError(
+            f"context-parallel attention over a sequence-sharded cache: "
+            f"{SLICE_M7C}")
+    qp, kp, kv_slice = pt.attention_placements(q, k)
+    q = pt.with_placements(q, qp)
+    k, v = pt.with_placements(k, kp), pt.with_placements(v, kp)
+    rows = pt.batch_placements(qp)
+    args, places = [q, k, v], [qp, kp, kp]
+    for a in row_args:
+        if a is None:
+            args.append(None)
+            places.append(None)
+            continue
+        a = pt.replicated(a, mesh)
+        # (B, T, K) scales follow the cache's heads on dim 2
+        want = kp if a.dim() == 3 else rows
+        args.append(pt.with_placements(a, want))
+        places.append(want)
+    # one kv head read by every rank's query heads: each rank's gradient
+    # of it covers its own heads only, Partial over `model`
+    kg = tuple(Partial() if isinstance(a, Shard) and not isinstance(b, Shard)
+               else b for a, b in zip(qp, kp))
+    grads = [qp, kg, kg] + places[3:]
+    run = functools.partial(local_fn, **kw)
+    if kv_slice is not None:
+        run = functools.partial(_kv_heads, run, *kv_slice)
+    fn = local_map(run, out_placements=list(qp),
+                   in_placements=tuple(places),
+                   in_grad_placements=tuple(grads), device_mesh=mesh)
+    return fn(*args)
+
+
+def _kv_heads(local_fn, first: int, count: int, q, k, v, *rows):
+    """`local_fn` on this rank's query heads and the kv heads they read:
+    k/v (B, T, K, D) and (B, T, K) scales sliced to [first, first + count)
+    on dim 2."""
+    cut = slice(first, first + count)
+    rows = [r[:, :, cut] if r is not None and r.dim() == 3 else r
+            for r in rows]
+    return local_fn(q, k[:, :, cut], v[:, :, cut], *rows)
+
+
 def attend_decode(q, k_cache, v_cache, kv_len, *, window: int = 0,
                   scale: Optional[float] = None, slot_pos=None,
                   k_scale=None, v_scale=None):
     """One new token per row against a cache.  q: (B,1,H,D), k/v cache:
     (B,T,K,D) (int8 codes with k/v_scale (B,T,K)), kv_len: (B,) int32,
-    slot_pos (B,T) int32 or None -> (B,1,H,D)."""
+    slot_pos (B,T) int32 or None -> (B,1,H,D).  On DTensors K5 runs on
+    each rank's shard (`_meshed`)."""
+    if pt.is_dtensor(q):
+        return _meshed(_decode_local, q, k_cache, v_cache, kv_len, slot_pos,
+                       k_scale, v_scale, window=window, scale=scale)
+    return _decode_local(q, k_cache, v_cache, kv_len, slot_pos, k_scale,
+                         v_scale, window=window, scale=scale)
+
+
+def _decode_local(q, k_cache, v_cache, kv_len, slot_pos, k_scale, v_scale,
+                  *, window, scale):
     B, _, H, D = q.shape
     K = k_cache.shape[2]
     scales = {}
     if k_scale is not None:
         scales = {"k_scale": k_scale.permute(0, 2, 1),
                   "v_scale": v_scale.permute(0, 2, 1)}
-    out = decode_attention(q.reshape(B, K, H // K, D), k_cache.permute(0, 2, 1, 3),
+    out = decode_attention(q.reshape(B, K, H // K, D),
+                           k_cache.permute(0, 2, 1, 3),
                            v_cache.permute(0, 2, 1, 3), kv_len, scale=scale,
                            window=window, slot_pos=slot_pos, **scales)
     return out.view(B, 1, H, D)
@@ -111,6 +202,20 @@ def attend_decode(q, k_cache, v_cache, kv_len, *, window: int = 0,
 # ---------------------------------------------------------------------------
 # Module apply.
 # ---------------------------------------------------------------------------
+
+# the head_dim axis of each attention parameter
+_HEAD_DIM_AXIS = {"wq": 2, "wk": 2, "wv": 2, "wo": 1, "bq": 1, "bk": 1,
+                  "bv": 1, "q_norm": 0, "k_norm": 0}
+
+
+def _whole_head_dim(params):
+    """Meshed parameters with head_dim whole: where the rules shard it (the
+    head fallback: heads that do not divide `model`), DTensor gathers the
+    weight once a call, and the heads stay replicated; the reference's XLA
+    contracts the sharded head_dim to partial sums instead."""
+    return {k: pt.gather_dims(v, _HEAD_DIM_AXIS[k]) if k in _HEAD_DIM_AXIS
+            else v for k, v in params.items()}
+
 
 def _project_q(params, cfg, x):
     """The query of cross decode (cross-attention has no biases)."""
@@ -145,10 +250,11 @@ def _check_positions(positions, S: int, what: str = "query") -> None:
     """The kernels count positions from 0: the train/prefill path takes
     positions equal to arange(S) per row on each side (the prompt, an image
     prefix and its text, an encoder's frames).  Checked where it is cheap
-    (a CPU tensor); on the card the check would cost a device sync per
+    (a CPU tensor with values: not the dry-run's fake ones); on the card the check would cost a device sync per
     layer.  An offset window of positions raises."""
-    if positions.device.type == "cpu" and not torch.equal(
-            positions.long(), torch.arange(S).expand_as(positions)):
+    if positions.device.type == "cpu" and not is_fake(positions) and \
+            not torch.equal(positions.long(),
+                            torch.arange(S).expand_as(positions)):
         raise NotImplementedError(
             f"train/prefill {what} positions must be 0..S-1: the kernels "
             "count from 0 (an offset query window is not served)")
@@ -164,6 +270,8 @@ def apply(params, cfg, x, *, positions, mode: str = "train",
     B = x.shape[0]
     dt = x.dtype
     new_cache = None
+    if pt.is_dtensor(params["wq"]):
+        params = _whole_head_dim(params)
 
     if mode in ("train", "prefill"):
         kv_pos = kv_positions if kv_positions is not None else positions
@@ -188,26 +296,25 @@ def apply(params, cfg, x, *, positions, mode: str = "train",
         if pos.dim() == 0:
             pos = pos.expand(B)
         pos = pos.long()
-        rows = torch.arange(B, device=x.device)
         ring = "pos" in cache                  # ring-buffer sliding window
         idx = pos % T if ring else pos
         scales = {}
         if "k_scale" in cache:                 # int8 codes + per-row scales
             for name, new in (("k", k_new), ("v", v_new)):
                 codes, sc = quantize_kv(new[:, 0])
-                cache[name][rows, idx] = codes
-                cache[name + "_scale"][rows, idx] = sc
+                pt.write_rows(cache[name], idx, codes)
+                pt.write_rows(cache[name + "_scale"], idx, sc)
             scales = {"k_scale": cache["k_scale"], "v_scale": cache["v_scale"]}
             k_use, v_use = cache["k"], cache["v"]
         else:
-            cache["k"][rows, idx] = k_new[:, 0].to(cache["k"].dtype)
-            cache["v"][rows, idx] = v_new[:, 0].to(cache["v"].dtype)
+            pt.write_rows(cache["k"], idx, k_new[:, 0])
+            pt.write_rows(cache["v"], idx, v_new[:, 0])
             k_use, v_use = cache["k"].to(dt), cache["v"].to(dt)
         slot_pos = None
         if ring:
             # fixed window-sized cache, write slot = pos % W; each slot's
             # true position is kept so the mask stays exact
-            cache["pos"][rows, idx] = pos.to(torch.int32)
+            pt.write_rows(cache["pos"], idx, pos.to(torch.int32))
             slot_pos = cache["pos"]
         kv_len = (pos + 1).to(torch.int32)
         out = attend_decode(q, k_use, v_use, kv_len, window=window,

@@ -15,15 +15,18 @@ That decode runs as torch einsums, as the reference computes it outside
 any kernel: its latent (576 wide at full size, all 128 heads on one shared
 kv head) is beyond K5's head width and grouped-query limits.  The latent
 cache is written in place.  The absorbed form in train/prefill
-(`mla_absorbed_train`, reached only from the reference's dry-run: K6 at
-D = 576 with G = 128) comes with the distribution slice (M7b) and raises.
+(`mla_absorbed_train`, the reference's dry-run variant) folds W_UK into q
+and runs K6 against the latent itself: one kv head, q/k width
+kv_lora_rank + qk_rope_head_dim (576 at full size, K6's widest instance),
+v the latent zero-padded to that width, G = all query heads; then W_UV.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.common import partitioning as pt
 from repro_torch.common.module import ParamSpec
-from repro_torch.common.utils import SLICE_M7B, resolve_device
+from repro_torch.common.utils import resolve_device
 from repro_torch.models.layers import rope as rope_lib
 from repro_torch.models.layers.attention import attend
 from repro_torch.models.layers.norms import rms_norm
@@ -85,10 +88,23 @@ def apply(params, cfg, x, *, positions, mode: str = "train", cache=None,
     scale = qk_hd ** -0.5
     new_cache = None
 
-    if mode in ("train", "prefill"):
-        if cfg.mla_absorbed_train:
-            raise NotImplementedError(
-                f"mla_absorbed_train: {SLICE_M7B}")
+    if mode in ("train", "prefill") and cfg.mla_absorbed_train:
+        q_nope, q_rope = _q_proj(params, cfg, x, positions)
+        ckv, k_rope = _latent_proj(params, cfg, x, positions)
+        # absorbed: W_UK folds into q and attention runs against the latent
+        # (one kv head shared by every query head): q/k width r + rope, v
+        # the latent zero-padded to that width, the output sliced back to r
+        r = m.kv_lora_rank
+        q_eff = torch.einsum("bshk,rhk->bshr", q_nope, params["wuk"].to(dt))
+        q2 = torch.cat([q_eff, q_rope], dim=-1)            # (B,S,H,r+rope)
+        k2 = torch.cat([ckv, k_rope], dim=-1)[:, :, None]  # (B,T,1,r+rope)
+        v2 = pt.pad(ckv, (0, m.qk_rope_head_dim))[:, :, None]
+        o_lat = attend(q2, k2, v2, kind=mask_kind, window=window,
+                       prefix_len=prefix_len, scale=scale)[..., :r]
+        out = torch.einsum("bshr,rhk->bshk", o_lat, params["wuv"].to(dt))
+        if return_cache:
+            new_cache = {"ckv": ckv, "k_rope": k_rope}
+    elif mode in ("train", "prefill"):
         q_nope, q_rope = _q_proj(params, cfg, x, positions)
         ckv, k_rope = _latent_proj(params, cfg, x, positions)
         # decompressed K/V: (B,S,H,*)
@@ -98,7 +114,7 @@ def apply(params, cfg, x, *, positions, mode: str = "train", cache=None,
         k = torch.cat([k_nope, k_rope[:, :, None].expand(
             *k_rope.shape[:2], H, k_rope.shape[-1])], dim=-1)
         q = torch.cat([q_nope, q_rope], dim=-1)
-        v_pad = torch.nn.functional.pad(v, (0, qk_hd - m.v_head_dim))
+        v_pad = pt.pad(v, (0, qk_hd - m.v_head_dim))
         out = attend(q, k, v_pad, kind=mask_kind, window=window,
                      prefix_len=prefix_len, scale=scale)[..., : m.v_head_dim]
         if return_cache:
@@ -111,9 +127,8 @@ def apply(params, cfg, x, *, positions, mode: str = "train", cache=None,
         if pos.dim() == 0:
             pos = pos.expand(B)
         pos = pos.long()
-        rows = torch.arange(B, device=x.device)
-        cache["ckv"][rows, pos] = ckv_new[:, 0].to(cache["ckv"].dtype)
-        cache["k_rope"][rows, pos] = kr_new[:, 0].to(cache["k_rope"].dtype)
+        pt.write_rows(cache["ckv"], pos, ckv_new[:, 0])
+        pt.write_rows(cache["k_rope"], pos, kr_new[:, 0])
         ckv, k_rope = cache["ckv"].to(dt), cache["k_rope"].to(dt)
         T = ckv.shape[1]
         q_eff = torch.einsum("bshk,rhk->bshr", q_nope, params["wuk"].to(dt))

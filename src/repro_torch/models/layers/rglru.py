@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.common import partitioning as pt
 from repro_torch.common.module import ParamSpec
 from repro_torch.models.layers.ssm import causal_conv, conv_state
 
@@ -54,10 +55,22 @@ def specs(cfg):
     }
 
 
+def _affine(x, w, b):
+    """x @ w + b.  On a mesh the product's partial sums over `state` are
+    reduced before the bias is added: torch 2.11's DTensor cannot add a
+    sharded bias to a partial sum."""
+    y = torch.matmul(x, w)
+    if pt.is_dtensor(y):
+        from torch.distributed.tensor import Partial, Replicate
+        y = pt.with_placements(y, [Replicate() if isinstance(p, Partial)
+                                   else p for p in y.placements])
+    return y + b
+
+
 def _gates(params, cfg, xb):
     xf = xb.float()
-    r = torch.sigmoid(torch.matmul(xf, params["wa"].float()) + params["ba"].float())
-    i = torch.sigmoid(torch.matmul(xf, params["wx"].float()) + params["bx"].float())
+    r = torch.sigmoid(_affine(xf, params["wa"].float(), params["ba"].float()))
+    i = torch.sigmoid(_affine(xf, params["wx"].float(), params["bx"].float()))
     log_a = -cfg.rglru.c_exponent * F.softplus(params["lam"].float()) * r
     a = torch.exp(log_a)
     b = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * xf)
@@ -67,6 +80,8 @@ def _gates(params, cfg, xb):
 def linear_scan(a, b, chunk: int = SCAN_CHUNK):
     """h_t = a_t h_{t-1} + b_t from h_{-1} = 0, over axis 1 of (B, L, w)
     f32 tensors -> h (B, L, w)."""
+    if pt.is_dtensor(a):
+        return _scan_meshed(a, b, chunk)
     B, L, w = a.shape
     c = min(chunk, L)
     pad = (c - L % c) % c
@@ -87,6 +102,23 @@ def linear_scan(a, b, chunk: int = SCAN_CHUNK):
         out.append(blk)
         h = blk[:, -1]
     return torch.cat(out, dim=1)[:, :L]
+
+
+def _scan_meshed(a, b, chunk: int):
+    """`linear_scan` on DTensors under `local_map`: the scan is independent
+    across batch rows and channels, so each rank scans its batch shard of
+    its `model` shard of the channels (torch 2.11's DTensor has no
+    strategy for the scan's cumprod)."""
+    from torch.distributed.tensor import Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = a.device_mesh
+    rows = pt.batch_axes_placements(mesh, a.shape[0], 0)
+    pl = [Shard(2) if name == "model" and a.shape[2] % mesh.size(i) == 0
+          else rows[i] for i, name in enumerate(mesh.mesh_dim_names)]
+    return local_map(lambda a, b: linear_scan(a, b, chunk),
+                     out_placements=pl, in_placements=(pl, pl),
+                     device_mesh=mesh)(pt.with_placements(a, pl),
+                                       pt.with_placements(b, pl))
 
 
 def apply(params, cfg, x, *, mode: str = "train", cache=None,

@@ -41,7 +41,11 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.common.module import ParamSpec, materialize, tree_map
+from repro_torch.common import partitioning as pt
+from repro_torch.common.module import (ParamSpec, leaves_with_names,
+                                      materialize, shardings_of,
+                                      spec_tree_to_pspecs, tree_map,
+                                      unflatten)
 from repro_torch.common.utils import resolve_device
 from repro_torch.models import blocks, transformer
 from repro_torch.models.config import ModelConfig, plan_segments
@@ -96,6 +100,46 @@ class Model(nn.Module):
                 "final_norm": norms.specs(cfg),
             }
         return s
+
+    # -- partitioning ----------------------------------------------------------
+    def param_pspecs(self, rules) -> PyTree:
+        """The rules' per-dim mapping of every parameter (the reference's
+        PartitionSpec tree, one dict per layer here)."""
+        return spec_tree_to_pspecs(self.param_specs(), rules)
+
+    def param_shardings(self, rules) -> PyTree:
+        """DTensor placements of every parameter on `rules.mesh`."""
+        return shardings_of(self.param_specs(), rules)
+
+    def shard_params(self, params, mesh, rules) -> PyTree:
+        """One-device params (the same on every rank, as a seed or
+        `params_from_numpy` gives them) -> DTensors on `mesh` placed by
+        the rules; each rank keeps its own slice, with no communication."""
+        specs = [s for _, s in leaves_with_names(self.param_specs())]
+        return unflatten(params, [
+            pt.shard_local(p, mesh, rules.placements_for(s.axes, s.shape))
+            for (_, p), s in zip(leaves_with_names(params), specs)])
+
+    def cache_pspecs(self, batch, max_len, rules, *, window_override=None):
+        """The rules' per-dim mapping of every decode-cache entry: one
+        {name: mapping} per layer."""
+        return [{name: rules.spec_for(axes, shape)
+                 for name, (shape, axes, _dt) in layer.items()}
+                for layer in self._cache_shape_specs(batch, max_len,
+                                                     window_override)]
+
+    def cache_shardings(self, batch, max_len, rules, *,
+                        window_override=None):
+        return [{name: pt.placements_for(spec, rules.mesh)
+                 for name, spec in layer.items()}
+                for layer in self.cache_pspecs(
+                    batch, max_len, rules, window_override=window_override)]
+
+    def _cache_shape_specs(self, batch, max_len, window_override):
+        cfg = self.cfg
+        return transformer.decoder_cache_shape_specs(
+            cfg, batch, max_len, cfg.cdtype, cross=cfg.is_encoder_decoder,
+            enc_len=cfg.encoder_seq_len, window_override=window_override)
 
     def init_params(self, generator: torch.Generator) -> PyTree:
         """Random init on the generator's device, in the config's dtype."""
@@ -266,6 +310,33 @@ def _xent_chunk(params, cfg, h, targets, mask):
     """Summed cross-entropy, correct predictions and weight of one chunk:
     h (B, c, d), targets (B, c), mask (B, c) f32."""
     logits = embedding.logits(params["embed"], cfg, h)      # (B, c, V) f32
+    if pt.is_dtensor(logits):
+        return _xent_meshed(logits, targets, mask)
+    return _xent_sums(logits, targets, mask)
+
+
+def _xent_meshed(logits, targets, mask):
+    """`_xent_sums` of DTensor logits: the vocab gathered, then each rank's
+    batch rows under `local_map` (the gold-logit gather and the argmax
+    read across the whole vocab), its three sums stacked over the batch
+    ranks and summed as DTensor ops."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = logits.device_mesh
+    rows = pt.batch_axes_placements(mesh, logits.shape[0], 0)
+    logits = pt.with_placements(logits, rows)
+    targets, mask = (pt.with_placements(pt.replicated(t, mesh), rows)
+                     for t in (targets, mask))
+    stacked = [Shard(0) if isinstance(p, Shard) else Replicate()
+               for p in rows]
+    sums = local_map(lambda *a: tuple(x[None] for x in _xent_sums(*a)),
+                     out_placements=(stacked,) * 3,
+                     in_placements=(rows, rows, rows),
+                     device_mesh=mesh)(logits, targets, mask)
+    return tuple(x.sum() for x in sums)
+
+
+def _xent_sums(logits, targets, mask):
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
     ce = (logz - gold) * mask

@@ -21,9 +21,9 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.common import partitioning as pt
 from repro_torch.common.utils import resolve_device
 from repro_torch.models import blocks
 from repro_torch.models.config import ModelConfig
@@ -77,7 +77,7 @@ def init_caches(cfg, batch, max_len, dtype, *, cross=False, enc_len=0,
 def _pad_seq(x, to_len: int):
     """Zero-pad axis 1 (the sequence) of a (B, S, ...) tensor to to_len."""
     pad = [0, 0] * (x.dim() - 2) + [0, to_len - x.shape[1]]
-    return F.pad(x, pad)
+    return pt.pad(x, pad)
 
 
 def _ring_slots(S: int, W: int, device="cpu"):
@@ -131,7 +131,18 @@ def prepare_decode_caches(cfg, caches, prefill_len: int, max_len: int, *,
     full caches zero-padded to max_len; windowed attention converted to the
     ring-buffer layout with true slot positions; k/v quantised to int8
     codes and scales with `kv_cache_quant`; MLA latents padded; recurrent
-    states as they are."""
+    states as they are.  DTensor caches (a meshed prefill's) convert as
+    DTensors, the slot indices taken as replicated."""
+    if any(pt.is_dtensor(x) for c in caches if c for x in c.values()):
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+        with implicit_replication():
+            return _prepare(cfg, caches, prefill_len, max_len,
+                            window_override)
+    return _prepare(cfg, caches, prefill_len, max_len, window_override)
+
+
+def _prepare(cfg, caches, prefill_len, max_len, window_override):
     out = []
     for kind, bc in zip(cfg.layer_kinds(), caches):
         quant = (cfg.kv_cache_quant if kind[0] == "attn" and not cfg.use_mla
@@ -170,6 +181,7 @@ def decoder_apply(params, cfg: ModelConfig, x, *, mode: str, positions,
                 prefix_len=prefix_len, enc_out=enc_out,
                 enc_positions=enc_positions, return_cache=return_cache,
                 use_rope=use_rope)
+        x = pt.batch_only(x)             # a meshed step's block input
         x, nc, aux = (checkpoint(block, x, use_reentrant=False) if recompute
                       else block(x))
         new_caches.append(nc)

@@ -75,6 +75,7 @@ from typing import Dict, List, Mapping, Optional, Tuple
 
 from concurrent.futures import TimeoutError as FutureTimeoutError
 
+from repro_torch.common.utils import require_one_rank
 from repro_torch.core.admission import (AdmissionError,
                                         admission_policy_from_json)
 from repro_torch.core.api import (CompactRequest, EvictRequest,
@@ -171,6 +172,7 @@ class MemoryFrontend:
                  host: str = "127.0.0.1", port: int = 0,
                  request_timeout_s: float = 60.0,
                  admin_keys: Optional[Mapping[str, str]] = None):
+        require_one_rank(service, "MemoryFrontend")
         if not api_keys:
             raise ValueError("MemoryFrontend needs at least one api key "
                              "(api_key -> tenant)")

@@ -11,6 +11,9 @@ elements, so the f32 temporaries of a 1.9 B-parameter bf16 model never
 exist for all leaves at once.  Parameters are kept as leaves of nested dicts,
 lists and tuples; `_decay_mask` is the reference's, by the leaf's own
 name.
+On a mesh the leaves, gradients and moments are DTensors of the same
+placements: the foreach steps run on them as they are, and the clipping
+norm is a full reduction over the mesh (`global_norm`).
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ import math
 from typing import Any, NamedTuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.common.module import leaves_with_names, tree_map, unflatten
 
@@ -66,18 +70,32 @@ def schedule(cfg: OptimizerConfig, step) -> torch.Tensor:
     return torch.where(step < cfg.warmup_steps, warm, cos)
 
 
+def _zeros(p, dt):
+    """Zero moments of leaf p: a DTensor's with its placements."""
+    if isinstance(p, DTensor):
+        return torch.zeros_like(p, dtype=dt)
+    return torch.zeros(p.shape, dtype=dt, device=p.device)
+
+
 def init(cfg: OptimizerConfig, params: PyTree) -> OptState:
     dt = getattr(torch, cfg.state_dtype)
-    zeros = lambda p: torch.zeros(p.shape, dtype=dt, device=p.device)
+    zeros = lambda p: _zeros(p, dt)
     device = leaves_with_names(params)[0][1].device
     return OptState(step=torch.zeros((), dtype=torch.int32, device=device),
                     mu=tree_map(zeros, params), nu=tree_map(zeros, params))
 
 
+def _sum_squares(x) -> torch.Tensor:
+    s = torch.sum(torch.square(x.float()))
+    # a DTensor leaf's sum is reduced over the whole mesh: a plain 0-d
+    # tensor, the same on every rank
+    return s.full_tensor() if isinstance(s, DTensor) else s
+
+
 def global_norm(tree: PyTree) -> torch.Tensor:
-    """sqrt of the sum over leaves of each leaf's f32 sum of squares."""
-    sq = [torch.sum(torch.square(x.float()))
-          for _, x in leaves_with_names(tree)]
+    """sqrt of the sum over leaves of each leaf's f32 sum of squares (a
+    full reduction on DTensor leaves)."""
+    sq = [_sum_squares(x) for _, x in leaves_with_names(tree)]
     return torch.sqrt(torch.stack(sq).sum())
 
 

@@ -167,6 +167,16 @@ def test_evict_and_compact_keep_parity():
         assert st_t[key] == st_j[key], key
 
 
+class _FourRanks:
+    """Stands in for a 4-rank DeviceMesh (what the service reads of it)."""
+
+    def size(self):
+        return 4
+
+    def get_coordinate(self):
+        return [0]
+
+
 def test_slices_to_come_raise_not_implemented():
     # durability (data_dir= / runtime=) came with its slice: see
     # tests/test_torch_durability.py; sharding came with its own
@@ -178,8 +188,12 @@ def test_slices_to_come_raise_not_implemented():
     ctx = sharded.retrieve("a/c0", "Which city does the user live in?")
     assert any(t.object == "oslo" for t in ctx.triples) and not ctx.degraded
     assert sharded.stats()["shards"]["n_shards"] == 2
-    with pytest.raises(NotImplementedError, match="M7"):
-        MemoryService(emb, device="cpu", mesh=object())
+    # a mesh is taken (the slabs go over it with shards > 1, as the
+    # reference); the scheduler on a mesh of several ranks waits for M7c
+    meshed = MemoryService(emb, device="cpu", mesh=_FourRanks())
+    assert meshed.store.mesh is not None and meshed.store.sharded is None
+    with pytest.raises(NotImplementedError, match="M7c"):
+        meshed.start_scheduler()
     # the request scheduler came with the serving slice: it mounts, routes
     # retrieve_batch, and closes with the service
     svc = MemoryService(emb, device="cpu")

@@ -425,8 +425,24 @@ def test_sharded_bank_layout_and_search_match_reference(n_shards):
     tb.rebuild(tv)
     _same_layout(jb, tb)
     _same_search(jb, tb, q, q_ns, 64)
-    with pytest.raises(NotImplementedError, match="M7"):
-        ShardedBank(dim, n_shards, mesh=object(), device="cpu")
+    # on a mesh the slot range must divide over its devices (the
+    # reference's ValueError)
+    meshed = ShardedBank(dim, n_shards, mesh=_ThreeRanks(), device="cpu")
+    meshed.rebuild(tv)
+    with pytest.raises(ValueError, match="do not divide over 3 mesh"):
+        meshed.bank_device()
+
+
+class _ThreeRanks:
+    """Stands in for a 1-D DeviceMesh of 3 ranks (what ShardedBank reads
+    of it)."""
+    mesh_dim_names = ("data",)
+
+    def get_coordinate(self):
+        return [0]
+
+    def size(self, dim=None):
+        return 3
 
 
 def _j_record(svc, cls):

@@ -301,6 +301,13 @@ def test_tiny_lm_loss_decreases():
                for _, p in leaves_with_names(params))
 
 
+class _ProductionMesh:
+    """Stands in for the (16, 16) DeviceMesh (what the rules read)."""
+    mesh_dim_names = ("data", "model")
+    shape = (16, 16)
+    device_type = "cpu"
+
+
 def test_build_train_step_on_one_device_and_its_mesh_raises():
     cfg = get_config("internlm2-1.8b")
     shape = INPUT_SHAPES["train_4k"]
@@ -311,9 +318,17 @@ def test_build_train_step_on_one_device_and_its_mesh_raises():
                             device="cpu").opt.state_dtype == "bfloat16"
     pali = build_train_step(get_config("paligemma-3b"), shape, device="cpu")
     assert pali.inputs["tokens"][0] == (256, 4096 - 256)
-    with pytest.raises(NotImplementedError, match="M7b"):
-        build_train_step(cfg, shape, mesh=object(), device="cpu")
-    with pytest.raises(ValueError, match="M7b"):
+    # a mesh places params by the rules: FSDP (embed over data) above
+    # FSDP_PARAM_THRESHOLD parameters, as the reference's use_fsdp
+    mesh = _ProductionMesh()
+    meshed = build_train_step(cfg, shape, mesh=mesh)
+    assert meshed.mesh is mesh and meshed.meta["fsdp"] is False
+    assert meshed.rules.rules["embed"] is None
+    big = build_train_step(get_config("deepseek-v3-671b"), shape, mesh=mesh)
+    assert big.meta == {"kind": "train", "fsdp": True,
+                        "opt_dtype": "bfloat16"}
+    assert big.rules.rules["embed"] == "data"
+    with pytest.raises(ValueError, match="build_decode_step"):
         build_train_step(cfg, INPUT_SHAPES["decode_32k"], device="cpu")
 
 
@@ -412,7 +427,7 @@ def test_train_launcher_refuses_multipod(capsys):
     with pytest.raises(SystemExit) as ei:
         launcher.parse_args(["--multipod", "--device", "cpu"])
     assert ei.value.code == 2
-    assert "distribution slice of the port (M7b" in capsys.readouterr().err
+    assert "under torchrun with 512 ranks" in capsys.readouterr().err
 
 
 def test_train_100m_example_small_on_the_cpu(tmp_path):

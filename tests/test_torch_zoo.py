@@ -721,9 +721,9 @@ def test_encoder_and_cross_attention_match_the_reference():
 def test_m7_pieces_raise_naming_the_training_slice(piece):
     """The training slice (M7a) brought train_loss and the MTP loss: on
     deepseek both now run to finite values (tests/test_torch_train_zoo.py
-    holds them to the reference).  What stays for the distribution slice,
-    the absorbed MLA form in train/prefill, raises NotImplementedError
-    naming M7b."""
+    holds them to the reference).  The absorbed MLA form in train/prefill
+    came with the distribution slice (M7b): it gives the decompressed
+    form's logits."""
     _, cfg, _, _, model, params = _setup("deepseek-v3-671b")
     toks = torch.from_numpy(_inputs(cfg, 8)["tokens"])
     if piece == "train_loss":
@@ -734,6 +734,11 @@ def test_m7_pieces_raise_naming_the_training_slice(piece):
         pos = torch.arange(toks.shape[1]).expand(toks.shape)
         assert torch.isfinite(model._mtp_loss(params, cfg, h, toks, pos))
     else:
-        with pytest.raises(NotImplementedError, match="M7b"):
-            Model(dataclasses.replace(cfg, mla_absorbed_train=True)).prefill(
-                params, {"tokens": toks})
+        # the distribution slice brought the absorbed form (K6 against the
+        # latent; tests/test_torch_mla_absorbed.py holds it to the
+        # reference): its prefill logits are the decompressed form's
+        absorbed, _ = Model(dataclasses.replace(
+            cfg, mla_absorbed_train=True)).prefill(params, {"tokens": toks})
+        plain, _ = model.prefill(params, {"tokens": toks})
+        np.testing.assert_allclose(absorbed.numpy(), plain.numpy(),
+                                   rtol=1e-4, atol=1e-4)
