@@ -262,7 +262,7 @@ line per phase and fails (nonzero exit) on any failed check:
                  internlm2-1.8b --shape train_4k --steps 3 --host-demo`
                  (run beside phase 7).
 
-16. dist       — the distribution slice (M7b) on a one-rank NCCL mesh
+16. dist       — the distribution slices (M7b, M7c) on a one-rank NCCL mesh
                  (DIST_MESH: gloo moves CUDA tensors for its raw
                  collectives here, but DTensor's functional collectives on
                  a gloo group of CUDA tensors kill the ranks, and NCCL takes
@@ -273,7 +273,13 @@ line per phase and fails (nonzero exit) on any failed check:
                  byte-equal to the unmeshed store at B in {1, 8, 64}, hybrid
                  and dense-only, K1 once a rank an execute, p50 beside the
                  sharded phase's; the meshed `sharded_topk` against one K1
-                 over the bank; memori-agent (f32, conditioned) step 1's
+                 over the bank; the meshed service through a
+                 MemoryScheduler (every tick broadcast over the mesh's gloo
+                 group) by 8 closed-loop clients, answers byte-equal to
+                 the unmeshed service's scheduled run, K1 once a rank an
+                 execute, and a MemoryFrontend over it (sessions recorded
+                 and asked back over HTTP, each answer byte-equal to the
+                 scheduler's); memori-agent (f32, conditioned) step 1's
                  loss and every leaf's gradient on the mesh against the
                  one-device step, 5 steps of `build_train_step(mesh)`
                  beside the one-device step's ms; greedy tokens through
@@ -282,7 +288,20 @@ line per phase and fails (nonzero exit) on any failed check:
                  at full width in bf16 with `mla_absorbed_train` (K6's
                  D = 576 instance): a 4-layer prefill, every K6 call against
                  its plain version, the logits against the decompressed
-                 path's (2**-5 of the scale); one train step at 2 layers
+                 path's (2**-5 of the scale); context-parallel long_500k
+                 decode (`build_decode_step(..., context_parallel=True)`:
+                 the caches placed by `long_context_rules`, K5[lse] or
+                 MLA's local softmax on the rank's rows, the combine) of
+                 internlm2-1.8b (24 layers, its 8,192-slot ring) and
+                 deepseek-v3 (4 layers, the 524,288-row latent cache) with
+                 seeded rows up to position 500,000: 3 steps' logits
+                 against the one-device step (2**-5 of the scale), K5[lse]
+                 once per attention layer a step, step ms and peak
+                 memory; K5[lse] against its plain version at four
+                 instances (f32 at the agent's shape, the bf16 ring,
+                 int8, a 32,768-row bf16 shard), and each cache cut into
+                 1, 4 and 16 shards whose `combine_partials` equals the
+                 whole call; one train step at 2 layers
                  (and the MTP block) through FlashAttentionFn; the instance's
                  ms at G = 128, S = T = 512 beside its plain version, SDPA
                  and its bound.  The attention phase holds the instance
@@ -455,6 +474,7 @@ def wrappers():
     out.update(flash_attention=fa.flash_attention,
                decode_attention=da.decode_attention)
     out.update({c.__name__: c for c in (da.slot_launches, da.int8_launches,
+                                        da.lse_launches,
                                         fa.prefix_launches)})
     return out
 
@@ -6036,7 +6056,8 @@ def dist_store(device, svc, questions, reps: int, mesh, arrays) -> dict:
     shards=SHARDS, mesh=mesh)`: contexts, token counts and dense ranking
     byte-equal to the unmeshed store at B in SHARDED_B, hybrid and
     dense-only, K1 once a rank an execute; the meshed `sharded_topk`
-    against one K1 over the bank."""
+    against one K1 over the bank; then the meshed service through its
+    scheduler and frontend (`dist_scheduled`)."""
     import numpy as np
     import torch
     from torch.distributed.tensor import Shard
@@ -6111,12 +6132,407 @@ def dist_store(device, svc, questions, reps: int, mesh, arrays) -> dict:
         live = i_one >= 0
         topk_err = (float((s_m - s_one).abs()[live].max())
                     if live.any() else 0.0)
+    scheduled = dist_scheduled(device, svc, msvc, questions, mesh)
     del msvc, store, sb, bank
     gc.collect()
     torch.cuda.empty_cache()
     return {"layout": layout, "p50_ms": p50, "sharded_topk": {
         "Q": int(qmat.shape[0]), "k": 64, "launches": launched,
-        "max_abs_err": topk_err}}
+        "max_abs_err": topk_err}, "scheduled": scheduled}
+
+
+# K5[lse]: each instance the context-parallel decode gives it, (dtype, B,
+# K, G, T, D, cache kind, per-row kv_len): f32 at the agent's decode shape;
+# internlm2-1.8b's long_500k ring (8,192 slots, window 8,192, the query at
+# position 500,000); int8 codes at phi3.5-moe's shape; a bf16 full cache of
+# 524,288 / 16 rows (one rank's shard on a 16-wide `data` axis) at
+# internlm2's heads, filled to 13,000.  MLA's 576-wide latent is beyond
+# K5 (head dim <= 256, group <= 16): its decode stays torch ops
+LSE_CASES = {
+    "f32": ("float32", LM_SLOTS, LM_K, LM_G, LM_MAX_LEN, LM_D, "full",
+            [DECODE_KV_LEN + 7 * b for b in range(LM_SLOTS)]),
+    "bf16_ring": ("bfloat16", 1, 8, 2, 8192, 128, "ring", [500_001]),
+    "int8": ("bfloat16", 4, 8, 4, 512, 128, "int8", [200, 1, 77, 512]),
+    "bf16_shard": ("bfloat16", 1, 8, 2, 32768, 128, "full", [13_000]),
+}
+LSE_TIMED = "bf16_ring"      # the kernels line's shape: the long_500k path's
+LSE_SPLITS = (1, 4, 16)
+# the log-sum-exp of f32 scores (values ~ log T + a few): the kernel sums
+# the exponentials in another order than the plain version's logsumexp
+LSE_TOL = 1e-4
+
+
+def lse_case(gen, device, name: str, reps: int) -> dict:
+    """K5 with `return_lse` on one LSE_CASES instance against its plain
+    version (output at ATTN_TOL of the plain output's largest |value|: a
+    long cache's output averages thousands of rows and is far smaller
+    than its largest |v|; lse at LSE_TOL, -inf at the same rows), then the cache cut into R in LSE_SPLITS shards of
+    consecutive rows (a full cache's at kv_len - its first row; a ring's
+    slot positions as they are), K5[lse] on each and `combine_partials`
+    over them against the whole call: no NaN, every shard wholly past
+    kv_len at output 0 and lse -inf.  Then ms a call, the plain version's,
+    SDPA's with the mask as a boolean input (none for int8 codes) and the
+    bound."""
+    import torch
+    from repro_torch.kernels import decode_attention as da
+    dt_name, B, K, G, T, D, kind, lens = LSE_CASES[name]
+    dtype = getattr(torch, dt_name)
+    q = _rand((B, 1, K * G, D), gen, device, dtype).view(B, K, G, D)
+    kv_len = torch.tensor(lens, dtype=torch.int32, device=device)
+    kw = {}
+    if kind == "int8":
+        k, kw["k_scale"] = quant_cache(B, K, T, D, gen, device)
+        v, kw["v_scale"] = quant_cache(B, K, T, D, gen, device)
+    else:
+        k = _rand((B, T, K, D), gen, device, dtype).permute(0, 2, 1, 3)
+        v = _rand((B, T, K, D), gen, device, dtype).permute(0, 2, 1, 3)
+    qp = kv_len[:, None].long() - 1
+    if kind == "ring":
+        kw["window"] = T
+        kw["slot_pos"] = sp = ring_slots([n - 1 for n in lens], T, 0, gen,
+                                         device)
+        allowed = (sp >= 0) & (sp <= qp) & (sp > qp - T)
+    else:
+        allowed = torch.arange(T, device=device)[None, :] <= qp
+    what = f"K5[lse] {name} B={B} K={K} G={G} T={T} D={D} kv_len={lens}"
+    got, lse = da.decode_attention(q, k, v, kv_len, return_lse=True, **kw)
+    want, lse_w = da.decode_attention_ref(q, k, v, kv_len, return_lse=True,
+                                          **kw)
+    tol = ATTN_TOL[dt_name] * float(want.float().abs().max())
+    err = float((got.float() - want.float()).abs().max())
+    fin = torch.isfinite(lse_w)
+    if not torch.equal(torch.isfinite(lse), fin) or not err <= tol:
+        fail(f"{what}: output error {err} > {tol}, or lse -inf at other "
+             "rows than the plain version's")
+    lse_err = float((lse - lse_w)[fin].abs().max()) if fin.any() else 0.0
+    if not lse_err <= LSE_TOL:
+        fail(f"{what}: lse error {lse_err} > {LSE_TOL}")
+    splits = {}
+    for R in LSE_SPLITS:
+        outs, lses, empty = [], [], []
+        for r in range(R):
+            a, b = T * r // R, T * (r + 1) // R
+            cut = {n: (t[:, :, a:b] if t.dim() == 3 else t[:, a:b])
+                   for n, t in kw.items() if n != "window"}
+            if "window" in kw:
+                cut["window"] = kw["window"]
+            o, l = da.decode_attention(
+                q, k[:, :, a:b], v[:, :, a:b],
+                kv_len if kind == "ring" else kv_len - a, return_lse=True,
+                **cut)
+            outs.append(o)
+            lses.append(l)
+            if kind != "ring":
+                empty.extend((r, i) for i in range(B) if lens[i] <= a)
+        co, cl = da.combine_partials(torch.stack(outs), torch.stack(lses))
+        c_err = float((co.float() - got.float()).abs().max())
+        l_err = float((cl - lse)[fin].abs().max()) if fin.any() else 0.0
+        bad = [(r, i) for r, i in empty
+               if outs[r][i].any() or not bool((lses[r][i] == float("-inf"))
+                                               .all())]
+        if torch.isnan(co).any() or torch.isnan(cl).any() or bad \
+                or not c_err <= tol or not l_err <= LSE_TOL:
+            fail(f"{what}: {R} shards combined: output {c_err} (> {tol}?), "
+                 f"lse {l_err} (> {LSE_TOL}?), shards past kv_len not at "
+                 f"0 / -inf: {bad}")
+        splits[R] = {"max_abs_err": c_err, "lse_max_abs_err": l_err,
+                     "shards_past_kv_len": len({r for r, _ in empty})}
+    rows = int(allowed.sum())
+    esize = 1 if kind == "int8" else q.element_size()
+    nbytes = (2 * q.numel() * q.element_size() + 2 * rows * K * D * esize
+              + 4 * B * K * G + 4 * B
+              + (4 * B * T if kind == "ring" else 0)
+              + (2 * 4 * rows * K if kind == "int8" else 0))
+    peak = FP32_FLOPS_PER_S if dtype == torch.float32 else BF16_FLOPS_PER_S
+    bound, by = attention_bound_ms(rows * K * G, nbytes, D, peak)
+    mask = allowed[:, None, None, :]
+    library = None
+    if kind != "int8":
+        def library():
+            return torch.nn.functional.scaled_dot_product_attention(
+                q.reshape(B, K * G, 1, D), k, v, attn_mask=mask,
+                enable_gqa=True)
+    return {"shape": {"B": B, "K": K, "G": G, "T": T, "D": D,
+                      "dtype": dt_name, "kind": kind, "kv_len": lens},
+            "max_abs_err": err, "lse_max_abs_err": lse_err,
+            "tolerance": tol, "splits": splits,
+            "ms": time_ms(lambda: da.decode_attention(
+                q, k, v, kv_len, return_lse=True, **kw), reps),
+            "plain_ms": time_ms(lambda: da.decode_attention_ref(
+                q, k, v, kv_len, return_lse=True, **kw), max(1, reps // 4)),
+            "library_ms": (time_ms(library, reps) if library is not None
+                           else None),
+            "bound_ms": bound, "bound_by": by}
+
+
+def dist_lse(device, reps: int) -> dict:
+    """K5[lse] on every LSE_CASES instance (`lse_case`), uncounted."""
+    import torch
+    gen = torch.Generator(device=device).manual_seed(29)
+    with uncounted():
+        return {name: lse_case(gen, device, name, reps)
+                for name in LSE_CASES}
+
+
+# context-parallel long_500k decode at full width on the dist mesh, its
+# caches placed by `long_context_rules` (`context_parallel=True`: on a
+# 1-wide `data` axis the rules' sequence shard is the whole cache), filled
+# with seeded rows up to LONG_POS - 1 (not prefilled): internlm2-1.8b's 24
+# layers on their 8,192-slot ring, deepseek-v3's MLA_LAYERS layers on the
+# full 524,288-row latent cache; LONG_STEPS tokens from LONG_POS on
+LONG_ARCHS = ("internlm2-1.8b", "deepseek-v3-671b")
+LONG_POS, LONG_STEPS = 500_000, 3
+
+
+def long_caches(model, window, gen, device):
+    """Decode caches of long_500k (batch 1) holding seeded rows at every
+    position below LONG_POS: a ring's slots the latest position of their
+    residue (and its true position), a full cache's rows 0..LONG_POS-1
+    (MLA's latent and rope key at unit spread)."""
+    import torch
+    from repro_torch.models.config import INPUT_SHAPES
+    T = INPUT_SHAPES["long_500k"].seq_len
+    caches = model.init_caches(1, T, window_override=window, device=device)
+    for c in caches:
+        if c is None:
+            continue
+        if "pos" in c:
+            c["pos"].copy_(ring_slots([LONG_POS - 1], c["pos"].shape[1], 0,
+                                      gen, device))
+            rows = slice(None)
+        else:
+            rows = slice(0, LONG_POS)
+        for name, x in c.items():
+            if name != "pos":
+                x[:, rows] = _rand(x[:, rows].shape, gen, device, x.dtype)
+    return caches
+
+
+def long_decode(device, mesh, arch, cfg, params) -> dict:
+    """LONG_STEPS greedy tokens of `build_decode_step(long_500k, mesh,
+    context_parallel=True)` against the one-device step on a copy of the
+    same caches: the logits within ZOO_REL_TOL of the largest |logit| (a
+    bf16 model; K5[lse] and the combine against K5, MLA's local softmax and
+    its combine against one softmax), K5[lse] launched once per attention
+    layer each step (MLA's decode is torch ops), the combine run once per
+    attention layer each step; step ms and the meshed step's own memory:
+    what was allocated as it began (the weights and both copies of the
+    caches), the peak during it (its peak counter reset just before), and
+    the difference, its transient bytes (the uncounted one-device step's
+    ms beside it)."""
+    import torch
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.launch.sharding import build_decode_step
+    from repro_torch.models.config import INPUT_SHAPES
+    from repro_torch.models.layers import attention, mla
+    dec = build_decode_step(cfg, INPUT_SHAPES["long_500k"], mesh,
+                            context_parallel=True)
+    window = dec.meta["window_override"]
+    gen = torch.Generator(device=device).manual_seed(31)
+    caches = long_caches(dec.model, window, gen, device)
+    plain = [None if c is None else {k: v.clone() for k, v in c.items()}
+             for c in caches]
+    dparams = dec.model.shard_params(params, mesh, dec.rules)
+    n_attn = sum(1 for kind in cfg.layer_kinds() if kind[0] == "attn")
+    combines = {"n": 0}
+    real = attention.combine_shards
+
+    def counted(*a):
+        combines["n"] += 1
+        return real(*a)
+
+    attention.combine_shards = mla.combine_shards = counted
+    tok = torch.tensor([[7]], dtype=torch.int32, device=device)
+    ms, ms_one, rel, resident, peak = [], [], [], [], []
+    try:
+        for t in range(LONG_STEPS):
+            pos = torch.full((1,), LONG_POS + t, dtype=torch.int32,
+                             device=device)
+            before = (da.lse_launches.launches, combines["n"])
+            torch.cuda.synchronize()
+            resident.append(torch.cuda.memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            logits, caches = dec.fn(dparams, tok, caches, pos)
+            got = _full(logits).float()
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            peak.append(torch.cuda.max_memory_allocated())
+            lse_n = da.lse_launches.launches - before[0]
+            comb_n = combines["n"] - before[1]
+            want_lse = 0 if cfg.use_mla else n_attn
+            if lse_n != want_lse or comb_n != n_attn:
+                fail(f"long decode {arch} step {t}: K5[lse] launched "
+                     f"{lse_n} times (want {want_lse}), the combine ran "
+                     f"{comb_n} times over {n_attn} attention layers")
+            with uncounted(), torch.no_grad():
+                t0 = time.perf_counter()
+                want, plain = dec.model.decode_step(
+                    params, tok, plain, pos, window_override=window)
+                torch.cuda.synchronize()
+                ms_one.append((time.perf_counter() - t0) * 1e3)
+            want = want.float()
+            if not bool(torch.isfinite(got).all()):
+                fail(f"long decode {arch} step {t}: logits not finite")
+            rel.append(float((got - want).abs().max())
+                       / float(want.abs().max()))
+            if not rel[-1] <= ZOO_REL_TOL:
+                fail(f"long decode {arch} step {t}: logits {rel[-1]} of the "
+                     f"scale from the one-device step's > {ZOO_REL_TOL}")
+            tok = got[:, -1].argmax(-1).to(torch.int32)[:, None]
+    finally:
+        attention.combine_shards = mla.combine_shards = real
+    cache_bytes = sum(x.numel() * x.element_size() for c in plain if c
+                      for x in c.values())
+    out = {"arch": arch, "layers": cfg.num_layers, "dtype": str(cfg.cdtype),
+           "position": LONG_POS, "steps": LONG_STEPS,
+           "window": window, "cache_bytes": cache_bytes,
+           "placements": sorted({str(tuple(x.placements)) for c in caches
+                                 if c for x in c.values()}),
+           "logits_rel_err_vs_one_device": max(rel),
+           "step_ms": ms, "one_device_step_ms": ms_one,
+           "step_resident_bytes": max(resident),
+           "step_peak_bytes": max(peak),
+           "step_transient_bytes": max(p - r for p, r in zip(peak, resident)),
+           "lse_launches_per_step": 0 if cfg.use_mla else n_attn,
+           "combines_per_step": n_attn}
+    del caches, plain, dparams, dec
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_long(device, mesh, mla_params) -> dict:
+    """`long_decode` of LONG_ARCHS: internlm2-1.8b whole, from `unit_scores`
+    weights; deepseek-v3 at the dist MLA phase's MLA_LAYERS layers and
+    weights (`mla_params`).  K5[lse]'s launches are counted from 0."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.models.model_api import Model
+    reset_counts()
+    cfg = get_config(LONG_ARCHS[0])
+    params = unit_scores(Model(cfg).init_params(
+        torch.Generator(device=device).manual_seed(33)), cfg)
+    out = {LONG_ARCHS[0]: long_decode(device, mesh, LONG_ARCHS[0], cfg,
+                                      params)}
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, params = mla_params
+    out[LONG_ARCHS[1]] = long_decode(device, mesh, LONG_ARCHS[1], cfg,
+                                     params)
+    out["lse_launches"] = da.lse_launches.launches
+    return out
+
+
+# the meshed store through its scheduler and frontend: DIST_SCHED_CLIENTS
+# closed-loop clients of DIST_SCHED_ROUNDS retrieves each (client 0 the
+# planted question), then DIST_HTTP_CONVS sessions recorded over HTTP and
+# asked back by as many HttpMemory clients
+DIST_SCHED_CLIENTS, DIST_SCHED_ROUNDS, DIST_HTTP_CONVS = 8, 8, 8
+CITIES = ("Tallinn", "Porto", "Cusco", "Oslo", "Quito", "Hanoi", "Lagos",
+          "Lima")
+
+
+def _payload_json(payload) -> str:
+    import json
+    from repro_torch.core.api import payload_to_json
+    return json.dumps(payload_to_json(payload), sort_keys=True)
+
+
+def dist_scheduled(device, svc, msvc, questions, mesh) -> dict:
+    """The meshed service `msvc` through a MemoryScheduler (its ticks
+    broadcast over the mesh's gloo group) against the unmeshed `svc`
+    through its own, the same seeded requests from the same clients: every
+    answer byte-equal (the payload's JSON), K1 once a rank an execute,
+    every tick broadcast; then a MemoryFrontend over `msvc`: sessions
+    recorded over HTTP, and each HttpMemory answer byte-equal to the same
+    request submitted to the scheduler."""
+    import dataclasses as dc
+    import json
+    import threading
+    from repro_torch.core import HttpMemory, Message, RetrieveRequest
+    from repro_torch.serving.frontend import MemoryFrontend
+    names = sorted(questions)
+    k1 = wrappers()["topk_mips_masked"]
+
+    def make(c, rng):
+        if c == 0:
+            return RetrieveRequest(PLANTED_NS, PLANTED_QUESTION)
+        ns = str(names[int(rng.integers(len(names)))])
+        return RetrieveRequest(
+            ns, str(questions[ns][int(rng.integers(len(questions[ns])))]))
+
+    def answers(run):
+        seen = {}
+        for c, _, resp, _ in run["records"]:
+            seen.setdefault(c, []).append(_payload_json(resp.payload))
+        return seen
+
+    with uncounted():
+        sched = svc.start_scheduler(tick_interval_s=SCHED_TICK_S,
+                                    max_batch=SCHED_MAX_BATCH)
+        want = answers(closed_loop(svc, sched, make, DIST_SCHED_CLIENTS,
+                                   DIST_SCHED_ROUNDS))
+        sched.close()
+    sched = msvc.start_scheduler(tick_interval_s=SCHED_TICK_S,
+                                 max_batch=SCHED_MAX_BATCH)
+    before = k1.launches
+    run = closed_loop(msvc, sched, make, DIST_SCHED_CLIENTS,
+                      DIST_SCHED_ROUNDS)
+    launched = k1.launches - before
+    st = sched.stats()
+    check_answers(run["records"], "dist scheduler")
+    if answers(run) != want:
+        fail("dist scheduler: the meshed service's answers differ from the "
+             "unmeshed service's")
+    if launched != mesh.size() * st["retrieve_launches"] or \
+            sched.mesh_ticks.count != st["ticks"] or not st["ticks"]:
+        fail(f"dist scheduler: {launched} K1 launches in "
+             f"{st['retrieve_launches']} executes on {mesh.size()} rank(s), "
+             f"{sched.mesh_ticks.count} ticks broadcast of {st['ticks']}")
+    out = {"clients": DIST_SCHED_CLIENTS, "rounds": DIST_SCHED_ROUNDS,
+           "requests": len(run["records"]), "ticks": st["ticks"],
+           "ticks_broadcast": sched.mesh_ticks.count,
+           "executes": st["retrieve_launches"], "k1_launches": launched,
+           "requests_per_s": len(run["records"]) / run["wall"],
+           "equal_to_unmeshed": True}
+    fe = MemoryFrontend(msvc, HTTP_KEYS).start()
+    try:
+        ts = 1_700_000_000.0
+        for i in range(DIST_HTTP_CONVS):
+            HttpMemory(fe.address, "k-acme", namespace=f"m{i}") \
+                .record_session(f"m{i}", "s0", [Message(
+                    "user", f"I live in {CITIES[i]}.", ts + i)])
+        got = [None] * DIST_HTTP_CONVS
+
+        def ask(i):
+            ctx = HttpMemory(fe.address, "k-acme",
+                             namespace=f"m{i}").retrieve(PLANTED_QUESTION)
+            got[i] = json.dumps(dc.asdict(ctx), sort_keys=True)
+
+        threads = [threading.Thread(target=ask, args=(i,))
+                   for i in range(DIST_HTTP_CONVS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        for i in range(DIST_HTTP_CONVS):
+            direct = sched.submit(RetrieveRequest(
+                f"acme/m{i}", PLANTED_QUESTION)).result(
+                    timeout=SCHED_WAIT_S).payload
+            if got[i] != json.dumps(dc.asdict(direct), sort_keys=True) \
+                    or CITIES[i].lower() not in got[i]:
+                fail(f"dist frontend: m{i} answered over HTTP\n{got[i]}\n"
+                     "differs from the scheduler's answer or lacks the fact")
+        out["http"] = {"sessions": DIST_HTTP_CONVS,
+                       "answers_equal_to_scheduler": DIST_HTTP_CONVS,
+                       "ticks_broadcast": sched.mesh_ticks.count}
+    finally:
+        fe.close()
+        sched.close()
+    return out
 
 
 def dist_train(device, mesh) -> dict:
@@ -6305,8 +6721,10 @@ def dist_mla(device, reps: int) -> dict:
     """deepseek-v3 at full width in bf16 with `mla_absorbed_train`: a
     prefill at MLA_LAYERS layers, every K6 call (the D = 576 instance)
     against its plain version and the logits against the decompressed
-    path's; one train step at MLA_TRAIN_LAYERS layers through
-    FlashAttentionFn at D = 576 (finite loss and gradient norm)."""
+    path's; with the same weights, context-parallel long_500k decode of
+    internlm2-1.8b and deepseek-v3 (`dist_long`); one train step at
+    MLA_TRAIN_LAYERS layers through FlashAttentionFn at D = 576 (finite
+    loss and gradient norm)."""
     import dataclasses
     import math
     import torch
@@ -6350,7 +6768,10 @@ def dist_mla(device, reps: int) -> dict:
                       "k6_max_abs_err": max(e[1] for e in errs),
                       "d576_launches": launched,
                       "logits_rel_err_vs_decompressed": rel}
-    del params, model, plain, logits
+    del model, plain, logits
+    gc.collect()
+    out["long"] = dist_long(device, dist_mesh(), (cfg, params))
+    del params
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -6414,9 +6835,12 @@ def phase_dist(device, svc, questions, reps: int, sharded) -> dict:
 
 def phase_dist_mla(device, reps: int) -> dict:
     """Phase 16, part 2 (after the zoo, when the card is free): deepseek's
-    absorbed MLA through the D = 576 instance."""
+    absorbed MLA through the D = 576 instance, context-parallel long_500k
+    decode of internlm2-1.8b and deepseek-v3 (`dist_long`), and K5[lse]
+    against its plain version (`dist_lse`)."""
     t0 = time.perf_counter()
     out = dist_mla(device, reps)
+    out["lse"] = dist_lse(device, reps)
     out["seconds"] = time.perf_counter() - t0
     emit({"phase": "dist", "part": "mla", **out, "gpu": gpu_line()})
     return out
@@ -6504,6 +6928,7 @@ def main(argv=None) -> int:
                      "topk_mips_quant_masked": serve8["launches"],
                      "topk_mips": ops["launches"],
                      "topk_mips_quant": ops["launches"]}
+    lse = dist_mla_part["lse"]
     path_err = {"topk_mips_masked": max(
                     serve["dense_vs_plain"]["max_abs_err"],
                     sharded["parity"]["dense_vs_plain_max_abs_err"]),
@@ -6564,6 +6989,17 @@ def main(argv=None) -> int:
         "launches": dist_mla_part["launches"],
         "max_abs_err": max(*attn[ABSORBED]["max_abs_err"].values(),
                            t["max_abs_err"]),
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    t = lse[LSE_TIMED]
+    if dist_mla_part["long"]["lse_launches"] < 1:
+        fail("decode_attention[lse] was not launched on the long_500k path")
+    summary.append({
+        "name": "decode_attention[lse]", "route": "cuda",
+        "source": ATTN_KERNELS["decode_attention"][1],
+        "replaces": ATTN_KERNELS["decode_attention"][0],
+        "launches": dist_mla_part["long"]["lse_launches"],
+        "max_abs_err": max(r["max_abs_err"] for r in lse.values()),
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     emit({"seconds": time.perf_counter() - t_start})

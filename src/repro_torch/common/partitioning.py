@@ -30,7 +30,6 @@ import re
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
-import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 PyTree = Any
@@ -111,7 +110,12 @@ class MeshRules:
         for i, name in enumerate(logical_axes):
             phys = self.rules.get(name) if name is not None else None
             if phys is not None and dim_sizes is not None:
-                if dim_sizes[i] % self.axis_size(phys) != 0:
+                if dim_sizes[i] == 1 and self.axis_size(phys) == 1:
+                    # a one-wide dim on a one-wide axis stays whole: the
+                    # layout is the same, and DTensor's reshapes refuse a
+                    # sharded one-wide dim (MQA's kv head on a (4, 1) mesh)
+                    phys = None
+                elif dim_sizes[i] % self.axis_size(phys) != 0:
                     # replicate instead of an uneven shard; heads fall back
                     # to head_dim below
                     if name in ("heads", "kv_heads"):
@@ -290,10 +294,14 @@ def replicated(x, mesh):
                               run_check=False)
 
 
-def fake_collectives(mesh) -> bool:
-    """True when `mesh`'s process group is the in-process "fake" backend
-    (the dry-run's): no rank computes real values."""
-    return dist.get_backend(mesh.get_group(0)) == "fake"
+def seq_mesh_dims(x) -> tuple:
+    """The mesh dims on which DTensor `x` shards its dim 1 (a cache's
+    sequence: `long_context_rules`' context-parallel layout); () for a
+    plain tensor."""
+    if not isinstance(x, DTensor):
+        return ()
+    return tuple(i for i, p in enumerate(x.placements)
+                 if isinstance(p, Shard) and p.dim == 1)
 
 
 def attention_placements(q, kv, head_dim: int = 2):
@@ -409,13 +417,14 @@ BATCH_AXES = ("pod", "data")
 def batch_axes_placements(mesh, size: int, dim: int) -> list:
     """Placements that shard tensor dim `dim` (of `size`) over the mesh's
     batch axes ("pod", "data") where their product divides it, every
-    other mesh dim replicated."""
+    other mesh dim replicated.  A one-wide dim stays whole (as
+    `MeshRules.spec_for` keeps it)."""
     names = mesh.mesh_dim_names
     n = 1
     for i, name in enumerate(names):
         if name in BATCH_AXES:
             n *= mesh.size(i)
-    ok = size % n == 0
+    ok = size % n == 0 and size > 1
     return [Shard(dim) if ok and name in BATCH_AXES else Replicate()
             for name in names]
 

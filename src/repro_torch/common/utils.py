@@ -7,22 +7,6 @@ import numpy as np
 import torch
 
 
-# what still raises NotImplementedError names the slice it waits for
-SLICE_M7C = ("the multi-rank serving slice of the port (M7c: K5's per-split "
-             "log-sum-exp for context-parallel decode, and the scheduler and "
-             "HTTP frontend on a mesh of more than one rank)")
-
-
-def require_one_rank(service, what: str) -> None:
-    """Raise for a service whose store sits on a mesh of more than one rank:
-    `what` (the scheduler, the HTTP frontend) would let the ranks take
-    different batches, where every rank must run the same program."""
-    mesh = getattr(getattr(service, "store", None), "mesh", None)
-    if mesh is not None and mesh.size() > 1:
-        raise NotImplementedError(f"{what} on a {mesh.size()}-rank mesh: "
-                                  f"{SLICE_M7C}")
-
-
 def cdiv(a: int, b: int) -> int:
     return -(-a // b)
 

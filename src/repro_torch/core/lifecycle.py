@@ -38,6 +38,18 @@ escape hatches (`flush`, `compact`, `rotate`); `run_maintenance_once()` is
 the daemon's body, exposed so tests and embedders without threads can
 drive the same policy deterministically.
 
+On a mesh (the store built with `mesh=`, one process a rank) only rank 0
+journals and snapshots, and no rank starts the daemon: each rank's clock
+would time its flushes, compactions and demotions differently and the
+ranks' banks would part.  Rank 0's scheduler decides each maintenance tick
+(`plan_maintenance`) and ships it with a request tick; every rank applies
+it (`apply_maintenance`, core/scheduler.py).  So a meshed service whose
+policy wants a daemon is served through its scheduler: a client op on it
+with no scheduler mounted raises rather than go unmaintained.  A full
+queue in `"block"` mode is flushed by the enqueue itself on a mesh (each
+rank's queue fills at the same op), where the daemon would have drained
+it.
+
 A sharded store (`shards > 1`) journals through a `ShardedWal` (per-shard
 logs behind a coordinator log, checkpoint/replication.py), and
 `attach_follower` streams every sealed segment to a follower so that a
@@ -179,7 +191,12 @@ class LifecycleRuntime:
         # store.flush() — must stamp the flush clock and wake blocked
         # enqueuers, so the bookkeeping hangs off the store's commit hook
         store.on_flush_commit = self._flush_committed
-        if start and self.policy.wants_daemon:
+        # on a mesh no rank runs the daemon: rank 0's scheduler decides
+        # each maintenance tick and ships it to every rank, and sets
+        # itself as the maintainer on every rank
+        self.meshed = store.mesh is not None
+        self.maintainer = None
+        if start and self.policy.wants_daemon and not self.meshed:
             self.start()
 
     def _flush_committed(self, n_sessions: int) -> None:
@@ -308,6 +325,10 @@ class LifecycleRuntime:
                     raise BackpressureError(
                         f"pending queue full ({self.store.pending_count}"
                         f"/{mp})")
+                if self.meshed:
+                    # no daemon drains it: every rank flushes here, at
+                    # the same enqueue
+                    self.flush()
                 deadline = (None if self.policy.enqueue_timeout_s is None
                             else time.monotonic()
                             + self.policy.enqueue_timeout_s)
@@ -326,7 +347,17 @@ class LifecycleRuntime:
 
     def note_activity(self) -> None:
         """Client-facing ops call this; the idle window gating
-        auto-compaction measures time since the last call."""
+        auto-compaction measures time since the last call.  On a mesh
+        whose policy wants a daemon it raises while no scheduler ships
+        the maintenance (`maintainer`): no rank would ever run it."""
+        if self.meshed and self.policy.wants_daemon \
+                and self.maintainer is None:
+            raise RuntimeError(
+                "a meshed service whose lifecycle policy flushes, compacts, "
+                "rotates snapshots or ticks tiers on a clock is maintained "
+                "by rank 0's MemoryScheduler: start_scheduler() on every "
+                "rank and submit on rank 0, or use a policy without those "
+                "triggers")
         self._last_activity = time.monotonic()
 
     def _note_backpressure(self, namespace: str, kind: str) -> None:
@@ -444,38 +475,61 @@ class LifecycleRuntime:
 
     def run_maintenance_once(self) -> dict:
         """One daemon tick: time/fullness-triggered flush, idle-window
-        auto-compaction, interval-driven snapshot rotation.  Public so
-        tests (and hosts that bring their own scheduler) can drive the
-        exact policy the daemon runs, deterministically.  On a CUDA device
-        a tick that wrote to the device waits for the runtime's stream
-        before it releases the lock."""
+        auto-compaction, interval-driven snapshot rotation, the tier tick
+        (`plan_maintenance` then `apply_maintenance`, under one hold of
+        the lock).  Public so tests (and hosts that bring their own
+        scheduler) can drive the exact policy the daemon runs,
+        deterministically."""
+        with self.lock:
+            return self.apply_maintenance(self.plan_maintenance())
+
+    def plan_maintenance(self) -> dict:
+        """What one maintenance tick does, decided from this process's
+        clock and the store's counters, changing nothing: {"flush",
+        "compact", "rotate", "tier"} booleans.  On a mesh only rank 0
+        decides: its scheduler ships the plan with a tick and every rank
+        applies it (core/scheduler.py), so no rank's own clock orders a
+        flush, a compaction or a demotion."""
         p = self.policy
-        did = {"flushed": 0, "compacted": False, "rotated": False,
-               "tier": None}
         now = time.monotonic()
         with self.lock:
             pending = self.store.pending_count
             full = p.max_pending is not None and pending >= p.max_pending
             due = (p.flush_interval_s is not None and pending
                    and now - self._last_flush >= p.flush_interval_s)
-            if full or due:
-                did["flushed"] = self.flush()
+            compact = False
             if p.compact_tombstone_ratio is not None:
                 # O(1) counters, not store.stats(): this runs every tick
                 dead, rows = self.store.vindex.n_dead, self.store.vindex.n
                 idle = now - self._last_activity >= p.compact_idle_s
-                if (idle and rows and dead >= p.compact_min_tombstones
-                        and dead / rows >= p.compact_tombstone_ratio):
-                    self.store.compact()
-                    self.counters["auto_compactions"] += 1
-                    did["compacted"] = True
-            if (p.snapshot_interval_s is not None and self.wal is not None):
+                compact = bool(idle and rows
+                               and dead >= p.compact_min_tombstones
+                               and dead / rows >= p.compact_tombstone_ratio)
+            rotate = False
+            if p.snapshot_interval_s is not None and self.wal is not None:
                 ref = (self._last_snapshot_mono
                        if self._last_snapshot_mono is not None else 0.0)
-                if now - ref >= p.snapshot_interval_s:
-                    self.rotate()
-                    did["rotated"] = True
-            if self.store.tiers is not None:
+                rotate = now - ref >= p.snapshot_interval_s
+            return {"flush": bool(full or due), "compact": compact,
+                    "rotate": rotate, "tier": self.store.tiers is not None}
+
+    def apply_maintenance(self, plan: dict) -> dict:
+        """Carry out a `plan_maintenance` plan (this process's or rank
+        0's).  On a CUDA device a tick that wrote to the device waits for
+        the runtime's stream before it releases the lock."""
+        did = {"flushed": 0, "compacted": False, "rotated": False,
+               "tier": None}
+        with self.lock:
+            if plan["flush"]:
+                did["flushed"] = self.flush()
+            if plan["compact"]:
+                self.store.compact()
+                self.counters["auto_compactions"] += 1
+                did["compacted"] = True
+            if plan["rotate"]:
+                self.rotate()
+                did["rotated"] = True
+            if plan["tier"] and self.store.tiers is not None:
                 # promote namespaces marked by host-fallback retrieves,
                 # demote the coldest past the hot-row budget — batched
                 # pow2 device scatters, under the same lock as every

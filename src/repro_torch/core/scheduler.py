@@ -67,6 +67,32 @@ thread runs it (the daemon, a test's `run_tick_once`, `close()`'s drain):
 * the engine captures its decode graph in thread-local mode
   (`serving/engine.py` `CountedGraph`), so a tick may run on its own
   stream while another thread captures, and takes no lock for it.
+
+On a mesh (the service's store built with `mesh=`, one process a rank)
+every rank builds a scheduler over its own copy of the store, and the
+ranks must run the same ticks in the same order: each execute is a
+collective (the meshed `sharded_topk` all-gathers every rank's
+candidates).  So rank 0 of the mesh (the rank that writes the durable
+files, `store.durable_writer`) is the only one that takes requests: it
+admits and selects each tick as above, then broadcasts the tick — its
+requests in execution order, its clock, and any maintenance it decided
+(`LifecycleRuntime.plan_maintenance`) — over a gloo group of the mesh's
+ranks (`MeshTicks`) before it runs it.  Every other rank receives the
+ticks on its tick thread and runs the same tick body; only rank 0
+resolves futures.  Before it does, the ranks hold their outcomes of the
+tick against one another (which requests failed, whether the maintenance
+did: `MeshTicks.agree`, one all-reduce): where they differ, the ranks'
+stores may have parted, and the scheduler is marked `broken` on every
+rank — rank 0 fails that tick's requests and every later one, and
+`stats()["mesh"]["broken"]` and the frontend's `/v1/readyz` say so.  No
+rank's lifecycle daemon runs on a mesh: the flushes, compactions,
+snapshot rotations and tier ticks that a daemon would time from its own
+clock are rank 0's decisions shipped with a tick (at most every
+`policy.tick_s`, idle or not), and a tier manager's activity clock reads
+the shipped time.  `submit` on another rank raises; rank 0's `close()`
+drains its queue and broadcasts a stop, which ends every other rank's
+tick thread.  Another rank's `join()` waits for that stop; its `close()`
+waits `timeout` seconds for it, then raises.
 """
 from __future__ import annotations
 
@@ -79,7 +105,6 @@ from typing import List, Optional, Sequence, Union
 
 import torch
 
-from repro_torch.common.utils import require_one_rank
 from repro_torch.core.admission import (AdmissionController, AdmissionError,
                                         AdmissionPolicy, tenant_of)
 from repro_torch.core.api import (CompactRequest, EvictRequest,
@@ -91,6 +116,75 @@ _REQUEST_TYPES = (RetrieveRequest, RecordRequest, EvictRequest,
                   CompactRequest)
 _OP_NAMES = {RetrieveRequest: "retrieve", RecordRequest: "record",
              EvictRequest: "evict", CompactRequest: "compact"}
+
+
+class MeshTicks:
+    """The tick stream of a scheduler whose store sits on a mesh: a gloo
+    group over the mesh's ranks (made by every rank together), rank 0 of
+    the mesh (its first rank) the sender.  `send(msg)` / `receive()`
+    broadcast one picklable message: a tick, or None to stop; `agree`
+    holds each rank's outcome of a tick against the others'."""
+
+    def __init__(self, mesh):
+        import torch.distributed as dist
+        ranks = [int(r) for r in mesh.mesh.flatten().tolist()]
+        self.group = dist.new_group(ranks=ranks, backend="gloo")
+        self.leader = ranks[0]
+        self.rank = dist.get_rank()
+        self.is_leader = self.rank == self.leader
+        self.count = 0                    # ticks sent (rank 0) or received
+
+    def _broadcast(self, msg):
+        import torch.distributed as dist
+        box = [msg]
+        dist.broadcast_object_list(box, src=self.leader, group=self.group)
+        return box[0]
+
+    def send(self, msg) -> None:
+        self._broadcast(msg)
+        if msg is not None:
+            self.count += 1
+
+    def receive(self):
+        msg = self._broadcast(None)
+        if msg is not None:
+            self.count += 1
+        return msg
+
+    def agree(self, flags: List[int]) -> bool:
+        """True when every rank passes the same 0/1 `flags` (one
+        all-reduce of the flags and their negatives: the max and the
+        min of each)."""
+        import torch.distributed as dist
+        t = torch.tensor(list(flags) + [-f for f in flags],
+                         dtype=torch.int32)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
+        n = len(flags)
+        return bool(torch.equal(t[:n], -t[n:]))
+
+
+class MeshDiverged(RuntimeError):
+    """A rank of the mesh ran a tick to another outcome than rank 0's: the
+    ranks' stores may have parted, so the meshed scheduler takes no more
+    requests."""
+
+
+@dataclass
+class _Tick:
+    """What rank 0 broadcasts of one tick: the requests in execution
+    order, its monotonic clock, and the maintenance it decided (None)."""
+    requests: list
+    now: float
+    maintenance: Optional[dict] = None
+
+
+class _ShippedClock:
+    """A tier manager's activity clock on a mesh: the time rank 0 sent
+    with the tick being run, the same on every rank."""
+    now = 0.0
+
+    def __call__(self) -> float:
+        return self.now
 
 
 @dataclass
@@ -111,7 +205,6 @@ class MemoryScheduler:
                  start: bool = True, mount: bool = True,
                  admission: Union[AdmissionController, AdmissionPolicy,
                                   None] = None):
-        require_one_rank(service, "MemoryScheduler")
         if max_batch < 1:
             raise ValueError("max_batch must be >= 1")
         if flush_writes not in ("tick", "defer"):
@@ -140,6 +233,23 @@ class MemoryScheduler:
         self.counters = {"ticks": 0, "requests": 0, "retrieves": 0,
                          "retrieve_launches": 0, "write_flushes": 0,
                          "group_commits": 0, "max_tick_batch": 0}
+        # a meshed store: rank 0 sends the ticks, the others run them (see
+        # the module docstring); every rank builds its scheduler together
+        mesh = getattr(store, "mesh", None)
+        self.mesh_ticks = MeshTicks(mesh) if mesh is not None else None
+        self._clock = _ShippedClock()
+        self._last_maintenance = time.monotonic()
+        # set when the ranks' outcomes of a tick differ (or a follower's
+        # tick raised): every later request fails with it
+        self.broken: Optional[BaseException] = None
+        self._ticking = False             # rank 0: between send and agree
+        if self.mesh_ticks is not None:
+            if store.tiers is not None:
+                store.tiers._clock = self._clock
+            rt = getattr(service, "runtime", None)
+            if rt is not None:
+                # its policy's maintenance comes with this scheduler's ticks
+                rt.maintainer = self
         if mount:
             if getattr(service, "scheduler", None) is not None \
                     and not service.scheduler.closed:
@@ -169,6 +279,14 @@ class MemoryScheduler:
         `traces` (parallel to `requests`, entries may be None) carries each
         request's edge Trace so the tick that executes it records its queue
         wait, the tick itself, and every plan stage into that tree."""
+        if self.mesh_ticks is not None and not self.mesh_ticks.is_leader:
+            raise RuntimeError(
+                f"submit on rank {self.mesh_ticks.rank}: a meshed "
+                f"scheduler takes requests on rank 0 of its mesh (process "
+                f"rank {self.mesh_ticks.leader}), which broadcasts each "
+                "tick to the other ranks")
+        if self.broken is not None:
+            raise MeshDiverged(f"meshed scheduler broken: {self.broken!r}")
         for r in requests:
             if not isinstance(r, _REQUEST_TYPES):
                 raise TypeError(
@@ -219,7 +337,8 @@ class MemoryScheduler:
         caller is not the scheduler thread itself (the tick body calls the
         service's engine directly — re-submitting would deadlock)."""
         return (not self._closed and self.running
-                and threading.get_ident() != self._thread_ident)
+                and threading.get_ident() != self._thread_ident
+                and (self.mesh_ticks is None or self.mesh_ticks.is_leader))
 
     # -- tick body ----------------------------------------------------------
     def run_tick_once(self) -> dict:
@@ -252,8 +371,42 @@ class MemoryScheduler:
         except InvalidStateError:
             pass
 
-    def _run_tick(self, batch: List[_Pending]) -> dict:
-        if not batch:
+    def _maintenance_plan(self) -> Optional[dict]:
+        """Rank 0 of a mesh: the maintenance the runtime's policy wants
+        now (at most every `policy.tick_s`), or None."""
+        rt = getattr(self.service, "runtime", None)
+        if rt is None or not rt.policy.wants_daemon:
+            return None
+        now = time.monotonic()
+        if now - self._last_maintenance < rt.policy.tick_s:
+            return None
+        self._last_maintenance = now
+        plan = rt.plan_maintenance()
+        return plan if any(plan.values()) else None
+
+    def _run_tick(self, batch: List[_Pending],
+                  shipped: Optional[_Tick] = None) -> dict:
+        maintenance = None
+        if self.mesh_ticks is not None:
+            if self.mesh_ticks.is_leader:
+                if self.broken is not None:
+                    # no more ticks once the ranks have parted
+                    err = MeshDiverged(
+                        f"meshed scheduler broken: {self.broken!r}")
+                    for p in batch:
+                        self._resolve(p.future, MemoryResponse(
+                            payload=None, op=_OP_NAMES[type(p.req)],
+                            status="error", error=repr(err), exception=err))
+                    return {"requests": 0, "retrieve_launches": 0}
+                shipped = _Tick([p.req for p in batch], time.monotonic(),
+                                self._maintenance_plan())
+                if not batch and shipped.maintenance is None:
+                    return {"requests": 0, "retrieve_launches": 0}
+                self._ticking = True
+                self.mesh_ticks.send(shipped)
+            self._clock.now = shipped.now
+            maintenance = shipped.maintenance
+        if not batch and maintenance is None:
             return {"requests": 0, "retrieve_launches": 0}
         svc = self.service
         tel = get_telemetry()
@@ -296,18 +449,19 @@ class MemoryScheduler:
                  else contextlib.nullcontext())
         grouped = not isinstance(group, contextlib.nullcontext)
         ginfo = None
+        maintenance_failed = False
         # the tick span closes (stack.close below) BEFORE any future
         # resolves, so a handler thread never serializes a trace this
         # thread is still writing.  The read path's stream comes first
         stack = contextlib.ExitStack()
-        if self._stream is not None:
-            stack.enter_context(torch.cuda.stream(self._stream))
-        if batch_traces:
-            stack.enter_context(tel.activate(batch_traces))
-            stack.enter_context(tel.span("scheduler.tick",
-                                         batch_size=len(batch),
-                                         grouped=grouped))
         try:
+            if self._stream is not None:
+                stack.enter_context(torch.cuda.stream(self._stream))
+            if batch_traces:
+                stack.enter_context(tel.activate(batch_traces))
+                stack.enter_context(tel.span("scheduler.tick",
+                                             batch_size=len(batch),
+                                             grouped=grouped))
             with group as ginfo:
                 i = 0
                 while i < len(batch):
@@ -370,6 +524,12 @@ class MemoryScheduler:
                     i += 1
                 if records:
                     self._finish_records(records, done, fail)
+            if maintenance is not None:   # rank 0's decision, every rank
+                try:
+                    svc.runtime.apply_maintenance(maintenance)
+                except Exception as e:   # as the daemon: surface, go on
+                    svc.runtime.last_error = e
+                    maintenance_failed = True
             if self._stream is not None and writes:
                 # a reader on another stream must see this tick's bank
                 # writes once its future resolves
@@ -388,12 +548,16 @@ class MemoryScheduler:
                     fail(p, "group", e)
         finally:
             stack.close()
+        if self.mesh_ticks is not None:
+            resolutions = self._agree(batch, resolutions, maintenance_failed)
         # futures resolve only after the (possibly grouped) WAL writes are
         # durable — a client never observes an ack for a lost write
         for fut, resp in resolutions:
             self._resolve(fut, resp)
         # counters mutate under the condition lock: stats() snapshots under
         # the same lock, so /v1/stats never reports a torn view of a tick
+        if not batch:                    # a maintenance-only tick
+            return {"requests": 0, "retrieve_launches": 0}
         with self._cv:
             c = self.counters
             if grouped and ginfo is not None and ginfo["appended"]:
@@ -407,6 +571,32 @@ class MemoryScheduler:
             c["retrieve_launches"] += launches
             c["max_tick_batch"] = max(c["max_tick_batch"], len(batch))
         return {"requests": len(batch), "retrieve_launches": launches}
+
+    def _agree(self, batch: List[_Pending], resolutions: List[tuple],
+               maintenance_failed: bool) -> List[tuple]:
+        """On a mesh, every rank's outcome of the tick just run (which of
+        its requests failed, whether its maintenance did) against the
+        others' (`MeshTicks.agree`, every rank).  Ranks that differ may
+        hold stores that have parted: the scheduler is marked broken on
+        every rank, and rank 0 answers this tick's requests with that
+        error instead."""
+        failed = {id(f) for f, r in resolutions if r.status == "error"}
+        flags = [int(id(p.future) in failed) for p in batch]
+        flags.append(int(maintenance_failed))
+        same = self.mesh_ticks.agree(flags)
+        self._ticking = False
+        if same:
+            return resolutions
+        err = MeshDiverged(
+            f"tick {self.mesh_ticks.count}: the ranks' outcomes differ "
+            f"(rank {self.mesh_ticks.rank}: failed requests "
+            f"{[i for i, f in enumerate(flags[:-1]) if f]}, maintenance "
+            f"{'failed' if maintenance_failed else 'ok'}; "
+            f"last error {self.last_error!r})")
+        self.broken = err
+        return [(f, MemoryResponse(payload=None, op=r.op, status="error",
+                                   error=repr(err), exception=err))
+                for f, r in resolutions]
 
     def _enqueue_record(self, req: RecordRequest) -> None:
         """Writes go through the existing runtime queue: same bounded-queue
@@ -470,12 +660,26 @@ class MemoryScheduler:
                 op="record", service_s=dt, batch_size=len(records)))
 
     # -- daemon -------------------------------------------------------------
+    def _idle_wake_s(self) -> Optional[float]:
+        """How often rank 0 of a mesh wakes with nothing queued to ship
+        the runtime's maintenance (its `tick_s`); None: only on work."""
+        rt = getattr(self.service, "runtime", None)
+        if self.mesh_ticks is None or rt is None \
+                or not rt.policy.wants_daemon:
+            return None
+        return rt.policy.tick_s
+
     def _loop(self) -> None:
         self._thread_ident = threading.get_ident()
+        idle = self._idle_wake_s()
         while True:
             with self._cv:
+                wake = None if idle is None else time.monotonic() + idle
                 while not self.admission.total_queued and not self._closed:
-                    self._cv.wait()
+                    left = None if wake is None else wake - time.monotonic()
+                    if left is not None and left <= 0:
+                        break
+                    self._cv.wait(timeout=left)
                 if self._closed and not self.admission.total_queued:
                     return
                 # bounded micro-batch window: wait out the tick interval
@@ -499,12 +703,45 @@ class MemoryScheduler:
                             payload=None, op="tick", status="error",
                             error=repr(e), exception=e))
 
+    def _follow(self) -> None:
+        """The tick thread of a rank other than rank 0 of the mesh: run
+        every tick rank 0 broadcasts, in order, until its stop."""
+        self._thread_ident = threading.get_ident()
+        while True:
+            shipped = self.mesh_ticks.receive()
+            if shipped is None:
+                return
+            now = time.monotonic()
+            batch = []
+            for r in shipped.requests:
+                self._seq += 1
+                batch.append(_Pending(r, Future(), now, seq=self._seq))
+            try:
+                self._run_tick(batch, shipped)
+            except BaseException as e:
+                # past the tick's own handlers: this rank's store may have
+                # parted from rank 0's.  Go on receiving (rank 0 still
+                # broadcasts its stop), but take no more ticks as good
+                self.last_error = e
+                self.broken = e
+
     def start(self) -> None:
         if self._thread is not None and self._thread.is_alive():
             return
-        self._thread = threading.Thread(target=self._loop,
-                                        name="memori-scheduler", daemon=True)
+        follower = (self.mesh_ticks is not None
+                    and not self.mesh_ticks.is_leader)
+        self._thread = threading.Thread(
+            target=self._follow if follower else self._loop,
+            name="memori-scheduler", daemon=True)
         self._thread.start()
+
+    def join(self, timeout: Optional[float] = None) -> bool:
+        """Wait for the tick thread to end (on a rank other than rank 0 of
+        a mesh: until rank 0's close() stops it); True once it has."""
+        if self._thread is not None \
+                and self._thread is not threading.current_thread():
+            self._thread.join(timeout=timeout)
+        return not self.running
 
     @property
     def running(self) -> bool:
@@ -530,6 +767,16 @@ class MemoryScheduler:
                 return
             self._closed = True
             self._cv.notify_all()
+        if self.mesh_ticks is not None and not self.mesh_ticks.is_leader:
+            # the other ranks run rank 0's ticks until its stop arrives
+            if not self.join(timeout):
+                raise RuntimeError(
+                    f"close() on rank {self.mesh_ticks.rank}: rank 0's "
+                    f"stop did not come within {timeout}s and this rank "
+                    "still runs its ticks; call join() to wait for rank "
+                    "0's close()")
+            self._unmount()
+            return
         if self._thread is not None \
                 and self._thread is not threading.current_thread():
             self._thread.join(timeout=timeout)
@@ -543,7 +790,15 @@ class MemoryScheduler:
                 if not batch:
                     break
                 self._run_tick(batch)
+            if self.mesh_ticks is not None:
+                self.mesh_ticks.send(None)   # every other rank stops
         else:
+            if self.mesh_ticks is not None and not self._ticking:
+                # wedged outside a tick: the other ranks wait for the next
+                # broadcast, so the stop reaches them.  Wedged inside one,
+                # they wait in that tick with it, and their close() times
+                # out
+                self.mesh_ticks.send(None)
             # wedged daemon: running its queue from this thread would race
             # the store, and leaving it queued would strand every caller
             # blocked on .result() — resolve to error envelopes instead
@@ -555,6 +810,12 @@ class MemoryScheduler:
                     error=f"scheduler close() timed out after {timeout}s "
                           "with the tick daemon wedged; this queued "
                           "request's tick never ran"))
+        self._unmount()
+
+    def _unmount(self) -> None:
+        rt = getattr(self.service, "runtime", None)
+        if rt is not None and getattr(rt, "maintainer", None) is self:
+            rt.maintainer = None
         if self._mounted and getattr(self.service, "scheduler", None) is self:
             self.service.scheduler = None
 
@@ -573,6 +834,13 @@ class MemoryScheduler:
                       queue_depth=self.admission.total_queued,
                       admission=self.admission.stats())
         st["running"] = self.running
+        if self.mesh_ticks is not None:
+            # ticks sent (rank 0 of the mesh) or received (the others)
+            st["mesh"] = {"rank": self.mesh_ticks.rank,
+                          "leader": self.mesh_ticks.leader,
+                          "ticks": self.mesh_ticks.count,
+                          "broken": (None if self.broken is None
+                                     else repr(self.broken))}
         if st["retrieve_launches"]:
             st["avg_retrieves_per_launch"] = (st["retrieves"]
                                               / st["retrieve_launches"])

@@ -8,6 +8,11 @@
 // positions t < kv_len[b] (and t > kv_len[b] - 1 - window when window > 0);
 // output = softmax(q . k * scale) over them . v, finalised as
 // acc / max(l, 1e-37), in q's dtype; a row with no allowed key outputs 0.
+// With an lse buffer the kernel also writes each (b, kv-head, head) row's
+// log-sum-exp of its scaled scores over the allowed keys, M + log(L) in
+// f32, and -inf for a row with no allowed key: a context-parallel caller
+// runs the kernel on each shard of a cache and combines the shards' rows
+// by these weights (kernels/decode_attention.py `combine_partials`).
 // Cache rows past kv_len (stale rows of an earlier occupant of the slot) are
 // never read.  bf16 converts on the way out of shared memory; all arithmetic
 // is plain FP32.
@@ -85,6 +90,9 @@ struct Strides {  // element strides; D has stride 1
   long long vs[3];  // v_scale: b, k, t
 };
 
+// the log-sum-exp of a row with no allowed key: -inf
+__device__ __forceinline__ float lse_none() { return __int_as_float(0xff800000); }
+
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
@@ -152,7 +160,7 @@ decode_attention_kernel(const T* __restrict__ q, const CT* __restrict__ k,
                         const float* __restrict__ v_scale, T* __restrict__ out, int G,
                         int T_len, int D, float scale, int window, int vec, Strides st,
                         float* __restrict__ part_ml, float* __restrict__ part_acc,
-                        int* __restrict__ counters) {
+                        int* __restrict__ counters, float* __restrict__ lse) {
   constexpr bool kQuant = std::is_same<CT, int8_t>::value;
   constexpr int RS = row_elems<T, DP>();
   constexpr int NS = ring_stages<DP>();
@@ -309,6 +317,8 @@ decode_attention_kernel(const T* __restrict__ q, const CT* __restrict__ k,
       if (g >= G || lg != 0) continue;
       T* ob = out + b * st.o[0] + kh * st.o[1] + g * st.o[2];
       const float inv = 1.f / fmaxf(l[h], 1e-37f);
+      if (lse != nullptr && lane == 0)  // m and l are the same in every lane
+        lse[(size_t)bk * G + g] = l[h] > 0.f ? m[h] + logf(l[h]) : lse_none();
 #pragma unroll
       for (int c = 0; c < CPL; ++c) {
         const int d0 = 4 * (col + 32 * c);
@@ -370,6 +380,7 @@ decode_attention_kernel(const T* __restrict__ q, const CT* __restrict__ k,
       L = fmaf(ls, w, L);
     }
     weights[g][kMaxSplits] = fmaxf(L, 1e-37f);
+    if (lse != nullptr) lse[(size_t)bk * G + g] = L > 0.f ? M + logf(L) : lse_none();
   }
   __syncthreads();
   for (int i = tid; i < G * D; i += kThreads) {
@@ -394,6 +405,7 @@ struct Args {  // one call's operands besides the template choice
   Strides st;
   float *part_ml, *part_acc;
   int* counters;
+  float* lse;
   cudaStream_t stream;
 };
 
@@ -414,7 +426,7 @@ cudaError_t launch(const Args& a) {
       <<<dim3(a.n_split, a.K, a.B), kThreads, smem_bytes<T, DP>(a.G), a.stream>>>(
           static_cast<const T*>(a.q), static_cast<const CT*>(a.k), static_cast<const CT*>(a.v),
           a.kv_len, a.slot_pos, a.k_scale, a.v_scale, static_cast<T*>(a.out), a.G, a.T_len, a.D,
-          a.scale, a.window, a.vec, a.st, a.part_ml, a.part_acc, a.counters);
+          a.scale, a.window, a.vec, a.st, a.part_ml, a.part_acc, a.counters, a.lse);
   return cudaGetLastError();
 }
 
@@ -455,13 +467,15 @@ int decode_attention_max_splits() { return kMaxSplits; }
 // int8 codes).  With n_split > 1: part_ml holds B*K*n_split*G*2 and part_acc
 // B*K*n_split*G*DP floats (DP = D rounded up to 32, 64, 128 or 256), and
 // counters B*K ints that are 0 before the call and 0 again after it.
+// lse, when not null, receives B*K*G floats (contiguous (B, K, G)): each
+// row's log-sum-exp of its scaled scores, -inf where it has no allowed key.
 // Returns the CUDA error code (0 on success).
 int decode_attention_launch(int dtype, const void* q, const void* k, const void* v,
                             const int* kv_len, const int* slot_pos, const float* k_scale,
                             const float* v_scale, void* out, int B, int K, int G,
                             int T_len, int D, float scale, int window, int n_split,
                             int vec, const long long* strides, float* part_ml,
-                            float* part_acc, int* counters, void* stream) {
+                            float* part_acc, int* counters, float* lse, void* stream) {
   if (B < 0 || K < 0 || G < 0 || G > kMaxG || T_len < 1 || D < 1 || D > 256 ||
       window < 0 || n_split < 1 || n_split > kMaxSplits || strides == nullptr ||
       (dtype != 0 && dtype != 1) || ((k_scale == nullptr) != (v_scale == nullptr)))
@@ -472,7 +486,7 @@ int decode_attention_launch(int dtype, const void* q, const void* k, const void*
     return (int)cudaErrorInvalidValue;
   Args a{q, k, v, kv_len, slot_pos, k_scale, v_scale, out, B, K, G, T_len, D, scale,
          window, n_split, k_scale != nullptr ? 0 : vec, Strides{}, part_ml, part_acc,
-         counters, static_cast<cudaStream_t>(stream)};
+         counters, lse, static_cast<cudaStream_t>(stream)};
   for (int i = 0; i < 3; ++i) {
     a.st.q[i] = strides[i];
     a.st.k[i] = strides[3 + i];

@@ -5,14 +5,25 @@ src/repro/kernels/decode_attention.py `_kernel` (pallas_call :80) with the
 hand-written CUDA kernel `csrc/decode_attention.cu`:
 
   decode_attention(q, k, v, kv_len, *, scale=None, window=0,
-                   slot_pos=None, k_scale=None, v_scale=None)
+                   slot_pos=None, k_scale=None, v_scale=None,
+                   return_lse=False)
       q (B, K, G, D), k and v (B, K, T, D), f32 or bf16, kv_len (B,) int32
-      -> (B, K, G, D)
+      -> (B, K, G, D), or with return_lse ((B, K, G, D), lse (B, K, G) f32)
 
 For batch row b the allowed cache positions are t < kv_len[b] (the new
 token already written), and t > kv_len[b] - 1 - window when window > 0;
 output = softmax((q . k) * scale) over them . v, in q's dtype.  Rows past
-kv_len never reach the output, whatever they hold.
+kv_len never reach the output, whatever they hold.  `return_lse` adds each
+row's log-sum-exp of its scaled f32 scores over the allowed keys (-inf
+where there is none; that row's output is 0).
+
+Context-parallel decode splits a cache's sequence over ranks.  A shard
+holding absolute positions [start, start + T) of a full cache is called
+with kv_len - start (which may be <= 0, or past T: the allowed range is
+cut to the shard's own rows, and a shard wholly past kv_len has none); a
+ring shard needs no offset, its slot positions are absolute.
+`combine_partials` merges the shards' (output, lse) pairs into the whole
+cache's, the combine XLA emits for the reference's sharded softmax.
 
 Two variants of the same kernel (template instances of it):
 
@@ -51,7 +62,8 @@ them: two calls of one shape on two streams at once would race.
 A CPU tensor runs the plain PyTorch version (`decode_attention_ref`, the
 reference's oracle `ref.decode_attention_ref`); a CUDA tensor launches the
 kernel or the call raises.  `decode_attention.launches` counts launches,
-and `slot_launches` / `int8_launches` those of each variant.
+and `slot_launches` / `int8_launches` / `lse_launches` those of each
+variant.
 """
 from __future__ import annotations
 
@@ -80,12 +92,14 @@ def dequantize(codes, scales, dtype):
 
 
 def decode_attention_ref(q, k, v, kv_len, *, scale=None, window: int = 0,
-                         slot_pos=None, k_scale=None, v_scale=None):
+                         slot_pos=None, k_scale=None, v_scale=None,
+                         return_lse: bool = False):
     """Plain version: (B,K,G,D) against (B,K,T,D) with per-row lengths (or
     slot positions), by one masked softmax over f32 scores; int8 codes are
-    dequantised first.  A row with no allowed position (kv_len 0, or a
+    dequantised first.  A row with no allowed position (kv_len <= 0, or a
     window past the cache) outputs 0, as the kernel — and the reference's
-    Pallas kernel — do."""
+    Pallas kernel — do.  `return_lse` adds the (B,K,G) f32 log-sum-exp of
+    the masked scores (-inf for such a row)."""
     B, K, G, D = q.shape
     T = k.shape[2]
     scale = scale if scale is not None else D ** -0.5
@@ -103,8 +117,29 @@ def decode_attention_ref(q, k, v, kv_len, *, scale=None, window: int = 0,
         ok = ok & (pos > kl - 1 - window)
     s = torch.where(ok, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1) * ok.any(-1, keepdim=True)
-    out = torch.einsum("bkgt,bktd->bkgd", p, v.float())
-    return out.to(q.dtype)
+    out = torch.einsum("bkgt,bktd->bkgd", p, v.float()).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.logsumexp(torch.where(ok, s, float("-inf")), dim=-1)
+    return out, lse
+
+
+def combine_partials(outs, lses):
+    """The whole cache's attention from its shards': outs (R, ..., D) and
+    lses (R, ...) f32 (one entry per shard, as `return_lse` gives them) ->
+    (out (..., D) in outs' dtype, lse (...) f32).  Shard r weighs
+    e^(lse_r - max_r lse_r); a shard at -inf (no allowed key) weighs 0,
+    and a row no shard allows outputs 0 with lse -inf, never NaN.  Plain
+    torch ops: the reference has no kernel for this, XLA emits it."""
+    m = lses.amax(0)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    w = torch.exp(lses - m)
+    total = w.sum(0)
+    out = (outs.float() * w[..., None]).sum(0) \
+        / total.clamp_min(1e-37)[..., None]
+    lse = torch.where(total > 0, m + torch.log(total),
+                      torch.full_like(m, float("-inf")))
+    return out.to(outs.dtype), lse
 
 
 def plan_splits(T: int, B: int, K: int, sms: int) -> int:
@@ -138,7 +173,7 @@ def _library():
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.decode_attention_launch.argtypes = [i, p, p, p, p, p, p, p, p, i, i,
                                             i, i, i, ctypes.c_float, i, i, i,
-                                            p, p, p, p, p]
+                                            p, p, p, p, p, p]
     lib.decode_attention_launch.restype = i
     for name in ("max_group", "max_head_dim", "max_splits"):
         getattr(lib, f"decode_attention_{name}").restype = i
@@ -241,25 +276,28 @@ def _ptr(t):
 
 
 def _launch(q, k, v, kv_len, slot_pos, k_scale, v_scale, window: int,
-            scale: float):
+            scale: float, return_lse: bool):
     vec = k_scale is None and cp_async_ok(q.shape[-1], q.element_size(), k, v)
     key = (q.device, q.dtype, k.dtype, v.dtype, kv_len.dtype, k.device,
            v.device, kv_len.device, q.shape, k.shape, v.shape, kv_len.shape,
            q.stride(), k.stride(), v.stride(), kv_len.stride(), window,
-           scale, vec, _meta(slot_pos), _meta(k_scale), _meta(v_scale))
+           scale, vec, return_lse, _meta(slot_pos), _meta(k_scale),
+           _meta(v_scale))
     plan = _plans.get(key)
     if plan is None:
         plan = _plans[key] = _make_plan(q, k, v, kv_len, slot_pos, k_scale,
                                         v_scale, window, scale, vec)
     out = torch.empty(plan.out_shape, dtype=q.dtype, device=q.device)
+    lse = (torch.empty(plan.out_shape[:3], dtype=torch.float32,
+                       device=q.device) if return_lse else None)
     if out.numel() == 0:
-        return out
+        return (out, lse) if return_lse else out
     B, K, G, T, D, fscale, win, n_split, ivec = plan.dims
     rc = plan.fn(DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
                  kv_len.data_ptr(), _ptr(slot_pos), _ptr(k_scale),
                  _ptr(v_scale), out.data_ptr(), B, K, G, T, D, fscale,
                  win, n_split, ivec, plan.strides, *plan.workspace,
-                 torch.cuda.current_stream(q.device).cuda_stream)
+                 _ptr(lse), torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: CUDA "
                            f"error {rc}")
@@ -268,26 +306,34 @@ def _launch(q, k, v, kv_len, slot_pos, k_scale, v_scale, window: int,
         count_launch(slot_launches)
     if k_scale is not None:
         count_launch(int8_launches)
+    if return_lse:
+        count_launch(lse_launches)
+        return out, lse
     return out
 
 
 def decode_attention(q, k, v, kv_len, *, scale=None, window: int = 0,
-                     slot_pos=None, k_scale=None, v_scale=None):
+                     slot_pos=None, k_scale=None, v_scale=None,
+                     return_lse: bool = False):
     """K5.  q (B, K, G, D), k and v (B, K, T, D), f32 or bf16 (or int8
     codes with k_scale / v_scale (B, K, T) f32), kv_len (B,) int32,
-    slot_pos (B, T) int32 or None -> (B, K, G, D) in q's dtype (see the
-    module docstring)."""
+    slot_pos (B, T) int32 or None -> (B, K, G, D) in q's dtype, and with
+    `return_lse` its (B, K, G) f32 log-sum-exp too (see the module
+    docstring)."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     if q.device.type == "cpu":
         return decode_attention_ref(q, k, v, kv_len, scale=scale,
                                     window=window, slot_pos=slot_pos,
-                                    k_scale=k_scale, v_scale=v_scale)
+                                    k_scale=k_scale, v_scale=v_scale,
+                                    return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: unsupported device {q.device}")
-    return _launch(q, k, v, kv_len, slot_pos, k_scale, v_scale, window, scale)
+    return _launch(q, k, v, kv_len, slot_pos, k_scale, v_scale, window, scale,
+                   bool(return_lse))
 
 
 decode_attention.launches = 0
 # launches of the two variants, counted besides decode_attention.launches
 slot_launches = VariantCounter("decode_attention[slot_pos]")
 int8_launches = VariantCounter("decode_attention[int8]")
+lse_launches = VariantCounter("decode_attention[lse]")

@@ -54,9 +54,11 @@ grew linearly with the layers).  Every figure is computed from
 counts and datasheet figures, not measured.
 
 Context-parallel decode (long_500k at batch 1: the cache's sequence
-sharded over `data`) runs here with K5's plain version after DTensor's
-all-gather of the cache, so the collectives counted there are that gather,
-not the reference's log-sum-exp combine (on real ranks it raises, M7c).
+sharded over `data`) runs here as on real ranks: each rank's K5 plain
+version (MLA's latent scores) on its own rows with the log-sum-exp, and the
+combine (`attention.combine_shards`), so the collectives counted there are
+the all-gathers of each layer's (R, B, 1, H, D) outputs and (R, B, H)
+log-sum-exps over `data`, never the cache.
 """
 from __future__ import annotations
 

@@ -182,27 +182,38 @@ def build_prefill_step(cfg: ModelConfig, shape: InputShape, mesh=None, *,
 
 
 def decode_rules(cfg: ModelConfig, shape: InputShape, mesh, *,
-                 kv_replicated: bool = False) -> pt.MeshRules:
+                 kv_replicated: bool = False,
+                 context_parallel: Optional[bool] = None) -> pt.MeshRules:
     """batch=1 long-context decode is context-parallel over the cache
-    sequence (`long_context_rules`); `kv_replicated` disables the head_dim
-    fallback, so indivisible kv heads replicate over `model`."""
+    sequence (`long_context_rules`: long_500k at a batch smaller than
+    `data`, or wherever `context_parallel` says so); `kv_replicated`
+    disables the head_dim fallback, so indivisible kv heads replicate over
+    `model`.  Context-parallel decode disables it too: each rank's K5 reads
+    whole heads of its own cache rows, where the reference's XLA contracts
+    a head_dim-sharded cache to partial scores (the port would gather the
+    cache over `model` every layer instead)."""
     axes = pt.mesh_axes(mesh)
-    long_ctx = shape.name == "long_500k"
-    rules = (pt.long_context_rules(mesh)
-             if long_ctx and shape.global_batch < axes.shape["data"]
+    if context_parallel is None:
+        context_parallel = (shape.name == "long_500k"
+                            and shape.global_batch < axes.shape["data"])
+    rules = (pt.long_context_rules(mesh) if context_parallel
              else pt.standard_rules(mesh))
-    if kv_replicated:
+    if kv_replicated or context_parallel:
         rules = dataclasses.replace(rules, head_dim_fallback=False)
     return rules
 
 
 def build_decode_step(cfg: ModelConfig, shape: InputShape, mesh=None, *,
                       kv_replicated: bool = False,
+                      context_parallel: Optional[bool] = None,
                       device="cuda") -> StepBundle:
     """serve_step: ONE new token against a cache of shape.seq_len.
     fn(params, tokens (B, 1), caches, pos (B,)) -> (logits, caches); on a
     mesh the caches are placed by the rules' cache specs (a whole cache is
-    sliced, a DTensor redistributed) and updated in place."""
+    sliced, a DTensor redistributed) and updated in place; with the
+    context-parallel rules (`decode_rules`) each attention layer runs K5
+    on its rank's rows and combines the ranks' partial outputs by their
+    log-sum-exps (`attention._context_parallel_decode`)."""
     model = Model(cfg)
     B, S = shape.global_batch, shape.seq_len
     long_ctx = shape.name == "long_500k"
@@ -216,7 +227,8 @@ def build_decode_step(cfg: ModelConfig, shape: InputShape, mesh=None, *,
         return StepBundle(fn=fn, opt=None, inputs=decode_inputs(shape),
                           device=resolve_device(device), model=model,
                           meta=meta)
-    rules = decode_rules(cfg, shape, mesh, kv_replicated=kv_replicated)
+    rules = decode_rules(cfg, shape, mesh, kv_replicated=kv_replicated,
+                         context_parallel=context_parallel)
     cache_pl = model.cache_shardings(B, S, rules, window_override=window)
 
     @torch.no_grad()

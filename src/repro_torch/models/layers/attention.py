@@ -37,8 +37,9 @@ from torch._subclasses.fake_tensor import is_fake
 
 from repro_torch.common import partitioning as pt
 from repro_torch.common.module import ParamSpec
-from repro_torch.common.utils import SLICE_M7C, resolve_device
-from repro_torch.kernels.decode_attention import decode_attention
+from repro_torch.common.utils import resolve_device
+from repro_torch.kernels.decode_attention import (combine_partials,
+                                                  decode_attention)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.models.layers import rope as rope_lib
 from repro_torch.models.layers.norms import rms_norm
@@ -116,21 +117,14 @@ def _meshed(local_fn, q, k, v, *row_args, **kw):
     Attention is independent across batch rows and kv-head groups, so
     every rank launches its kernel on its own shard and no collective runs
     inside.  `row_args` are per-row (B, ...) tensors (kv_len, slot
-    positions, int8 scales (B, T, K), a per-row prefix) or None.  A key
-    sequence sharded over a mesh axis (long_context_rules' context-parallel
-    cache) needs K5 to return each split's log-sum-exp for the ranks to
-    combine: that is M7c's, and raises on real ranks; under the dry-run's
-    fake process group the cache is gathered (DTensor's all-gather, not the
-    reference's LSE combine)."""
+    positions, int8 scales (B, T, K), a per-row prefix) or None.  Decode
+    over a key sequence sharded on a mesh axis goes to
+    `_context_parallel_decode` instead; anything else that meets such
+    keys (a prefill) gathers them first."""
     from torch.distributed.tensor import Partial, Shard
     from torch.distributed.tensor.experimental import local_map
     mesh = q.device_mesh
     k, v = pt.replicated(k, mesh), pt.replicated(v, mesh)
-    if any(isinstance(p, Shard) and p.dim == 1 for p in k.placements) \
-            and not pt.fake_collectives(mesh):
-        raise NotImplementedError(
-            f"context-parallel attention over a sequence-sharded cache: "
-            f"{SLICE_M7C}")
     qp, kp, kv_slice = pt.attention_placements(q, k)
     q = pt.with_placements(q, qp)
     k, v = pt.with_placements(k, kp), pt.with_placements(v, kp)
@@ -176,8 +170,14 @@ def attend_decode(q, k_cache, v_cache, kv_len, *, window: int = 0,
     """One new token per row against a cache.  q: (B,1,H,D), k/v cache:
     (B,T,K,D) (int8 codes with k/v_scale (B,T,K)), kv_len: (B,) int32,
     slot_pos (B,T) int32 or None -> (B,1,H,D).  On DTensors K5 runs on
-    each rank's shard (`_meshed`)."""
+    each rank's shard (`_meshed`); a cache whose sequence is sharded (the
+    context-parallel cache of `long_context_rules`) goes through
+    `_context_parallel_decode`."""
     if pt.is_dtensor(q):
+        if pt.seq_mesh_dims(k_cache):
+            return _context_parallel_decode(
+                q, k_cache, v_cache, kv_len, slot_pos, k_scale, v_scale,
+                window=window, scale=scale)
         return _meshed(_decode_local, q, k_cache, v_cache, kv_len, slot_pos,
                        k_scale, v_scale, window=window, scale=scale)
     return _decode_local(q, k_cache, v_cache, kv_len, slot_pos, k_scale,
@@ -185,7 +185,7 @@ def attend_decode(q, k_cache, v_cache, kv_len, *, window: int = 0,
 
 
 def _decode_local(q, k_cache, v_cache, kv_len, slot_pos, k_scale, v_scale,
-                  *, window, scale):
+                  *, window, scale, return_lse: bool = False):
     B, _, H, D = q.shape
     K = k_cache.shape[2]
     scales = {}
@@ -195,8 +195,87 @@ def _decode_local(q, k_cache, v_cache, kv_len, slot_pos, k_scale, v_scale,
     out = decode_attention(q.reshape(B, K, H // K, D),
                            k_cache.permute(0, 2, 1, 3),
                            v_cache.permute(0, 2, 1, 3), kv_len, scale=scale,
-                           window=window, slot_pos=slot_pos, **scales)
+                           window=window, slot_pos=slot_pos,
+                           return_lse=return_lse, **scales)
+    if return_lse:
+        return out[0].view(B, 1, H, D), out[1].reshape(B, 1, H)
     return out.view(B, 1, H, D)
+
+
+def _context_parallel_decode(q, k, v, kv_len, slot_pos, k_scale, v_scale,
+                             *, window, scale):
+    """Decode over a cache whose sequence (dim 1) is sharded on some mesh
+    axes, as the reference's `long_context_rules` lay it out: each rank
+    runs K5 with `return_lse` on its own rows (a full cache's shard at
+    kv_len - its first position; a ring's slots carry absolute
+    positions), the ranks all-gather the (B, 1, H, D) outputs and
+    (B, 1, H) log-sum-exps over those axes, and `combine_partials` merges
+    them — the cache itself is never gathered.  Heads and batch keep
+    `attention_placements`' layout on the other axes."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = q.device_mesh
+    k, v = pt.replicated(k, mesh), pt.replicated(v, mesh)
+    seq = pt.seq_mesh_dims(k)
+    qp, kp, kv_slice = pt.attention_placements(q, k)
+    qp = tuple(Replicate() if i in seq else p for i, p in enumerate(qp))
+    kp = tuple(Shard(1) if i in seq else p for i, p in enumerate(kp))
+    rows = pt.batch_placements(qp)
+    start = pt.local_shape_and_offset(tuple(k.shape), mesh, kp)[1][1]
+    args = [pt.with_placements(q, qp), pt.with_placements(k, kp),
+            pt.with_placements(v, kp)]
+    places = [qp, kp, kp]
+    slot_pl = tuple(Shard(1) if i in seq else p for i, p in enumerate(rows))
+    for a, want in ((kv_len, rows), (slot_pos, slot_pl), (k_scale, kp),
+                    (v_scale, kp)):
+        args.append(None if a is None else
+                    pt.with_placements(pt.replicated(a, mesh), want))
+        places.append(None if a is None else want)
+    run = functools.partial(_decode_shard, start=start, window=window,
+                            scale=scale)
+    if kv_slice is not None:
+        run = functools.partial(_kv_heads, run, *kv_slice)
+    return combine_shards(run, args, places, qp, seq, mesh)
+
+
+def _decode_shard(q, k, v, kv_len, slot_pos, k_scale, v_scale, *, start,
+                  window, scale):
+    """K5 with its log-sum-exp on this rank's rows of a sequence-sharded
+    cache whose first row sits at absolute position `start`."""
+    if slot_pos is None:
+        kv_len = kv_len - start
+    return _decode_local(q, k, v, kv_len, slot_pos, k_scale, v_scale,
+                         window=window, scale=scale, return_lse=True)
+
+
+def combine_shards(local_fn, args, places, qp, seq, mesh):
+    """`local_fn(*local args) -> (out (B, 1, H, X), lse (B, 1, H))` on each
+    rank's shard of a sequence-sharded cache under `local_map`, then the
+    combine: the outputs and log-sum-exps, stacked on a new leading dim
+    sharded over the `seq` mesh dims, are all-gathered there and merged by
+    `combine_partials`.  -> out, a DTensor laid out as `qp` (q's
+    placements: batch, heads, or replicated on each mesh dim)."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    # the stacks' placements: shard r of the sequence on seq dims, q's
+    # batch / head sharding (one dim further right) elsewhere
+    pl = tuple(Shard(0) if i in seq else Shard(p.dim + 1)
+               if isinstance(p, Shard) else Replicate()
+               for i, p in enumerate(qp))
+
+    def stack(*a):
+        o, lse = local_fn(*a)
+        return o[None], lse[None]
+
+    outs, lses = local_map(stack, out_placements=(pl, pl),
+                           in_placements=tuple(places),
+                           device_mesh=mesh)(*args)
+    whole = tuple(Replicate() if i in seq else p for i, p in enumerate(pl))
+    outs = pt.with_placements(outs, whole)       # the combine's all-gather
+    lses = pt.with_placements(lses, whole)
+    return local_map(lambda o, lse: combine_partials(o, lse)[0],
+                     out_placements=list(qp), in_placements=(whole, whole),
+                     device_mesh=mesh)(outs, lses)
 
 
 # ---------------------------------------------------------------------------

@@ -14,13 +14,20 @@ so the per-token cache is only (kv_lora_rank + qk_rope_head_dim) wide.
 That decode runs as torch einsums, as the reference computes it outside
 any kernel: its latent (576 wide at full size, all 128 heads on one shared
 kv head) is beyond K5's head width and grouped-query limits.  The latent
-cache is written in place.  The absorbed form in train/prefill
-(`mla_absorbed_train`, the reference's dry-run variant) folds W_UK into q
-and runs K6 against the latent itself: one kv head, q/k width
-kv_lora_rank + qk_rope_head_dim (576 at full size, K6's widest instance),
-v the latent zero-padded to that width, G = all query heads; then W_UV.
+cache is written in place.  On a mesh whose rules shard the latent cache's
+sequence (long_500k's `long_context_rules`), each rank scores its own
+rows by absolute position, takes its local softmax with its log-sum-exp,
+and `attention.combine_shards` merges the ranks' latent outputs: the
+(B, H, 1, T) scores and the cache are never gathered.  The absorbed form
+in train/prefill (`mla_absorbed_train`, the reference's dry-run variant)
+folds W_UK into q and runs K6 against the latent itself: one kv head, q/k
+width kv_lora_rank + qk_rope_head_dim (576 at full size, K6's widest
+instance), v the latent zero-padded to that width, G = all query heads;
+then W_UV.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -28,10 +35,8 @@ from repro_torch.common import partitioning as pt
 from repro_torch.common.module import ParamSpec
 from repro_torch.common.utils import resolve_device
 from repro_torch.models.layers import rope as rope_lib
-from repro_torch.models.layers.attention import attend
+from repro_torch.models.layers.attention import attend, combine_shards
 from repro_torch.models.layers.norms import rms_norm
-
-NEG_INF = -2.0e38
 
 
 def specs(cfg):
@@ -130,19 +135,13 @@ def apply(params, cfg, x, *, positions, mode: str = "train", cache=None,
         pt.write_rows(cache["ckv"], pos, ckv_new[:, 0])
         pt.write_rows(cache["k_rope"], pos, kr_new[:, 0])
         ckv, k_rope = cache["ckv"].to(dt), cache["k_rope"].to(dt)
-        T = ckv.shape[1]
         q_eff = torch.einsum("bshk,rhk->bshr", q_nope, params["wuk"].to(dt))
-        s_nope = torch.einsum("bshr,btr->bhst", q_eff, ckv)
-        s_rope = torch.einsum("bshk,btk->bhst", q_rope, k_rope)
-        scores = (s_nope + s_rope).float() * scale                 # (B,H,1,T)
-        t_idx = torch.arange(T, device=x.device)[None, None, None, :]
-        posb = pos[:, None, None, None]
-        ok = t_idx <= posb
-        if window and window > 0:
-            ok = ok & (t_idx > posb - window)
-        scores = torch.where(ok, scores, torch.full_like(scores, NEG_INF))
-        probs = torch.softmax(scores, dim=-1).to(dt)
-        o_lat = torch.einsum("bhst,btr->bshr", probs, ckv)         # (B,1,H,r)
+        if pt.seq_mesh_dims(ckv):
+            o_lat = _context_parallel(q_eff, q_rope, ckv, k_rope, pos,
+                                      window=window, scale=scale)
+        else:                                    # the whole cache: one shard
+            o_lat = _latent_shard(q_eff, q_rope, ckv, k_rope, pos, start=0,
+                                  window=window, scale=scale)[0]
         out = torch.einsum("bshr,rhk->bshk", o_lat, params["wuv"].to(dt))
         new_cache = cache
     else:
@@ -150,6 +149,54 @@ def apply(params, cfg, x, *, positions, mode: str = "train", cache=None,
 
     proj = torch.einsum("bshk,hkd->bsd", out, params["wo"].to(dt))
     return proj, new_cache
+
+
+def _context_parallel(q_eff, q_rope, ckv, k_rope, pos, *, window, scale):
+    """The absorbed decode's latent output (B, 1, H, r) over a latent
+    cache whose sequence is sharded on some mesh dims: `_latent_shard` on
+    each rank's rows, then `combine_shards`.  The queries keep their head
+    sharding where the cache is whole, and the batch's where it shards the
+    batch."""
+    from torch.distributed.tensor import Replicate, Shard
+    mesh = ckv.device_mesh
+    seq = pt.seq_mesh_dims(ckv)
+    cp = tuple(Shard(1) if i in seq else p
+               for i, p in enumerate(ckv.placements))
+    qp = tuple(Replicate() if i in seq
+               else Shard(0) if isinstance(c, Shard) and c.dim == 0
+               else p if isinstance(p, Shard) and p.dim == 2
+               else Replicate()
+               for i, (p, c) in enumerate(zip(q_eff.placements, cp)))
+    rows = pt.batch_placements(qp)
+    start = pt.local_shape_and_offset(tuple(ckv.shape), mesh, cp)[1][1]
+    args = [pt.with_placements(q_eff, qp),
+            pt.with_placements(pt.replicated(q_rope, mesh), qp),
+            pt.with_placements(ckv, cp),
+            pt.with_placements(pt.replicated(k_rope, mesh), cp),
+            pt.with_placements(pt.replicated(pos, mesh), rows)]
+    run = functools.partial(_latent_shard, start=start, window=window,
+                            scale=scale)
+    return combine_shards(run, args, [qp, qp, cp, cp, rows], qp, seq, mesh)
+
+
+def _latent_shard(q_eff, q_rope, ckv, k_rope, pos, *, start, window, scale):
+    """This rank's rows [start, start + T) of the latent cache: scores by
+    absolute position, the local softmax and its log-sum-exp (-inf where
+    no row is allowed) -> (o_lat (B, 1, H, r), lse (B, 1, H))."""
+    T = ckv.shape[1]
+    s = (torch.einsum("bshr,btr->bhst", q_eff, ckv)
+         + torch.einsum("bshk,btk->bhst", q_rope, k_rope)).float() * scale
+    t_idx = start + torch.arange(T, device=ckv.device)[None, None, None, :]
+    posb = pos[:, None, None, None]
+    ok = t_idx <= posb
+    if window and window > 0:
+        ok = ok & (t_idx > posb - window)
+    s = torch.where(ok, s, float("-inf"))
+    lse = torch.logsumexp(s, dim=-1)                           # (B,H,1)
+    probs = torch.exp(s - torch.where(torch.isfinite(lse), lse,
+                                      torch.zeros_like(lse))[..., None])
+    o_lat = torch.einsum("bhst,btr->bshr", probs.to(ckv.dtype), ckv)
+    return o_lat, lse.transpose(1, 2)
 
 
 def cache_specs(cfg, batch: int, max_len: int, dtype):

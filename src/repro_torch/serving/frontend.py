@@ -18,8 +18,9 @@ like the SDK clients do).  Four endpoints:
                         (obs/telemetry.py), all with `# HELP`/`# TYPE`
     GET  /v1/healthz    liveness (unauthenticated): 200 while serving
     GET  /v1/readyz     readiness (unauthenticated): 503 while any
-                        placement shard is down or the lifecycle queue is
-                        in reject-backpressure
+                        placement shard is down, the lifecycle queue is
+                        in reject-backpressure, or a meshed scheduler is
+                        broken
 
 **Observability**: every request gets a request id — `X-Request-Id` is
 honored when the client sends one (sanitized), minted otherwise, echoed
@@ -58,7 +59,12 @@ renders early results while late ones still sit in a tick.
 **Devices**: with a scheduler mounted, handler threads never touch the
 device — they submit and wait, and the tick thread runs every batch on the
 read path's CUDA stream.  Without one, a handler runs its request on the
-direct engine on its own thread, as the reference does.  The
+direct engine on its own thread, as the reference does.  A service whose
+store sits on a mesh (one process a rank) is served by rank 0 of the mesh
+through its scheduler, which broadcasts each tick to the other ranks
+(core/scheduler.py): built on another rank, or with no scheduler mounted,
+the frontend raises, and a request that finds the scheduler closed gets a
+503 rather than a direct run on one rank.  The
 service's stats hold host numbers only, so `/v1/stats` and `/v1/metrics`
 never wait on the device.  `/v1/readyz` reads the placement shards through
 `store.sharded` (a sharded store's down shards, host state only).
@@ -75,7 +81,6 @@ from typing import Dict, List, Mapping, Optional, Tuple
 
 from concurrent.futures import TimeoutError as FutureTimeoutError
 
-from repro_torch.common.utils import require_one_rank
 from repro_torch.core.admission import (AdmissionError,
                                         admission_policy_from_json)
 from repro_torch.core.api import (CompactRequest, EvictRequest,
@@ -172,7 +177,21 @@ class MemoryFrontend:
                  host: str = "127.0.0.1", port: int = 0,
                  request_timeout_s: float = 60.0,
                  admin_keys: Optional[Mapping[str, str]] = None):
-        require_one_rank(service, "MemoryFrontend")
+        store = getattr(service, "store", None)
+        self.meshed = getattr(store, "mesh", None) is not None
+        if self.meshed:
+            ticks = getattr(getattr(service, "scheduler", None),
+                            "mesh_ticks", None)
+            if not store.durable_writer:
+                raise RuntimeError(
+                    "MemoryFrontend on a rank other than rank 0 of the "
+                    "service's mesh: rank 0 serves a meshed service and "
+                    "broadcasts each tick to the other ranks")
+            if ticks is None:
+                raise RuntimeError(
+                    "MemoryFrontend of a meshed service needs its "
+                    "MemoryScheduler (start_scheduler() on every rank "
+                    "first): rank 0 serves through it")
         if not api_keys:
             raise ValueError("MemoryFrontend needs at least one api key "
                              "(api_key -> tenant)")
@@ -391,6 +410,9 @@ class MemoryFrontend:
                     return sched.submit_many(
                         requests, tenant=tenant,
                         traces=[trace] * len(requests))
+        if self.meshed:      # one rank alone must not run a request
+            raise _HttpError(503, "the meshed service's scheduler is "
+                                  "closed")
         # schedulerless: the engine runs on this thread — activate here so
         # execute()'s plan-stage spans still land in the tree
         with tel.activate([trace]):
@@ -561,19 +583,23 @@ class MemoryFrontend:
 
     def _handle_readyz(self, handler) -> None:
         """Readiness (unauthenticated): 503 while the deployment is
-        degraded — any placement shard marked down, or the lifecycle
-        queue rejecting writes under backpressure — so a load balancer
+        degraded — any placement shard marked down, the lifecycle queue
+        rejecting writes under backpressure, or a meshed scheduler broken
+        (its ranks' outcomes of a tick differed) — so a load balancer
         stops routing here before clients see degraded answers.  An
         unsharded store has no shard to be down."""
         sharded = getattr(self.service.store, "sharded", None)
         shards_down = sorted(sharded.down) if sharded is not None else []
         rt = getattr(self.service, "runtime", None)
         rejecting = bool(rt is not None and rt.rejecting)
-        if shards_down or rejecting:
-            self._send_json(handler, 503, {
-                "status": "unavailable",
-                "shards_down": shards_down,
-                "backpressure_reject": rejecting})
+        broken = getattr(getattr(self.service, "scheduler", None), "broken",
+                         None)
+        if shards_down or rejecting or broken is not None:
+            body = {"status": "unavailable", "shards_down": shards_down,
+                    "backpressure_reject": rejecting}
+            if broken is not None:
+                body["mesh_broken"] = repr(broken)
+            self._send_json(handler, 503, body)
             return
         self._send_json(handler, 200, {"status": "ok"})
 

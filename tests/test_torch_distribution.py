@@ -13,8 +13,8 @@ Held against:
     test_sharded_service.py (shards=8, eight tenants' cities) with
     `mesh=`: equal contexts, `bank_device()` a DTensor Shard(0) over the 4
     ranks; its durable directory written by rank 0 alone and recovered by
-    every rank with equal contexts; the scheduler and the HTTP frontend
-    refusing a 4-rank mesh (M7c);
+    every rank with equal contexts (the meshed scheduler and frontend are
+    test_torch_mesh_serving.py's);
   * the one-device port: prefill + 3 decode steps' logits of the serving
     families (and, on the (1, 4) mesh, 2 kv heads over the 4-wide `model`
     axis, each rank's query head cutting the kv head it reads).
@@ -93,11 +93,6 @@ def test_meshed_durable_files_come_from_rank_0(results):
     assert wal.latest_snapshot() is not None
     assert results["svc_recovered"] == results["svc_texts"]
     assert results["rank1"]["svc_recovered"] == results["svc_texts"]
-
-
-@pytest.mark.parametrize("what", ["scheduler", "frontend"])
-def test_scheduler_and_frontend_refuse_a_multi_rank_mesh(results, what):
-    assert "M7c" in results[f"svc_{what}"], results[f"svc_{what}"]
 
 
 @pytest.mark.parametrize("name", W.SERVE_FAMILIES)

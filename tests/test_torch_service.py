@@ -181,7 +181,7 @@ def test_slices_to_come_raise_not_implemented():
     # durability (data_dir= / runtime=) came with its slice: see
     # tests/test_torch_durability.py; sharding came with its own
     # (tests/test_torch_sharded_service.py): shards=2 builds and answers,
-    # while placing the slabs over a device mesh waits for M7
+    # and the slabs go over a device mesh since M7b
     emb = HashEmbedder(device="cpu")
     sharded = MemoryService(emb, device="cpu", shards=2)
     sharded.record("a/c0", "s0", [Message("A", "I live in Oslo.", 1.7e9)])
@@ -189,11 +189,18 @@ def test_slices_to_come_raise_not_implemented():
     assert any(t.object == "oslo" for t in ctx.triples) and not ctx.degraded
     assert sharded.stats()["shards"]["n_shards"] == 2
     # a mesh is taken (the slabs go over it with shards > 1, as the
-    # reference); the scheduler on a mesh of several ranks waits for M7c
-    meshed = MemoryService(emb, device="cpu", mesh=_FourRanks())
+    # reference); on a mesh every rank runs the ticks rank 0 broadcasts
+    # (tests/test_torch_mesh_serving.py): no rank runs a lifecycle daemon
+    # on its own clock, and the frontend serves a meshed service only
+    # through its scheduler
+    from repro_torch.core.lifecycle import LifecyclePolicy
+    from repro_torch.serving.frontend import MemoryFrontend
+    meshed = MemoryService(emb, device="cpu", mesh=_FourRanks(),
+                           policy=LifecyclePolicy(flush_interval_s=0.01))
     assert meshed.store.mesh is not None and meshed.store.sharded is None
-    with pytest.raises(NotImplementedError, match="M7c"):
-        meshed.start_scheduler()
+    assert meshed.runtime.meshed and not meshed.runtime.running
+    with pytest.raises(RuntimeError, match="MemoryScheduler"):
+        MemoryFrontend(meshed, {"k": "acme"})
     # the request scheduler came with the serving slice: it mounts, routes
     # retrieve_batch, and closes with the service
     svc = MemoryService(emb, device="cpu")
