@@ -168,7 +168,13 @@ line per phase and fails (nonzero exit) on any failed check:
                  0 / 20 / T) and with int8 codes and scales (and both),
                  K6's prefix mask (scalar and per row), cross-attention at
                  1500 keys; every rejected key filled with garbage must
-                 leave the output bit-equal.
+                 leave the output bit-equal.  The bf16 instances run on the
+                 tensor cores: each of K6's head-dim classes (64, 128, 192,
+                 256, 576) in its wide and its narrow (2-, 4- and 8-way
+                 key-split cluster) shape, with K/V by tensor-map copies and
+                 by plain loads (D = 50, 100, 180, 250, 515), causal,
+                 bidirectional, windowed, S != T, strided, the prefix mask
+                 scalar and per row, each checked to take its path.
 12. lm         — `memori-agent` at full width (12 layers, d_model 768,
                  random weights from a seed) served by
                  `Engine(slots=8, max_len=512)` through `ContinuousBatcher`:
@@ -227,10 +233,15 @@ line per phase and fails (nonzero exit) on any failed check:
                  2**-10), and greedy tokens against the plain path (a
                  divergence must sit at a near-tie); phi3.5 all of it again
                  with the int8 cache (against the full forward within the
-                 reference's int8 gate, 5%).  Then each variant's ms a call
-                 at its arch's shape beside its plain version, its bound
-                 (bf16 operations at the bf16 tensor-core rate) and
-                 `scaled_dot_product_attention` where one call computes it.
+                 reference's int8 gate, 5%).  Every zoo launch of K5 and K6
+                 must be a tensor-core instance (their counters).  Then
+                 each bf16 instance at its arch's shape (and K6 at
+                 internlm2's train shape): CUDA-event ms a call and the
+                 kernel's own device ms (profiler; its kernels must be the
+                 tensor-core ones), resident CTAs an SM, beside its plain
+                 version, its bound (bf16 operations at the bf16
+                 tensor-core rate) and `scaled_dot_product_attention`
+                 (event and device ms) where one call computes it.
 15. train      — training on the card.  (a) K6's gradient: the autograd
                  Function's dq/dk/dv (K6 forward, torch-ops backward)
                  against autograd through the plain version over causal,
@@ -297,9 +308,10 @@ line per phase and fails (nonzero exit) on any failed check:
                  seeded rows up to position 500,000: 3 steps' logits
                  against the one-device step (2**-5 of the scale), K5[lse]
                  once per attention layer a step, step ms and peak
-                 memory; K5[lse] against its plain version at four
+                 memory; K5[lse] against its plain version at seven
                  instances (f32 at the agent's shape, the bf16 ring,
-                 int8, a 32,768-row bf16 shard), and each cache cut into
+                 int8, a 32,768-row bf16 shard; the tensor-core instance
+                 at G = 16, 8 and 1), and each cache cut into
                  1, 4 and 16 shards whose `combine_partials` equals the
                  whole call; one train step at 2 layers
                  (and the MTP block) through FlashAttentionFn; the instance's
@@ -323,11 +335,17 @@ commits by the same code:
 
     for src in parent/src src src parent/src; do
         python3 chip_smoke.py --serving-times 5 --src $src; done
+
+`--attention-times` only builds the kernels and times every K5/K6
+instance (`attention_times`: the zoo's and train's bf16 instances, D =
+576, K5[lse], the agent's f32 ones) with ptxas's registers; with `--src`
+it times another checkout's kernels by the same code.
 """
 from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import gc
 import json
 import os
@@ -473,9 +491,11 @@ def wrappers():
     out = {name: getattr(tk, name) for name in KERNELS}
     out.update(flash_attention=fa.flash_attention,
                decode_attention=da.decode_attention)
-    out.update({c.__name__: c for c in (da.slot_launches, da.int8_launches,
-                                        da.lse_launches,
-                                        fa.prefix_launches)})
+    out.update({c.__name__: c for c in (  # (an older tree, --src, lacks some)
+        getattr(m, name, None) for m, name in (
+            (da, "slot_launches"), (da, "int8_launches"), (da, "lse_launches"),
+            (da, "tc_launches"), (fa, "prefix_launches"), (fa, "tc_launches")))
+        if c is not None})
     return out
 
 
@@ -3664,24 +3684,6 @@ def attention_bound_ms(n_q_heads_pairs: int, bytes_moved: int, D: int,
                                  else "operations")
 
 
-def device_ms(fn, reps: int, tag: str) -> float:
-    """Mean device time per call of `fn` spent in kernels whose name holds
-    `tag`, from a profile of `reps` calls after one warm-up call: the
-    kernel's own time, without the host's launch cost that a back-to-back
-    CUDA-event time of a microsecond-scale kernel also holds."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.device_time_total for e in prof.key_averages()
-                   if tag in e.key)
-    return total_us / 1e3 / reps
-
-
 def flash_pairs(S: int, T: int, causal: bool, window: int) -> int:
     """Allowed (query, key) pairs of one head: t < T, t <= s when causal,
     t > s - window when window > 0."""
@@ -3727,7 +3729,8 @@ def check_flash(gen, device, dtype, B, K, G, S, T, D, causal, window,
     got = fa.flash_attention(q, k, v, causal=causal, window=window,
                              prefix_len=prefix)
     if path is not None:
-        narrow, rows, _, _ = fa.flash_grid(B, K, G, S, D, sm_count(device))
+        narrow, rows, _, _ = fa.flash_grid(B, K, G, S, D, sm_count(device),
+                                           dtype)
         planned = ("narrow" if narrow else "wide",
                    fa.cp_async_ok(D, q.element_size(), k, v))
         if planned != path:
@@ -3780,11 +3783,12 @@ def check_decode(gen, device, dtype, B, K, G, T, D, lens, window,
     what = (f"decode_attention {str(dtype)[6:]} B={B} K={K} G={G} T={T} "
             f"D={D} kv_len={lens} window={window} strided={strided}")
     if path is not None:
-        n_split = da.plan_splits(T, B, K, sm_count(device))
+        n_split = da.plan_splits(T, B, K, sm_count(device), G, dtype)
         planned = (n_split == 1, fa.cp_async_ok(D, q.element_size(), k, v))
         used = {p.dims[7:9] for key, p in da._plans.items()     # the base
                 if p.dims[:5] == (B, K, G, T, D)                 # instance:
-                and key[-3:] == (None, None, None)}              # no variant
+                and key[-3:] == (None, None, None)               # no variant
+                and key[1] == dtype}
         if planned != path or used != {(n_split, int(planned[1]))}:
             fail(f"{what}: plan (one split, cp.async) {planned}, launch "
                  f"plans (splits, cp.async) {used}; the case is for {path}")
@@ -3888,20 +3892,22 @@ def sdpa_gqa(q, k, v, **kw):
 
 
 # the K5 / K6 instances the served paths run: memori-agent (f32, D = 64)
-# and the zoo (bf16: phi3.5-moe D = 128, also with the int8 cache;
-# recurrentgemma D = 256 on the ring; paligemma D = 256; whisper D = 64;
-# deepseek's decompressed prefill at D = 192 -> 256), each K6 instance in
-# its two CTA shapes
+# and the zoo, train and dist phases on the tensor cores (bf16: phi3.5-moe
+# and internlm2 D = 128, phi3.5 also with the int8 cache, internlm2's
+# long_500k ring; recurrentgemma D = 256 on the ring; paligemma D = 256;
+# whisper D = 64; deepseek's decompressed prefill at D = 192 and its
+# absorbed latent at 576), each K6 instance in its two CTA shapes
 SERVED_INSTANCES = {
     "decode_attention": ("decode_attention_kernel<f32,f32,64,0>",
-                         "decode_attention_kernel<bf16,bf16,64,0>",
-                         "decode_attention_kernel<bf16,bf16,128,0>",
-                         "decode_attention_kernel<bf16,i8,128,0>",
-                         "decode_attention_kernel<bf16,bf16,256,0>",
-                         "decode_attention_kernel<bf16,bf16,256,1>"),
-    "flash_attention": ("flash_fwd_kernel<f32,64,", "flash_fwd_kernel<bf16,64,",
-                        "flash_fwd_kernel<bf16,128,",
-                        "flash_fwd_kernel<bf16,256,")}
+                         "decode_attention_tc_kernel<bf16,64,0>",
+                         "decode_attention_tc_kernel<bf16,128,0>",
+                         "decode_attention_tc_kernel<bf16,128,1>",
+                         "decode_attention_tc_kernel<i8,128,0>",
+                         "decode_attention_tc_kernel<bf16,256,0>",
+                         "decode_attention_tc_kernel<bf16,256,1>"),
+    "flash_attention": ("flash_fwd_kernel<f32,64,", "flash_fwd_tc_kernel<64,",
+                        "flash_fwd_tc_kernel<128,", "flash_fwd_tc_kernel<192,",
+                        "flash_fwd_tc_kernel<256,", "flash_fwd_tc_kernel<576,")}
 
 
 def attention_instances(entries: dict, name: str) -> dict:
@@ -4027,6 +4033,40 @@ def phase_attention(device, reps: int, build_log=None) -> dict:
         (1, 4, 3, PREFILL_S, PREFILL_S, 64, True, 0, ("narrow", True)),
         (1, 2, 3, 70, 70, 50, True, 0, ("narrow", False)),
         (1, 2, 3, 70, 90, 50, False, 16, ("narrow", False))]
+    # the bf16 tensor-core instances: each head-dim class (64, 128, 192,
+    # 256, 576) in its wide and narrow (2-, 4- and 8-way split) CTA shape,
+    # K/V by tensor-map copies (D a multiple of 8) and by plain loads (D =
+    # 50, 100, 180, 250, 515), under causal, bidirectional, window and
+    # S != T masks:
+    # (B, K, G, S, T, D, causal, window, (CTA shape, K/V by cp.async))
+    tc_flash_paths = [
+        (1, 128, 1, 200, 200, 192, True, 0, ("wide", True)),      # MLA prefill
+        (1, 128, 1, 200, 200, 180, True, 0, ("wide", False)),
+        (1, 4, 4, 130, 130, 192, False, 16, ("narrow", True)),    # 4-way split
+        (1, 4, 4, 130, 90, 180, True, 0, ("narrow", False)),
+        (2, 12, 1, 64, 1500, 64, False, 0, ("narrow", True)),     # cross, 8-way
+        (2, 12, 1, 64, 1500, 50, False, 0, ("narrow", False)),
+        (4, 32, 1, 70, 70, 64, True, 16, ("wide", True)),
+        (8, 16, 1, 70, 70, 50, True, 16, ("wide", False)),
+        (2, 8, 2, 1000, 1000, 128, True, 0, ("wide", True)),      # train
+        (2, 8, 2, 300, 300, 100, True, 64, ("wide", False)),
+        (1, 8, 4, 200, 200, 128, True, 0, ("narrow", True)),      # phi3.5, 2-way
+        (1, 8, 4, 77, 77, 100, False, 0, ("narrow", False)),
+        (4, 4, 4, 200, 200, 256, True, 0, ("wide", True)),
+        (4, 4, 4, 200, 180, 250, False, 20, ("wide", False)),
+        (1, 1, 8, 320, 320, 256, True, 0, ("narrow", True)),      # paligemma
+        (1, 1, 8, 99, 99, 250, True, 0, ("narrow", False)),
+        (1, 1, 64, 70, 70, 576, True, 0, ("wide", True)),         # absorbed
+        (1, 1, 64, 70, 70, 515, True, 0, ("wide", False)),
+        (1, 1, 8, 40, 40, 576, False, 0, ("narrow", True)),
+        (1, 1, 8, 40, 60, 515, True, 8, ("narrow", False)),
+        (1, 2, 1, 30, 700, 64, False, 0, ("narrow", True)),       # few rows
+        (1, 1, 3, 20, 20, 128, True, 0, ("narrow", True))]
+    # K6's prefix mask on the tensor cores, scalar and per row:
+    # (B, K, G, S, D, prefix)
+    tc_prefix_cases = [(1, 1, 8, 320, 256, 256), (1, 1, 8, 320, 256, [256]),
+                       (3, 2, 4, 100, 128, [5, 99, 0]),
+                       (2, 4, 2, 90, 64, [64, 1]), (1, 8, 1, 80, 192, 40)]
     # (B, K, G, T, D, kv_len, (one split, K/V by cp.async)): B * K >= 264
     # gives one split a (b, kv-head); D = 50 rows are not 16-byte multiples
     one_split_lens = [1 + 37 * i % 100 for i in range(34)]
@@ -4048,7 +4088,8 @@ def phase_attention(device, reps: int, build_log=None) -> dict:
                       (LM_SLOTS, LM_K, LM_G, LM_MAX_LEN, LM_D),
                       (ZOO_SLOTS, 1, 16, 2048, 256),
                       (ZOO_SLOTS, 8, 4, ZOO_MAX_LEN, 128),
-                      (34, 8, 2, 100, 64)]
+                      (34, 8, 2, 100, 64), (2, 2, 8, 300, 128),
+                      (2, 4, 2, 700, 50)]
     # (B, K, G, S, D) of K6's prefix mask: paligemma's 256 image tokens +
     # text (G = 8, D = 256), and others off the tiles
     prefix_shapes = [(ZOO_BATCH, 1, 8, 256 + ZOO_PROMPT, 256),
@@ -4069,9 +4110,9 @@ def phase_attention(device, reps: int, build_log=None) -> dict:
         note("flash_attention", dtype, check_flash(
             gen, device, dtype, 5, 4, 1, 64, 64, 64, False, 0, strided=True))
         for B, K, G, S, T, D, causal, window, path in flash_paths:
-            note("flash_attention", dtype, check_flash(
+            note("flash_attention", dtype, check_flash(      # the f32 CTA
                 gen, device, dtype, B, K, G, S, T, D, causal, window,
-                path=path))
+                path=path if dtype == torch.float32 else None))   # shapes
         for B, K, G, T, D, lens in decode_shapes:
             for window in (0, 20):
                 note("decode_attention", dtype, check_decode(
@@ -4121,6 +4162,19 @@ def phase_attention(device, reps: int, build_log=None) -> dict:
                 gen, device, dtype, B, K, G, S, T, D, False, 0))
             note("decode_attention", dtype, check_decode(
                 gen, device, dtype, B, K, G, T, D, [T] * B, 0))
+    bf = torch.bfloat16
+    for B, K, G, S, T, D, causal, window, path in tc_flash_paths:
+        name = ABSORBED if D > 256 else "flash_attention"
+        note(name, bf, check_flash(gen, device, bf, B, K, G, S, T, D, causal,
+                                   window, path=path))
+    for B, K, G, S, T, D, causal, window, path in tc_flash_paths[:8]:
+        note("flash_attention", bf, check_flash(
+            gen, device, bf, B, K, G, S, T, D, causal, window, strided=True))
+    for B, K, G, S, D, prefix in tc_prefix_cases:
+        for window in (0, 16):
+            note("flash_attention[prefix]", bf, check_flash(
+                gen, device, bf, B, K, G, S, S, D, True, window,
+                prefix=prefix))
 
     # timings at the agent's shapes
     f32 = torch.float32
@@ -4140,8 +4194,8 @@ def phase_attention(device, reps: int, build_log=None) -> dict:
             "ctas": ctas, "cta_shape": "narrow" if narrow else "wide",
             "rows_per_cta": rows,
             "kernel_ms": time_ms(lambda: fa.flash_attention(q, k, v), reps),
-            "device_ms": device_ms(lambda: fa.flash_attention(q, k, v), reps,
-                                   "flash_fwd_kernel"),
+            "device_ms": kernel_device_ms(lambda: fa.flash_attention(q, k, v),
+                                          reps, "flash_fwd_kernel")[0],
             "plain_ms": time_ms(lambda: fa.flash_attention_ref(q, k, v),
                                 max(1, reps // 4)),
             "library_ms": time_ms(lambda: sdpa_gqa(q, k, v, is_causal=True),
@@ -4175,8 +4229,8 @@ def phase_attention(device, reps: int, build_log=None) -> dict:
                   "D": LM_D, "kv_len": DECODE_KV_LEN},
         "kernel_ms": time_ms(lambda: da.decode_attention(q, k, v, kv_len),
                              reps),
-        "device_ms": device_ms(lambda: da.decode_attention(q, k, v, kv_len),
-                               reps, "decode_"),
+        "device_ms": kernel_device_ms(lambda: da.decode_attention(
+            q, k, v, kv_len), reps, "decode_")[0],
         "graph_ms": graph_ms(lambda: da.decode_attention(q, k, v, kv_len),
                              GRAPH_CALLS, reps),
         "splits": da.plan_splits(LM_MAX_LEN, LM_SLOTS, LM_K,
@@ -5323,29 +5377,112 @@ def zoo_arch(arch, device) -> dict:
     return out
 
 
-def zoo_variant_times(device, reps: int) -> dict:
-    """Each K5/K6 variant of the zoo at the shape its arch gives it, bf16:
-    CUDA-event ms a call beside its plain version, its bound (the bytes its
-    inputs need, the operations of its allowed pairs at the bf16 rate) and
-    one PyTorch call of the same function where there is one
-    (`scaled_dot_product_attention` with the mask as a boolean input; none
-    for int8 codes).  Also K6 at
-    deepseek's decompressed MLA prefill (D = 192 -> 256, K = 128) and at
-    whisper's cross-attention, and K5 at whisper's cross decode."""
+def device_profile(fn, reps: int, tag: str):
+    """(ms, names): the mean device time per call of `fn` in kernels whose
+    name holds `tag` ("" for every kernel), from a profile of `reps` calls
+    after one warm-up call, and the names of those kernels.  Late in a long
+    process the profiler drops events, so a profile counts only when the
+    one before it recorded the same number of such kernel runs, a nonzero
+    multiple of the calls; after five profiles without that, (0.0, [])."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    seen = None
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages()
+                if tag in e.key and e.device_time_total > 0]
+        runs = sum(e.count for e in hits)
+        if runs and runs % reps == 0 and runs == seen:
+            return (sum(e.device_time_total for e in hits) / 1e3 / reps,
+                    sorted({e.key for e in hits}))
+        seen = runs
+    return 0.0, []
+
+
+# the kernels of K5's and K6's bf16 instances run on the tensor cores: their
+# names hold this (the f32 instances' do not)
+TC_TAG = "_tc_kernel"
+
+
+def variant_entry(run, plain, library, pairs, nbytes, D, shape, reps: int,
+                  tag: str, tc=None, peak=BF16_FLOPS_PER_S) -> dict:
+    """One instance's times: CUDA-event ms a call (host launch path
+    included), the kernel's own device ms (profiler, kernels named with
+    `tag`; where a profile records none, the ms a call inside a CUDA graph
+    of GRAPH_CALLS calls), the plain version's ms, one library call's
+    event and device ms (all its kernels), and the bound
+    (`attention_bound_ms` at `peak`).  With `tc` set, the kernels the
+    profiler saw must (True) or must not (False) be the tensor-core
+    instances."""
+    bound, by = attention_bound_ms(pairs, nbytes, D, peak)
+    dev, names, dev_by = kernel_device_ms(run, reps, tag)
+    if tc is not None and any((TC_TAG in n) != tc for n in names):
+        fail(f"{shape}: kernels {names}, want tensor-core instances: {tc}")
+    out = {"shape": shape, "ms": time_ms(run, reps), "device_ms": dev,
+           "device_ms_by": dev_by, "kernels": names,
+           "plain_ms": time_ms(plain, max(1, reps // 4)),
+           "library_ms": None, "library_device_ms": None,
+           "bound_ms": bound, "bound_by": by}
+    if library is not None:
+        out["library_ms"] = time_ms(library, reps)
+        out["library_device_ms"] = profiled_ms(library, reps, "")
+    return out
+
+
+def profiled_ms(fn, reps: int, tag: str):
+    """`device_profile`'s ms, or None where the profiler missed calls."""
+    ms, names = device_profile(fn, reps, tag)
+    return ms if names else None
+
+
+def kernel_device_ms(fn, reps: int, tag: str):
+    """(ms, kernel names, "profiler" | "graph"): `device_profile`'s ms a
+    call of a one-launch `fn`, or where the profiler missed calls the ms a
+    call inside a CUDA graph of GRAPH_CALLS calls (no names then)."""
+    ms, names = device_profile(fn, reps, tag)
+    if names:
+        return ms, names, "profiler"
+    return graph_ms(fn, GRAPH_CALLS, max(1, reps // 4)), [], "graph"
+
+
+# internlm2-1.8b's train step (bf16, B 2, S = T = 4,096): K6's shape there
+TRAIN_K6_SHAPE = (2, 8, 2, 4096, 128)
+
+
+def zoo_variant_times(device, reps: int, tc=True) -> dict:
+    """Each bf16 K5/K6 instance of the zoo and the train phase at the shape
+    its arch gives it (`variant_entry`): the ring, int8, the prefix mask,
+    deepseek's decompressed MLA prefill (D = 192), whisper's
+    cross-attention and cross decode, internlm2's train step
+    (TRAIN_K6_SHAPE).  The library call is `scaled_dot_product_attention`
+    with the mask as a boolean input (none for int8 codes).  `tc` as for
+    `variant_entry` (None: not checked, as for an older tree)."""
+    import torch
+    from repro_torch.common.utils import sm_count
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
     gen = torch.Generator(device=device).manual_seed(23)
     bf = torch.bfloat16
     out = {}
 
-    def entry(run, plain, library, pairs, nbytes, D, shape):
-        bound, by = attention_bound_ms(pairs, nbytes, D, BF16_FLOPS_PER_S)
-        return {"shape": shape, "ms": time_ms(run, reps),
-                "plain_ms": time_ms(plain, max(1, reps // 4)),
-                "library_ms": (time_ms(library, reps) if library is not None
-                               else None),
-                "bound_ms": bound, "bound_by": by}
+    def entry(run, plain, library, pairs, nbytes, D, shape, quant=False):
+        tag = "flash_fwd" if "S" in shape else "decode_attention"
+        out = variant_entry(run, plain, library, pairs, nbytes, D, shape,
+                            reps, tag, tc)
+        if tc:      # resident CTAs an SM and shared memory of the instance
+            if "S" in shape:
+                narrow = fa.flash_grid(shape["B"], shape["K"], shape["G"],
+                                       shape["S"], D, sm_count(device), bf)[0]
+                occ = fa.occupancy(bf, D, narrow)
+            else:
+                occ = da.occupancy(bf, D, quant, "window" in shape)
+            out["ctas_per_sm"], out["smem_bytes"] = occ
+        return out
 
     # recurrentgemma's local attention on the ring: 16 heads on one kv
     # head, D = 256, 2048 slots, queries past the first lap
@@ -5383,7 +5520,8 @@ def zoo_variant_times(device, reps: int) -> dict:
                                         v_scale=vs),
         None, rows * K * G,
         2 * 2 * q.numel() + 2 * rows * K * (D + 4) + 4 * B, D,
-        {"B": B, "K": K, "G": G, "T": T, "D": D, "kv_len": DECODE_KV_LEN + 30})
+        {"B": B, "K": K, "G": G, "T": T, "D": D, "kv_len": DECODE_KV_LEN + 30},
+        quant=True)
     # paligemma's prefill: 256 image positions + text, 8 heads on one kv
     # head, D = 256, the prefix mask
     B, K, G, S, D, P = 1, 1, 8, 256 + ZOO_PROMPT, 256, 256
@@ -5429,6 +5567,18 @@ def zoo_variant_times(device, reps: int) -> dict:
             qd.reshape(B, K * G, 1, D), k, v, enable_gqa=True),
         B * K * G * T, 2 * (2 * qd.numel() + 2 * B * K * T * D), D,
         {"B": B, "K": K, "G": G, "T": T, "D": D})
+    # internlm2-1.8b's train step: K6's forward (and its recompute)
+    B, K, G, S, D = TRAIN_K6_SHAPE
+    q = _rand((B, S, K * G, D), gen, device, bf).view(
+        B, S, K, G, D).permute(0, 2, 3, 1, 4)
+    k = _rand((B, S, K, D), gen, device, bf).permute(0, 2, 1, 3)
+    v = _rand((B, S, K, D), gen, device, bf).permute(0, 2, 1, 3)
+    out["flash_attention train"] = entry(
+        lambda: fa.flash_attention(q, k, v), lambda: fa.flash_attention_ref(
+            q, k, v), lambda: sdpa_gqa(q, k, v, is_causal=True),
+        B * K * G * flash_pairs(S, S, True, 0),
+        2 * (2 * q.numel() + k.numel() + v.numel()), D,
+        {"B": B, "K": K, "G": G, "S": S, "T": S, "D": D})
     return out
 
 
@@ -5449,6 +5599,10 @@ def phase_zoo(device, reps: int) -> dict:
         emit({"phase": "zoo", "arch": arch, **r, "gpu": gpu_line()})
         gc.collect()
         torch.cuda.empty_cache()
+    for name in ("flash_attention", "decode_attention"):  # every zoo call is bf16
+        if totals[f"{name}[tc]"] != totals[name]:
+            fail(f"zoo: {totals[name]} {name} launches, "
+                 f"{totals[f'{name}[tc]']} of them on the tensor cores")
     times = zoo_variant_times(device, reps)
     out = {"phase": "zoo", "launches": totals, "variant_times": times,
            "seconds": time.perf_counter() - t0, "gpu": gpu_line()}
@@ -5981,6 +6135,12 @@ def phase_train(device, launcher: dict) -> dict:
               "gpu": gpu_line()})
         gc.collect()
         torch.cuda.empty_cache()
+    big = parts["internlm2"]["launches"]
+    if big["flash_attention[tc]"] != big["flash_attention"]:
+        fail(f"train: internlm2-1.8b (bf16) launched K6 {big['flash_attention']} "
+             f"times, {big['flash_attention[tc]']} on the tensor cores")
+    if parts["agent"]["launches"]["flash_attention[tc]"]:
+        fail("train: memori-agent's f32 K6 launches ran tensor-core instances")
     parts["launcher"] = launcher
     out = {"phase": "train", "launches": totals,
            "seconds": time.perf_counter() - t0, "gpu": gpu_line(),
@@ -6154,6 +6314,10 @@ LSE_CASES = {
     "bf16_ring": ("bfloat16", 1, 8, 2, 8192, 128, "ring", [500_001]),
     "int8": ("bfloat16", 4, 8, 4, 512, 128, "int8", [200, 1, 77, 512]),
     "bf16_shard": ("bfloat16", 1, 8, 2, 32768, 128, "full", [13_000]),
+    # the tensor-core instance at G = 16, 8 and 1 query heads a kv head
+    "bf16_g16_ring": ("bfloat16", 2, 1, 16, 2048, 256, "ring", [2100, 2500]),
+    "bf16_g8": ("bfloat16", 2, 2, 8, 1024, 64, "full", [1000, 3]),
+    "int8_g1": ("bfloat16", 2, 4, 1, 512, 128, "int8", [300, 512]),
 }
 LSE_TIMED = "bf16_ring"      # the kernels line's shape: the long_500k path's
 LSE_SPLITS = (1, 4, 16)
@@ -6258,6 +6422,11 @@ def lse_case(gen, device, name: str, reps: int) -> dict:
             "tolerance": tol, "splits": splits,
             "ms": time_ms(lambda: da.decode_attention(
                 q, k, v, kv_len, return_lse=True, **kw), reps),
+            "device_ms": kernel_device_ms(lambda: da.decode_attention(
+                q, k, v, kv_len, return_lse=True, **kw), reps,
+                "decode_attention")[0],
+            "library_device_ms": (profiled_ms(library, reps, "")
+                                  if library is not None else None),
             "plain_ms": time_ms(lambda: da.decode_attention_ref(
                 q, k, v, kv_len, return_lse=True, **kw), max(1, reps // 4)),
             "library_ms": (time_ms(library, reps) if library is not None
@@ -6697,9 +6866,14 @@ def absorbed_times(device, reps: int) -> dict:
     v = _rand((1, 1, S, D), gen, device, torch.bfloat16)
     with uncounted():
         ms = time_ms(lambda: fa.flash_attention(q, k, v, causal=True), reps)
+        dev, names, _ = kernel_device_ms(
+            lambda: fa.flash_attention(q, k, v, causal=True), reps,
+            "flash_fwd")
         plain_ms = time_ms(lambda: fa.flash_attention_ref(q, k, v,
                                                           causal=True), reps)
         lib_ms = time_ms(lambda: sdpa_gqa(q, k, v, is_causal=True), reps)
+        lib_dev = profiled_ms(lambda: sdpa_gqa(q, k, v, is_causal=True),
+                              reps, "")
         err = float((fa.flash_attention(q, k, v, causal=True).float()
                      - fa.flash_attention_ref(q, k, v, causal=True).float()
                      ).abs().max())
@@ -6712,7 +6886,9 @@ def absorbed_times(device, reps: int) -> dict:
         (q.numel() + 2 * k.numel() + q.numel()) * 2, D, BF16_FLOPS_PER_S)
     return {"shape": {"B": 1, "K": 1, "G": G, "S": S, "T": S, "D": D,
                       "dtype": "bfloat16", "causal": True},
-            "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "ms": ms, "device_ms": dev, "kernels": names,
+            "plain_ms": plain_ms, "library_ms": lib_ms,
+            "library_device_ms": lib_dev,
             "bound_ms": bound, "bound_by": by, "max_abs_err": err,
             "tolerance": tol}
 
@@ -6846,6 +7022,59 @@ def phase_dist_mla(device, reps: int) -> dict:
     return out
 
 
+def attention_times(device, reps: int, build_log, tc) -> dict:
+    """The `--attention-times` mode: every K5/K6 instance the served paths
+    run, timed (`variant_entry`): the zoo's and the train step's bf16
+    instances (`zoo_variant_times`), the D = 576 instance
+    (`absorbed_times`), K5[lse] at its four instances (`lse_case`), the
+    agent's f32 K6 prefill and K5 step (with a CUDA graph's ms a call),
+    and ptxas's registers of every instance.  `tc` as for `variant_entry`
+    (None for an older tree)."""
+    import torch
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device=device).manual_seed(31)
+    f32 = torch.float32
+    out = {"phase": "attention_times", "gpu": gpu_line()}
+    with uncounted():
+        out["variants"] = zoo_variant_times(device, reps, tc)
+        out["d576"] = absorbed_times(device, reps)
+        out["lse"] = {n: lse_case(gen, device, n, reps) for n in LSE_CASES}
+        S = PREFILL_S
+        q = _rand((1, LM_K, LM_G, S, LM_D), gen, device, f32)
+        k = _rand((1, LM_K, S, LM_D), gen, device, f32)
+        v = _rand((1, LM_K, S, LM_D), gen, device, f32)
+        out["f32_prefill"] = variant_entry(
+            lambda: fa.flash_attention(q, k, v),
+            lambda: fa.flash_attention_ref(q, k, v),
+            lambda: sdpa_gqa(q, k, v, is_causal=True),
+            LM_K * LM_G * flash_pairs(S, S, True, 0),
+            4 * (2 * q.numel() + k.numel() + v.numel()), LM_D,
+            {"B": 1, "K": LM_K, "G": LM_G, "S": S, "T": S, "D": LM_D},
+            reps, "flash_fwd", False if tc else None, FP32_FLOPS_PER_S)
+        q = _rand((LM_SLOTS, LM_K, LM_G, LM_D), gen, device, f32)
+        k = _rand((LM_SLOTS, LM_MAX_LEN, LM_K, LM_D), gen, device,
+                  f32).permute(0, 2, 1, 3)
+        v = _rand((LM_SLOTS, LM_MAX_LEN, LM_K, LM_D), gen, device,
+                  f32).permute(0, 2, 1, 3)
+        kv_len = torch.full((LM_SLOTS,), DECODE_KV_LEN, dtype=torch.int32,
+                            device=device)
+        rows = LM_SLOTS * DECODE_KV_LEN
+        run = functools.partial(da.decode_attention, q, k, v, kv_len)
+        e = out["f32_decode"] = variant_entry(
+            run, functools.partial(da.decode_attention_ref, q, k, v, kv_len),
+            None, rows * LM_K * LM_G,
+            4 * (2 * q.numel() + 2 * rows * LM_K * LM_D + LM_SLOTS), LM_D,
+            {"B": LM_SLOTS, "K": LM_K, "G": LM_G, "T": LM_MAX_LEN,
+             "D": LM_D, "kv_len": DECODE_KV_LEN},
+            reps, "decode_attention", False if tc else None,
+            FP32_FLOPS_PER_S)
+        e["graph_ms"] = graph_ms(run, GRAPH_CALLS, reps)
+    out["ptxas"] = {name: build_log["kernels"][name]["ptxas"]
+                    for name in ATTN_KERNELS}
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=1 << 20,
@@ -6855,6 +7084,9 @@ def main(argv=None) -> int:
     ap.add_argument("--serving-times", type=int, default=0, metavar="ROUNDS",
                     help="only time the lm phase's serving run ROUNDS times "
                          "and print its numbers (no checks)")
+    ap.add_argument("--attention-times", action="store_true",
+                    help="only build the kernels and time every K5/K6 "
+                         "instance (`attention_times`; no other phase)")
     ap.add_argument("--src", default=SRC,
                     help="the source tree to import the port from (an A/B "
                          "of --serving-times against another checkout)")
@@ -6875,6 +7107,11 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     if args.serving_times:
         emit({**serving_times(device, args.serving_times), "src": args.src})
+        return 0
+    if args.attention_times:
+        own = os.path.samefile(args.src, SRC)
+        emit({**attention_times(device, args.reps, phase_build(),
+                                True if own else None), "src": args.src})
         return 0
     t_start = time.perf_counter()
     # the card's host: the port needs no msgpack (its own codec writes the
@@ -6978,6 +7215,21 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": zoo["launches"][name],
             "max_abs_err": max(r["max_abs_err"].values()),
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]})
+    # the bf16 instances on the tensor cores, timed at MLA's decompressed
+    # prefill (K6) and whisper's cross decode (K5)
+    for name, shape in (("flash_attention[tc]", "flash_attention mla_prefill"),
+                        ("decode_attention[tc]", "decode_attention cross")):
+        base, t = name.split("[")[0], zoo["variant_times"][shape]
+        launches = zoo["launches"][name] + train["launches"][name]
+        if launches < 1:
+            fail(f"{name} was not launched on the zoo's and train's paths")
+        summary.append({
+            "name": name, "route": "cuda", "source": ATTN_KERNELS[base][1],
+            "replaces": ATTN_KERNELS[base][0], "launches": launches,
+            "max_abs_err": attn[base]["max_abs_err"]["bfloat16"],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})

@@ -14,8 +14,16 @@
 // runs the kernel on each shard of a cache and combines the shards' rows
 // by these weights (kernels/decode_attention.py `combine_partials`).
 // Cache rows past kv_len (stale rows of an earlier occupant of the slot) are
-// never read.  bf16 converts on the way out of shared memory; all arithmetic
-// is plain FP32.
+// never read.
+//
+// Two families of instances, chosen by q's dtype:
+//   * f32 (`decode_attention_kernel`): plain FP32 on the CUDA cores, the
+//     reference's 2e-5 (the agent's decode step is f32);
+//   * bf16 (`decode_attention_tc_kernel`, the section "bf16 on the tensor
+//     cores"), over a bf16 cache or int8 codes dequantised to bf16: both
+//     products on the tensor cores (mma.sync m16n8k16, bf16 x bf16 -> f32).
+//     Products are exact in f32; P is rounded to bf16 before P.V and l adds
+//     the unrounded f32 p, inside the zoo's 2e-2 x max|v| gate.
 //
 // Two variants of the same kernel, as template arguments:
 //   * slot positions (kSlots, the ring-buffer cache of a sliding window):
@@ -31,15 +39,16 @@
 //     code * scale in f32, rounded to q's dtype (then widened for the dot).
 //     These rows go by plain loads, not cp.async.
 //
-// What bounds it: bytes.  Each allowed cache row is read once for all G
+// What bounds both: bytes.  Each allowed cache row is read once for all G
 // heads, 2 * D * 4 bytes per (row, kv-head) in f32, against 4 * G * D flops:
 // G/2 flops per byte, far below the card's ~20 FP32 flops per byte.  At the
 // agent's decode step (8 slots, K=4, kv_len ~170, D=64) that is ~3 MB, ~1 us
 // at 3.35 TB/s, so latency and launches cost more than the work.  The int8
 // cache moves D + 4 bytes a row instead of 4 D (f32) or 2 D (bf16).
 //
-// Design (the TPU kernel walks T in order inside one core; a CTA per
-// (b, kv-head) would leave most of 132 SMs idle at 8 slots x 4 kv-heads):
+// Design of the f32 kernel (the TPU kernel walks T in order inside one
+// core; a CTA per (b, kv-head) would leave most of 132 SMs idle at 8 slots
+// x 4 kv-heads):
 //   * one launch, grid (split, kv-head, batch row) fixed by the shape, so a
 //     CUDA graph can hold it.  Each CTA reads kv_len[b] on the device and
 //     takes split `blockIdx.x` of the allowed range
@@ -394,6 +403,406 @@ decode_attention_kernel(const T* __restrict__ q, const CT* __restrict__ k,
   }
 }
 
+// -- bf16 on the tensor cores --------------------------------------------------
+//
+// The G <= 16 query heads of a (b, kv-head) are the 16 rows of an m16n8k16
+// tile (rows past G are zero).  A tile holds kTcKeys = 64 cache rows and
+// warp w takes rows [16 w, 16 w + 16): S = Q K^T (2 n-tiles, D rounded up
+// to 16 deep), its own online softmax over them in registers (base-2
+// exponentials of scale * log2 e), P rounded to bf16 as the A operand of
+// O += P V (V by ldmatrix.trans).  K and V tiles come by tensor-map copies
+// (64-column boxes of 64 rows, 128-byte swizzled, one thread issuing them,
+// each stage counted on an mbarrier): they streamed the cache faster than
+// 16-byte cp.async from every thread on the H100 (PERF.md).  int8
+// codes (dequantised) and rows that are not 16-byte aligned are stored by
+// plain loads into the same layout.  After
+// the split's last tile the four warps' (m, l, acc) are combined in shared
+// memory; then, as in the f32 kernel, the CTA writes the output (one split)
+// or its partials and a ticket, and the last CTA of the (b, kv-head) merges
+// the splits: their (m, l) first, then the f32 partials, staged through
+// shared memory by one bulk copy a split, every thread summing its own
+// columns over the splits.
+constexpr int kTcKeys = 64;  // cache rows per tile: 16 per warp
+template <int DP>
+__host__ __device__ constexpr int tc_stages() { return DP >= 128 ? 3 : 4; }
+template <int DP>
+__host__ __device__ constexpr int tc_chunks() { return DP < 64 ? 1 : DP / 64; }
+template <int DP>
+__host__ __device__ constexpr int tc_qbytes() {  // the query's rows, then the ring (1024-aligned)
+  return ((kMaxG * (DP + 8) * 2 + 1023) / 1024) * 1024;
+}
+template <int DP>
+__host__ __device__ constexpr int tc_ring() {  // ring elements: NS stages of K, V chunks
+  return tc_stages<DP>() * 2 * tc_chunks<DP>() * kTcKeys * 64;
+}
+template <int DP>
+constexpr size_t tc_smem_bytes() {
+  return 1024 + tc_qbytes<DP>() + 2 * (size_t)tc_ring<DP>();
+}
+
+// CT: the cache's type, bf16 or int8_t (codes, dequantised to bf16 at
+// staging); kSlots: keys masked by slot_pos
+template <typename CT, int DP, bool kSlots>
+__global__ void __launch_bounds__(kThreads, 1)
+decode_attention_tc_kernel(const __nv_bfloat16* __restrict__ q, const CT* __restrict__ k,
+                           const CT* __restrict__ v, const int* __restrict__ kv_len,
+                           const int* __restrict__ slot_pos, const float* __restrict__ k_scale,
+                           const float* __restrict__ v_scale, __nv_bfloat16* __restrict__ out,
+                           int G, int T_len, int D, float scale, int window, int vec, Strides st,
+                           float* __restrict__ part_ml, float* __restrict__ part_acc,
+                           int* __restrict__ counters, float* __restrict__ lse,
+                           const __grid_constant__ CUtensorMap tmk,
+                           const __grid_constant__ CUtensorMap tmv) {
+  using bf16 = __nv_bfloat16;
+  constexpr bool kQuant = std::is_same<CT, int8_t>::value;
+  constexpr int RS = DP + 8;                    // a query row (elements)
+  constexpr int NS = tc_stages<DP>();
+  constexpr int KC = tc_chunks<DP>();           // 64-column chunks of a tile
+  constexpr int kChunk = kTcKeys * 64;          // elements
+  constexpr int kRing = tc_ring<DP>();
+  constexpr int kAS = DP + 4;                   // a warp's f32 accumulator row, combining
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* ring = reinterpret_cast<bf16*>(smem + tc_qbytes<DP>());
+  float* wacc = reinterpret_cast<float*>(ring);  // after the loop: the warps' accumulators
+  __shared__ int is_last;
+  __shared__ float wm[kWarps][kMaxG], wl[kWarps][kMaxG];
+  __shared__ float split_m[kMaxG][kMaxSplits];       // the merge's maxima,
+  __shared__ float weights[kMaxG][kMaxSplits + 1];  // sums, then weights
+  __shared__ __align__(8) uint64_t full_bar[NS];     // a stage's tile has landed
+  __shared__ __align__(8) uint64_t merge_bar;        // a chunk of partials has landed
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g4 = lane >> 2, t4 = lane & 3;
+  const int split = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
+  const int n_split = gridDim.x;
+  const int bk = b * gridDim.y + kh;
+  const int kl = kv_len[b];
+  const int q_pos = kl - 1;  // the query's position (slot-position variant)
+  const int DQ = (D + 15) & ~15;
+  const bool tma = !kQuant && vec;
+  int lo, hi;
+  split_range(kSlots ? T_len : kl, T_len, kSlots ? 0 : window, n_split, split, &lo, &hi);
+  const int n = max(0, hi - lo);
+  const float sl2 = scale * 1.4426950408889634f;  // scores in log2 units
+  if (tid == 0) {
+    for (int i = 0; i < NS; ++i) mbar_init(&full_bar[i], 1);
+    mbar_init(&merge_bar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[DP / 8][4];
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  if (n > 0) {
+    const bf16* qb = q + b * st.q[0] + kh * st.q[1];
+    const CT* kb = k + b * st.k[0] + kh * st.k[1];
+    const CT* vb = v + b * st.v[0] + kh * st.v[1];
+    const int ntiles = (n + kTcKeys - 1) / kTcKeys;
+    if (!tma) {  // plain stores never write the columns past D: zero the ring once
+      for (int i = tid; i < kRing / 8; i += kThreads)
+        reinterpret_cast<uint4*>(ring)[i] = make_uint4(0, 0, 0, 0);
+      __syncthreads();
+    }
+    // tile t's 64 rows from lo + 64 t into stage t % NS (rows past the
+    // split's are masked: finite cache rows, or zeros past T); the element
+    // (row, col) of a chunk sits at unit ((col % 64) / 8) ^ (row % 8)
+    const int kc = (D + 63) / 64;
+    auto stage = [&](int t) {
+      const int slot = t % NS;
+      bf16* Ks = ring + (size_t)slot * 2 * KC * kChunk;
+      bf16* Vs = Ks + KC * kChunk;
+      const int r0 = lo + t * kTcKeys;
+      if (tma) {
+        if (tid == 0) {
+          mbar_expect(&full_bar[slot], 2u * 2 * kc * kChunk);
+          for (int j = 0; j < kc; ++j) {
+            tma_load_4d(Ks + j * kChunk, &tmk, 64 * j, r0, kh, b, &full_bar[slot]);
+            tma_load_4d(Vs + j * kChunk, &tmv, 64 * j, r0, kh, b, &full_bar[slot]);
+          }
+        }
+        return;
+      }
+      const int rows = min(kTcKeys, hi - r0);
+      for (int row = tid / kCopyTPR; row < kTcKeys; row += kThreads / kCopyTPR) {
+        const long long tr = r0 + row;
+        const CT* kr = kb + tr * st.k[2];
+        const CT* vr = vb + tr * st.v[2];
+        float ksc = 1.f, vsc = 1.f;
+        if constexpr (kQuant) {  // code * scale in f32, rounded to bf16
+          if (row < rows) {
+            ksc = k_scale[b * st.ks[0] + kh * st.ks[1] + tr * st.ks[2]];
+            vsc = v_scale[b * st.vs[0] + kh * st.vs[1] + tr * st.vs[2]];
+          }
+        }
+        bf16* kd = Ks + row * 64;
+        bf16* vd = Vs + row * 64;
+        for (int col = tid % kCopyTPR; col < D; col += kCopyTPR) {
+          const float x = row < rows ? to_f32(kr[col]) * ksc : 0.f;
+          const float y = row < rows ? to_f32(vr[col]) * vsc : 0.f;
+          const int at = (col >> 6) * kChunk + ((((col & 63) >> 3) ^ (row & 7)) << 3) + (col & 7);
+          kd[at] = __float2bfloat16_rn(x);
+          vd[at] = __float2bfloat16_rn(y);
+        }
+      }
+      if (tid == 0) mbar_arrive(&full_bar[slot]);
+    };
+#pragma unroll 1
+    for (int t = 0; t < NS - 1 && t < ntiles; ++t) stage(t);
+    // the query (rows past G and columns past D zero), while the first
+    // tiles are in flight
+    for (int i = tid; i < kMaxG * DP; i += kThreads) {
+      const int g = i / DP, d = i % DP;
+      Qs[g * RS + d] = g < G && d < D ? qb[g * st.q[2] + d] : __float2bfloat16_rn(0.f);
+    }
+    const bf16* qfrag = Qs + (lane & 15) * RS + 8 * (lane >> 4);
+    const int kx = lane & 7;  // a lane's rows sit at (row % 8) = lane % 8: its swizzle
+    for (int t = 0; t < ntiles; ++t) {
+      if (t + NS - 1 < ntiles) stage(t + NS - 1);
+      mbar_wait(&full_bar[t % NS], (t / NS) & 1);
+      __syncthreads();  // tile t (and the query) visible
+      const int r0 = lo + t * kTcKeys, rows = min(kTcKeys, hi - r0);
+      if (16 * warp < rows) {  // warp-uniform
+        const bf16* Ks = ring + (size_t)(t % NS) * 2 * KC * kChunk + 16 * warp * 64;
+        const bf16* Vs = Ks + KC * kChunk;
+        float sc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+        const bf16* kfrag = Ks + ((lane & 7) + 8 * (lane >> 4)) * 64;
+        const int ku = (lane >> 3) & 1;
+        auto qk_step = [&](int kk) {
+          uint32_t a[4], kf[4];
+          ldmatrix_x4(a, qfrag + kk);
+          ldmatrix_x4(kf, kfrag + (kk >> 6) * kChunk + (((((kk & 63) >> 3) + ku) ^ kx) << 3));
+          mma_bf16(sc[0], a, kf[0], kf[1]);
+          mma_bf16(sc[1], a, kf[2], kf[3]);
+        };
+        if (DQ == DP) {  // the instance's full depth: one straight run
+#pragma unroll
+          for (int kk = 0; kk < DP; kk += 16) qk_step(kk);
+        } else {
+#pragma unroll 4
+          for (int kk = 0; kk < DQ; kk += 16) qk_step(kk);
+        }
+        // scores in log2 units, keys past the range (or in a slot the
+        // query may not see) at -inf: exactly zero weight
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int kt = 16 * warp + 8 * j + 2 * t4 + e;  // key 8 j + 2 t4 + e of the warp's 16
+            bool ok = kt < rows;
+            if constexpr (kSlots) {  // the key's slot must hold an allowed position
+              if (ok) {
+                const int sp = slot_pos[b * st.sp[0] + (long long)(r0 + kt) * st.sp[1]];
+                ok = sp >= 0 && sp <= q_pos && (window <= 0 || sp > q_pos - window);
+              }
+            }
+            sc[j][e] = ok ? sc[j][e] * sl2 : -INFINITY;
+            sc[j][2 + e] = ok ? sc[j][2 + e] * sl2 : -INFINITY;
+          }
+        float corr[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          float mx = fmaxf(fmaxf(sc[0][2 * i], sc[0][2 * i + 1]),
+                           fmaxf(sc[1][2 * i], sc[1][2 * i + 1]));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+          const float m_new = fmaxf(m[i], mx);  // m starts finite (kNegInf): never inf - inf
+          corr[i] = fast_exp2(m[i] - m_new);
+          float sum = 0.f;
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float p = fast_exp2(sc[j][2 * i + e] - m_new);
+              sc[j][2 * i + e] = p;
+              sum += p;  // l sums the f32 p, before P is rounded to bf16
+            }
+          l[i] = l[i] * corr[i] + sum;
+          m[i] = m_new;
+        }
+        if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {  // a max moved
+#pragma unroll
+          for (int j = 0; j < DP / 8; ++j) {
+            acc[j][0] *= corr[0];
+            acc[j][1] *= corr[0];
+            acc[j][2] *= corr[1];
+            acc[j][3] *= corr[1];
+          }
+        }
+        const uint32_t a[4] = {pack_bf16(sc[0][0], sc[0][1]), pack_bf16(sc[0][2], sc[0][3]),
+                               pack_bf16(sc[1][0], sc[1][1]), pack_bf16(sc[1][2], sc[1][3])};
+        const bf16* vfrag = Vs + ((lane & 7) + 8 * ((lane >> 3) & 1)) * 64;
+        const int vu = lane >> 4;
+        auto pv_step = [&](int j) {
+          uint32_t vf[4];
+          ldmatrix_x4_trans(vf, vfrag + (j >> 2) * kChunk + ((((2 * j) & 7) + vu) ^ kx) * 8);
+          mma_bf16(acc[2 * j], a, vf[0], vf[1]);
+          mma_bf16(acc[2 * j + 1], a, vf[2], vf[3]);
+        };
+        if (DQ == DP) {  // every column: no per-pair branch
+#pragma unroll
+          for (int j = 0; j < DP / 16; ++j) pv_step(j);
+        } else {
+#pragma unroll
+          for (int j = 0; j < DP / 16; ++j)
+            if (16 * j < DQ) pv_step(j);
+        }
+      }
+      __syncthreads();  // tile t consumed: its buffer may be refilled
+    }
+  }
+
+  // combine the four warps: wm/wl per (warp, head), their accumulators
+  // through the (now free) ring; a warp with no allowed key has l = 0
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    if (t4 == 0) {
+      wm[warp][g4 + 8 * i] = m[i];
+      wl[warp][g4 + 8 * i] = l[i];
+    }
+  }
+  float* wa = wacc + (size_t)warp * kMaxG * kAS;
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      *reinterpret_cast<float2*>(wa + (g4 + 8 * i) * kAS + 8 * j + 2 * t4) =
+          make_float2(acc[j][2 * i], acc[j][2 * i + 1]);
+  __syncthreads();
+  if (tid < G) {  // one thread a head: the warps' weights, M and L
+    const int g = tid;
+    float M = kNegInf;
+    for (int w = 0; w < kWarps; ++w)
+      if (wl[w][g] > 0.f) M = fmaxf(M, wm[w][g]);
+    float L = 0.f;
+    for (int w = 0; w < kWarps; ++w) {
+      const float lw = wl[w][g];
+      const float x = lw > 0.f ? fast_exp2(wm[w][g] - M) : 0.f;
+      wm[w][g] = x;
+      L = fmaf(lw, x, L);
+    }
+    wl[0][g] = M;
+    wl[1][g] = L;
+  }
+  __syncthreads();
+  const float ln2 = 0.6931471805599453f;
+  if (n_split == 1) {  // the whole range in this CTA: finalise here
+    if (lse != nullptr && tid < G) {
+      const float L = wl[1][tid];
+      lse[(size_t)bk * G + tid] = L > 0.f ? (wl[0][tid] + log2f(L)) * ln2 : lse_none();
+    }
+    for (int i = tid; i < G * D; i += kThreads) {
+      const int g = i / D, d = i % D;
+      float A = 0.f;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) A = fmaf(wacc[((size_t)w * kMaxG + g) * kAS + d], wm[w][g], A);
+      store(out + b * st.o[0] + kh * st.o[1] + g * st.o[2] + d, A / fmaxf(wl[1][g], 1e-37f));
+    }
+    return;
+  }
+
+  // this split's partial state, then the ticket
+  const size_t part = ((size_t)bk * n_split + split) * G;
+  if (tid < G) {
+    part_ml[(part + tid) * 2] = wl[0][tid];
+    part_ml[(part + tid) * 2 + 1] = wl[1][tid];
+  }
+  for (int i = tid; i < G * (DP / 4); i += kThreads) {
+    const int g = i / (DP / 4), d = 4 * (i % (DP / 4));
+    float4 A = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float x = wm[w][g];
+      const float4 y = *reinterpret_cast<const float4*>(wacc + ((size_t)w * kMaxG + g) * kAS + d);
+      A.x = fmaf(y.x, x, A.x);
+      A.y = fmaf(y.y, x, A.y);
+      A.z = fmaf(y.z, x, A.z);
+      A.w = fmaf(y.w, x, A.w);
+    }
+    *reinterpret_cast<float4*>(part_acc + (part + g) * DP + d) = A;
+  }
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    const int ticket = atomicAdd(counters + bk, 1);
+    is_last = ticket == n_split - 1;
+    if (is_last) counters[bk] = 0;  // every split has arrived: reset for the next call
+  }
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+
+  // merge the splits in split order (the same sums whichever CTA is last):
+  // M = max m, w_s = 2^(m_s - M), L = sum l_s w_s, out = sum acc_s w_s /
+  // max(L, 1e-37); a split with no allowed row has l = 0 and weight 0
+  const size_t base = (size_t)bk * n_split;
+  for (int i = tid; i < G * n_split; i += kThreads) {  // every (m, l) in one round trip
+    const int g = i / n_split, s = i % n_split;
+    const size_t pi = (base + s) * G + g;
+    split_m[g][s] = __ldcg(part_ml + pi * 2);
+    weights[g][s] = __ldcg(part_ml + pi * 2 + 1);
+  }
+  __syncthreads();
+  if (tid < G) {  // one thread a head: its weights and their sum
+    const int g = tid;
+    float M = kNegInf;
+    for (int s = 0; s < n_split; ++s)
+      if (weights[g][s] > 0.f) M = fmaxf(M, split_m[g][s]);
+    float L = 0.f;
+    for (int s = 0; s < n_split; ++s) {
+      const float ls = weights[g][s];
+      const float w = ls > 0.f ? fast_exp2(split_m[g][s] - M) : 0.f;
+      weights[g][s] = w;
+      L = fmaf(ls, w, L);
+    }
+    weights[g][kMaxSplits] = fmaxf(L, 1e-37f);
+    if (lse != nullptr) lse[(size_t)bk * G + g] = L > 0.f ? (M + log2f(L)) * ln2 : lse_none();
+  }
+  // the partials in chunks of CH floats of each split's G x DP block, one
+  // bulk copy a split (the other CTAs' stores, seen through the ticket, and
+  // this CTA's own generic accesses to the ring are fenced to the async
+  // proxy first)
+  constexpr int kRingFloats = kRing * (int)sizeof(bf16) / 4;
+  const int total = G * DP;
+  const int CH = min(total, (kRingFloats / n_split) & ~3);
+  float* buf = wacc;
+  for (int f0 = 0, round = 0; f0 < total; f0 += CH, ++round) {
+    const int ch = min(CH, total - f0);
+    __syncthreads();  // the weights are ready; the previous chunk is consumed
+    if (tid == 0) {
+      asm volatile("fence.proxy.async;\n" ::: "memory");
+      mbar_expect(&merge_bar, 4u * n_split * ch);
+      for (int s = 0; s < n_split; ++s)
+        bulk_copy(buf + s * CH, part_acc + (base + s) * G * DP + f0, 4u * ch, &merge_bar);
+    }
+    mbar_wait(&merge_bar, round & 1);
+    for (int c = 4 * tid; c < ch; c += 4 * kThreads) {
+      const int f = f0 + c, g = f / DP, d = f % DP;
+      float4 A = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int s = 0; s < n_split; ++s) {
+        const float w = weights[g][s];
+        const float4 y = *reinterpret_cast<const float4*>(buf + s * CH + c);
+        A.x = fmaf(y.x, w, A.x);
+        A.y = fmaf(y.y, w, A.y);
+        A.z = fmaf(y.z, w, A.z);
+        A.w = fmaf(y.w, w, A.w);
+      }
+      const float inv = 1.f / weights[g][kMaxSplits];
+      bf16* ob = out + b * st.o[0] + kh * st.o[1] + g * st.o[2];
+      const float a4[4] = {A.x, A.y, A.z, A.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (d + e < D) ob[d + e] = __float2bfloat16_rn(a4[e] * inv);
+    }
+  }
+}
+
 struct Args {  // one call's operands besides the template choice
   const void *q, *k, *v;
   const int *kv_len, *slot_pos;
@@ -444,6 +853,76 @@ cudaError_t launch_dtype(const Args& a) {
   if (quant)
     return slots ? launch_dp<T, int8_t, true>(a) : launch_dp<T, int8_t, false>(a);
   return slots ? launch_dp<T, T, true>(a) : launch_dp<T, T, false>(a);
+}
+
+template <typename CT, int DP, bool kSlots>
+cudaError_t launch_tc(const Args& a) {
+  static int attr_device = -1;  // the shared-memory ceiling is per device
+  auto kernel = decode_attention_tc_kernel<CT, DP, kSlots>;
+  int device;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device != attr_device) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)tc_smem_bytes<DP>());
+    if (err != cudaSuccess) return err;
+    attr_device = device;
+  }
+  // a bf16 cache by the tensor-map copies when 16-byte aligned (`vec`) and
+  // a tensor map describes it
+  CUtensorMap tmk = {}, tmv = {};
+  const int tma = !std::is_same<CT, int8_t>::value && a.vec &&
+                  tile_map(&tmk, a.k, a.B, a.K, a.T_len, a.D, a.st.k, kTcKeys) &&
+                  tile_map(&tmv, a.v, a.B, a.K, a.T_len, a.D, a.st.v, kTcKeys);
+  kernel<<<dim3(a.n_split, a.K, a.B), kThreads, tc_smem_bytes<DP>(), a.stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q), static_cast<const CT*>(a.k),
+      static_cast<const CT*>(a.v), a.kv_len, a.slot_pos, a.k_scale, a.v_scale,
+      static_cast<__nv_bfloat16*>(a.out), a.G, a.T_len, a.D, a.scale, a.window, tma, a.st,
+      a.part_ml, a.part_acc, a.counters, a.lse, tmk, tmv);
+  return cudaGetLastError();
+}
+
+template <typename CT, bool kSlots>
+cudaError_t launch_tc_dp(const Args& a) {
+  if (a.D <= 32) return launch_tc<CT, 32, kSlots>(a);
+  if (a.D <= 64) return launch_tc<CT, 64, kSlots>(a);
+  if (a.D <= 128) return launch_tc<CT, 128, kSlots>(a);
+  return launch_tc<CT, 256, kSlots>(a);
+}
+
+// bf16 q: the tensor-core kernel, over a bf16 cache or int8 codes
+cudaError_t launch_bf16(const Args& a) {
+  const bool quant = a.k_scale != nullptr, slots = a.slot_pos != nullptr;
+  if (quant)
+    return slots ? launch_tc_dp<int8_t, true>(a) : launch_tc_dp<int8_t, false>(a);
+  return slots ? launch_tc_dp<__nv_bfloat16, true>(a) : launch_tc_dp<__nv_bfloat16, false>(a);
+}
+
+template <typename Kernel>
+int occupancy_of(Kernel kernel, size_t smem, int* ctas_per_sm, int* smem_bytes) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas_per_sm, kernel, kThreads, smem);
+  *smem_bytes = (int)smem;
+  return (int)err;
+}
+
+// which: bit 2 bf16 q (the tensor-core kernel), bit 1 int8 codes, bit 0 slots
+template <int DP>
+int occupancy_dp(int which, int* c, int* m) {
+  using bf16 = __nv_bfloat16;
+  const size_t f = smem_bytes<float, DP>(kMaxG), t = tc_smem_bytes<DP>();
+  switch (which) {
+    case 0: return occupancy_of(decode_attention_kernel<float, float, DP, false>, f, c, m);
+    case 1: return occupancy_of(decode_attention_kernel<float, float, DP, true>, f, c, m);
+    case 2: return occupancy_of(decode_attention_kernel<float, int8_t, DP, false>, f, c, m);
+    case 3: return occupancy_of(decode_attention_kernel<float, int8_t, DP, true>, f, c, m);
+    case 4: return occupancy_of(decode_attention_tc_kernel<bf16, DP, false>, t, c, m);
+    case 5: return occupancy_of(decode_attention_tc_kernel<bf16, DP, true>, t, c, m);
+    case 6: return occupancy_of(decode_attention_tc_kernel<int8_t, DP, false>, t, c, m);
+    default: return occupancy_of(decode_attention_tc_kernel<int8_t, DP, true>, t, c, m);
+  }
 }
 
 }  // namespace
@@ -497,8 +976,25 @@ int decode_attention_launch(int dtype, const void* q, const void* k, const void*
   }
   a.st.sp[0] = strides[12];
   a.st.sp[1] = strides[13];
-  const cudaError_t err = dtype == 0 ? launch_dtype<float>(a) : launch_dtype<__nv_bfloat16>(a);
+  const cudaError_t err = dtype == 0 ? launch_dtype<float>(a) : launch_bf16(a);
   return (int)err;
+}
+
+// Resident CTAs per SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor) and
+// dynamic shared memory of the instance a launch of dtype (q's), cache kind
+// and head dim D takes (the f32 kernel's for G = 16).  Returns the CUDA
+// error code.
+int decode_attention_occupancy(int dtype, int quant, int slots, int D, int* ctas_per_sm,
+                               int* smem_bytes) {
+  if (D < 1 || D > 256 || (dtype != 0 && dtype != 1)) return (int)cudaErrorInvalidValue;
+  const int dp = D <= 32 ? 32 : D <= 64 ? 64 : D <= 128 ? 128 : 256;
+  const int which = (dtype << 2) | ((quant != 0) << 1) | (slots != 0);
+  switch (dp) {
+    case 32: return occupancy_dp<32>(which, ctas_per_sm, smem_bytes);
+    case 64: return occupancy_dp<64>(which, ctas_per_sm, smem_bytes);
+    case 128: return occupancy_dp<128>(which, ctas_per_sm, smem_bytes);
+    default: return occupancy_dp<256>(which, ctas_per_sm, smem_bytes);
+  }
 }
 
 }  // extern "C"

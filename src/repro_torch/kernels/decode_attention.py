@@ -41,8 +41,14 @@ for the G heads that share it, 2·D·4 bytes per (row, kv-head) in f32
 against 4·G·D flops.  One launch a call: the grid (split, kv-head, batch
 row) is fixed by the shape (`plan_splits`), each CTA takes its share of
 the allowed range from kv_len on the device (`split_range`), and the last
-CTA of each (b, kv-head) merges the splits' partial softmax states; all
-arithmetic is plain FP32.
+CTA of each (b, kv-head) merges the splits' partial softmax states.  An
+f32 call runs plain FP32 on the CUDA cores (the reference's 2e-5; the
+agent is f32).  A bf16 call (a bf16 cache, or int8 codes dequantised to
+bf16) runs both products on the tensor cores (`mma.sync` m16n8k16, bf16 x
+bf16 -> f32): the G query heads are the 16 rows of a tile, each of the
+CTA's 4 warps takes 16 of a 64-row cache tile, and P is rounded to bf16
+before P·V (l summed from the f32 probabilities), inside the zoo's 2e-2 x
+max|v| gate.
 
 The cache is read through its strides (D must have stride 1): the engine's
 (B, T, K, D) per-layer cache goes in as a permuted view, never copied.
@@ -62,13 +68,14 @@ them: two calls of one shape on two streams at once would race.
 A CPU tensor runs the plain PyTorch version (`decode_attention_ref`, the
 reference's oracle `ref.decode_attention_ref`); a CUDA tensor launches the
 kernel or the call raises.  `decode_attention.launches` counts launches,
-and `slot_launches` / `int8_launches` / `lse_launches` those of each
-variant.
+and `slot_launches` / `int8_launches` / `lse_launches` / `tc_launches`
+(bf16, on the tensor cores) those of each variant.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Dict, NamedTuple
 
 import torch
@@ -83,6 +90,7 @@ MAX_HEAD_DIM = 256  # K5's (decode_attention_max_head_dim; K6 also takes 576)
 MAX_GROUP = 16      # query heads per kv-head (kMaxG in the source)
 MAX_SPLITS = 32     # splits of one (b, kv-head) (kMaxSplits in the source)
 CTAS_PER_SM = 2     # the split plan's target occupancy
+TC_KEYS = 64        # cache rows a tile of the bf16 kernel (kTcKeys)
 
 
 def dequantize(codes, scales, dtype):
@@ -142,12 +150,19 @@ def combine_partials(outs, lses):
     return out.to(outs.dtype), lse
 
 
-def plan_splits(T: int, B: int, K: int, sms: int) -> int:
+def plan_splits(T: int, B: int, K: int, sms: int, G: int = 1,
+                dtype=torch.float32) -> int:
     """The number of CTAs that share one (b, kv-head): about CTAS_PER_SM
     CTAs on every SM over the (split, kv-head, batch row) grid, at most
-    MAX_SPLITS and T.  It depends on the shape alone, so a captured graph
-    keeps it whatever kv_len does."""
+    MAX_SPLITS and T.  A bf16 call also gives each split at least one
+    TC_KEYS-row tile, and at most sqrt(T / G) splits: a split streams
+    4·D·T/n bytes of bf16 K and V, and the last CTA merges n·G·D·4 bytes
+    of f32 partials, which balance at n² = T / G (recurrentgemma's ring, T
+    2,048 over G 16: 11 splits, not 32).  It depends on the shape alone,
+    so a captured graph keeps it whatever kv_len does."""
     want = -(-CTAS_PER_SM * sms // max(1, B * K))
+    if dtype == torch.bfloat16:
+        want = min(want, -(-T // TC_KEYS), max(1, math.isqrt(T // max(1, G))))
     return max(1, min(MAX_SPLITS, T, want))
 
 
@@ -175,6 +190,9 @@ def _library():
                                             i, i, i, ctypes.c_float, i, i, i,
                                             p, p, p, p, p, p]
     lib.decode_attention_launch.restype = i
+    lib.decode_attention_occupancy.argtypes = [i, i, i, i, ctypes.POINTER(i),
+                                               ctypes.POINTER(i)]
+    lib.decode_attention_occupancy.restype = i
     for name in ("max_group", "max_head_dim", "max_splits"):
         getattr(lib, f"decode_attention_{name}").restype = i
     if (lib.decode_attention_max_group() != MAX_GROUP
@@ -183,6 +201,19 @@ def _library():
         raise RuntimeError("MAX_GROUP / MAX_HEAD_DIM / MAX_SPLITS are out of "
                            "step with csrc/decode_attention.cu")
     return lib
+
+
+def occupancy(dtype, D: int, quant: bool = False, slots: bool = False):
+    """(resident CTAs per SM, dynamic shared memory bytes) of the instance
+    a call with q of `dtype`, int8 codes or not, slot positions or not,
+    at head dim D launches (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    ctas, smem = ctypes.c_int(0), ctypes.c_int(0)
+    rc = _library().decode_attention_occupancy(
+        DTYPES[dtype], int(quant), int(slots), D, ctypes.byref(ctas),
+        ctypes.byref(smem))
+    if rc != 0:
+        raise RuntimeError(f"occupancy query failed: CUDA error {rc}")
+    return ctas.value, smem.value
 
 
 class _Plan(NamedTuple):
@@ -244,7 +275,7 @@ def _make_plan(q, k, v, kv_len, slot_pos, k_scale, v_scale, window: int,
         raise ValueError(f"cache shape {tuple(k.shape)} beyond the kernel")
     if window < 0:
         raise ValueError(f"window={window} < 0")
-    n_split = plan_splits(T, B, K, sm_count(device))
+    n_split = plan_splits(T, B, K, sm_count(device), G, q.dtype)
     f32 = torch.float32
     part_ml = torch.empty((B, K, n_split, G, 2), dtype=f32, device=device)
     part_acc = torch.empty((B, K, n_split, G, padded_head_dim(D)), dtype=f32,
@@ -306,6 +337,8 @@ def _launch(q, k, v, kv_len, slot_pos, k_scale, v_scale, window: int,
         count_launch(slot_launches)
     if k_scale is not None:
         count_launch(int8_launches)
+    if q.dtype == torch.bfloat16:
+        count_launch(tc_launches)
     if return_lse:
         count_launch(lse_launches)
         return out, lse
@@ -337,3 +370,5 @@ decode_attention.launches = 0
 slot_launches = VariantCounter("decode_attention[slot_pos]")
 int8_launches = VariantCounter("decode_attention[int8]")
 lse_launches = VariantCounter("decode_attention[lse]")
+# launches of the bf16 (tensor-core) instances
+tc_launches = VariantCounter("decode_attention[tc]")

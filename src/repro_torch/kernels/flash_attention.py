@@ -18,15 +18,32 @@ bidirectional pass and cross-attention (bidirectional, S != T) are exactly
 this function.
 
 What bounds it on an H100: operations, 4·K·G·D·S·T flops (halved when
-causal) in plain FP32 — 25.8 GFLOP, 0.39 ms at 67 TFLOP/s, for the
+causal) — in plain FP32 25.8 GFLOP, 0.39 ms at 67 TFLOP/s, for the
 long-context shape K=4, G=3, S=T=4096, D=64 — against 25 MB of inputs.
-The kernel stays in full FP32 (no TF32, no tensor cores) to hold the
-reference's 2e-5.  It has two CTA shapes (`FLASH_CONFIGS`): a wide one (4
-rows x 4 keys a thread, 64 rows a CTA at D <= 64) for problems that fill
-the card with it, and a narrow one (8 rows a CTA) for small ones such as
-the agent's prefill.  The C launcher picks one from the grid and the SM
-count; `flash_grid` mirrors that choice and `flash_key_range` each CTA's
-key loop.
+Two families of instances, chosen by dtype:
+
+  * f32 stays in full FP32 on the CUDA cores (no TF32, no tensor cores):
+    the reference holds an f32 call to 2e-5, and memori-agent and its
+    train step are f32.  Two CTA shapes (`FLASH_CONFIGS`): a wide one (4
+    rows x 4 keys a thread, 64 rows a CTA at D <= 64) for problems that
+    fill the card with it, a narrow one (8 rows a CTA) for small ones such
+    as the agent's prefill.
+  * bf16 runs both products on the tensor cores (`mma.sync` m16n8k16,
+    bf16 x bf16 -> f32, FlashAttention-2's layout: a warp owns 16 query
+    rows), P rounded to bf16 before P·V and l summed from the f32
+    probabilities.  The zoo holds a bf16 call to 2e-2 x max|v| of its
+    plain version, which one bf16 rounding of P (2^-9 relative a weight)
+    stays far inside.  D is padded to a multiple of 16 (D = 192 runs 192
+    deep, not 256), within head-dim classes 64 / 128 / 192 / 256 / 576
+    (`TC_CONFIGS`): 64-row CTAs (4 warps of 16 rows), wide when that grid
+    fills the card, else narrow: a cluster of 2, 4 or 8
+    CTAs splits each row block's keys and combines them through
+    distributed shared memory; D > 256 (MLA's absorbed 576) splits the
+    output into 192-column slices, one CTA each.
+
+The C launcher picks the shape from the grid and the SM count;
+`flash_grid` mirrors that choice (per dtype) and `flash_key_range` each
+CTA's key loop.
 
 The kernel reads q, k and v through their strides (D must have stride 1),
 so the model's (B, S, H, D) projections and (B, T, K, D) caches are passed
@@ -38,7 +55,8 @@ A CPU tensor runs the plain PyTorch version (`flash_attention_ref`, the
 reference's oracle `ref.flash_attention_ref`); a CUDA tensor launches the
 kernel or the call raises.  `flash_attention.launches` counts launches
 (`prefix_launches` those with a prefix, `absorbed_launches` those of the
-D = 576 instance that MLA's absorbed form runs),
+D = 576 instance that MLA's absorbed form runs, `tc_launches` those of the
+bf16 tensor-core instances),
 and `flash_attention.rows_per_cta` holds the query rows per CTA of the
 shape the C launcher last launched.
 
@@ -135,26 +153,80 @@ FLASH_CONFIGS = {
 }
 
 
+# head-dim class -> {narrow: (query rows per CTA, keys per tile)}: the bf16
+# tensor-core shapes of csrc/flash_attention.cu (`TcShape`); a CTA of the
+# 576 class computes TC_SLICE output columns
+TC_CONFIGS = {64: (64, 64), 128: (64, 64), 192: (64, 32), 256: (64, 32),
+              576: (64, 32)}
+TC_SLICE = 192
+TC_MAX_SPLIT = 8    # a narrow cluster's CTAs
+
+
 def padded_head_dim(D: int) -> int:
-    """The kernels' instance for head dim D: D rounded up to 32, 64, 128,
-    256 or 576 (MLA's absorbed latent width)."""
+    """The f32 instance for head dim D: D rounded up to 32, 64, 128, 256 or
+    576 (MLA's absorbed latent width).  K5 sizes its partials by it too."""
     for dp in FLASH_CONFIGS:
         if D <= dp:
             return dp
     raise ValueError(f"head dim {D} > {MAX_HEAD_DIM}")
 
 
-def flash_grid(B: int, K: int, G: int, S: int, D: int, sms: int):
-    """(narrow, query rows per CTA, keys per tile, CTAs): the wide CTA
-    shape when its grid puts at least one CTA on every SM, else the narrow
-    one, as the C launcher decides.  Row block i of a (b, kv-head) holds its flattened (s, g) rows
-    [i * rows, (i + 1) * rows)."""
-    dp = padded_head_dim(D)
+def tc_head_class(D: int) -> int:
+    """The bf16 instance's head-dim class for head dim D (64, 128, 192, 256
+    or 576); it multiplies D rounded up to 16 deep."""
+    for dk in TC_CONFIGS:
+        if D <= dk:
+            return dk
+    raise ValueError(f"head dim {D} > {MAX_HEAD_DIM}")
+
+
+def column_slices(D: int, dtype=torch.float32) -> int:
+    """CTAs a row block takes on the grid's second axis: ceil(D / 192) for
+    the bf16 576 class, else 1."""
+    if dtype == torch.bfloat16 and tc_head_class(D) > 256:
+        return -(-D // TC_SLICE)
+    return 1
+
+
+def flash_grid(B: int, K: int, G: int, S: int, D: int, sms: int,
+               dtype=torch.float32):
+    """(narrow, query rows per CTA, keys per tile, CTAs) of a `dtype` call:
+    the wide CTA shape when its grid (row blocks x column slices) puts at
+    least one CTA on every SM, else the narrow one, as the C launcher
+    decides.  Row block i of a (b, kv-head) holds its flattened (s, g) rows
+    [i * rows, (i + 1) * rows).  A bf16 narrow launch is the wide row
+    blocks, each a cluster of `tc_splits` CTAs that split its key tiles
+    (`tc_split_range`) and finalise rows / n_split rows each: those are the
+    rows per CTA returned (and reported by the C launcher)."""
+    if dtype == torch.bfloat16:
+        rows, keys = TC_CONFIGS[tc_head_class(D)]
+        ctas = -(-G * S // rows) * K * B * column_slices(D, dtype)
+        n_split = tc_splits(ctas, sms)
+        return n_split > 1, rows // n_split, keys, ctas * n_split
+    configs = FLASH_CONFIGS[padded_head_dim(D)]
     for narrow in (False, True):
-        rows, keys = FLASH_CONFIGS[dp][narrow]
+        rows, keys = configs[narrow]
         ctas = -(-G * S // rows) * K * B
         if ctas >= sms or narrow:
             return narrow, rows, keys, ctas
+
+
+def tc_splits(ctas: int, sms: int) -> int:
+    """The CTAs of a bf16 narrow cluster (1 for the wide shape): the
+    fewest of 2, 4 and 8 that put `ctas` row blocks' clusters on every SM,
+    at most TC_MAX_SPLIT."""
+    if ctas >= sms:
+        return 1
+    n = 2
+    while n < TC_MAX_SPLIT and ctas * n < sms:
+        n *= 2
+    return n
+
+
+def tc_split_range(tiles: int, n_split: int, split: int):
+    """Key tiles [lo, hi) of a row block's `tiles` that split `split` of a
+    narrow cluster walks, as the kernel cuts them."""
+    return tiles * split // n_split, tiles * (split + 1) // n_split
 
 
 def flash_key_range(r0: int, rows: int, keys: int, G: int, S: int, T: int,
@@ -193,10 +265,25 @@ def _library():
                                            p, ctypes.POINTER(i)]
     lib.flash_attention_launch.restype = i
     lib.flash_attention_max_head_dim.restype = i
+    lib.flash_attention_occupancy.argtypes = [i, i, i, ctypes.POINTER(i),
+                                              ctypes.POINTER(i)]
+    lib.flash_attention_occupancy.restype = i
     if lib.flash_attention_max_head_dim() != MAX_HEAD_DIM:
         raise RuntimeError("MAX_HEAD_DIM is out of step with "
                            "csrc/flash_attention.cu")
     return lib
+
+
+def occupancy(dtype, D: int, narrow: bool):
+    """(resident CTAs per SM, dynamic shared memory bytes) of the instance
+    a `dtype` call at head dim D launches in the given CTA shape
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    ctas, smem = ctypes.c_int(0), ctypes.c_int(0)
+    rc = _library().flash_attention_occupancy(
+        DTYPES[dtype], D, int(narrow), ctypes.byref(ctas), ctypes.byref(smem))
+    if rc != 0:
+        raise RuntimeError(f"occupancy query failed: CUDA error {rc}")
+    return ctas.value, smem.value
 
 
 def _launch(q, k, v, causal: bool, window: int, scale: float, prefix_len):
@@ -252,6 +339,8 @@ def _launch(q, k, v, causal: bool, window: int, scale: float, prefix_len):
         count_launch(prefix_launches)
     if D > 256:
         count_launch(absorbed_launches)
+    if q.dtype == torch.bfloat16:
+        count_launch(tc_launches)
     flash_attention.rows_per_cta = rows.value
     return out
 
@@ -358,4 +447,6 @@ flash_attention.launches = 0
 prefix_launches = VariantCounter("flash_attention[prefix]")
 # launches of the D = 576 instance (MLA's absorbed latent), counted besides
 absorbed_launches = VariantCounter("flash_attention[d576]")
+# launches of the bf16 (tensor-core) instances, counted besides
+tc_launches = VariantCounter("flash_attention[tc]")
 flash_attention.rows_per_cta = 0
