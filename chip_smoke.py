@@ -29,7 +29,12 @@ line per phase and fails (nonzero exit) on any failed check:
                  passes' device time, resident CTAs per SM and ptxas
                  registers (K3/K4 also on a rising bank; K1/K2 under three
                  label layouts: the main shape's, the serve phases' and one
-                 label everywhere).
+                 label everywhere).  Past k = 2048 the large-k path of all
+                 four (`large_k_cases`): at the main shape at k in {2049,
+                 4096, 16384, 65536} under labels in which one namespace
+                 owns 2**18 rows, each size timed beside its bound, its
+                 plain version and `q @ bankᵀ` + `torch.topk(k)`; over
+                 65,536 rows at k = n_valid and past it; an all-tied bank.
 3. ops         — drives the four public entry points of kernels/ops.py
                  once each at the main path's shapes (the path of K3 and
                  K4), launch counters reset just before and read just after.
@@ -62,7 +67,7 @@ line per phase and fails (nonzero exit) on any failed check:
                  be ok, the planted fact returned with no leak, K1 launched
                  once an execute, and each scheduled run's last tick equal
                  to the same requests as one direct execute and 8 of them
-                 alone.  Then admission (8 closed-loop tenants, 320
+                 alone.  Then admission (8 closed-loop tenants, 200
                  requests, alone and beside a tenant flooding submit_many
                  under a per-tenant backlog cap: their p99, the
                  rejections, every admitted request ok), HTTP in process (a
@@ -174,7 +179,10 @@ line per phase and fails (nonzero exit) on any failed check:
                  key-split cluster) shape, with K/V by tensor-map copies and
                  by plain loads (D = 50, 100, 180, 250, 515), causal,
                  bidirectional, windowed, S != T, strided, the prefix mask
-                 scalar and per row, each checked to take its path.
+                 scalar and per row, each checked to take its path.  K6 at
+                 per-row position offsets (`OFFSET_CASES`, f32 and bf16):
+                 causal, a window with queries ahead of their keys, the
+                 prefix mask, keys below position 0, D = 576.
 12. lm         — `memori-agent` at full width (12 layers, d_model 768,
                  random weights from a seed) served by
                  `Engine(slots=8, max_len=512)` through `ContinuousBatcher`:
@@ -202,6 +210,17 @@ line per phase and fails (nonzero exit) on any failed check:
                  `LMEmbedder` (memori-embedder width) embeds the recorded
                  triples through K6 (bidirectional): each call held against
                  the plain version, the embeddings against the plain path.
+17. examples   — (after agent) the port's two examples through their
+                 `run("cuda")`, counters reset around each and every plain
+                 version refused: `repro_torch.examples.quickstart` (K1;
+                 recovered answers identical) and `agent_serve` (K1, the
+                 engine's K6 prefill and K5 decode; each tenant's pet fact
+                 and no other's; 2 scheduled retrieves).  Then the large-k
+                 path through the public entry points (`large_k_path`):
+                 `VectorIndex.search_batch` at k = 4096 (K1), an int8 index
+                 over-fetching 4096 (K2), `sharded_topk` (K3 a slab) and
+                 `ops.topk_mips_quant` (K4) at k = 4096, each held against
+                 the plain versions.
 
 14. zoo        — the rest of the model zoo at full width in bf16, random
                  weights from a seed (attention projections at unit score
@@ -250,8 +269,9 @@ line per phase and fails (nonzero exit) on any failed check:
                  192, 256}, S off the backward's block, f32 and bf16
                  (TRAIN_GRAD_TOL).  (b) `memori-agent` at full width, f32,
                  as `repro_torch.examples.train_100m` trains it (B = 8,
-                 S = 256, 200 steps on the data pipeline, its optimizer
-                 settings) but from the conditioned weights (at the
+                 S = 256, on the data pipeline, its optimizer
+                 settings; 160 of its 200 steps) but from the conditioned
+                 weights (at the
                  reference's init the 12-layer gradient norm is ~1e6 and ce
                  stays flat: TRAIN_CE_DROP), counters reset around the run:
                  K6 exactly 2 x 12 a step (each layer's forward and its
@@ -336,10 +356,14 @@ commits by the same code:
     for src in parent/src src src parent/src; do
         python3 chip_smoke.py --serving-times 5 --src $src; done
 
-`--attention-times` only builds the kernels and times every K5/K6
+`--topk-times` only builds the kernels and times K1-K4's scan kernel at
+the main shape (with `--src`, another checkout's).  `--attention-times`
+only builds the kernels and times every K5/K6
 instance (`attention_times`: the zoo's and train's bf16 instances, D =
 576, K5[lse], the agent's f32 ones) with ptxas's registers; with `--src`
-it times another checkout's kernels by the same code.
+it times another checkout's kernels by the same code.  `--train-times N`
+only builds the kernels and times internlm2-1.8b's train step (B = 2, S =
+4096) over N steps, with `--src` another checkout's.
 """
 from __future__ import annotations
 
@@ -372,6 +396,12 @@ KERNEL_SIZES = (1000, 65536, 1 << 20)
 KERNEL_KS = (1, 10, 64, 256, 257, 512, 2048)
 # k of the masked kernels' label-layout checks
 LAYOUT_KS = (1, 64, 256, 300)
+# k of the large-k path's checks at the main shape (past MAX_K = 2048), the
+# bank of its k = n_valid and k > n_valid cases, and its k on the examples
+# phase's main-path searches
+LARGE_KS = (2049, 4096, 16384, 65536)
+LARGE_SMALL_N = 65536
+LARGE_PATH_K = 4096
 MAIN_N = 1 << 20
 D = 256
 # the shape of most K1 launches: a one-namespace bank of ~280 live rows in
@@ -407,6 +437,20 @@ ATTN_VARIANTS = {
     "decode_attention[int8]": ATTN_KERNELS["decode_attention"],
     "flash_attention[prefix]": ATTN_KERNELS["flash_attention"],
 }
+# K6 at per-row position offsets: (B, K, G, S, T, D, causal, window, prefix,
+# (query offsets, key offsets)): the agent's prefill (f32 narrow, bf16
+# key-split) and a window with queries ahead of their keys, a wide shape
+# (G 2, D 128, 1,024 rows), paligemma's image prefix (an int and per row),
+# whisper's cross-attention with keys below position 0, MLA's D = 576
+OFFSET_CASES = [
+    (2, 4, 3, 150, 150, 64, True, 0, None, ([3, 17], [3, 17])),
+    (2, 4, 3, 150, 154, 64, True, 16, None, ([9, 20], [5, 16])),
+    (2, 8, 2, 1024, 1024, 128, True, 0, None, ([100, 7], [100, 7])),
+    (2, 1, 8, 320, 320, 256, True, 0, 256, ([0, 5], [0, 5])),
+    (2, 1, 8, 320, 320, 256, True, 16, [256, 200], ([4, 0], [4, 0])),
+    (2, 12, 1, 64, 1500, 64, False, 0, None, ([0, 3], [-5, -9])),
+    (1, 1, 16, 100, 100, 576, True, 0, None, ([40], [40])),
+]
 ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # the reference tests'
 # the agent's shapes: memori-agent's 4 kv-heads x 3 grouped heads of 64;
 # prefill of a ~150-token prompt (and the config's long-context window);
@@ -494,7 +538,8 @@ def wrappers():
     out.update({c.__name__: c for c in (  # (an older tree, --src, lacks some)
         getattr(m, name, None) for m, name in (
             (da, "slot_launches"), (da, "int8_launches"), (da, "lse_launches"),
-            (da, "tc_launches"), (fa, "prefix_launches"), (fa, "tc_launches")))
+            (da, "tc_launches"), (fa, "prefix_launches"), (fa, "tc_launches"),
+            (fa, "offset_launches"), (tk, "large_launches")))
         if c is not None})
     return out
 
@@ -617,13 +662,16 @@ def quant_slack(q, codes, scales, ids):
     return 2 * q.shape[1] * F32_EPS * mag * scales[ids.clamp(min=0).long()]
 
 
-def compare_topk(s_k, i_k, s_r, i_r, what: str, slack=None) -> float:
+def compare_topk(s_k, i_k, s_r, i_r, what: str, slack=None,
+                 ordered: bool = True) -> float:
     """Hold kernel output (s_k, i_k) against the plain version's (s_r, i_r):
     the same live slots, scores within rtol/atol (plus `slack`, a (Q, k)
     summation-order bound, where given), and ids equal wherever a score is
     separated from both neighbours by more than that tolerance (within a
-    closer run the two summation orders may swap neighbours).  Returns the
-    largest absolute score difference."""
+    closer run the two summation orders may swap neighbours).  `ordered`:
+    the kernel's (score desc, row asc) order is checked too (not for an
+    int8 search's rescored answer, whose exact ties keep the candidates'
+    order).  Returns the largest absolute score difference."""
     import torch
     if s_k.shape != s_r.shape or i_k.shape != i_r.shape:
         fail(f"{what}: shape {tuple(s_k.shape)} vs {tuple(s_r.shape)}")
@@ -648,6 +696,8 @@ def compare_topk(s_k, i_k, s_r, i_r, what: str, slack=None) -> float:
     if not torch.equal(i_k[sel], i_r[sel]):
         bad = int((i_k[sel] != i_r[sel]).sum())
         fail(f"{what}: {bad} separated ids differ")
+    if not ordered:
+        return err
     # kernel order is (score desc, row asc), even within a tie
     ds = s_k[:, :-1] - s_k[:, 1:]
     both = live[:, :-1] & live[:, 1:]
@@ -889,10 +939,11 @@ def phase_kernels(device, reps: int, build_log=None) -> dict:
             twin = res[name.replace("_masked", "")]["kernel_ms"]
             res[name]["layouts"]["uniform"]["vs_unmasked"] = \
                 res[name]["layouts"]["uniform"]["kernel_ms"] / twin
+    large = large_k_cases(gen, device, max(2, reps // 5))
     out = {"phase": "kernels", "sizes": list(KERNEL_SIZES), "ks": list(KERNEL_KS),
            "tolerance": {"rtol": RTOL, "atol": ATOL,
                          "int8": "plus 2*D*u*scale*sum|q*codes| (u = 2**-24)"},
-           "kernels": res, "gpu": gpu_line()}
+           "kernels": res, "large_k": large, "gpu": gpu_line()}
     emit(out)
     return out
 
@@ -1086,6 +1137,188 @@ def main_inputs(gen, device):
     q = torch.randn((64, D), generator=gen, device=device)
     q_ns = lab[torch.randint(0, MAIN_N, (64,), generator=gen, device=device)]
     return bank, codes, scales, lab, q, q_ns
+
+
+# -- the large-k path (k > MAX_K) ----------------------------------------------
+
+def large_k_bound_ms(Q: int, n_valid: int, entries: int, D: int, k: int,
+                     quant: bool, masked: bool, pairs: int):
+    """Least time of one large-k call on the card, from what the function
+    needs: the queries, the bank rows it must read (the live prefix, or a
+    masked call's compacted rows, `entries` a query), both label vectors
+    (masked) and the (Q, k) outputs, over 3.35 TB/s; against 2*D flops per
+    scored (query, entry) pair (`pairs`, plus the int8 multiply) at the
+    FP32 rate.  The path's own workspace traffic is not in it
+    (`large_k_workspace_bytes`)."""
+    row_bytes = D + 4 if quant else 4 * D
+    labels = 4 * (Q + n_valid) if masked else 0
+    bytes_moved = 4 * Q * D + entries * row_bytes + labels + 8 * Q * k
+    flops = 2.0 * D * pairs + (pairs if quant else 0)
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def large_k_workspace_bytes(Q: int, entries: int, k: int) -> int:
+    """The bytes the large-k path's design moves through its device
+    workspace, beyond what the function needs: a 4-byte key per (query,
+    entry) written once and read five times (three histograms, two select
+    passes), and 8-byte sort keys per survivor (min(k, entries) a query)
+    written by the select, read and written by the run sort and each merge
+    round, and read by the output.  A record beside the bound, not part of
+    it."""
+    survivors = Q * min(k, entries)
+    rounds = max(0, (max(1, -(-min(k, entries) // 4096)) - 1).bit_length())
+    return 24 * Q * entries + 8 * survivors * (4 + 2 * rounds)
+
+
+def all_device_ms(fn, reps: int) -> float:
+    """Mean device time a call of `fn` over every kernel and memset it runs
+    (`device_profile` with no tag)."""
+    return device_profile(fn, reps, "")[0]
+
+
+def large_k_inputs(gen, device, N: int, Q: int, big: float):
+    """A unit-norm bank of N rows with its int8 codes, labels in which
+    namespace 0 owns a `big` share of the rows and ~1400-row namespaces the
+    rest (2% tombstones), three planted duplicate rows in namespace 0, and
+    Q unit-norm queries: the even ones ask namespace 0 (query 0 is a
+    duplicate's row), the odd ones a random small namespace."""
+    import torch
+    from repro_torch.kernels import topk_mips as tk
+    bank = torch.randn((N, D), generator=gen, device=device)
+    bank /= bank.norm(dim=1, keepdim=True)
+    lab = torch.randint(1, max(2, N // 1400), (N,), generator=gen,
+                        device=device, dtype=torch.int32)
+    lab[torch.rand(N, generator=gen, device=device) < big] = 0
+    lab[torch.rand(N, generator=gen, device=device) < 0.02] = -1
+    dups = [5, N // 3, N // 2 + 7]
+    bank[dups] = bank[5].clone()
+    lab[dups] = 0
+    codes, scales = tk.quantize_rows_ref(bank)
+    q = torch.randn((Q, D), generator=gen, device=device)
+    q /= q.norm(dim=1, keepdim=True)
+    q[0] = bank[5]
+    q_ns = torch.randint(1, max(2, N // 1400), (Q,), generator=gen,
+                         device=device, dtype=torch.int32)
+    q_ns[::2] = 0
+    return bank, codes, scales, lab, q, q_ns, dups
+
+
+def check_large(fn, ref, args, k: int, n_valid: int, what: str,
+                dups=None):
+    """One large-k call of wrapper `fn` against its plain version `ref`
+    (`compare_topk`, the int8 slack for the quantized pair); it must run
+    the large-k path (one launch of `topk_mips[large_k]`), and with `dups`
+    query 0's planted duplicate rows must tie side by side in row order.
+    Returns (largest score error, live slots, whether the ids equal the
+    plain version's everywhere)."""
+    import torch
+    from repro_torch.kernels import topk_mips as tk
+    q, bank, codes, scales, q_ns, lab, masked, quant = args
+    before = tk.large_launches.launches
+    s_k, i_k = _call(fn, *args, k=k, n_valid=n_valid)
+    if tk.large_launches.launches != before + 1:
+        fail(f"{what}: the call did not run the large-k path")
+    s_r, i_r = _call(ref, *args, k=k, n_valid=n_valid)
+    torch.cuda.synchronize()
+    slack = quant_slack(q, codes, scales, i_r) if quant else None
+    err = compare_topk(s_k, i_k, s_r, i_r, what, slack)
+    if dups is not None:
+        row = i_k[0].tolist()
+        pos = [row.index(d) if d in row else -1 for d in dups]
+        if pos[0] < 0 or pos != list(range(pos[0], pos[0] + 3)):
+            fail(f"{what}: duplicate rows do not tie side by side")
+    return err, int((i_k >= 0).sum()), bool(torch.equal(i_k, i_r))
+
+
+def large_k_cases(gen, device, reps: int) -> dict:
+    """The large-k path of all four kernels against their plain versions:
+    at the main shape (Q = 64, N = 2**20, D = 256; namespace 0 owns a
+    quarter of the rows, 2**18, so that a large k is really selected, the
+    odd queries ask ~1400-row namespaces and are mostly fill) at every k of
+    LARGE_KS, each size timed (CUDA-event ms, the device ms of all its
+    kernels, its bound, the plain version and `q @ bankᵀ` (+ mask) +
+    `torch.topk(k)`); over LARGE_SMALL_N rows at k = n_valid and past it;
+    over an all-tied bank, whose ids must be the first k live rows in
+    order."""
+    import torch
+    from repro_torch.kernels import topk_mips as tk
+    res = {name: {"cases": 0, "max_abs_err": 0.0, "sizes": {}}
+           for name in KERNELS}
+    Q, N = 64, MAIN_N
+    n_valid = N - 1000
+    bank, codes, scales, lab, q, q_ns, dups = large_k_inputs(
+        gen, device, N, Q, 0.25)
+    lab[n_valid:] = -2
+    rows, pairs = tk.masked_work(q_ns, lab, n_valid)
+    for k in LARGE_KS:
+        for name, (_, masked, quant, _) in KERNELS.items():
+            args = (q, bank, codes, scales, q_ns, lab, masked, quant)
+            fn, ref = getattr(tk, name), getattr(tk, name + "_ref")
+            what = f"{name} large k={k} Q={Q} N={N}"
+            err, live, _ = check_large(fn, ref, args, k, n_valid, what, dups)
+            r = res[name]
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            r["cases"] += 1
+
+            def call():
+                return _call(fn, *args, k=k, n_valid=n_valid)
+
+            def library():
+                s = ((q @ codes.float().T) * scales if quant
+                     else q @ bank.T)
+                ok = torch.arange(N, device=device)[None, :] < n_valid
+                if masked:
+                    ok = ok & (q_ns[:, None] == lab[None, :])
+                return torch.topk(torch.where(ok, s, NEG_INF), k, dim=1)
+
+            entries = rows if masked else n_valid
+            bound, by = large_k_bound_ms(Q, n_valid, entries, D, k, quant,
+                                         masked, pairs if masked
+                                         else Q * n_valid)
+            work = large_k_workspace_bytes(Q, entries, k)
+            r["sizes"][str(k)] = {
+                "kernel_ms": time_ms(call, reps),
+                "device_ms": all_device_ms(call, reps),
+                "plain_ms": time_ms(lambda: _call(ref, *args, k=k,
+                                                  n_valid=n_valid), 1),
+                "library_ms": time_ms(library, 2),
+                "bound_ms": bound, "bound_by": by, "workspace_bytes": work,
+                "workspace_ms": work / HBM_BYTES_PER_S * 1e3,
+                "max_abs_err": err, "live_slots": live}
+    del bank, codes, scales, lab, q, q_ns
+    # k = n_valid and past it, over LARGE_SMALL_N rows
+    N, Q = LARGE_SMALL_N, 7
+    n_valid = N - 300
+    bank, codes, scales, lab, q, q_ns, dups = large_k_inputs(
+        gen, device, N, Q, 0.4)
+    lab[n_valid:] = -2
+    for k in (n_valid, n_valid + 4000):
+        for name, (_, masked, quant, _) in KERNELS.items():
+            args = (q, bank, codes, scales, q_ns, lab, masked, quant)
+            err, _, _ = check_large(
+                getattr(tk, name), getattr(tk, name + "_ref"), args, k,
+                n_valid, f"{name} large k={k} N={N} n_valid={n_valid}", dups)
+            res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
+            res[name]["cases"] += 1
+    # an all-tied bank: every live score equal, so the ids are the first k
+    # live (matching) rows in row order -- the select's tie rule
+    bank = torch.ones((N, D), device=device)
+    codes, scales = tk.quantize_rows_ref(bank)
+    for k in (4096, 40000):
+        for name, (_, masked, quant, _) in KERNELS.items():
+            args = (q, bank, codes, scales, q_ns, lab, masked, quant)
+            what = f"{name} large k={k} all tied"
+            err, _, same = check_large(
+                getattr(tk, name), getattr(tk, name + "_ref"), args, k,
+                n_valid, what)
+            if not same:
+                fail(f"{what}: tied rows not the first live rows in order")
+            res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
+            res[name]["cases"] += 1
+    return res
 
 
 # -- phase 3: the public kernel entry points -----------------------------------
@@ -1684,11 +1917,11 @@ def phase_serve(device, rows: int, reps: int, templates,
 
 # closed-loop clients of the scheduler phase, and the requests each client
 # issues one at a time in a run: every p99 rests on 200 requests or more and
-# each scheduled run spans tens of ticks (C = 64: 20 full ticks); the
+# each scheduled run spans ten ticks or more (C = 64: 12 full ticks); the
 # direct C = 64 run, 64 executes taken in turns a round, is kept to 384
 SCHED_CLIENTS = (1, 8, 64)
-SCHED_ROUNDS = {"direct": {1: 200, 8: 40, 64: 6},
-                "scheduled": {1: 200, 8: 40, 64: 20}}
+SCHED_ROUNDS = {"direct": {1: 200, 8: 25, 64: 6},
+                "scheduled": {1: 200, 8: 25, 64: 12}}
 SCHED_TICK_S, SCHED_MAX_BATCH = 0.002, 64
 # requests of a scheduled run's last tick that are also answered alone
 SCHED_ALONE = 8
@@ -1698,7 +1931,7 @@ SCHED_WAIT_S = 120.0
 # admission: well-behaved closed-loop tenants beside one flooding tenant
 # that submits blocks of ADMISSION_BLOCK without waiting, under a
 # per-tenant backlog cap
-ADMISSION_CLIENTS, ADMISSION_ROUNDS = 8, 40
+ADMISSION_CLIENTS, ADMISSION_ROUNDS = 8, 25
 ADMISSION_BLOCK, ADMISSION_CAP = 64, 128
 # the policy's fair-share window (default 0.1 s) sized to a B = 64 hybrid
 # tick on the card, for a second flooded run
@@ -1709,7 +1942,7 @@ ADMISSION_WINDOW_S = 1.0
 # transport alone (a connection, a handler thread, no JSON body)
 HTTP_CONVS = 8
 HTTP_CLIENTS = (1, 8, 64)
-HTTP_ROUNDS = {1: 100, 8: 25, 64: 6}
+HTTP_ROUNDS = {1: 100, 8: 25, 64: 4}
 HTTP_PROBES = 100
 HTTP_KEYS = {"k-acme": "acme", "k-beta": "beta"}
 # closed-loop clients (dense-only: ticks of a few ms) that keep the
@@ -3701,13 +3934,16 @@ def _rand(shape, gen, device, dtype):
 
 
 def check_flash(gen, device, dtype, B, K, G, S, T, D, causal, window,
-                strided=False, path=None, prefix=None) -> float:
+                strided=False, path=None, prefix=None,
+                offsets=None) -> float:
     """One K6 case against its plain version; returns the largest error.
     With `path` ("wide" or "narrow", whether K/V go by cp.async), the case
     must take that path: `flash_grid` and `cp_async_ok` must say so, and the
     C launcher must report the rows per CTA of the shape `flash_grid`
     names.  `prefix` (an int, or a list of B per-row lengths passed as an
-    int32 tensor) sets the prefix-LM mask."""
+    int32 tensor) sets the prefix-LM mask; `offsets` (two lists of B
+    per-row query and key position offsets, passed as int32 tensors) a
+    window of positions."""
     import torch
     from repro_torch.common.utils import sm_count
     from repro_torch.kernels import flash_attention as fa
@@ -3722,12 +3958,16 @@ def check_flash(gen, device, dtype, B, K, G, S, T, D, causal, window,
         v = _rand((B, K, T, D), gen, device, dtype)
     what = (f"flash_attention {str(dtype)[6:]} B={B} K={K} G={G} S={S} T={T} "
             f"D={D} causal={causal} window={window} strided={strided} "
-            f"prefix={prefix}")
+            f"prefix={prefix} offsets={offsets}")
     if isinstance(prefix, list):
         prefix = torch.tensor(prefix, dtype=torch.int32, device=device)
+    off = {}
+    if offsets is not None:
+        off = {name: torch.tensor(o, dtype=torch.int32, device=device)
+               for name, o in zip(("q_offset", "kv_offset"), offsets)}
     fa.flash_attention.rows_per_cta = 0
     got = fa.flash_attention(q, k, v, causal=causal, window=window,
-                             prefix_len=prefix)
+                             prefix_len=prefix, **off)
     if path is not None:
         narrow, rows, _, _ = fa.flash_grid(B, K, G, S, D, sm_count(device),
                                            dtype)
@@ -3740,7 +3980,7 @@ def check_flash(gen, device, dtype, B, K, G, S, T, D, causal, window,
             fail(f"{what}: launched CTAs of {ran} rows, flash_grid "
                  f"says {rows} ({path[0]})")
     want = fa.flash_attention_ref(q, k, v, causal=causal, window=window,
-                                  prefix_len=prefix)
+                                  prefix_len=prefix, **off)
     torch.cuda.synchronize()
     if got.shape != want.shape or got.dtype != want.dtype:
         fail(f"{what}: {tuple(got.shape)} {got.dtype} vs "
@@ -3896,7 +4136,8 @@ def sdpa_gqa(q, k, v, **kw):
 # and internlm2 D = 128, phi3.5 also with the int8 cache, internlm2's
 # long_500k ring; recurrentgemma D = 256 on the ring; paligemma D = 256;
 # whisper D = 64; deepseek's decompressed prefill at D = 192 and its
-# absorbed latent at 576), each K6 instance in its two CTA shapes
+# absorbed latent at 576), each K6 instance in its two CTA shapes, with
+# and without position offsets
 SERVED_INSTANCES = {
     "decode_attention": ("decode_attention_kernel<f32,f32,64,0>",
                          "decode_attention_tc_kernel<bf16,64,0>",
@@ -3912,13 +4153,13 @@ SERVED_INSTANCES = {
 
 def attention_instances(entries: dict, name: str) -> dict:
     """The ptxas entries of `name`'s instances that the served paths run
-    (SERVED_INSTANCES: one entry each for K5, two CTA shapes each for
-    K6)."""
+    (SERVED_INSTANCES: one entry each for K5; for K6 two CTA shapes, each
+    with and without position offsets)."""
     found = {}
     for want in SERVED_INSTANCES[name]:
         got = {i: e for i, e in entries.items()
                if i == want or (want.endswith(",") and i.startswith(want))}
-        n = 2 if want.endswith(",") else 1
+        n = 4 if want.endswith(",") else 1
         if len(got) != n:
             fail(f"{name}: ptxas entries {sorted(got)}, want {n} "
                  f"matching {want!r}")
@@ -4003,7 +4244,8 @@ def phase_attention(device, reps: int, build_log=None) -> dict:
     gen = torch.Generator(device=device).manual_seed(2)
     res = {name: {"cases": 0, "max_abs_err": {"float32": 0.0,
                                               "bfloat16": 0.0}}
-           for name in (*ATTN_KERNELS, *ATTN_VARIANTS, ABSORBED)}
+           for name in (*ATTN_KERNELS, *ATTN_VARIANTS, ABSORBED,
+                        "flash_attention[offset]")}
 
     def note(name, dtype, err):
         r = res[name]
@@ -4175,6 +4417,20 @@ def phase_attention(device, reps: int, build_log=None) -> dict:
             note("flash_attention[prefix]", bf, check_flash(
                 gen, device, bf, B, K, G, S, S, D, True, window,
                 prefix=prefix))
+    # per-row position offsets (a window of positions past 0), both dtypes:
+    # each f32 CTA shape, the bf16 wide and key-split shapes and D = 576;
+    # causal (queries ahead of their keys, a window), the prefix mask (an
+    # int and per row, on the keys' absolute positions) and bidirectional
+    # with keys below position 0
+    for dtype in (torch.float32, bf):
+        for B, K, G, S, T, D, causal, window, prefix, offsets in OFFSET_CASES:
+            before = fa.offset_launches.launches
+            note("flash_attention[offset]", dtype, check_flash(
+                gen, device, dtype, B, K, G, S, T, D, causal, window,
+                prefix=prefix, offsets=offsets))
+            if fa.offset_launches.launches != before + 1:
+                fail(f"flash_attention offsets={offsets}: the call did not "
+                     "run an instance that takes offsets")
 
     # timings at the agent's shapes
     f32 = torch.float32
@@ -4200,6 +4456,8 @@ def phase_attention(device, reps: int, build_log=None) -> dict:
                                 max(1, reps // 4)),
             "library_ms": time_ms(lambda: sdpa_gqa(q, k, v, is_causal=True),
                                   reps),
+            "library_device_ms": profiled_ms(
+                lambda: sdpa_gqa(q, k, v, is_causal=True), reps, ""),
             "bound_ms": bound, "bound_by": by}
     res["flash_attention"].update(timed["prefill"])
     res["flash_attention"]["long_context"] = timed["long_context"]
@@ -4222,6 +4480,12 @@ def phase_attention(device, reps: int, build_log=None) -> dict:
     mask = (torch.arange(LM_MAX_LEN, device=device)[None, :]
             < kv_len[:, None])[:, None, None, :]
     rows = LM_SLOTS * DECODE_KV_LEN
+
+    def sdpa_decode():
+        return torch.nn.functional.scaled_dot_product_attention(
+            q.reshape(LM_SLOTS, LM_K * LM_G, 1, LM_D), k, v, attn_mask=mask,
+            enable_gqa=True)
+
     bytes_moved = 4 * (2 * q.numel() + 2 * rows * LM_K * LM_D + LM_SLOTS)
     bound, by = attention_bound_ms(rows * LM_K * LM_G, bytes_moved, LM_D)
     res["decode_attention"].update({
@@ -4237,11 +4501,8 @@ def phase_attention(device, reps: int, build_log=None) -> dict:
                                  sm_count(device)),
         "plain_ms": time_ms(lambda: da.decode_attention_ref(q, k, v, kv_len),
                             reps),
-        "library_ms": time_ms(lambda: torch.nn.functional.
-                              scaled_dot_product_attention(
-                                  q.reshape(LM_SLOTS, LM_K * LM_G, 1, LM_D),
-                                  k, v, attn_mask=mask, enable_gqa=True),
-                              reps),
+        "library_ms": time_ms(sdpa_decode, reps),
+        "library_device_ms": profiled_ms(sdpa_decode, reps, ""),
         "bound_ms": bound, "bound_by": by})
     res["decode_attention"]["graph_replays_max_abs_err"] = decode_replays(
         gen, device)
@@ -4817,6 +5078,168 @@ def phase_agent(device, engine) -> dict:
                            "reference_init_max_abs_vs_plain": ref_init_err,
                            "conditioned_max_abs_vs_plain": err},
            "engine": dict(engine.stats), "gpu": gpu_line()}
+    emit(out)
+    return out
+
+
+# -- phase 17: the examples ------------------------------------------------------
+
+@contextlib.contextmanager
+def no_plain_versions(hits: list):
+    """Every kernel's plain version refuses to run while the block does
+    (its name goes to `hits`, then it raises): on the card a path that
+    fell back to the plain versions would call one."""
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import topk_mips as tk
+    saved = [(m, n, getattr(m, n)) for m, n in
+             [(tk, name + "_ref") for name in KERNELS]
+             + [(fa, "flash_attention_ref"), (da, "decode_attention_ref")]]
+
+    def refuse(name):
+        def plain(*args, **kwargs):
+            hits.append(name)
+            raise RuntimeError(f"{name} ran on the card's path")
+        return plain
+
+    for m, n, _ in saved:
+        setattr(m, n, refuse(n))
+    try:
+        yield
+    finally:
+        for m, n, fn in saved:
+            setattr(m, n, fn)
+
+
+def _between(lines, start: str, stop: str) -> str:
+    """The printed lines from the one starting with `start` up to the next
+    one starting with `stop`, joined."""
+    i = next(j for j, ln in enumerate(lines) if ln.startswith(start))
+    j = next(j for j in range(i + 1, len(lines)) if lines[j].startswith(stop))
+    return "\n".join(lines[i:j])
+
+
+def large_k_path(device) -> dict:
+    """The large-k path (k > MAX_K) through the port's public entry points,
+    the launch counts reset just before and read just after: an f32
+    `VectorIndex.search_batch` at k = LARGE_PATH_K (K1), an int8 index
+    (rescore 8) at k = LARGE_PATH_K // 8, whose over-fetch pow2(8 k) is
+    LARGE_PATH_K (K2), `sharded_topk` over 4 slabs of 16,384 rows at k =
+    LARGE_PATH_K (K3 on each) and `ops.topk_mips_quant` at k =
+    LARGE_PATH_K (K4), over 65,536 rows of width D, namespace 0 owning 70%.
+    Each result is then held against a CPU index fed the same rows (the
+    plain versions) or the plain version on the card."""
+    import numpy as np
+    import torch
+    from repro_torch.core import vector_index as vi_mod
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import topk_mips as tk
+    rng = np.random.default_rng(17)
+    N, Q = 65536, 8
+    rows = rng.standard_normal((N, D)).astype(np.float32)
+    rows /= np.linalg.norm(rows, axis=1, keepdims=True)
+    labels = np.where(rng.random(N) < 0.7, 0,
+                      rng.integers(1, 40, N)).astype(np.int32)
+    queries = rng.standard_normal((Q, D)).astype(np.float32)
+    q_ns = np.array([0, 0, 0, 3, 0, 7, 0, 0], np.int32)
+    idx = {}
+    for quantize in ("none", "int8"):
+        for dev in (device, "cpu"):
+            v = vi_mod.VectorIndex(dim=D, capacity=N, device=dev,
+                                   quantize=quantize, rescore=8)
+            v.add(rows, labels)
+            idx[quantize, str(dev)] = v
+    bank = torch.from_numpy(rows).to(device)
+    codes, scales = tk.quantize_rows_ref(bank)
+    q = torch.from_numpy(queries).to(device)
+    k8 = LARGE_PATH_K // 8
+    reset_counts()
+    t0 = time.perf_counter()
+    got = {"K1": idx["none", str(device)].search_batch(queries, q_ns,
+                                                      LARGE_PATH_K),
+           "K2": idx["int8", str(device)].search_batch(queries, q_ns, k8),
+           "K3": vi_mod.sharded_topk(q, bank, LARGE_PATH_K, n_shards=4),
+           "K4": ops.topk_mips_quant(q, codes, scales, k=LARGE_PATH_K)}
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = counts()
+    want = {"topk_mips_masked": 1, "topk_mips_quant_masked": 1,
+            "topk_mips": 4, "topk_mips_quant": 1, "topk_mips[large_k]": 7}
+    for name, n in want.items():
+        if launches[name] != n:
+            fail(f"large-k path: {name} launched {launches[name]} times, "
+                 f"expected {n}")
+
+    def host(s, i):       # the index's -inf empty slots as NEG_INF
+        s = torch.where(i >= 0, s, torch.full_like(s, NEG_INF))
+        return s.to(device), i.to(device)
+
+    err = {}
+    for key, quantize, k in (("K1", "none", LARGE_PATH_K),
+                             ("K2", "int8", k8)):
+        plain = idx[quantize, "cpu"].search_batch(queries, q_ns, k)
+        err[key] = compare_topk(*host(*got[key]), *host(*plain),
+                                f"large-k path {key} search_batch k={k}",
+                                ordered=quantize == "none")
+        if int((got[key][1][0] >= 0).sum()) != k:
+            fail(f"large-k path {key}: namespace 0 did not fill k={k}")
+    err["K3"] = compare_topk(*got["K3"], *tk.topk_mips_ref(
+        q, bank, k=LARGE_PATH_K), "large-k path K3 sharded_topk")
+    s_r, i_r = tk.topk_mips_quant_ref(q, codes, scales, k=LARGE_PATH_K)
+    err["K4"] = compare_topk(*got["K4"], s_r, i_r, "large-k path K4 ops",
+                             quant_slack(q, codes, scales, i_r))
+    return {"seconds": seconds, "launches": launches, "max_abs_err": err,
+            "k": LARGE_PATH_K, "int8_k": k8, "rows": N, "queries": Q}
+
+
+def phase_examples(device) -> dict:
+    """The port's two examples through `run("cuda")`, each with the launch
+    counts reset just before and read just after and every plain version
+    refused (`no_plain_versions`): the quickstart must recover identical
+    answers with K1 launched; agent_serve must launch K1 for its retrieves
+    and its engine's K6 (prefill) and K5 (decode), answer each tenant's
+    pet question with its own fact only and count 2 scheduled retrieves.
+    Then the large-k path (`large_k_path`)."""
+    import tempfile
+    import torch
+    from repro_torch.examples import agent_serve, quickstart
+    out = {"phase": "examples"}
+    wants = {"quickstart": ("topk_mips_masked",),
+             "agent_serve": ("topk_mips_masked", "flash_attention",
+                             "decode_attention")}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, example in (("quickstart", quickstart),
+                              ("agent_serve", agent_serve)):
+            hits = []
+            reset_counts()
+            t0 = time.perf_counter()
+            with no_plain_versions(hits):
+                lines = example.run("cuda", data_dir=os.path.join(tmp, name))
+            torch.cuda.synchronize()
+            launches = counts()
+            if hits:
+                fail(f"examples {name}: plain versions ran: {sorted(set(hits))}")
+            for kernel in wants[name]:
+                if launches[kernel] < 1:
+                    fail(f"examples {name}: {kernel} was not launched")
+            out[name] = {"seconds": time.perf_counter() - t0,
+                         "launches": launches, "lines": len(lines)}
+            if name == "quickstart":
+                if lines[-1] != "recovered answers identical: True":
+                    fail(f"examples quickstart: {lines[-1]!r}")
+            else:
+                priya = _between(lines, "[priya/c0]", "[marco/c0]")
+                marco = _between(lines, "[marco/c0]", "scheduler:")
+                if "biscuit" not in priya or "olive" in priya or \
+                        "olive" not in marco or "biscuit" in marco:
+                    fail(f"examples agent_serve: tenants' answers\n{priya}\n"
+                         f"{marco}")
+                sched = next(ln for ln in lines if ln.startswith("scheduler:"))
+                if not sched.startswith("scheduler: 2 concurrent"):
+                    fail(f"examples agent_serve: {sched}")
+                out[name]["scheduler"] = sched
+    out["large_k"] = large_k_path(device)
+    out["gpu"] = gpu_line()
     emit(out)
     return out
 
@@ -5628,9 +6051,10 @@ TRAIN_GRAD_SHAPES = ((1, 64), (3, 128), (4, 192), (16, 256))   # (G, D)
 # version's; bf16, that output is rounded to bf16 (2**-8) before D and
 # each gradient is rounded once more: ATTN_TOL's bf16 value
 TRAIN_GRAD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
-# (b) memori-agent as the example trains it: B x S tokens a step, up to
-# TRAIN_STEPS steps, the example's optimizer settings
-TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 256, 200
+# (b) memori-agent as the example trains it: B x S tokens a step, its
+# optimizer settings, TRAIN_STEPS steps (the example's 200 cut to keep the
+# script's time; ce has fallen from 10.4 to ~0.5 by step 200)
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 8, 256, 160
 # batches the pipeline makes alone, to time its share of a step
 PIPELINE_BATCHES = 20
 # step 1 of the kernel path against the plain path on the same weights and
@@ -5976,9 +6400,9 @@ def train_agent(device, totals) -> dict:
             "sampling_launches": sampled, "samples": samples}
 
 
-def train_big(device, totals) -> dict:
+def train_big(device, totals, steps: int = BIG_STEPS) -> dict:
     """(c): internlm2-1.8b at full width and depth, bf16, through
-    `launch.sharding.build_train_step` at B = 2, S = 4096."""
+    `launch.sharding.build_train_step` at B = 2, S = 4096, `steps` steps."""
     import numpy as np
     import torch
     from repro_torch.common.module import materialize
@@ -6012,7 +6436,7 @@ def train_big(device, totals) -> dict:
     reset_counts()
     losses, gnorms, walls = [], [], []
     t0 = time.perf_counter()
-    for step in range(BIG_STEPS):
+    for step in range(steps):
         params, opt_state, metrics = bundle.fn(params, opt_state,
                                                batch_of(step))
         losses.append(float(metrics["loss"]))          # waits for the step
@@ -6029,10 +6453,15 @@ def train_big(device, totals) -> dict:
     if not err <= BIG_LOSS_TOL:
         fail(f"train: {BIG_ARCH} step-1 loss {losses[0]} vs plain path "
              f"{plain_loss}: relative {err} > {BIG_LOSS_TOL}")
-    want_k6 = 2 * cfg.num_layers * BIG_STEPS
+    want_k6 = 2 * cfg.num_layers * steps
     if launches["flash_attention"] != want_k6:
         fail(f"train: {BIG_ARCH} K6 counted {launches['flash_attention']}, "
              f"want {want_k6}")
+    # the model's positions are 0..S-1 and it says so: no K6 call takes
+    # the instances with offsets (whose backward has no key cut)
+    if launches.get("flash_attention[offset]", 0):
+        fail(f"train: {BIG_ARCH} K6 ran with position offsets "
+             f"{launches['flash_attention[offset]']} times")
     stats = step_stats(walls, BIG_B * BIG_S)
     flops = train_flops(cfg, BIG_B, BIG_S)
     step_s = stats["step_ms_p50_after_first"] / 1e3
@@ -7075,6 +7504,40 @@ def attention_times(device, reps: int, build_log, tc) -> dict:
     return out
 
 
+# the scan kernel's narrower query tiles (32, 16 and 8 queries) in
+# `--topk-times`, beside each kernel's main-path k (64)
+TOPK_TIMES_KS = (512, 1024, 2048)
+
+
+def topk_times(device, reps: int) -> dict:
+    """The `--topk-times` mode: after the build, K1-K4 at the main shape
+    (`main_inputs`, each kernel's k on the main path): CUDA-event ms a call
+    over `reps` calls and the device ms a call of their kernels
+    (profiler, reps // 2 calls); and the device ms at each k of
+    TOPK_TIMES_KS (`by_k`)."""
+    import torch
+    from repro_torch.kernels import topk_mips as tk
+    phase_build()
+    gen = torch.Generator(device=device).manual_seed(0)
+    bank, codes, scales, lab, q, q_ns = main_inputs(gen, device)
+    out = {"phase": "topk_times", "gpu": gpu_line()}
+    for name, (_, masked, quant, k) in KERNELS.items():
+        fn, args = getattr(tk, name), (q, bank, codes, scales, q_ns, lab,
+                                       masked, quant)
+
+        def call():
+            return _call(fn, *args, k=k)
+
+        out[name] = {"k": k, "event_ms": time_ms(call, reps),
+                     "device_ms": device_profile(call, max(1, reps // 2),
+                                                 "topk_")[0], "by_k": {}}
+        for kk in TOPK_TIMES_KS:
+            out[name]["by_k"][kk] = device_profile(
+                lambda: _call(fn, *args, k=kk), max(1, reps // 2),
+                "topk_")[0]
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--rows", type=int, default=1 << 20,
@@ -7087,6 +7550,14 @@ def main(argv=None) -> int:
     ap.add_argument("--attention-times", action="store_true",
                     help="only build the kernels and time every K5/K6 "
                          "instance (`attention_times`; no other phase)")
+    ap.add_argument("--topk-times", action="store_true",
+                    help="only build the kernels and time K1-K4's scan "
+                         "kernel at the main shape (`topk_times`; no other "
+                         "phase)")
+    ap.add_argument("--train-times", type=int, default=0, metavar="STEPS",
+                    help="only build the kernels and time internlm2-1.8b's "
+                         "train step over STEPS steps (`train_big`; no "
+                         "other phase)")
     ap.add_argument("--src", default=SRC,
                     help="the source tree to import the port from (an A/B "
                          "of --serving-times against another checkout)")
@@ -7108,6 +7579,15 @@ def main(argv=None) -> int:
     if args.serving_times:
         emit({**serving_times(device, args.serving_times), "src": args.src})
         return 0
+    if args.topk_times:
+        emit({**topk_times(device, args.reps), "src": args.src})
+        return 0
+    if args.train_times:
+        phase_build()
+        emit({"phase": "train_times", "src": args.src, "gpu": gpu_line(),
+              **train_big(device, {name: 0 for name in wrappers()},
+                          args.train_times)})
+        return 0
     if args.attention_times:
         own = os.path.samefile(args.src, SRC)
         emit({**attention_times(device, args.reps, phase_build(),
@@ -7122,7 +7602,8 @@ def main(argv=None) -> int:
                    "torch": torch.__version__, "cuda": torch.version.cuda,
                    "msgpack_importable": probe.returncode == 0}})
     build = phase_build()
-    kern = phase_kernels(device, args.reps, build)["kernels"]
+    kern_phase = phase_kernels(device, args.reps, build)
+    kern = kern_phase["kernels"]
     attn = phase_attention(device, args.reps, build)["kernels"]
     ops = phase_ops(device)
     templates = make_templates(device)
@@ -7151,6 +7632,9 @@ def main(argv=None) -> int:
     lm, engine = phase_lm(device)
     agent = phase_agent(device, engine)
     del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+    examples = phase_examples(device)
     gc.collect()
     torch.cuda.empty_cache()
     zoo = phase_zoo(device, args.reps)
@@ -7182,8 +7666,10 @@ def main(argv=None) -> int:
                          + durable["launches"][name])
         if name in ("topk_mips_masked", "topk_mips"):  # sharded store,
             launches += sharded["launches"][name]      # sharded_topk
-        if name == "topk_mips_masked":     # the meshed store
-            launches += dist_part["launches"][name]
+        if name == "topk_mips_masked":     # the meshed store, the examples
+            launches += (dist_part["launches"][name]
+                         + examples["quickstart"]["launches"][name]
+                         + examples["agent_serve"]["launches"][name])
         if launches < 1:
             fail(f"{name} was not launched on its path")
         summary.append({
@@ -7195,6 +7681,22 @@ def main(argv=None) -> int:
             "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"]})
+    # the large-k path: launched on the examples phase's searches, timed at
+    # K1's main shape (Q 64, N 2**20, D 256) at k = 16384
+    large = kern_phase["large_k"]
+    t = large["topk_mips_masked"]["sizes"][str(LARGE_KS[2])]
+    launches = examples["large_k"]["launches"]["topk_mips[large_k]"]
+    if launches < 1:
+        fail("topk_mips[large_k] was not launched on its path")
+    summary.append({
+        "name": "topk_mips[large_k]", "route": "cuda",
+        "source": "src/repro_torch/csrc/topk_mips.cu",
+        "replaces": KERNELS["topk_mips_masked"][0], "launches": launches,
+        "max_abs_err": max(max(r["max_abs_err"] for r in large.values()),
+                           *examples["large_k"]["max_abs_err"].values()),
+        "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+        "library_ms": t["library_ms"], "workspace_ms": t["workspace_ms"]})
     for name, (replaces, source) in ATTN_KERNELS.items():
         r = attn[name]
         if agent["launches"][name] < 1:
@@ -7202,7 +7704,8 @@ def main(argv=None) -> int:
         summary.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": lm["launches"][name] + train["launches"][name],
+            "launches": (lm["launches"][name] + train["launches"][name]
+                         + examples["agent_serve"]["launches"][name]),
             "max_abs_err": r["max_abs_err"]["float32"],
             "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

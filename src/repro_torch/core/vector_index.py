@@ -518,8 +518,9 @@ class VectorIndex:
         `labels=None` uses the cached device labels.
 
         int8 mode over-fetches `rescore`x k candidates from the code bank
-        (rounded up to a power of two; more than the kernel's MAX_K
-        raises), copies their ids to the host, gathers their f32 rows from
+        (rounded up to a power of two, any size: past the scan kernel's
+        MAX_K the kernel runs its large-k path), copies their ids to the
+        host, gathers their f32 rows from
         the mirror (Q·C·D·4 bytes — candidates, never the bank), uploads
         them and re-ranks by exact score (`_rescore_exact`)."""
         self._ensure_device()

@@ -7,7 +7,10 @@
 // cache are read in place, no transposed copy).  For query position s and
 // key t of the same (b, kv-head): score = (q . k) * scale, allowed where
 // t < T, and t <= s (or t < prefix_len, the prefix-LM mask of an image
-// prefix) when causal, and t > s - window when window > 0.  Output
+// prefix) when causal, and t > s - window when window > 0, comparing
+// absolute positions: s and t plus row b's query and key offsets when
+// the call gives them (a window of positions past 0), where a key below
+// position 0 is masked too, as the reference's `_allowed`.  Output
 // = softmax over the allowed keys . v, finalised as acc / max(l, 1e-37), in
 // q's dtype (0 for a query with no allowed key).
 //
@@ -103,12 +106,13 @@ struct Cfg {
                                   sizeof(T) * 4 * (size_t)kKeys * kRS;  // 2 stages of K and V
 };
 
-template <typename T, int DP, int RT, int RG, int KC>
+template <typename T, int DP, int RT, int RG, int KC, bool kOff>
 __global__ void __launch_bounds__(RG * kKeyGroups, 1)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out, int K, int B, int G,
                  int S, int T_len, int D, float scale, int causal, int window,
-                 int prefix_len, const int* __restrict__ prefix_rows, int vec, Strides st) {
+                 int prefix_len, const int* __restrict__ prefix_rows,
+                 const int* __restrict__ pos_off, int vec, Strides st) {
   using C = Cfg<T, DP, RT, RG, KC>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* Qs = reinterpret_cast<float*>(smem_raw);
@@ -141,10 +145,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int s_lo = r0 / G;
   const int s_hi = (min(r0 + C::kRows, R) - 1) / G;
+  // offset positions: query s sits at s + dq in the keys' frame, and key t
+  // at absolute position t - t_lo (masked below 0)
+  const int t_lo = kOff ? -pos_off[B + b] : 0;
+  const int dq = kOff ? pos_off[b] + t_lo : 0;
   // the prefix: keys t < P are visible to every row (causal only)
-  const int P = prefix_rows != nullptr ? prefix_rows[b] : prefix_len;
-  const int t_end = causal ? min(T_len, max(s_hi + 1, P)) : T_len;
-  int t_begin = window > 0 ? max(0, s_lo - window + 1) : 0;
+  const int P = (prefix_rows != nullptr ? prefix_rows[b] : prefix_len) + t_lo;
+  const int t_end = causal ? min(T_len, max(s_hi + dq + 1, P)) : T_len;
+  int t_begin = window > 0 ? max(0, s_lo + dq - window + 1) : 0;
   t_begin -= t_begin % C::kKeys;
 
   auto stage = [&](int t0) {
@@ -198,8 +206,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < KC; ++c) {
         const int t = t0 + tx + kKeyGroups * c;
-        ok[c] = s >= 0 && t < T_len && (!causal || t <= s || t < P) &&
-                (window <= 0 || t > s - window);
+        ok[c] = s >= 0 && t < T_len && (!kOff || t >= t_lo) &&
+                (!causal || t <= s + dq || t < P) &&
+                (window <= 0 || t > s + dq - window);
         sc[i][c] *= scale;
         if (ok[c]) mx = fmaxf(mx, sc[i][c]);
       }
@@ -325,12 +334,13 @@ struct TcCfg {
   static_assert(!kNarrow || (size_t)kRows * kAS * 4 + 1024 <= kSmem, "the combine fits");
 };
 
-template <int DK, int DV, bool kNarrow, int BN, int NS>
+template <int DK, int DV, bool kNarrow, int BN, int NS, bool kOff>
 __global__ void __launch_bounds__(TcCfg<DK, DV, kNarrow, BN, NS>::kThreads, 1)
 flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out, int K,
                     int B, int G, int S, int T_len, int D, float scale, int causal, int window,
-                    int prefix_len, const int* __restrict__ prefix_rows, int vec, int qvec,
+                    int prefix_len, const int* __restrict__ prefix_rows,
+                    const int* __restrict__ pos_off, int vec, int qvec,
                     Strides st, const __grid_constant__ CUtensorMap tmk,
                     const __grid_constant__ CUtensorMap tmv) {
   using C = TcCfg<DK, DV, kNarrow, BN, NS>;
@@ -386,9 +396,11 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
 
   const int s_lo = r0 / G;
   const int s_hi = (min(r0 + C::kRows, R) - 1) / G;
-  const int P = prefix_rows != nullptr ? prefix_rows[b] : prefix_len;
-  int t_end = causal ? min(T_len, max(s_hi + 1, P)) : T_len;
-  int t_begin = window > 0 ? max(0, s_lo - window + 1) : 0;
+  const int t_lo = kOff ? -pos_off[B + b] : 0;  // as the f32 kernel
+  const int dq = kOff ? pos_off[b] + t_lo : 0;
+  const int P = (prefix_rows != nullptr ? prefix_rows[b] : prefix_len) + t_lo;
+  int t_end = causal ? min(T_len, max(s_hi + dq + 1, P)) : T_len;
+  int t_begin = window > 0 ? max(0, s_lo + dq - window + 1) : 0;
   t_begin -= t_begin % BN;
   if constexpr (kNarrow) {  // this cluster rank's share of the block's key tiles
     const int tiles = t_end > t_begin ? (t_end - t_begin + BN - 1) / BN : 0;
@@ -449,8 +461,8 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
   const bool w_live = wr0 < R;
   const bool w_full = wr0 + 16 <= R;
   const int ws_lo = wr0 / G, ws_hi = (min(wr0 + 16, R) - 1) / G;
-  const int wt_end = causal ? min(T_len, max(ws_hi + 1, P)) : T_len;
-  const int wt_begin = window > 0 ? max(0, ws_lo - window + 1) : 0;
+  const int wt_end = causal ? min(T_len, max(ws_hi + dq + 1, P)) : T_len;
+  const int wt_begin = window > 0 ? max(0, ws_lo + dq - window + 1) : 0;
   const float sl2 = scale * 1.4426950408889634f;  // scores in log2 units
 
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
@@ -507,9 +519,9 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
     for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int c = 0; c < 4; ++c) sc[j][c] *= sl2;
-    const bool full = w_full && t0 + BN <= T_len &&
-                      (!causal || t0 + BN - 1 <= ws_lo || t0 + BN <= P) &&
-                      (window <= 0 || t0 > ws_hi - window);
+    const bool full = w_full && t0 + BN <= T_len && (!kOff || t0 >= t_lo) &&
+                      (!causal || t0 + BN - 1 <= ws_lo + dq || t0 + BN <= P) &&
+                      (window <= 0 || t0 > ws_hi + dq - window);
     if (!full) {
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
@@ -519,8 +531,9 @@ flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int t = t0 + 8 * j + 2 * t4 + e;
-            if (!(s >= 0 && t < T_len && (!causal || t <= s || t < P) &&
-                  (window <= 0 || t > s - window)))
+            if (!(s >= 0 && t < T_len && (!kOff || t >= t_lo) &&
+                  (!causal || t <= s + dq || t < P) &&
+                  (window <= 0 || t > s + dq - window)))
               sc[j][2 * i + e] = -INFINITY;
           }
       }
@@ -723,27 +736,27 @@ int sm_count(int device) {
   return cached;
 }
 
-template <typename T, int DP, bool kNarrow>
+template <typename T, int DP, bool kNarrow, bool kOff>
 cudaError_t launch_shape(int device, const void* q, const void* k, const void* v, void* out,
                          int B, int K, int G, int S, int T_len, int D, float scale, int causal,
-                         int window, int prefix_len, const int* prefix_rows, int vec,
+                         int window, int prefix_len, const int* prefix_rows, const int* pos_off, int vec,
                          const Strides& st, cudaStream_t stream, int* rows_per_cta) {
   using Sh = Shape<DP, kNarrow>;
   using C = Cfg<T, DP, Sh::RT, Sh::RG, Sh::KC>;
   static int attr_device = -1;  // the shared-memory ceiling is per device
   if (device != attr_device) {
     const cudaError_t err =
-        cudaFuncSetAttribute(flash_fwd_kernel<T, DP, Sh::RT, Sh::RG, Sh::KC>,
+        cudaFuncSetAttribute(flash_fwd_kernel<T, DP, Sh::RT, Sh::RG, Sh::KC, kOff>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::kSmem);
     if (err != cudaSuccess) return err;
     attr_device = device;
   }
   const long long blocks = (long long)((G * S + C::kRows - 1) / C::kRows) * K * B;
   if (blocks >= (1LL << 31)) return cudaErrorInvalidValue;
-  flash_fwd_kernel<T, DP, Sh::RT, Sh::RG, Sh::KC><<<(unsigned)blocks, C::kThreads, C::kSmem,
-                                                   stream>>>(
+  flash_fwd_kernel<T, DP, Sh::RT, Sh::RG, Sh::KC, kOff><<<(unsigned)blocks, C::kThreads,
+                                                         C::kSmem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), K, B, G, S, T_len, D, scale, causal, window, prefix_len, prefix_rows,
+      static_cast<T*>(out), K, B, G, S, T_len, D, scale, causal, window, prefix_len, prefix_rows, pos_off,
       vec, st);
   const cudaError_t err = cudaGetLastError();
   if (err == cudaSuccess && rows_per_cta != nullptr) *rows_per_cta = C::kRows;
@@ -755,30 +768,30 @@ cudaError_t launch_shape(int device, const void* q, const void* k, const void* v
 template <typename T, int DP>
 cudaError_t launch_dp(const void* q, const void* k, const void* v, void* out, int B, int K,
                       int G, int S, int T_len, int D, float scale, int causal, int window,
-                      int prefix_len, const int* prefix_rows, int vec, const Strides& st,
+                      int prefix_len, const int* prefix_rows, const int* pos_off, int vec, const Strides& st,
                       cudaStream_t s, int* rows_per_cta) {
   int device;
   const cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
   constexpr int kWideRows = Shape<DP, false>::RT * Shape<DP, false>::RG;
   const long long wide = (long long)((G * S + kWideRows - 1) / kWideRows) * K * B;
-  if (wide >= sm_count(device))
-    return launch_shape<T, DP, false>(device, q, k, v, out, B, K, G, S, T_len, D, scale,
-                                      causal, window, prefix_len, prefix_rows, vec, st, s,
-                                      rows_per_cta);
-  return launch_shape<T, DP, true>(device, q, k, v, out, B, K, G, S, T_len, D, scale, causal,
-                                   window, prefix_len, prefix_rows, vec, st, s, rows_per_cta);
+  // a call without offsets runs the instances that take none
+  auto shape = wide >= sm_count(device)
+                   ? (pos_off ? launch_shape<T, DP, false, true> : launch_shape<T, DP, false, false>)
+                   : (pos_off ? launch_shape<T, DP, true, true> : launch_shape<T, DP, true, false>);
+  return shape(device, q, k, v, out, B, K, G, S, T_len, D, scale, causal, window, prefix_len,
+               prefix_rows, pos_off, vec, st, s, rows_per_cta);
 }
 
-template <int DK, bool kNarrow>
+template <int DK, bool kNarrow, bool kOff>
 cudaError_t launch_tc_shape(int device, const void* q, const void* k, const void* v, void* out,
                             int B, int K, int G, int S, int T_len, int D, float scale, int causal,
-                            int window, int prefix_len, const int* prefix_rows, int vec,
+                            int window, int prefix_len, const int* prefix_rows, const int* pos_off, int vec,
                             const Strides& st, cudaStream_t stream, int n_split,
                             int* rows_per_cta) {
   using Sh = TcShape<DK, kNarrow>;
   using C = TcCfg<DK, Sh::DV, kNarrow, Sh::BN, Sh::NS>;
-  auto kernel = flash_fwd_tc_kernel<DK, Sh::DV, kNarrow, Sh::BN, Sh::NS>;
+  auto kernel = flash_fwd_tc_kernel<DK, Sh::DV, kNarrow, Sh::BN, Sh::NS, kOff>;
   static int attr_device = -1;  // the shared-memory ceiling is per device
   if (device != attr_device) {
     const cudaError_t err =
@@ -812,7 +825,7 @@ cudaError_t launch_tc_shape(int device, const void* q, const void* k, const void
   cudaError_t err = cudaLaunchKernelEx(
       &cfg, kernel, static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), K, B, G, S, T_len,
-      D, scale, causal, window, prefix_len, prefix_rows, tma, qvec, st, tmk, tmv);
+      D, scale, causal, window, prefix_len, prefix_rows, pos_off, tma, qvec, st, tmk, tmv);
   if (err == cudaSuccess) err = cudaGetLastError();
   if (err == cudaSuccess && rows_per_cta != nullptr) *rows_per_cta = C::kRows / n_split;
   return err;
@@ -824,7 +837,7 @@ cudaError_t launch_tc_shape(int device, const void* q, const void* k, const void
 template <int DK>
 cudaError_t launch_tc_dk(const void* q, const void* k, const void* v, void* out, int B, int K,
                          int G, int S, int T_len, int D, float scale, int causal, int window,
-                         int prefix_len, const int* prefix_rows, int vec, const Strides& st,
+                         int prefix_len, const int* prefix_rows, const int* pos_off, int vec, const Strides& st,
                          cudaStream_t s, int* rows_per_cta) {
   int device;
   const cudaError_t err = cudaGetDevice(&device);
@@ -834,38 +847,40 @@ cudaError_t launch_tc_dk(const void* q, const void* k, const void* v, void* out,
   const long long wide =
       (long long)((G * S + kRows - 1) / kRows) * K * B * ((D + W::DV - 1) / W::DV);
   const int sms = sm_count(device);
-  if (wide >= sms)
-    return launch_tc_shape<DK, false>(device, q, k, v, out, B, K, G, S, T_len, D, scale, causal,
-                                      window, prefix_len, prefix_rows, vec, st, s, 1,
-                                      rows_per_cta);
-  int n_split = 2;
-  while (n_split < 8 && wide * n_split < sms) n_split *= 2;
-  return launch_tc_shape<DK, true>(device, q, k, v, out, B, K, G, S, T_len, D, scale, causal,
-                                   window, prefix_len, prefix_rows, vec, st, s, n_split,
-                                   rows_per_cta);
+  // a call without offsets runs the instances that take none
+  int n_split = 1;
+  if (wide < sms) {
+    n_split = 2;
+    while (n_split < 8 && wide * n_split < sms) n_split *= 2;
+  }
+  auto shape = n_split == 1
+                   ? (pos_off ? launch_tc_shape<DK, false, true> : launch_tc_shape<DK, false, false>)
+                   : (pos_off ? launch_tc_shape<DK, true, true> : launch_tc_shape<DK, true, false>);
+  return shape(device, q, k, v, out, B, K, G, S, T_len, D, scale, causal, window, prefix_len,
+               prefix_rows, pos_off, vec, st, s, n_split, rows_per_cta);
 }
 
 cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out, int B, int K, int G,
                       int S, int T_len, int D, float scale, int causal, int window,
-                      int prefix_len, const int* prefix_rows, int vec, const Strides& st,
+                      int prefix_len, const int* prefix_rows, const int* pos_off, int vec, const Strides& st,
                       cudaStream_t s, int* rows_per_cta) {
-  if (D <= 64) return launch_tc_dk<64>(q, k, v, out, B, K, G, S, T_len, D, scale, causal, window, prefix_len, prefix_rows, vec, st, s, rows_per_cta);
-  if (D <= 128) return launch_tc_dk<128>(q, k, v, out, B, K, G, S, T_len, D, scale, causal, window, prefix_len, prefix_rows, vec, st, s, rows_per_cta);
-  if (D <= 192) return launch_tc_dk<192>(q, k, v, out, B, K, G, S, T_len, D, scale, causal, window, prefix_len, prefix_rows, vec, st, s, rows_per_cta);
-  if (D <= 256) return launch_tc_dk<256>(q, k, v, out, B, K, G, S, T_len, D, scale, causal, window, prefix_len, prefix_rows, vec, st, s, rows_per_cta);
-  return launch_tc_dk<576>(q, k, v, out, B, K, G, S, T_len, D, scale, causal, window, prefix_len, prefix_rows, vec, st, s, rows_per_cta);
+  if (D <= 64) return launch_tc_dk<64>(q, k, v, out, B, K, G, S, T_len, D, scale, causal, window, prefix_len, prefix_rows, pos_off, vec, st, s, rows_per_cta);
+  if (D <= 128) return launch_tc_dk<128>(q, k, v, out, B, K, G, S, T_len, D, scale, causal, window, prefix_len, prefix_rows, pos_off, vec, st, s, rows_per_cta);
+  if (D <= 192) return launch_tc_dk<192>(q, k, v, out, B, K, G, S, T_len, D, scale, causal, window, prefix_len, prefix_rows, pos_off, vec, st, s, rows_per_cta);
+  if (D <= 256) return launch_tc_dk<256>(q, k, v, out, B, K, G, S, T_len, D, scale, causal, window, prefix_len, prefix_rows, pos_off, vec, st, s, rows_per_cta);
+  return launch_tc_dk<576>(q, k, v, out, B, K, G, S, T_len, D, scale, causal, window, prefix_len, prefix_rows, pos_off, vec, st, s, rows_per_cta);
 }
 
 template <typename T>
 cudaError_t launch_dtype(const void* q, const void* k, const void* v, void* out, int B, int K,
                          int G, int S, int T_len, int D, float scale, int causal, int window,
-                         int prefix_len, const int* prefix_rows, int vec, const Strides& st,
+                         int prefix_len, const int* prefix_rows, const int* pos_off, int vec, const Strides& st,
                          cudaStream_t s, int* rows_per_cta) {
-  if (D <= 32) return launch_dp<T, 32>(q, k, v, out, B, K, G, S, T_len, D, scale, causal, window, prefix_len, prefix_rows, vec, st, s, rows_per_cta);
-  if (D <= 64) return launch_dp<T, 64>(q, k, v, out, B, K, G, S, T_len, D, scale, causal, window, prefix_len, prefix_rows, vec, st, s, rows_per_cta);
-  if (D <= 128) return launch_dp<T, 128>(q, k, v, out, B, K, G, S, T_len, D, scale, causal, window, prefix_len, prefix_rows, vec, st, s, rows_per_cta);
-  if (D <= 256) return launch_dp<T, 256>(q, k, v, out, B, K, G, S, T_len, D, scale, causal, window, prefix_len, prefix_rows, vec, st, s, rows_per_cta);
-  return launch_dp<T, 576>(q, k, v, out, B, K, G, S, T_len, D, scale, causal, window, prefix_len, prefix_rows, vec, st, s, rows_per_cta);
+  if (D <= 32) return launch_dp<T, 32>(q, k, v, out, B, K, G, S, T_len, D, scale, causal, window, prefix_len, prefix_rows, pos_off, vec, st, s, rows_per_cta);
+  if (D <= 64) return launch_dp<T, 64>(q, k, v, out, B, K, G, S, T_len, D, scale, causal, window, prefix_len, prefix_rows, pos_off, vec, st, s, rows_per_cta);
+  if (D <= 128) return launch_dp<T, 128>(q, k, v, out, B, K, G, S, T_len, D, scale, causal, window, prefix_len, prefix_rows, pos_off, vec, st, s, rows_per_cta);
+  if (D <= 256) return launch_dp<T, 256>(q, k, v, out, B, K, G, S, T_len, D, scale, causal, window, prefix_len, prefix_rows, pos_off, vec, st, s, rows_per_cta);
+  return launch_dp<T, 576>(q, k, v, out, B, K, G, S, T_len, D, scale, causal, window, prefix_len, prefix_rows, pos_off, vec, st, s, rows_per_cta);
 }
 
 template <typename Kernel>
@@ -882,7 +897,7 @@ template <int DK, bool kNarrow>
 int tc_occupancy_shape(int* ctas_per_sm, int* smem_bytes) {
   using Sh = TcShape<DK, kNarrow>;
   using C = TcCfg<DK, Sh::DV, kNarrow, Sh::BN, Sh::NS>;
-  return occupancy_of(flash_fwd_tc_kernel<DK, Sh::DV, kNarrow, Sh::BN, Sh::NS>, C::kThreads,
+  return occupancy_of(flash_fwd_tc_kernel<DK, Sh::DV, kNarrow, Sh::BN, Sh::NS, false>, C::kThreads,
                       C::kSmem, ctas_per_sm, smem_bytes);
 }
 template <int DK>
@@ -894,8 +909,8 @@ template <int DP, bool kNarrow>
 int f32_occupancy_shape(int* ctas_per_sm, int* smem_bytes) {
   using Sh = Shape<DP, kNarrow>;
   using C = Cfg<float, DP, Sh::RT, Sh::RG, Sh::KC>;
-  return occupancy_of(flash_fwd_kernel<float, DP, Sh::RT, Sh::RG, Sh::KC>, C::kThreads, C::kSmem,
-                      ctas_per_sm, smem_bytes);
+  return occupancy_of(flash_fwd_kernel<float, DP, Sh::RT, Sh::RG, Sh::KC, false>, C::kThreads,
+                      C::kSmem, ctas_per_sm, smem_bytes);
 }
 template <int DP>
 int f32_occupancy(int narrow, int* ctas_per_sm, int* smem_bytes) {
@@ -916,12 +931,16 @@ int flash_attention_max_head_dim() { return 576; }
 // copied by 16-byte cp.async (D * element size, the b/k/t strides in bytes
 // and both bases are 16-byte multiples).  With `causal`, keys t <
 // prefix_rows[b] (a (B,) int32 array on the device) or, when that is null,
-// t < prefix_len are visible to every query row (0: none).  On a launch,
+// t < prefix_len are visible to every query row (0: none).  `pos_off`,
+// when not null, is a (2, B) int32 array on the device: row b's queries
+// sit at absolute positions pos_off[b] + s and its keys at pos_off[B + b]
+// + t, and the mask compares absolute positions (a key below position 0
+// is masked; the prefix bounds the key's absolute position).  On a launch,
 // writes the rows per CTA of the shape it launched to `rows_per_cta` unless
 // that is null.  Returns the CUDA error code (0 on success).
 int flash_attention_launch(int dtype, const void* q, const void* k, const void* v, void* out,
                            int B, int K, int G, int S, int T_len, int D, float scale,
-                           int causal, int window, int prefix_len, const int* prefix_rows,
+                           int causal, int window, int prefix_len, const int* prefix_rows, const int* pos_off,
                            int vec, const long long* strides, void* stream,
                            int* rows_per_cta) {
   if (B < 0 || K < 0 || G < 0 || S < 0 || T_len < 1 || D < 1 || D > 576 ||
@@ -936,9 +955,9 @@ int flash_attention_launch(int dtype, const void* q, const void* k, const void* 
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       dtype == 0 ? launch_dtype<float>(q, k, v, out, B, K, G, S, T_len, D, scale, causal, window,
-                                       prefix_len, prefix_rows, vec, st, s, rows_per_cta)
+                                       prefix_len, prefix_rows, pos_off, vec, st, s, rows_per_cta)
                  : launch_tc(q, k, v, out, B, K, G, S, T_len, D, scale, causal, window,
-                             prefix_len, prefix_rows, vec, st, s, rows_per_cta);
+                             prefix_len, prefix_rows, pos_off, vec, st, s, rows_per_cta);
   return (int)err;
 }
 

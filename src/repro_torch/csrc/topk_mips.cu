@@ -48,7 +48,10 @@
 // plus one pass over the labels.
 //
 // Launches of one call: [count, compact] (masked), [sample scan, sample
-// merge] (long chunks), scan, merge.
+// merge] (long chunks), scan, merge.  Past k = kScanMaxK a call runs the
+// large-k path instead (its section below): per chunk of queries, [count,
+// compact], a score pass into a device workspace, an exact radix select,
+// a compaction of the survivors, a sort and the output.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -656,6 +659,144 @@ __device__ __forceinline__ void stage_slice(unsigned char* bank_dst, float* q_ds
   }
 }
 
+// A query tile's kQT queries into qres ([kQT][padded_depth(D)], zero
+// padded), by cp.async when `qvec` (committed with the ring's first stage
+// and waited for at its step 0), else by plain loads.
+template <int kQT>
+__device__ __forceinline__ void load_queries(float* qres, const float* q, int Q, int D, int q0,
+                                             bool qvec) {
+  const int pd = padded_depth(D);
+  const int tid = threadIdx.x;
+  if (qvec) {
+    for (int e = tid; e < kQT * (pd / 4); e += kThreads) {
+      const int qi = e / (pd / 4), d = 4 * (e % (pd / 4));
+      const bool ok = q0 + qi < Q && d < D;
+      cp_async16(qres + qi * pd + d, ok ? q + (size_t)(q0 + qi) * D + d : q, ok);
+    }
+  } else {
+    for (int e = tid; e < kQT * pd; e += kThreads) {
+      const int qi = e / pd, dd = e % pd;
+      qres[e] = (q0 + qi < Q && dd < D) ? q[(size_t)(q0 + qi) * D + dd] : 0.f;
+    }
+  }
+}
+
+// A CTA's ring over entry steps [0, n_steps) of its chunk (n_slices steps
+// a tile, the tiles from t_begin on): the copies of each step's bank slice
+// (and query slice unless the queries are `resident` in qres, put there by
+// load_queries before the call), kStages deep; int8 codes converted to
+// exact floats in `conv`; and the fmaf chain of each warp's kQW queries
+// against its lanes' kRowsPerLane rows.  When a tile's last slice is in,
+// calls tile_done(tile, e0, ids, acc) -- e0 its first entry, ids its row
+// ids (masked, else null), acc the scores -- then zeroes acc.  Shared by
+// the scan kernel and the large-k score pass, so both give the same score
+// bits.  Block-collective; the caller's shared state is visible after the
+// barrier behind the ring's first stages.
+template <bool kMasked, bool kQuant, int kQW, typename TileDone>
+__device__ __forceinline__ void scan_tiles(unsigned char* smem, int stage_bytes, int bank_stage,
+                                           float* conv, float* qres, int* ids_all,
+                                           const float* q, const void* bank_v, const int* rows,
+                                           int Q, int D, int q0, int t_begin, int e_end,
+                                           int n_steps, int n_slices, bool resident, bool vec,
+                                           bool qvec, TileDone&& tile_done) {
+  constexpr int kQT = kQW * kWarps;
+  const int pd = padded_depth(D);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  float acc[kQW][kRowsPerLane];
+#pragma unroll
+  for (int i = 0; i < kQW; ++i)
+#pragma unroll
+    for (int j = 0; j < kRowsPerLane; ++j) acc[i][j] = 0.f;
+
+  // Block-collective when it starts a tile (masked: the tile's row ids are
+  // read into their buffer, behind a barrier, before the first copy).
+  auto issue = [&](int t) {
+    unsigned char* st = smem + (t % kStages) * stage_bytes;
+    const int tile = t / n_slices;
+    const int e0 = (t_begin + tile) * kTileRows;
+    int* ids = nullptr;
+    if constexpr (kMasked) {
+      ids = ids_all + tile % kIdBufs * kTileRows;
+      if (t % n_slices == 0) {
+        ids[tid] = e0 + tid < e_end ? rows[e0 + tid] : 0;
+        __syncthreads();
+      }
+    }
+    stage_slice<kQuant>(st, resident ? nullptr : reinterpret_cast<float*>(st + bank_stage),
+                        bank_v, q, e0, e_end, ids, (t % n_slices) * kSlice, D, q0, Q, kQT,
+                        vec, qvec);
+  };
+  for (int t = 0; t < kStages - 1; ++t) {
+    if (t < n_steps) issue(t);
+    cp_async_commit();
+  }
+  __syncthreads();   // the caller's state (and resident queries not copied by cp.async)
+
+  for (int t = 0; t < n_steps; ++t) {
+    cp_async_wait_one();
+    __syncthreads();   // stage t landed; stage t-1 is free
+    if (t + kStages - 1 < n_steps) issue(t + kStages - 1);
+    cp_async_commit();
+    unsigned char* st = smem + (t % kStages) * stage_bytes;
+    const int slice = t % n_slices;
+    const float* B;
+    if constexpr (kQuant) {
+      // one thread per row: 16 codes -> 16 exact floats
+      const int4 v = *reinterpret_cast<const int4*>(st + tid * kSlice);
+      const unsigned w[4] = {(unsigned)v.x, (unsigned)v.y, (unsigned)v.z, (unsigned)v.w};
+      float* out = conv + tid * kSliceStride;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float4 f;
+        f.x = static_cast<float>(static_cast<int8_t>(w[c] & 0xff));
+        f.y = static_cast<float>(static_cast<int8_t>((w[c] >> 8) & 0xff));
+        f.z = static_cast<float>(static_cast<int8_t>((w[c] >> 16) & 0xff));
+        f.w = static_cast<float>(static_cast<int8_t>(w[c] >> 24));
+        *reinterpret_cast<float4*>(out + 4 * c) = f;
+      }
+      __syncthreads();
+      B = conv;
+    } else {
+      B = reinterpret_cast<const float*>(st);
+    }
+    const float* A = resident ? qres + warp * kQW * pd + slice * kSlice
+                              : reinterpret_cast<const float*>(st + bank_stage) +
+                                    warp * kQW * kSliceStride;
+    const int astride = resident ? pd : kSliceStride;
+    const float* Bl = B + lane * kSliceStride;
+#pragma unroll
+    for (int dd = 0; dd < kSlice; dd += 4) {
+      float4 b[kRowsPerLane];
+#pragma unroll
+      for (int j = 0; j < kRowsPerLane; ++j)
+        b[j] = *reinterpret_cast<const float4*>(Bl + j * 32 * kSliceStride + dd);
+#pragma unroll
+      for (int i = 0; i < kQW; ++i) {
+        const float4 a = *reinterpret_cast<const float4*>(A + i * astride + dd);
+#pragma unroll
+        for (int j = 0; j < kRowsPerLane; ++j) {
+          acc[i][j] = fmaf(a.x, b[j].x, acc[i][j]);
+          acc[i][j] = fmaf(a.y, b[j].y, acc[i][j]);
+          acc[i][j] = fmaf(a.z, b[j].z, acc[i][j]);
+          acc[i][j] = fmaf(a.w, b[j].w, acc[i][j]);
+        }
+      }
+    }
+    if (slice != n_slices - 1) continue;
+
+    // the tile's scores are complete
+    const int tile = t / n_slices;
+    tile_done(tile, (t_begin + tile) * kTileRows,
+              kMasked ? ids_all + tile % kIdBufs * kTileRows : nullptr, acc);
+#pragma unroll
+    for (int i = 0; i < kQW; ++i)
+#pragma unroll
+      for (int j = 0; j < kRowsPerLane; ++j) acc[i][j] = 0.f;
+  }
+}
+
 // `list` (masked) holds each query tile's compacted rows, list_stride
 // apart, and `list_len` their lengths; both are unused when unmasked.
 template <bool kMasked, bool kQuant, int kQW>
@@ -715,20 +856,7 @@ topk_scan_kernel(const float* __restrict__ q, const void* __restrict__ bank_v,
     lr[i] = kPadRow;
   }
   if (tid < 2) flush_at[tid] = -1;
-  if (resident) {   // with the ring's first stage: waited for at step 0
-    if (qvec) {
-      for (int e = tid; e < kQT * (pd / 4); e += kThreads) {
-        const int qi = e / (pd / 4), d = 4 * (e % (pd / 4));
-        const bool ok = q0 + qi < Q && d < D;
-        cp_async16(qres + qi * pd + d, ok ? q + (size_t)(q0 + qi) * D + d : q, ok);
-      }
-    } else {
-      for (int e = tid; e < kQT * pd; e += kThreads) {
-        const int qi = e / pd, dd = e % pd;
-        qres[e] = (q0 + qi < Q && dd < D) ? q[(size_t)(q0 + qi) * D + dd] : 0.f;
-      }
-    }
-  }
+  if (resident) load_queries<kQT>(qres, q, Q, D, q0, qvec);
   int qns[kQW];
   float thr[kQW];
   int cnt[kQW];
@@ -739,164 +867,80 @@ topk_scan_kernel(const float* __restrict__ q, const void* __restrict__ bank_v,
     thr[i] = -CUDART_INF_F;
     cnt[i] = 0;
   }
-  float acc[kQW][kRowsPerLane];
-#pragma unroll
-  for (int i = 0; i < kQW; ++i)
-#pragma unroll
-    for (int j = 0; j < kRowsPerLane; ++j) acc[i][j] = 0.f;
 
-  // Block-collective when it starts a tile (masked: the tile's row ids are
-  // read into their buffer, behind a barrier, before the first copy).
-  auto issue = [&](int t) {
-    unsigned char* st = smem + (t % kStages) * stage_bytes;
-    const int tile = t / n_slices;
-    const int e0 = (t_begin + tile) * kTileRows;
-    int* ids = nullptr;
-    if constexpr (kMasked) {
-      ids = ids_all + tile % kIdBufs * kTileRows;
-      if (t % n_slices == 0) {
-        ids[tid] = e0 + tid < e_end ? rows[e0 + tid] : 0;
-        __syncthreads();
-      }
-    }
-    stage_slice<kQuant>(st, resident ? nullptr : reinterpret_cast<float*>(st + bank_stage),
-                        bank_v, q, e0, e_end, ids, (t % n_slices) * kSlice, D, q0, Q, kQT,
-                        vec, qvec);
-  };
-  for (int t = 0; t < kStages - 1; ++t) {
-    if (t < n_steps) issue(t);
-    cp_async_commit();
-  }
-  __syncthreads();   // the lists (and resident queries not copied by cp.async)
-
-  for (int t = 0; t < n_steps; ++t) {
-    cp_async_wait_one();
-    __syncthreads();   // stage t landed; stage t-1 is free
-    if (t + kStages - 1 < n_steps) issue(t + kStages - 1);
-    cp_async_commit();
-    unsigned char* st = smem + (t % kStages) * stage_bytes;
-    const int slice = t % n_slices;
-    const float* B;
-    if constexpr (kQuant) {
-      // one thread per row: 16 codes -> 16 exact floats
-      const int4 v = *reinterpret_cast<const int4*>(st + tid * kSlice);
-      const unsigned w[4] = {(unsigned)v.x, (unsigned)v.y, (unsigned)v.z, (unsigned)v.w};
-      float* out = conv + tid * kSliceStride;
+  // select, warp by warp, each tile's complete scores
+  scan_tiles<kMasked, kQuant, kQW>(
+      smem, stage_bytes, bank_stage, conv, qres, ids_all, q, bank_v, rows, Q, D, q0, t_begin,
+      e_end, n_steps, n_slices, resident, vec, qvec,
+      [&](int tile, int e0, const int* ids, float (&acc)[kQW][kRowsPerLane]) {
+        // a joint flush posted at the last tile: every warp merges its buffers
+        // now, so that the merges of all warps overlap between two barriers
+        if (flush_at[tile & 1] == tile) {
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        float4 f;
-        f.x = static_cast<float>(static_cast<int8_t>(w[c] & 0xff));
-        f.y = static_cast<float>(static_cast<int8_t>((w[c] >> 8) & 0xff));
-        f.z = static_cast<float>(static_cast<int8_t>((w[c] >> 16) & 0xff));
-        f.w = static_cast<float>(static_cast<int8_t>(w[c] >> 24));
-        *reinterpret_cast<float4*>(out + 4 * c) = f;
-      }
-      __syncthreads();
-      B = conv;
-    } else {
-      B = reinterpret_cast<const float*>(st);
-    }
-    const float* A = resident ? qres + warp * kQW * pd + slice * kSlice
-                              : reinterpret_cast<const float*>(st + bank_stage) +
-                                    warp * kQW * kSliceStride;
-    const int astride = resident ? pd : kSliceStride;
-    const float* Bl = B + lane * kSliceStride;
-#pragma unroll
-    for (int dd = 0; dd < kSlice; dd += 4) {
-      float4 b[kRowsPerLane];
-#pragma unroll
-      for (int j = 0; j < kRowsPerLane; ++j)
-        b[j] = *reinterpret_cast<const float4*>(Bl + j * 32 * kSliceStride + dd);
-#pragma unroll
-      for (int i = 0; i < kQW; ++i) {
-        const float4 a = *reinterpret_cast<const float4*>(A + i * astride + dd);
+          for (int i = 0; i < kQW; ++i) {
+            const int qi = warp * kQW + i;
+            if (q0 + qi < Q && cnt[i] > 0) {
+              sort_merge<kBuf / 32>(ls + qi * k, lr + qi * k, k, bs + qi * kBuf, br + qi * kBuf,
+                                    cnt[i], cnt[i]);
+              cnt[i] = 0;
+              raise_floor(floor_key + q0 + qi, ls + qi * k, lr + qi * k, k, thr[i]);
+              thr[i] = ls[qi * k + k - 1];
+            }
+          }
+        }
+        bool post = false;
+        float scl[kRowsPerLane];
+        int lab[kRowsPerLane];
 #pragma unroll
         for (int j = 0; j < kRowsPerLane; ++j) {
-          acc[i][j] = fmaf(a.x, b[j].x, acc[i][j]);
-          acc[i][j] = fmaf(a.y, b[j].y, acc[i][j]);
-          acc[i][j] = fmaf(a.z, b[j].z, acc[i][j]);
-          acc[i][j] = fmaf(a.w, b[j].w, acc[i][j]);
+          const bool live = e0 + lane + 32 * j < e_end;
+          const int row = kMasked ? ids[lane + 32 * j] : e0 + lane + 32 * j;
+          scl[j] = (kQuant && live) ? scales[row] : 0.f;
+          lab[j] = (kMasked && live) ? bank_ns[row] : 0;
         }
-      }
-    }
-    if (slice != n_slices - 1) continue;
-
-    // the tile's scores are complete: select, warp by warp
-    const int tile = t / n_slices;
-    const int e0 = (t_begin + tile) * kTileRows;
-    const int* ids = kMasked ? ids_all + tile % kIdBufs * kTileRows : nullptr;
-    // a joint flush posted at the last tile: every warp merges its buffers
-    // now, so that the merges of all warps overlap between two barriers
-    if (flush_at[tile & 1] == tile) {
+        // every chunk's full list raises its query's floor: the k-th score of
+        // k live rows, so no row scoring below it can enter the final top-k
+        float fl[kQW];
 #pragma unroll
-      for (int i = 0; i < kQW; ++i) {
-        const int qi = warp * kQW + i;
-        if (q0 + qi < Q && cnt[i] > 0) {
-          sort_merge<kBuf / 32>(ls + qi * k, lr + qi * k, k, bs + qi * kBuf, br + qi * kBuf,
-                                cnt[i], cnt[i]);
-          cnt[i] = 0;
-          raise_floor(floor_key + q0 + qi, ls + qi * k, lr + qi * k, k, thr[i]);
-          thr[i] = ls[qi * k + k - 1];
+        for (int i = 0; i < kQW; ++i) {
+          const int gq = q0 + warp * kQW + i;
+          fl[i] = gq < Q ? key_score(*reinterpret_cast<volatile unsigned*>(floor_key + gq))
+                         : -CUDART_INF_F;
         }
-      }
-    }
-    bool post = false;
-    float scl[kRowsPerLane];
-    int lab[kRowsPerLane];
 #pragma unroll
-    for (int j = 0; j < kRowsPerLane; ++j) {
-      const bool live = e0 + lane + 32 * j < e_end;
-      const int row = kMasked ? ids[lane + 32 * j] : e0 + lane + 32 * j;
-      scl[j] = (kQuant && live) ? scales[row] : 0.f;
-      lab[j] = (kMasked && live) ? bank_ns[row] : 0;
-    }
-    // every chunk's full list raises its query's floor: the k-th score of
-    // k live rows, so no row scoring below it can enter the final top-k
-    float fl[kQW];
+        for (int i = 0; i < kQW; ++i) {
+          const int qi = warp * kQW + i;
+          if (q0 + qi < Q) {   // warp-uniform
+            float* qls = ls + qi * k;
+            int* qlr = lr + qi * k;
+            float* qbs = bs + qi * kBuf;
+            int* qbr = br + qi * kBuf;
+            float sv[kRowsPerLane];
+            int c = 0;
 #pragma unroll
-    for (int i = 0; i < kQW; ++i) {
-      const int gq = q0 + warp * kQW + i;
-      fl[i] = gq < Q ? key_score(*reinterpret_cast<volatile unsigned*>(floor_key + gq))
-                     : -CUDART_INF_F;
-    }
+            for (int j = 0; j < kRowsPerLane; ++j) {
+              sv[j] = acc[i][j];
+              if constexpr (kQuant) sv[j] = sv[j] * scl[j];   // after the sum, as the reference
+              bool ok = e0 + lane + 32 * j < e_end && sv[j] > thr[i] && sv[j] >= fl[i];
+              if constexpr (kMasked) ok = ok && lab[j] == qns[i];
+              if (!ok) sv[j] = -CUDART_INF_F;
+              c += __popc(__ballot_sync(kFull, ok));
+            }
+            if (c > 0) {   // warp-uniform
 #pragma unroll
-    for (int i = 0; i < kQW; ++i) {
-      const int qi = warp * kQW + i;
-      if (q0 + qi < Q) {   // warp-uniform
-        float* qls = ls + qi * k;
-        int* qlr = lr + qi * k;
-        float* qbs = bs + qi * kBuf;
-        int* qbr = br + qi * kBuf;
-        float sv[kRowsPerLane];
-        int c = 0;
-#pragma unroll
-        for (int j = 0; j < kRowsPerLane; ++j) {
-          sv[j] = acc[i][j];
-          if constexpr (kQuant) sv[j] = sv[j] * scl[j];   // after the sum, as the reference
-          bool ok = e0 + lane + 32 * j < e_end && sv[j] > thr[i] && sv[j] >= fl[i];
-          if constexpr (kMasked) ok = ok && lab[j] == qns[i];
-          if (!ok) sv[j] = -CUDART_INF_F;
-          c += __popc(__ballot_sync(kFull, ok));
+              for (int j = 0; j < kRowsPerLane; ++j) ws[32 * j + lane] = sv[j];
+              cnt[i] = admit(qls, qlr, k, qbs, qbr, cnt[i], ws, wr, c, e0, ids);
+              raise_floor(floor_key + q0 + qi, qls, qlr, k, thr[i]);
+              thr[i] = qls[k - 1];
+              post = post || cnt[i] > kBuf / 2;
+            }
+          }
         }
-        if (c > 0) {   // warp-uniform
-#pragma unroll
-          for (int j = 0; j < kRowsPerLane; ++j) ws[32 * j + lane] = sv[j];
-          cnt[i] = admit(qls, qlr, k, qbs, qbr, cnt[i], ws, wr, c, e0, ids);
-          raise_floor(floor_key + q0 + qi, qls, qlr, k, thr[i]);
-          thr[i] = qls[k - 1];
-          post = post || cnt[i] > kBuf / 2;
-        }
-      }
-    }
-    // a buffer past half full could overflow at the next tile (which adds
-    // fewer than kBuf / 2): post a joint flush there.  Slot parity keeps
-    // this tile's reads and the next tile's posts apart (barriers between).
-    if (post && lane == 0) flush_at[(tile + 1) & 1] = tile + 1;
-#pragma unroll
-    for (int i = 0; i < kQW; ++i)
-#pragma unroll
-      for (int j = 0; j < kRowsPerLane; ++j) acc[i][j] = 0.f;
-  }
+        // a buffer past half full could overflow at the next tile (which adds
+        // fewer than kBuf / 2): post a joint flush there.  Slot parity keeps
+        // this tile's reads and the next tile's posts apart (barriers between).
+        if (post && lane == 0) flush_at[(tile + 1) & 1] = tile + 1;
+      });
 
   // each list's live entries and the empty entry after them (if any): the
   // merge pass reads no further
@@ -1015,6 +1059,656 @@ cudaError_t raise_scan_ceilings() {
     return err;
   done_device = device;
   return cudaSuccess;
+}
+
+
+// ---------------------------------------------------------------------------
+// The large-k path: k > kScanMaxK.  The scan kernel keeps a query tile's
+// lists in shared memory, which bounds k at 2,048; the reference's kernel
+// answers any k.  Past that bound each call runs, per chunk of queries
+// (sized by the wrapper so that the workspace stays within a few hundred
+// MB: 64 queries of a 2^20-row bank hold 256 MiB of keys):
+//
+//   [count, compact]  masked: the scan kernel's label compaction, per
+//                     64-query tile (unchanged kernels);
+//   score             topk_score_kernel<kMasked, kQuant>: the scan kernel's
+//                     main loop (scan_tiles: the same ring, the same fmaf
+//                     chain, so the same score bits), writing each (query, entry) score as
+//                     its 32-bit order-preserving key (0 for an entry that
+//                     is not live or whose label differs) to the workspace;
+//   3 x [hist, pick]  an exact radix select of each query's k-th key, digits
+//                     of 11, 11 and 10 bits from the top: per-query
+//                     histograms of the keys that share the prefix chosen so
+//                     far, in shared memory then summed into the workspace
+//                     (hist), and one CTA per query that walks them from the
+//                     top to the bucket holding the k-th key (pick).  The
+//                     result is the k-th key T and how many entries equal
+//                     to it the top-k takes (the rest ranks above T);
+//   select count,     every entry above T, then the lowest entries equal to
+//   select write      T up to that many (entries ascend with the row, so
+//                     these are the lowest rows: the (score desc, row asc)
+//                     tie rule), compacted in entry order by per-block
+//                     counts and a block scan, as 64-bit sort keys
+//                     (~key << 32 | row: ascending = score desc, row asc);
+//   sort runs,        a bitonic sort of 4,096-key runs in shared memory,
+//   merge runs x r    then r = ceil(log2(runs)) merge rounds in device
+//                     memory: each key's place in the merged pair is its
+//                     index plus the count of the partner run's keys below
+//                     it (a binary search; keys are distinct);
+//   emit              (score, row) of the sorted survivors, and (NEG_INF,
+//                     -1) past them when fewer than k entries are live.
+//
+// What bounds it: the function needs the product and one read of the bank,
+// as the scan kernel.  This design adds the workspace's traffic -- one
+// write and five reads of Q x n_valid 4-byte keys (three histograms, two
+// select passes) and the survivors' 8-byte keys written, sorted and merged
+// (2 x 8 bytes a key a round).  At Q = 64, N = 2^20 the keys are 256 MiB,
+// ~0.5 ms of HBM traffic beside the product's 0.51 ms.
+// No library sort, select or product runs: every pass is written here.
+// ---------------------------------------------------------------------------
+
+constexpr int kLargeQW = 8;                     // the score pass's queries a warp
+constexpr int kLargeQT = kLargeQW * kWarps;     // and a CTA (one compaction tile)
+constexpr int kRadixPasses = 3;                 // digits of 11, 11 and 10 bits
+constexpr int kRadixBins = 2048;                // the widest digit's bins
+constexpr int kSelectBatch = kThreads * 4;      // entries a block takes at once
+constexpr int kSortRun = 4096;                  // keys one CTA sorts in shared memory
+constexpr int kSortThreads = 1024;
+constexpr int kBlocksPerSm = 8;                 // select/histogram CTAs an SM
+
+static_assert(kLargeQT == kMaxTileQueries, "a score CTA's queries are one compaction tile");
+static_assert(kRadixBins % kThreads == 0, "the pick gives each thread whole bins");
+
+// Pass p's digit: its width and its shift, from the key's top.
+__host__ __device__ constexpr int radix_bits(int pass) { return pass < 2 ? 11 : 10; }
+__host__ __device__ constexpr int radix_shift(int pass) {
+  return pass == 0 ? 21 : pass == 1 ? 10 : 0;
+}
+
+// The sort/merge key of entry `row` with rank key `key`: ascending order is
+// (score desc, row asc).
+__device__ __forceinline__ unsigned long long sort_key(unsigned key, int row) {
+  return ((unsigned long long)(~key) << 32) | (unsigned)row;
+}
+
+// The rank key of a live score: score_key with -0 taken as +0 (they tie as
+// floats), so never 0, the key of an entry that is not live.
+__device__ __forceinline__ unsigned rank_key(float s) {
+  return score_key(s == 0.f ? 0.f : s);
+}
+
+// The score pass's dynamic shared memory: the scan kernel's ring, int8
+// conversion tile, resident queries and row-id buffers, without its lists.
+size_t score_smem_bytes(bool quant, int D, bool resident, bool masked) {
+  const size_t bank_stage = quant ? (size_t)kTileRows * kSlice
+                                  : sizeof(float) * kTileRows * kSliceStride;
+  const size_t q_stage = resident ? 0 : sizeof(float) * kLargeQT * kSliceStride;
+  const size_t conv = quant ? sizeof(float) * kTileRows * kSliceStride : 0;
+  const size_t qres = resident ? sizeof(float) * kLargeQT * padded_depth(D) : 0;
+  const size_t ids = masked ? sizeof(int) * kIdBufs * kTileRows : 0;
+  return kStages * (bank_stage + q_stage) + conv + qres + ids;
+}
+
+// One CTA per (chunk of entry tiles, 64-query tile): the scan kernel's
+// ring (scan_tiles, with this pass's eight queries a warp), then each
+// tile's scores as rank keys into keys[query * n_valid + entry]; 0 where the
+// entry is not live or (masked) its row's label is not the query's.
+template <bool kMasked, bool kQuant>
+__global__ void __launch_bounds__(kThreads, 1)
+topk_score_kernel(const float* __restrict__ q, const void* __restrict__ bank_v,
+                  const float* __restrict__ scales, const int* __restrict__ q_ns,
+                  const int* __restrict__ bank_ns, const int* __restrict__ list,
+                  const int* __restrict__ list_len, int list_stride, int Q, int D,
+                  int n_valid, int n_chunks, bool resident, bool vec, bool qvec,
+                  unsigned* __restrict__ keys) {
+  constexpr int kQW = kLargeQW;
+  constexpr int kQT = kLargeQT;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int pd = padded_depth(D);
+  const int bank_stage = kQuant ? kTileRows * kSlice
+                                : (int)sizeof(float) * kTileRows * kSliceStride;
+  const int stage_bytes = bank_stage + (resident ? 0 : (int)sizeof(float) * kQT * kSliceStride);
+  float* conv = reinterpret_cast<float*>(smem + kStages * stage_bytes);  // int8 only
+  float* qres = conv + (kQuant ? kTileRows * kSliceStride : 0);          // [kQT][pd]
+  int* ids_all = reinterpret_cast<int*>(qres + (resident ? kQT * pd : 0));
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int chunk = blockIdx.x;
+  const int q0 = blockIdx.y * kQT;
+  const int* rows = kMasked ? list + (size_t)blockIdx.y * list_stride : nullptr;
+  const int n_entries = kMasked ? list_len[blockIdx.y] : n_valid;
+  const int n_tiles = (n_entries + kTileRows - 1) / kTileRows;
+  const int t_begin = (int)((long long)chunk * n_tiles / n_chunks);
+  const int t_end = (int)((long long)(chunk + 1) * n_tiles / n_chunks);
+  const int e_end = min(n_entries, t_end * kTileRows);
+  const int n_slices = max(1, (D + kSlice - 1) / kSlice);
+  const int n_steps = (t_end - t_begin) * n_slices;
+  if (n_steps == 0) return;
+
+  if (resident) load_queries<kQT>(qres, q, Q, D, q0, qvec);
+  int qns[kQW];
+#pragma unroll
+  for (int i = 0; i < kQW; ++i) {
+    const int gq = q0 + warp * kQW + i;
+    qns[i] = (kMasked && gq < Q) ? q_ns[gq] : 0;
+  }
+  // each tile's complete scores: their keys to the workspace
+  scan_tiles<kMasked, kQuant, kQW>(
+      smem, stage_bytes, bank_stage, conv, qres, ids_all, q, bank_v, rows, Q, D, q0, t_begin,
+      e_end, n_steps, n_slices, resident, vec, qvec,
+      [&](int, int e0, const int* ids, float (&acc)[kQW][kRowsPerLane]) {
+        float scl[kRowsPerLane];
+        int lab[kRowsPerLane];
+#pragma unroll
+        for (int j = 0; j < kRowsPerLane; ++j) {
+          const bool live = e0 + lane + 32 * j < e_end;
+          const int row = kMasked ? ids[lane + 32 * j] : e0 + lane + 32 * j;
+          scl[j] = (kQuant && live) ? scales[row] : 0.f;
+          lab[j] = (kMasked && live) ? bank_ns[row] : 0;
+        }
+#pragma unroll
+        for (int i = 0; i < kQW; ++i) {
+          const int gq = q0 + warp * kQW + i;
+          if (gq >= Q) continue;
+          unsigned* out = keys + (size_t)gq * n_valid;
+#pragma unroll
+          for (int j = 0; j < kRowsPerLane; ++j) {
+            const int e = e0 + lane + 32 * j;
+            float s = acc[i][j];
+            if constexpr (kQuant) s = s * scl[j];   // after the sum, as the reference
+            const bool ok = !kMasked || lab[j] == qns[i];
+            if (e < e_end) out[e] = ok ? rank_key(s) : 0u;
+          }
+        }
+      });
+}
+
+// A query's selection state between the radix passes: the key prefix
+// chosen so far and its mask, how many entries with that prefix the top-k
+// still takes, and `done` when every live entry is taken (fewer entries
+// than k: the select keeps every key above 0).
+struct RadixState {
+  unsigned prefix;
+  unsigned mask;
+  int k_rem;
+  int done;
+};
+
+// Entries [begin, end) of a select/histogram block: whole batches of
+// kSelectBatch, gridDim.x blocks over a query's n entries.
+__device__ __forceinline__ void block_range(int n, int* begin, int* end) {
+  const int batches = (n + kSelectBatch - 1) / kSelectBatch;
+  const int per = (batches + gridDim.x - 1) / gridDim.x * kSelectBatch;
+  *begin = min(n, (int)blockIdx.x * per);
+  *end = min(n, *begin + per);
+}
+
+__device__ __forceinline__ int query_entries(int n_valid, const int* list_len, int q) {
+  return list_len != nullptr ? list_len[q / kLargeQT] : n_valid;
+}
+
+// Pass p's histogram of query blockIdx.y's keys that carry its prefix, by
+// the digit (radix_bits(p) bits from radix_shift(p)), summed into
+// hist[query][bin].  Lanes of a warp that hit one bin add once.
+__global__ void __launch_bounds__(kThreads)
+topk_radix_hist_kernel(const unsigned* __restrict__ keys, int n_valid,
+                       const int* __restrict__ list_len, const RadixState* __restrict__ state,
+                       int pass, unsigned* __restrict__ hist) {
+  __shared__ unsigned h[kRadixBins];
+  const int tid = threadIdx.x;
+  const int qq = blockIdx.y;
+  unsigned prefix = 0u, mask = 0u;
+  if (pass > 0) {
+    const RadixState s = state[qq];
+    if (s.done) return;
+    prefix = s.prefix;
+    mask = s.mask;
+  }
+  const int shift = radix_shift(pass);
+  const unsigned bins = 1u << radix_bits(pass);
+  for (int i = tid; i < (int)bins; i += kThreads) h[i] = 0u;
+  __syncthreads();
+  int begin, end;
+  block_range(query_entries(n_valid, list_len, qq), &begin, &end);
+  const unsigned* kq = keys + (size_t)qq * n_valid;
+  const int lane = tid & 31;
+  for (int base = begin; base < end; base += kThreads) {   // block-uniform
+    const int e = base + tid;
+    const unsigned key = e < end ? kq[e] : 0u;
+    const bool take = e < end && (key & mask) == prefix;
+    const unsigned d = (key >> shift) & (bins - 1u);
+    const unsigned peers = __match_any_sync(kFull, take ? d : 0xffffffffu);
+    if (take && lane == __ffs(peers) - 1) atomicAdd(&h[d], (unsigned)__popc(peers));
+  }
+  __syncthreads();
+  for (int i = tid; i < (int)bins; i += kThreads)
+    if (h[i] != 0u) atomicAdd(&hist[(size_t)qq * kRadixBins + i], h[i]);
+}
+
+// One CTA per query: the bin of pass p that holds the query's k_rem-th
+// key from the top, its digit appended to the prefix and the entries of
+// the bins above it taken off k_rem; the histogram zeroed for the next
+// pass.  Pass 0 starts from k and, with fewer than k entries, ends the
+// select (`done`).
+__global__ void __launch_bounds__(kThreads)
+topk_radix_pick_kernel(int n_valid, const int* __restrict__ list_len, int k, int pass,
+                       RadixState* __restrict__ state, unsigned* __restrict__ hist) {
+  __shared__ unsigned warp_sum[kWarps];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int qq = blockIdx.x;
+  RadixState s = pass == 0 ? RadixState{0u, 0u, k, 0} : state[qq];
+  if (s.done) return;
+  const int bins = 1 << radix_bits(pass);
+  const int per = bins / kThreads;     // thread t owns bins top - t*per down
+  unsigned* hq = hist + (size_t)qq * kRadixBins;
+  const int top = bins - 1 - tid * per;
+  unsigned c[kRadixBins / kThreads];
+  unsigned mine = 0u;
+  for (int j = 0; j < per; ++j) {
+    c[j] = hq[top - j];
+    mine += c[j];
+  }
+  // exclusive scan over threads (thread 0 holds the highest bins)
+  unsigned incl = mine;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const unsigned y = __shfl_up_sync(kFull, incl, o);
+    if (lane >= o) incl += y;
+  }
+  if (lane == 31) warp_sum[warp] = incl;
+  __syncthreads();
+  unsigned above = incl - mine, total = 0u;
+  for (int w = 0; w < kWarps; ++w) {
+    above += w < warp ? warp_sum[w] : 0u;
+    total += warp_sum[w];
+  }
+  for (int j = 0; j < per; ++j) hq[top - j] = 0u;
+  if (pass == 0 && total < (unsigned)k) {   // fewer entries than k: all live ones
+    if (tid == 0) state[qq] = RadixState{0u, 0u, 0, 1};
+    return;
+  }
+  const unsigned want = (unsigned)s.k_rem;
+  for (int j = 0; j < per; ++j) {
+    if (above < want && above + c[j] >= want) {
+      const unsigned d = (unsigned)(top - j);
+      state[qq] = RadixState{s.prefix | (d << radix_shift(pass)),
+                             s.mask | ((unsigned)(bins - 1) << radix_shift(pass)),
+                             (int)(want - above), 0};
+    }
+    above += c[j];
+  }
+}
+
+// The selected threshold of a query: keys above T are all taken; of the
+// keys equal to T (never the dead key 0), the first `ties` in entry order.
+__device__ __forceinline__ void select_rule(const RadixState& s, unsigned* T, int* ties) {
+  *T = s.done ? 0u : s.prefix;
+  *ties = (s.done || s.prefix == 0u) ? 0 : s.k_rem;
+}
+
+// Per (block, query): the block's entries above T and equal to T.
+__global__ void __launch_bounds__(kThreads)
+topk_select_count_kernel(const unsigned* __restrict__ keys, int n_valid,
+                         const int* __restrict__ list_len, const RadixState* __restrict__ state,
+                         int* __restrict__ counts) {
+  __shared__ int warp_sum[kWarps], warp_tie[kWarps];
+  const int tid = threadIdx.x;
+  const int qq = blockIdx.y;
+  unsigned T;
+  int ties;
+  select_rule(state[qq], &T, &ties);
+  int begin, end;
+  block_range(query_entries(n_valid, list_len, qq), &begin, &end);
+  const unsigned* kq = keys + (size_t)qq * n_valid;
+  int above = 0, tie = 0;
+  for (int e = begin + tid; e < end; e += kThreads) {
+    const unsigned key = kq[e];
+    above += key > T ? 1 : 0;
+    tie += ties > 0 && key == T ? 1 : 0;
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    above += __shfl_xor_sync(kFull, above, o);
+    tie += __shfl_xor_sync(kFull, tie, o);
+  }
+  if ((tid & 31) == 0) {
+    warp_sum[tid >> 5] = above;
+    warp_tie[tid >> 5] = tie;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    int a = 0, t = 0;
+    for (int w = 0; w < kWarps; ++w) {
+      a += warp_sum[w];
+      t += warp_tie[w];
+    }
+    counts[((size_t)qq * gridDim.x + blockIdx.x) * 2] = a;
+    counts[((size_t)qq * gridDim.x + blockIdx.x) * 2 + 1] = t;
+  }
+}
+
+// Per (block, query): the block's entries above T at their place after
+// the blocks before it (in entry order), then its ties after every
+// block's entries above T, as far as the ties taken.  Each thread tests 4
+// consecutive entries of a batch; a block-wide exclusive scan of its
+// (above, tie) counts, packed 16:16, places them.  `rows` (masked) maps an
+// entry of the query's tile list to its row.  Block 0 writes the query's
+// survivor count.
+__global__ void __launch_bounds__(kThreads)
+topk_select_write_kernel(const unsigned* __restrict__ keys, int n_valid,
+                         const int* __restrict__ list_len, const int* __restrict__ list,
+                         const RadixState* __restrict__ state, const int* __restrict__ counts,
+                         int stride, unsigned long long* __restrict__ out,
+                         int* __restrict__ n_out) {
+  __shared__ int warp_sum[kWarps];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int qq = blockIdx.y;
+  unsigned T;
+  int ties;
+  select_rule(state[qq], &T, &ties);
+  const int* cq = counts + (size_t)qq * gridDim.x * 2;
+  // the entries above T and the ties of the blocks before this one, and of all
+  int a_before = 0, t_before = 0, a_total = 0, t_total = 0;
+  for (int b = 0; b < (int)gridDim.x; ++b) {
+    const int a = cq[2 * b], t = cq[2 * b + 1];
+    a_total += a;
+    t_total += t;
+    if (b < (int)blockIdx.x) {
+      a_before += a;
+      t_before += t;
+    }
+  }
+  if (blockIdx.x == 0 && tid == 0) n_out[qq] = a_total + min(t_total, ties);
+  if (t_before >= ties) ties = 0;   // none of this block's ties is taken
+  int begin, end;
+  block_range(query_entries(n_valid, list_len, qq), &begin, &end);
+  const unsigned* kq = keys + (size_t)qq * n_valid;
+  const int* rows = list != nullptr ? list + (size_t)(qq / kLargeQT) * n_valid : nullptr;
+  unsigned long long* oq = out + (size_t)qq * stride;
+  for (int base = begin; base < end; base += kSelectBatch) {
+    const int e0 = base + 4 * tid;
+    unsigned k4[4];
+    unsigned above_bits = 0u, tie_bits = 0u;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      k4[i] = e0 + i < end ? kq[e0 + i] : 0u;
+      if (e0 + i < end && k4[i] > T) above_bits |= 1u << i;
+      else if (e0 + i < end && ties > 0 && k4[i] == T) tie_bits |= 1u << i;
+    }
+    const int c = (__popc(above_bits) << 16) | __popc(tie_bits);
+    int incl = c;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(kFull, incl, o);
+      if (lane >= o) incl += y;
+    }
+    if (lane == 31) warp_sum[warp] = incl;
+    __syncthreads();
+    int at = incl - c, sum = 0;
+    for (int w = 0; w < kWarps; ++w) {
+      at += w < warp ? warp_sum[w] : 0;
+      sum += warp_sum[w];
+    }
+    int a_at = a_before + (at >> 16), t_at = t_before + (at & 0xffff);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = rows != nullptr ? (e0 + i < end ? rows[e0 + i] : 0) : e0 + i;
+      if (above_bits & (1u << i)) oq[a_at++] = sort_key(k4[i], row);
+      if (tie_bits & (1u << i)) {
+        if (t_at < ties) oq[a_total + t_at] = sort_key(k4[i], row);
+        ++t_at;
+      }
+    }
+    a_before += sum >> 16;
+    t_before += sum & 0xffff;
+    __syncthreads();   // warp_sum is rewritten next batch
+  }
+}
+
+// Each CTA sorts run blockIdx.x (kSortRun keys) of query blockIdx.y's
+// n_q survivors ascending, in place: a bitonic sort in shared memory,
+// padded with the largest key (no survivor's: its score key is not 0).
+__global__ void __launch_bounds__(kSortThreads)
+topk_sort_runs_kernel(unsigned long long* __restrict__ buf, int stride,
+                      const int* __restrict__ n_out) {
+  __shared__ unsigned long long s[kSortRun];
+  const int qq = blockIdx.y;
+  const int n = n_out[qq];
+  const int r0 = blockIdx.x * kSortRun;
+  if (r0 >= n) return;
+  unsigned long long* bq = buf + (size_t)qq * stride + r0;
+  const int len = min(kSortRun, n - r0);
+  for (int i = threadIdx.x; i < kSortRun; i += kSortThreads)
+    s[i] = i < len ? bq[i] : ~0ull;
+  __syncthreads();
+  for (int size = 2; size <= kSortRun; size <<= 1) {
+    for (int stride_ = size >> 1; stride_ > 0; stride_ >>= 1) {
+      for (int i = threadIdx.x; i < kSortRun / 2; i += kSortThreads) {
+        const int lo = 2 * stride_ * (i / stride_) + i % stride_;
+        const int hi = lo + stride_;
+        const bool asc = (lo & size) == 0;
+        const unsigned long long a = s[lo], b = s[hi];
+        if ((a > b) == asc) {
+          s[lo] = b;
+          s[hi] = a;
+        }
+      }
+      __syncthreads();
+    }
+  }
+  for (int i = threadIdx.x; i < len; i += kSortThreads) bq[i] = s[i];
+}
+
+// One merge round of sorted runs of `run` keys: key e of src goes to its
+// place in the merged pair, its index in its run plus the count of the
+// partner run's keys below it (keys are distinct), in dst.
+__global__ void __launch_bounds__(kThreads)
+topk_merge_runs_kernel(const unsigned long long* __restrict__ src,
+                       unsigned long long* __restrict__ dst, int stride, int run,
+                       const int* __restrict__ n_out) {
+  const int qq = blockIdx.y;
+  const int n = n_out[qq];
+  const int e = blockIdx.x * kThreads + threadIdx.x;
+  if (e >= n) return;
+  const unsigned long long* sq = src + (size_t)qq * stride;
+  const unsigned long long key = sq[e];
+  const int r = e / run;
+  const int pair0 = (r & ~1) * run;
+  const int p_lo = (r ^ 1) * run;
+  const int p_hi = min(n, p_lo + run);
+  int lo = p_lo, hi = max(p_lo, p_hi);   // first partner key not below `key`
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (sq[mid] < key) lo = mid + 1;
+    else hi = mid;
+  }
+  dst[(size_t)qq * stride + pair0 + (e - r * run) + (lo - p_lo)] = key;
+}
+
+// The outputs of a query chunk: (score, row) of its sorted survivors, then
+// (NEG_INF, -1) up to k.
+__global__ void __launch_bounds__(kThreads)
+topk_emit_kernel(const unsigned long long* __restrict__ sorted, int stride,
+                 const int* __restrict__ n_out, int k, float* __restrict__ out_s,
+                 int* __restrict__ out_i) {
+  const int qq = blockIdx.y;
+  const int e = blockIdx.x * kThreads + threadIdx.x;
+  if (e >= k) return;
+  const size_t o = (size_t)qq * k + e;
+  if (e < n_out[qq]) {
+    const unsigned long long key = sorted[(size_t)qq * stride + e];
+    out_s[o] = key_score(~(unsigned)(key >> 32));
+    out_i[o] = (int)(unsigned)(key & 0xffffffffull);
+  } else {
+    out_s[o] = kNegInf;
+    out_i[o] = -1;
+  }
+}
+
+template <bool kMasked, bool kQuant>
+const void* score_instance() {
+  return reinterpret_cast<const void*>(topk_score_kernel<kMasked, kQuant>);
+}
+
+const void* score_kernel(bool masked, bool quant) {
+  if (masked) return quant ? score_instance<true, true>() : score_instance<true, false>();
+  return quant ? score_instance<false, true>() : score_instance<false, false>();
+}
+
+// The large-k workspace of a query chunk, carved in this order (8-byte
+// aligned): the keys, the histograms, the radix states, the select counts,
+// the survivor counts, (masked) the tiles' compacted lists with their
+// block counts and lengths, then the two sort buffers.
+struct LargeWorkspace {
+  unsigned* keys;
+  unsigned* hist;
+  RadixState* state;
+  int* counts;
+  int* n_out;
+  int* list;
+  int* list_counts;
+  int* list_len;
+  unsigned long long* sort_a;
+  unsigned long long* sort_b;
+  int blocks;   // select/histogram blocks a query
+  size_t bytes;
+};
+
+int select_blocks(int qc, int n_valid, int sms) {
+  const int want = (kBlocksPerSm * sms + qc - 1) / qc;
+  const int most = max(1, (n_valid + kSelectBatch - 1) / kSelectBatch);
+  return max(1, min(want, most));
+}
+
+LargeWorkspace carve_large(void* base, int qc, int n_valid, int k, bool masked, int sms) {
+  LargeWorkspace w{};
+  size_t at = 0;
+  auto take = [&](size_t bytes) {
+    void* p = base == nullptr ? nullptr : static_cast<unsigned char*>(base) + at;
+    at += (bytes + 15) / 16 * 16;
+    return p;
+  };
+  const int stride = min(k, n_valid);
+  const int tiles = (qc + kLargeQT - 1) / kLargeQT;
+  w.keys = static_cast<unsigned*>(take(sizeof(unsigned) * (size_t)qc * n_valid));
+  w.hist = static_cast<unsigned*>(take(sizeof(unsigned) * (size_t)qc * kRadixBins));
+  w.state = static_cast<RadixState*>(take(sizeof(RadixState) * (size_t)qc));
+  w.blocks = select_blocks(qc, n_valid, sms);
+  w.counts = static_cast<int*>(take(sizeof(int) * 2 * (size_t)qc * w.blocks));
+  w.n_out = static_cast<int*>(take(sizeof(int) * (size_t)qc));
+  if (masked) {
+    w.list = static_cast<int*>(take(sizeof(int) * (size_t)tiles * n_valid));
+    w.list_counts = static_cast<int*>(take(sizeof(int) * (size_t)tiles * compact_blocks(n_valid)));
+    w.list_len = static_cast<int*>(take(sizeof(int) * (size_t)tiles));
+  }
+  w.sort_a = static_cast<unsigned long long*>(take(sizeof(unsigned long long) * (size_t)qc * stride));
+  w.sort_b = static_cast<unsigned long long*>(take(sizeof(unsigned long long) * (size_t)qc * stride));
+  w.bytes = at;
+  return w;
+}
+
+// Raise the score instances' shared-memory ceilings, once per device.
+cudaError_t raise_score_ceilings() {
+  static int done_device = -1;
+  int device;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess || device == done_device) return err;
+  for (int m = 0; m < 2; ++m)
+    for (int qn = 0; qn < 2; ++qn)
+      if ((err = cudaFuncSetAttribute(score_kernel(m, qn),
+                                      cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                      kSmemMax)) != cudaSuccess)
+        return err;
+  done_device = device;
+  return cudaSuccess;
+}
+
+// Every pass of the large-k path for queries [0, qc) of the pointers given
+// (a chunk of the call's queries), on stream st.
+cudaError_t large_chunk(const float* q, const void* bank, const float* scales,
+                        const int* q_ns, const int* bank_ns, int qc, int D, int n_valid, int k,
+                        bool masked, bool quant, const LargeWorkspace& w, int sms,
+                        float* out_s, int* out_i, cudaStream_t st) {
+  cudaError_t err;
+  const int stride = min(k, n_valid);
+  const dim3 emit_grid((k + kThreads - 1) / kThreads, qc);
+  if (n_valid == 0) {   // nothing live: every slot is the fill
+    if ((err = cudaMemsetAsync(w.n_out, 0, sizeof(int) * qc, st)) != cudaSuccess) return err;
+    topk_emit_kernel<<<emit_grid, kThreads, 0, st>>>(w.sort_a, 1, w.n_out, k, out_s, out_i);
+    return cudaGetLastError();
+  }
+  const int tiles = (qc + kLargeQT - 1) / kLargeQT;
+  if (masked) {
+    const dim3 cgrid(compact_blocks(n_valid), tiles);
+    topk_count_kernel<<<cgrid, kThreads, 0, st>>>(q_ns, bank_ns, qc, n_valid, kLargeQT,
+                                                  w.list_counts);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    topk_compact_kernel<<<cgrid, kThreads, 0, st>>>(q_ns, bank_ns, qc, n_valid, kLargeQT,
+                                                    w.list_counts, w.list, n_valid, w.list_len);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  // the score pass: as many CTAs as fit on the card at once
+  const bool resident = score_smem_bytes(quant, D, true, masked) <= (size_t)kSmemMax;
+  const size_t smem = score_smem_bytes(quant, D, resident, masked);
+  const void* score = score_kernel(masked, quant);
+  int per_sm = 0;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, score, kThreads, smem)) !=
+      cudaSuccess)
+    return err;
+  const int n_tiles = (n_valid + kTileRows - 1) / kTileRows;
+  int n_chunks = (max(1, per_sm) * sms + tiles - 1) / tiles;
+  n_chunks = max(1, min(n_chunks, n_tiles));
+  const uintptr_t qa = reinterpret_cast<uintptr_t>(q);
+  const uintptr_t ba = reinterpret_cast<uintptr_t>(bank);
+  bool vec = quant ? (D % 16 == 0 && ba % 16 == 0) : (D % 4 == 0 && ba % 16 == 0);
+  bool qvec = D % 4 == 0 && qa % 16 == 0;
+  int list_stride = n_valid;
+  bool res = resident;
+  void* args[] = {(void*)&q,      (void*)&bank,     (void*)&scales, (void*)&q_ns,
+                  (void*)&bank_ns, (void*)&w.list,  (void*)&w.list_len, (void*)&list_stride,
+                  (void*)&qc,     (void*)&D,        (void*)&n_valid, (void*)&n_chunks,
+                  (void*)&res,    (void*)&vec,      (void*)&qvec,   (void*)&w.keys};
+  if ((err = cudaLaunchKernel(score, dim3(n_chunks, tiles), dim3(kThreads), args, smem, st)) !=
+      cudaSuccess)
+    return err;
+  // the radix select
+  const dim3 grid(w.blocks, qc);
+  const int* list_len = masked ? w.list_len : nullptr;
+  if ((err = cudaMemsetAsync(w.hist, 0, sizeof(unsigned) * (size_t)qc * kRadixBins, st)) !=
+      cudaSuccess)
+    return err;
+  for (int pass = 0; pass < kRadixPasses; ++pass) {
+    topk_radix_hist_kernel<<<grid, kThreads, 0, st>>>(w.keys, n_valid, list_len, w.state, pass,
+                                                      w.hist);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    topk_radix_pick_kernel<<<qc, kThreads, 0, st>>>(n_valid, list_len, k, pass, w.state, w.hist);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  topk_select_count_kernel<<<grid, kThreads, 0, st>>>(w.keys, n_valid, list_len, w.state,
+                                                      w.counts);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  topk_select_write_kernel<<<grid, kThreads, 0, st>>>(w.keys, n_valid, list_len,
+                                                      masked ? w.list : nullptr, w.state,
+                                                      w.counts, stride, w.sort_a, w.n_out);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  // the sort: runs in shared memory, then merge rounds
+  const int runs = (stride + kSortRun - 1) / kSortRun;
+  topk_sort_runs_kernel<<<dim3(runs, qc), kSortThreads, 0, st>>>(w.sort_a, stride, w.n_out);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  unsigned long long* src = w.sort_a;
+  unsigned long long* dst = w.sort_b;
+  for (int run = kSortRun; run < stride; run *= 2) {
+    topk_merge_runs_kernel<<<dim3((stride + kThreads - 1) / kThreads, qc), kThreads, 0, st>>>(
+        src, dst, stride, run, w.n_out);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    unsigned long long* t = src;
+    src = dst;
+    dst = t;
+  }
+  topk_emit_kernel<<<emit_grid, kThreads, 0, st>>>(src, stride, w.n_out, k, out_s, out_i);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -1138,6 +1832,40 @@ int topk_mips_launch(const float* q, const void* bank, const float* scales,
   topk_merge_lists_kernel<<<Q, kThreads, merge_lists_smem_bytes(k), st>>>(
       part_s, part_r, k, n_chunks, out_s, out_i, nullptr, nullptr, 1);
   return (int)cudaGetLastError();
+}
+
+// The large-k path's workspace (bytes) for chunks of `qc` queries on a
+// card of `sms` SMs.
+size_t topk_mips_large_workspace_bytes(int qc, int n_valid, int k, int masked, int sms) {
+  return carve_large(nullptr, qc, n_valid, k, masked != 0, sms).bytes;
+}
+
+// Launch the large-k path (k > kScanMaxK) on `stream`, chunk by chunk of
+// `qc` queries through one workspace of topk_mips_large_workspace_bytes(qc,
+// ...) bytes, with no read back to the host.  Operands as topk_mips_launch;
+// out_s/out_i hold Q * k entries.  Returns the CUDA error code (0 on
+// success).
+int topk_mips_large_launch(const float* q, const void* bank, const float* scales,
+                           const int* q_ns, const int* bank_ns, int Q, int D, int n_valid,
+                           int k, int masked, int quant, int qc, int sms, void* workspace,
+                           float* out_s, int* out_i, void* stream) {
+  if (Q < 0 || D < 0 || n_valid < 0 || k <= kScanMaxK || qc < 1 || sms < 1 ||
+      workspace == nullptr || (masked && (q_ns == nullptr || bank_ns == nullptr)) ||
+      (quant && scales == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (Q == 0) return 0;
+  cudaError_t err;
+  if ((err = raise_score_ceilings()) != cudaSuccess) return (int)err;
+  const LargeWorkspace w = carve_large(workspace, qc, n_valid, k, masked != 0, sms);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  for (int c0 = 0; c0 < Q; c0 += qc) {
+    if ((err = large_chunk(q + (size_t)c0 * D, bank, scales, masked ? q_ns + c0 : nullptr,
+                           bank_ns, min(qc, Q - c0), D, n_valid, k, masked != 0, quant != 0, w,
+                           sms, out_s + (size_t)c0 * k, out_i + (size_t)c0 * k, st)) !=
+        cudaSuccess)
+      return (int)err;
+  }
+  return 0;
 }
 
 }  // extern "C"

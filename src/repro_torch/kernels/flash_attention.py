@@ -5,7 +5,7 @@ src/repro/kernels/flash_attention.py `_kernel` (pallas_call :93) with the
 hand-written CUDA kernel `csrc/flash_attention.cu`:
 
   flash_attention(q, k, v, *, causal=True, window=0, scale=None,
-                  prefix_len=None)
+                  prefix_len=None, q_offset=None, kv_offset=None)
       q (B, K, G, S, D), k and v (B, K, T, D), f32 or bf16 -> (B, K, G, S, D)
 
 For query position s and key t of the same (b, kv-head): score =
@@ -13,9 +13,14 @@ For query position s and key t of the same (b, kv-head): score =
 t < prefix_len: the prefix-LM mask of an image prefix, a scalar or a (B,)
 int32 tensor of per-row prefixes) and t > s - window when window > 0;
 output = softmax over the allowed keys . v, in q's dtype.  Positions count
-from 0 on both sides, so prefill of a whole prompt, the encoder's
-bidirectional pass and cross-attention (bidirectional, S != T) are exactly
-this function.
+from 0 on both sides unless the call gives per-row offsets (`q_offset`,
+`kv_offset`: an int or a (B,) int tensor each, read on the device): row
+b's queries then sit at q_offset[b] + s and its keys at kv_offset[b] + t,
+and the mask compares those absolute positions as the reference's
+`_allowed` does (causal kv <= q, window kv > q - window, prefix kv <
+prefix_len, and a key below position 0 masked).  So prefill of a whole
+prompt or of a window of it, the encoder's bidirectional pass and
+cross-attention (bidirectional, S != T) are exactly this function.
 
 What bounds it on an H100: operations, 4·K·G·D·S·T flops (halved when
 causal) — in plain FP32 25.8 GFLOP, 0.39 ms at 67 TFLOP/s, for the
@@ -54,7 +59,8 @@ folds back to (B, S, H, D) without a copy.
 A CPU tensor runs the plain PyTorch version (`flash_attention_ref`, the
 reference's oracle `ref.flash_attention_ref`); a CUDA tensor launches the
 kernel or the call raises.  `flash_attention.launches` counts launches
-(`prefix_launches` those with a prefix, `absorbed_launches` those of the
+(`prefix_launches` those with a prefix, `offset_launches` those with
+position offsets, `absorbed_launches` those of the
 D = 576 instance that MLA's absorbed form runs, `tc_launches` those of the
 bf16 tensor-core instances),
 and `flash_attention.rows_per_cta` holds the query rows per CTA of the
@@ -91,7 +97,8 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _prefix_rows(prefix_len, B: int, device):
-    """A prefix length as a (B, 1, 1) long tensor (0: no prefix)."""
+    """A prefix length (or a position offset) as a (B, 1, 1) long tensor
+    (None: 0)."""
     if prefix_len is None:
         prefix_len = 0
     if isinstance(prefix_len, torch.Tensor):
@@ -99,25 +106,38 @@ def _prefix_rows(prefix_len, B: int, device):
     return torch.full((B, 1, 1), int(prefix_len), device=device)
 
 
+def _allowed(B: int, q_rows, k_rows, *, causal: bool, window: int,
+             prefix_len, q_offset, kv_offset, device):
+    """(B, len(q_rows), len(k_rows)) mask of query rows `q_rows` against
+    keys `k_rows` (1-D long tensors of positions before the offsets), on
+    absolute positions as the module docstring sets out."""
+    q_pos = q_rows[None, :, None] + _prefix_rows(q_offset, B, device)
+    k_pos = k_rows[None, None, :] + _prefix_rows(kv_offset, B, device)
+    ok = (k_pos >= 0).expand(B, q_rows.shape[0], k_rows.shape[0])
+    if causal:
+        ok = ok & ((k_pos <= q_pos)
+                   | (k_pos < _prefix_rows(prefix_len, B, device)))
+    if window > 0:
+        ok = ok & (k_pos > q_pos - window)
+    return ok
+
+
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
-                        scale=None, prefix_len=None):
+                        scale=None, prefix_len=None, q_offset=None,
+                        kv_offset=None):
     """Plain version: (B,K,G,S,D) x (B,K,T,D) -> (B,K,G,S,D) by one masked
     softmax over f32 scores.  A query with no allowed key (only possible
-    with a window and S > T) outputs 0, as the kernel does: masked keys get
-    exactly zero weight (the reference oracle's NEG_INF fill would average
-    them instead)."""
+    with a window and S > T, or with offsets) outputs 0, as the kernel
+    does: masked keys get exactly zero weight (the reference oracle's
+    NEG_INF fill would average them instead)."""
     B, K, G, S, D = q.shape
     T = k.shape[2]
     scale = scale if scale is not None else D ** -0.5
     s = torch.einsum("bkgsd,bktd->bkgst", q.float(), k.float()) * scale
-    q_pos = torch.arange(S, device=q.device)[None, :, None]
-    k_pos = torch.arange(T, device=q.device)[None, None, :]
-    ok = torch.ones((B, S, T), dtype=torch.bool, device=q.device)
-    if causal:
-        ok = ok & ((k_pos <= q_pos)
-                   | (k_pos < _prefix_rows(prefix_len, B, q.device)))
-    if window > 0:
-        ok = ok & (k_pos > q_pos - window)
+    ok = _allowed(B, torch.arange(S, device=q.device),
+                  torch.arange(T, device=q.device), causal=causal,
+                  window=window, prefix_len=prefix_len, q_offset=q_offset,
+                  kv_offset=kv_offset, device=q.device)
     ok = ok[:, None, None]                              # (B, 1, 1, S, T)
     s = torch.where(ok, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1) * ok.any(-1, keepdim=True)
@@ -261,8 +281,8 @@ def _library():
     lib = load("flash_attention")
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.flash_attention_launch.argtypes = [i, p, p, p, p, i, i, i, i, i, i,
-                                           ctypes.c_float, i, i, i, p, i, p,
-                                           p, ctypes.POINTER(i)]
+                                           ctypes.c_float, i, i, i, p, p, i,
+                                           p, p, ctypes.POINTER(i)]
     lib.flash_attention_launch.restype = i
     lib.flash_attention_max_head_dim.restype = i
     lib.flash_attention_occupancy.argtypes = [i, i, i, ctypes.POINTER(i),
@@ -286,7 +306,29 @@ def occupancy(dtype, D: int, narrow: bool):
     return ctas.value, smem.value
 
 
-def _launch(q, k, v, causal: bool, window: int, scale: float, prefix_len):
+def _offset_rows(q_offset, kv_offset, B: int, device):
+    """The kernel's (2, B) int32 offsets (queries, then keys) of a call,
+    made on the device without a read back; None when neither is a tensor
+    or a nonzero int (the instances that take no offsets run then)."""
+    if not any(isinstance(off, torch.Tensor) or off
+               for off in (q_offset, kv_offset)):
+        return None
+    rows = []
+    for off in (q_offset, kv_offset):
+        if isinstance(off, torch.Tensor):
+            if off.device != device or off.shape != (B,):
+                raise ValueError(f"a position offset must be a ({B},) "
+                                 f"tensor on {device}, got "
+                                 f"{tuple(off.shape)} on {off.device}")
+            rows.append(off.to(torch.int32))
+        else:
+            rows.append(torch.full((B,), int(off or 0), dtype=torch.int32,
+                                   device=device))
+    return torch.stack(rows).contiguous()
+
+
+def _launch(q, k, v, causal: bool, window: int, scale: float, prefix_len,
+            q_offset=None, kv_offset=None):
     device = q.device
     if q.dtype not in DTYPES:
         raise TypeError(f"flash_attention takes f32 or bf16, got {q.dtype}")
@@ -317,6 +359,7 @@ def _launch(q, k, v, causal: bool, window: int, scale: float, prefix_len):
         prefix_int = int(prefix_len)
         if prefix_int < 0:
             raise ValueError(f"prefix_len={prefix_int} < 0")
+    offsets = _offset_rows(q_offset, kv_offset, B, device)
     out = torch.empty((B, S, K, G, D), dtype=q.dtype,
                       device=device).permute(0, 2, 3, 1, 4)
     if out.numel() == 0:
@@ -329,7 +372,8 @@ def _launch(q, k, v, causal: bool, window: int, scale: float, prefix_len):
     rc = _library().flash_attention_launch(
         DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), B, K, G, S, T, D, float(scale), int(bool(causal)),
-        int(window), prefix_int, prefix_rows, int(vec), strides,
+        int(window), prefix_int, prefix_rows,
+        None if offsets is None else offsets.data_ptr(), int(vec), strides,
         ctypes.c_void_p(stream), ctypes.byref(rows))
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
@@ -337,6 +381,8 @@ def _launch(q, k, v, causal: bool, window: int, scale: float, prefix_len):
     count_launch(flash_attention)
     if prefix_rows is not None or prefix_int > 0:
         count_launch(prefix_launches)
+    if offsets is not None:
+        count_launch(offset_launches)
     if D > 256:
         count_launch(absorbed_launches)
     if q.dtype == torch.bfloat16:
@@ -345,13 +391,16 @@ def _launch(q, k, v, causal: bool, window: int, scale: float, prefix_len):
     return out
 
 
-def _forward(q, k, v, causal: bool, window: int, scale: float, prefix_len):
+def _forward(q, k, v, causal: bool, window: int, scale: float, prefix_len,
+             q_offset=None, kv_offset=None):
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   scale=scale, prefix_len=prefix_len)
+                                   scale=scale, prefix_len=prefix_len,
+                                   q_offset=q_offset, kv_offset=kv_offset)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
-    return _launch(q, k, v, causal, window, scale, prefix_len)
+    return _launch(q, k, v, causal, window, scale, prefix_len, q_offset,
+                   kv_offset)
 
 
 # query rows of one block of the backward: its f32 (B, K, G, rows, T)
@@ -360,11 +409,14 @@ BWD_BLOCK = 256
 
 
 def flash_attention_bwd(q, k, v, out, dout, *, causal: bool, window: int,
-                        scale: float, prefix_len=None):
+                        scale: float, prefix_len=None, q_offset=None,
+                        kv_offset=None):
     """(dq, dk, dv) of `flash_attention` for the output gradient `dout`,
     by torch ops over query blocks of at most BWD_BLOCK rows (see the
     module docstring).  A block's keys are cut to the range its mask can
-    allow when the prefix is an int (or absent)."""
+    allow when the offsets are ints (or absent) or one tensor for both
+    sides (self-attention over a window: query and key frames agree), and
+    the causal cut also needs an int prefix (with tensor offsets, none)."""
     B, K, G, S, D = q.shape
     T = k.shape[2]
     f32 = torch.float32
@@ -372,13 +424,22 @@ def flash_attention_bwd(q, k, v, out, dout, *, causal: bool, window: int,
     dk = torch.zeros((B, K, T, D), dtype=f32, device=q.device)
     dv = torch.zeros((B, K, T, D), dtype=f32, device=q.device)
     dq = torch.empty((B, K, G, S, D), dtype=f32, device=q.device)
-    rows = _prefix_rows(prefix_len, B, q.device)
-    static_prefix = not isinstance(prefix_len, torch.Tensor)
+    static = not any(isinstance(a, torch.Tensor)
+                     for a in (q_offset, kv_offset))
+    # the shift between the frames is known on the host
+    framed = static or q_offset is kv_offset
+    static_prefix = (not isinstance(prefix_len, torch.Tensor)
+                     and (static or not prefix_len))
+    # in the keys' frame: query s sits at s + shift, the prefix ends at pend
+    shift = int(q_offset or 0) - int(kv_offset or 0) if static else 0
+    pend = (int(prefix_len or 0) - int(kv_offset or 0)
+            if static and static_prefix else 0)
     for s0 in range(0, S, BWD_BLOCK):
         s1 = min(S, s0 + BWD_BLOCK)
-        t0 = max(0, s0 - window + 1) if window > 0 else 0
-        t1 = (min(T, max(s1, int(prefix_len or 0)))
-              if causal and static_prefix else T)
+        t0 = (max(0, s0 + shift - window + 1)
+              if window > 0 and framed else 0)
+        t1 = (min(T, max(s1 + shift, pend))
+              if causal and framed and static_prefix else T)
         if t1 <= t0:             # no key allowed anywhere in the block
             dq[:, :, :, s0:s1] = 0.0
             continue
@@ -387,15 +448,11 @@ def flash_attention_bwd(q, k, v, out, dout, *, causal: bool, window: int,
         gb = dout[:, :, :, s0:s1].to(f32)
         kb, vb = kf[:, :, t0:t1], vf[:, :, t0:t1]
         s = torch.einsum("bkgsd,bktd->bkgst", qb, kb) * scale
-        q_pos = torch.arange(s0, s1, device=q.device)[None, :, None]
-        k_pos = torch.arange(t0, t1, device=q.device)[None, None, :]
-        ok = torch.ones((B, s1 - s0, t1 - t0), dtype=torch.bool,
-                        device=q.device)
-        if causal:
-            ok = ok & ((k_pos <= q_pos) | (k_pos < rows))
-        if window > 0:
-            ok = ok & (k_pos > q_pos - window)
-        ok = ok[:, None, None]
+        ok = _allowed(B, torch.arange(s0, s1, device=q.device),
+                      torch.arange(t0, t1, device=q.device), causal=causal,
+                      window=window, prefix_len=prefix_len,
+                      q_offset=q_offset, kv_offset=kv_offset,
+                      device=q.device)[:, None, None]
         s = torch.where(ok, s, torch.full_like(s, NEG_INF))
         p = torch.softmax(s, dim=-1) * ok.any(-1, keepdim=True)
         dsum = (gb * ob).sum(-1, keepdim=True)            # D = rowsum(dO*O)
@@ -413,24 +470,27 @@ class FlashAttentionFn(torch.autograd.Function):
     backward `flash_attention_bwd` (torch ops, see the module docstring)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, scale, prefix_len):
-        out = _forward(q, k, v, causal, window, scale, prefix_len)
+    def forward(ctx, q, k, v, causal, window, scale, prefix_len,
+                q_offset=None, kv_offset=None):
+        out = _forward(q, k, v, causal, window, scale, prefix_len, q_offset,
+                       kv_offset)
         ctx.save_for_backward(q, k, v, out)
-        ctx.mask = (causal, window, scale, prefix_len)
+        ctx.mask = (causal, window, scale, prefix_len, q_offset, kv_offset)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out = ctx.saved_tensors
-        causal, window, scale, prefix_len = ctx.mask
+        causal, window, scale, prefix_len, q_offset, kv_offset = ctx.mask
         dq, dk, dv = flash_attention_bwd(
             q, k, v, out, dout, causal=causal, window=window, scale=scale,
-            prefix_len=prefix_len)
-        return dq, dk, dv, None, None, None, None
+            prefix_len=prefix_len, q_offset=q_offset, kv_offset=kv_offset)
+        return dq, dk, dv, None, None, None, None, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    scale=None, prefix_len=None):
+                    scale=None, prefix_len=None, q_offset=None,
+                    kv_offset=None):
     """K6.  q (B, K, G, S, D), k and v (B, K, T, D), f32 or bf16 ->
     (B, K, G, S, D) in q's dtype (see the module docstring); through
     `FlashAttentionFn` when a gradient is wanted."""
@@ -438,13 +498,16 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return FlashAttentionFn.apply(q, k, v, causal, window, scale,
-                                      prefix_len)
-    return _forward(q, k, v, causal, window, scale, prefix_len)
+                                      prefix_len, q_offset, kv_offset)
+    return _forward(q, k, v, causal, window, scale, prefix_len, q_offset,
+                    kv_offset)
 
 
 flash_attention.launches = 0
 # launches with a prefix mask, counted besides flash_attention.launches
 prefix_launches = VariantCounter("flash_attention[prefix]")
+# launches with per-row position offsets, counted besides
+offset_launches = VariantCounter("flash_attention[offset]")
 # launches of the D = 576 instance (MLA's absorbed latent), counted besides
 absorbed_launches = VariantCounter("flash_attention[d576]")
 # launches of the bf16 (tensor-core) instances, counted besides

@@ -6,7 +6,8 @@ the reference's `repro/kernels/ops.py`:
   topk_mips_quant(queries, bank_i8, scales, k, *, n_valid)           K4
   topk_mips_quant_masked(queries, bank_i8, scales, q_ns, bank_ns, k,
                          *, n_valid)                                 K2
-  flash_attention(q, k, v, *, causal, window, scale)                 K6
+  flash_attention(q, k, v, *, causal, window, scale, prefix_len,
+                  q_offset, kv_offset)                               K6
   decode_attention(q, k, v, kv_len, *, scale, window)                K5
 
 A CPU tensor runs the kernel's plain PyTorch version; a CUDA tensor

@@ -24,12 +24,18 @@ so the kernels score in FP32 FMA.  Masked: only the rows a query tile's
 namespaces own, which a device-side label compaction lists ahead of the
 scan (`masked_work` counts the least work of a masked call).  All four
 run one design, the scan kernel over a split bank and a merge of the
-chunks' lists (the source explains it).  1 <= k <= MAX_K = 2048 on every
-device.
+chunks' lists (the source explains it), for k <= MAX_K = 2048 (the
+scan kernel keeps its lists in shared memory).  Past MAX_K the same four
+kernels run the large-k path of the same source: a score pass into a
+device workspace, an exact radix select of each query's k-th score, a
+compaction of the survivors and a sort, all hand-written (no library
+sort, select or product), in query chunks of at most LARGE_WORKSPACE
+bytes.  Every k >= 1 is answered on every device.
 
 Every wrapper dispatches by device: CPU tensors run its plain PyTorch
 version (`*_ref` below); CUDA tensors launch the kernel, or the call
-raises.  Each wrapper's `.launches` counts its kernel launches.
+raises.  Each wrapper's `.launches` counts its kernel launches, and
+`large_launches` those of them that ran the large-k path.
 """
 from __future__ import annotations
 
@@ -39,7 +45,7 @@ import functools
 import torch
 
 from repro_torch.common.utils import sm_count
-from repro_torch.kernels import count_launch
+from repro_torch.kernels import VariantCounter, count_launch
 
 NEG_INF = -2.0e38
 MAX_K = 2048         # the scan kernel's list length bound (kScanMaxK)
@@ -51,6 +57,8 @@ _ID_BUFS = 3
 SMEM_PER_BLOCK = 232448  # H100: dynamic shared memory one block can use
 _SMEM_PER_SM = 233472   # H100: 228 KB of shared memory per SM
 _SMEM_PER_CTA = 1024    # reserved by the system for each resident CTA
+LARGE_WORKSPACE = 512 << 20   # the large-k path's workspace aim (bytes)
+_LARGE_TILE = 64        # the large-k score pass's query tile
 
 
 # -- plain PyTorch versions ---------------------------------------------------
@@ -221,6 +229,18 @@ def plan_chunks(n_valid: int, Q: int, sms: int, k: int, masked: bool,
     return chunks, -(-tiles // chunks) * _TILE_ROWS
 
 
+def large_k_chunk(Q: int, n_valid: int, k: int) -> int:
+    """Queries of one chunk of the large-k path: as many as keep its
+    workspace -- a 4-byte key per (query, live row) and two 8-byte sort
+    keys per survivor (min(k, n_valid) a query) -- within LARGE_WORKSPACE;
+    whole 64-query tiles past 64, at least one query, at most Q."""
+    per_query = 4 * n_valid + 16 * min(k, n_valid)
+    qc = max(1, LARGE_WORKSPACE // max(1, per_query))
+    if qc >= _LARGE_TILE:
+        qc -= qc % _LARGE_TILE
+    return max(1, min(qc, Q))
+
+
 @functools.lru_cache(maxsize=None)
 def _library():
     """The built kernel library, with its C signatures set."""
@@ -238,6 +258,11 @@ def _library():
     lib.topk_mips_scan_tile.restype = i
     lib.topk_mips_occupancy.argtypes = [i, i, i, i, ctypes.POINTER(i)]
     lib.topk_mips_occupancy.restype = i
+    lib.topk_mips_large_workspace_bytes.argtypes = [i, i, i, i, i]
+    lib.topk_mips_large_workspace_bytes.restype = ctypes.c_size_t
+    lib.topk_mips_large_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
+                                           i, i, p, p, p, p]
+    lib.topk_mips_large_launch.restype = i
     for k in (1, 64, 256, 257, MAX_K):
         for quant in (False, True):
             for masked in (False, True):
@@ -302,6 +327,26 @@ def _launch(fn, queries, bank, scales, q_ns, bank_ns, k, n_valid):
     if Q == 0:
         return out_s, out_i
     lib = _library()
+    stream = ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+    def ptr(t):
+        return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+    if k > MAX_K:
+        sms = sm_count(device)
+        qc = large_k_chunk(Q, nv, k)
+        work = torch.empty((lib.topk_mips_large_workspace_bytes(
+            qc, nv, k, int(masked), sms),), dtype=torch.uint8, device=device)
+        rc = lib.topk_mips_large_launch(
+            ptr(queries), ptr(bank), ptr(scales), ptr(q_ns), ptr(bank_ns), Q,
+            D, nv, k, int(masked), int(quant), qc, sms, ptr(work), ptr(out_s),
+            ptr(out_i), stream)
+        if rc != 0:
+            raise RuntimeError(f"{name} large-k launch failed: CUDA error "
+                               f"{rc}")
+        count_launch(fn)
+        count_launch(large_launches)
+        return out_s, out_i
     n_chunks, _ = plan_chunks(nv, Q, sm_count(device), k, masked, quant, D)
     part = Q * n_chunks * k    # the chunk lists
     # part_r: the lists' rows, then the score floors and (masked) the
@@ -310,15 +355,10 @@ def _launch(fn, queries, bank, scales, q_ns, bank_ns, k, n_valid):
                                          int(quant), n_chunks)
     part_s = torch.empty((max(1, part),), dtype=torch.float32, device=device)
     part_r = torch.empty((scratch,), dtype=torch.int32, device=device)
-    stream = torch.cuda.current_stream(device).cuda_stream
-
-    def ptr(t):
-        return ctypes.c_void_p(None if t is None else t.data_ptr())
-
     rc = lib.topk_mips_launch(
         ptr(queries), ptr(bank), ptr(scales), ptr(q_ns), ptr(bank_ns), Q, D,
         nv, k, int(masked), int(quant), n_chunks, ptr(part_s), ptr(part_r), ptr(out_s), ptr(out_i),
-        ctypes.c_void_p(stream))
+        stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
     count_launch(fn)
@@ -326,9 +366,10 @@ def _launch(fn, queries, bank, scales, q_ns, bank_ns, k, n_valid):
 
 
 def _dispatch(fn, ref, queries, bank, scales, q_ns, bank_ns, k, n_valid):
-    """CPU tensors -> the plain version; CUDA tensors -> the kernel."""
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"{fn.__name__}: k={k} outside [1, MAX_K={MAX_K}]")
+    """CPU tensors -> the plain version; CUDA tensors -> the kernel (the
+    large-k path past MAX_K)."""
+    if k < 1:
+        raise ValueError(f"{fn.__name__}: k={k} < 1")
     device = queries.device
     if device.type == "cpu":
         return ref()
@@ -340,7 +381,7 @@ def _dispatch(fn, ref, queries, bank, scales, q_ns, bank_ns, k, n_valid):
 def topk_mips(queries, bank, k: int = 32, *, n_valid=None):
     """K3.  queries (Q, D) f32, bank (N, D) f32 -> (scores (Q, k) f32, ids
     (Q, k) i32).  `n_valid` (default N) bounds the live prefix of a
-    capacity-padded bank.  1 <= k <= MAX_K."""
+    capacity-padded bank.  Any k >= 1."""
     return _dispatch(topk_mips, lambda: topk_mips_ref(
         queries, bank, k=k, n_valid=n_valid), queries, bank, None, None,
         None, k, n_valid)
@@ -376,3 +417,5 @@ KERNELS = (topk_mips, topk_mips_masked, topk_mips_quant,
            topk_mips_quant_masked)
 for _fn in KERNELS:
     _fn.launches = 0
+# launches of the large-k path (k > MAX_K), counted besides the wrapper's
+large_launches = VariantCounter("topk_mips[large_k]")

@@ -87,8 +87,11 @@ def _sub_cache(cfg, mixer_kind, cache):
 
 def apply(params, cfg, x, kind, *, mode, positions, cache=None, cache_pos=None,
           mask_kind="causal", window=0, prefix_len=None, enc_out=None,
-          enc_positions=None, return_cache=False, use_rope=True):
-    """One residual block.  Returns (x, cache, aux)."""
+          enc_positions=None, return_cache=False, use_rope=True,
+          positions_offset=None, enc_positions_offset=None):
+    """One residual block.  Returns (x, cache, aux).  Train/prefill
+    positions (and enc_positions) are their offset + 0..S-1 per row
+    (`attention.apply`'s positions_offset; None: read from them)."""
     mixer_kind, ffn_kind = kind
     aux = None
     new_cache = {}
@@ -101,13 +104,13 @@ def apply(params, cfg, x, kind, *, mode, positions, cache=None, cache_pos=None,
                 params["attn"], cfg, h, positions=positions, mode=mode,
                 cache=sub_cache, cache_pos=cache_pos, window=window,
                 return_cache=return_cache, mask_kind=mask_kind,
-                prefix_len=prefix_len)
+                prefix_len=prefix_len, positions_offset=positions_offset)
         else:
             mixed, c = attention.apply(
                 params["attn"], cfg, h, positions=positions, mode=mode,
                 cache=sub_cache, cache_pos=cache_pos, mask_kind=mask_kind,
                 window=window, prefix_len=prefix_len, use_rope=use_rope,
-                return_cache=return_cache)
+                return_cache=return_cache, positions_offset=positions_offset)
     elif mixer_kind == "ssm":
         mixed, c = ssm.apply(params["ssm"], cfg, h, mode=mode,
                              cache=sub_cache, return_cache=return_cache)
@@ -140,7 +143,9 @@ def apply(params, cfg, x, kind, *, mode, positions, cache=None, cache_pos=None,
                 cross_out, cc = attention.apply(
                     params["cross_attn"], cfg, hc, positions=positions,
                     kv_x=enc_out, kv_positions=enc_positions, mode=mode,
-                    use_rope=False, return_cache=return_cache)
+                    use_rope=False, return_cache=return_cache,
+                    positions_offset=positions_offset,
+                    kv_positions_offset=enc_positions_offset)
                 if cc:
                     new_cache["cross_k"] = cc["k"]
                     new_cache["cross_v"] = cc["v"]

@@ -10,8 +10,9 @@ kernel's function:
 
   * train / prefill (causal, bidirectional or prefix-LM self-attention;
     cross-attention over an encoder's output, bidirectional with S != T),
-    with query and key positions 0..S-1 and 0..T-1 ->
-    `kernels.flash_attention` (K6);
+    with query and key positions o + 0..S-1 and o' + 0..T-1 per row (an
+    offset window of a sequence; `position_offsets`) ->
+    `kernels.flash_attention` (K6) with those per-row offsets;
   * decode against the full cache -> `kernels.decode_attention` (K5) with
     kv_len = cache_pos + 1; against the ring-buffer cache of a sliding
     window -> K5 with the cache's slot positions; against the int8 cache
@@ -78,30 +79,44 @@ def _grouped_q(q, K: int):
 
 
 def attend(q, k, v, *, kind: str = "causal", window: int = 0,
-           prefix_len=None, scale: Optional[float] = None):
+           prefix_len=None, scale: Optional[float] = None, q_offset=None,
+           kv_offset=None):
     """Attention over whole sequences whose query and key positions are
-    0..S-1 and 0..T-1.  q: (B,S,H,D), k/v: (B,T,K,D) -> (B,S,H,D).  kind
-    "causal", "bidir" or "prefix" (causal, and keys t < prefix_len seen by
-    every query; no prefix_len is plain causal, as the reference).  On
-    DTensors (a meshed step) K6 runs on each rank's shard (`_meshed`)."""
+    q_offset + 0..S-1 and kv_offset + 0..T-1 (per-row (B,) offsets, None:
+    0).  q: (B,S,H,D), k/v: (B,T,K,D) -> (B,S,H,D).  kind "causal", "bidir"
+    or "prefix" (causal, and keys at positions < prefix_len seen by every
+    query; no prefix_len is plain causal, as the reference).  On DTensors
+    (a meshed step) K6 runs on each rank's shard (`_meshed`)."""
     if kind not in ("causal", "bidir", "prefix"):
         raise ValueError(f"mask kind {kind!r}")
     if pt.is_dtensor(q):
-        # a per-row prefix (B,) is sharded with the rows
-        rows = (prefix_len,) if isinstance(prefix_len, torch.Tensor) else ()
-        kw = {} if rows else {"prefix_len": prefix_len}
+        # a per-row prefix (B,) and per-row offsets are sharded with the rows
+        tensor_prefix = isinstance(prefix_len, torch.Tensor)
+        rows = [prefix_len if tensor_prefix else None]
+        kw = {} if tensor_prefix else {"prefix_len": prefix_len}
+        offs = (q_offset, kv_offset)
+        row = next((o for o in offs if isinstance(o, torch.Tensor)), None)
+        if row is not None:
+            rows += [o if isinstance(o, torch.Tensor)
+                     else torch.full_like(row, int(o or 0)) for o in offs]
+        else:
+            kw.update(q_offset=q_offset, kv_offset=kv_offset)
+        rows = [] if rows == [None] else rows
         return _meshed(_attend_local, q, k, v, *rows, kind=kind,
                        window=window, scale=scale, **kw)
-    return _attend_local(q, k, v, kind=kind, window=window,
-                         prefix_len=prefix_len, scale=scale)
+    return _attend_local(q, k, v, None, q_offset, kv_offset, kind=kind,
+                         window=window, prefix_len=prefix_len, scale=scale)
 
 
-def _attend_local(q, k, v, prefix_len=None, *, kind, window, scale):
+def _attend_local(q, k, v, prefix_rows=None, q_offset=None, kv_offset=None,
+                  *, kind, window, scale, prefix_len=None):
     B, S, H, D = q.shape
+    prefix = prefix_rows if prefix_rows is not None else prefix_len
     out = flash_attention(_grouped_q(q, k.shape[2]), k.permute(0, 2, 1, 3),
                           v.permute(0, 2, 1, 3), causal=kind != "bidir",
                           window=window, scale=scale,
-                          prefix_len=prefix_len if kind == "prefix" else None)
+                          prefix_len=prefix if kind == "prefix" else None,
+                          q_offset=q_offset, kv_offset=kv_offset)
     # the kernel's output is (B, S, K, G, D) in memory: this is a view
     return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, D)
 
@@ -325,27 +340,45 @@ def _project_qkv(params, cfg, x, kv_x=None, *, use_rope=True, positions=None,
     return q, k, v
 
 
-def _check_positions(positions, S: int, what: str = "query") -> None:
-    """The kernels count positions from 0: the train/prefill path takes
-    positions equal to arange(S) per row on each side (the prompt, an image
-    prefix and its text, an encoder's frames).  Checked where it is cheap
-    (a CPU tensor with values: not the dry-run's fake ones); on the card the check would cost a device sync per
-    layer.  An offset window of positions raises."""
-    if positions.device.type == "cpu" and not is_fake(positions) and \
-            not torch.equal(positions.long(),
-                            torch.arange(S).expand_as(positions)):
-        raise NotImplementedError(
-            f"train/prefill {what} positions must be 0..S-1: the kernels "
-            "count from 0 (an offset query window is not served)")
+def position_offsets(positions, B: int, S: int, what: str = "query"):
+    """The per-row offsets (B,) int32 of train/prefill positions (B, S) (or
+    (1, S), for every row): each row must be its first position + 0..S-1 (a
+    prompt, a window of one, an image prefix and its text, an encoder's
+    frames).  Other positions raise NotImplementedError on the CPU and
+    fail `torch._assert_async` on the card (no read back).  The dry-run's
+    fake tensors are not checked.  A model derives them once a pass
+    (`transformer.decoder_apply`) or knows them where it makes the
+    positions, and hands them to each layer as `positions_offset`."""
+    off = positions[:, 0].to(torch.int32)
+    off = off.expand(B) if off.shape[0] == 1 and B > 1 else off
+    if not is_fake(positions):
+        rel = positions - positions[:, :1]
+        want = torch.arange(S, device=positions.device)
+        if positions.device.type == "cpu":
+            if not torch.equal(rel.long(), want.expand_as(rel)):
+                raise NotImplementedError(
+                    f"train/prefill {what} positions must be a row offset + "
+                    "0..S-1: the kernel masks a window of positions, not "
+                    "arbitrary ones")
+        else:
+            torch._assert_async((rel == want).all(),
+                                 f"train/prefill {what} positions must be a "
+                                 "row offset + 0..S-1")
+    return off
 
 
 def apply(params, cfg, x, *, positions, mode: str = "train",
           cache=None, cache_pos=None, mask_kind: str = "causal",
           window: int = 0, prefix_len=None, kv_x=None, kv_positions=None,
-          use_rope: bool = True, theta=None, return_cache: bool = False):
+          use_rope: bool = True, theta=None, return_cache: bool = False,
+          positions_offset=None, kv_positions_offset=None):
     """Unified attention entry point; returns (out (B,S,D), cache|None).
     In decode mode `cache` is updated in place and returned; cross decode
-    returns its cache untouched."""
+    returns its cache untouched.  Train/prefill: `positions_offset` (and
+    `kv_positions_offset` for `kv_positions`), an int or a (B,) tensor,
+    says that the positions are that offset + 0..S-1 per row, as the
+    caller that made them knows; None reads it from the positions
+    (`position_offsets`).  An int offset of 0 runs K6 without offsets."""
     B = x.shape[0]
     dt = x.dtype
     new_cache = None
@@ -354,14 +387,21 @@ def apply(params, cfg, x, *, positions, mode: str = "train",
 
     if mode in ("train", "prefill"):
         kv_pos = kv_positions if kv_positions is not None else positions
-        _check_positions(positions, x.shape[1])
-        if kv_x is not None:
-            _check_positions(kv_pos, kv_x.shape[1], "key")
+        q_off = (positions_offset if positions_offset is not None
+                 else position_offsets(positions, B, x.shape[1]))
+        if kv_positions is None:
+            kv_off = q_off
+        elif kv_positions_offset is not None:
+            kv_off = kv_positions_offset
+        else:
+            kv_off = position_offsets(
+                kv_pos, B, (x if kv_x is None else kv_x).shape[1], "key")
         q, k, v = _project_qkv(params, cfg, x, kv_x, use_rope=use_rope,
                                positions=positions, kv_positions=kv_pos,
                                theta=theta)
         out = attend(q, k, v, kind="bidir" if kv_x is not None else mask_kind,
-                     window=window, prefix_len=prefix_len)
+                     window=window, prefix_len=prefix_len,
+                     q_offset=q_off, kv_offset=kv_off)
         if return_cache:
             new_cache = {"k": k, "v": v}
     elif mode == "decode":

@@ -35,7 +35,8 @@ from repro_torch.common import partitioning as pt
 from repro_torch.common.module import ParamSpec
 from repro_torch.common.utils import resolve_device
 from repro_torch.models.layers import rope as rope_lib
-from repro_torch.models.layers.attention import attend, combine_shards
+from repro_torch.models.layers.attention import (attend, combine_shards,
+                                                 position_offsets)
 from repro_torch.models.layers.norms import rms_norm
 
 
@@ -85,7 +86,10 @@ def _latent_proj(params, cfg, x, positions):
 
 def apply(params, cfg, x, *, positions, mode: str = "train", cache=None,
           cache_pos=None, window: int = 0, return_cache: bool = False,
-          mask_kind: str = "causal", prefix_len=None):
+          mask_kind: str = "causal", prefix_len=None, positions_offset=None):
+    """MLA's entry point; returns (out (B,S,D), cache|None).  Train/prefill
+    positions are `positions_offset` + 0..S-1 per row (an int or a (B,)
+    tensor; None: read from the positions), as `attention.apply`."""
     m = cfg.mla
     dt = x.dtype
     B = x.shape[0]
@@ -93,6 +97,10 @@ def apply(params, cfg, x, *, positions, mode: str = "train", cache=None,
     scale = qk_hd ** -0.5
     new_cache = None
 
+    if mode in ("train", "prefill"):
+        # per-row offsets of the positions (a window past 0 is served)
+        off = (positions_offset if positions_offset is not None
+               else position_offsets(positions, B, x.shape[1]))
     if mode in ("train", "prefill") and cfg.mla_absorbed_train:
         q_nope, q_rope = _q_proj(params, cfg, x, positions)
         ckv, k_rope = _latent_proj(params, cfg, x, positions)
@@ -105,7 +113,8 @@ def apply(params, cfg, x, *, positions, mode: str = "train", cache=None,
         k2 = torch.cat([ckv, k_rope], dim=-1)[:, :, None]  # (B,T,1,r+rope)
         v2 = pt.pad(ckv, (0, m.qk_rope_head_dim))[:, :, None]
         o_lat = attend(q2, k2, v2, kind=mask_kind, window=window,
-                       prefix_len=prefix_len, scale=scale)[..., :r]
+                       prefix_len=prefix_len, scale=scale, q_offset=off,
+                       kv_offset=off)[..., :r]
         out = torch.einsum("bshr,rhk->bshk", o_lat, params["wuv"].to(dt))
         if return_cache:
             new_cache = {"ckv": ckv, "k_rope": k_rope}
@@ -121,7 +130,8 @@ def apply(params, cfg, x, *, positions, mode: str = "train", cache=None,
         q = torch.cat([q_nope, q_rope], dim=-1)
         v_pad = pt.pad(v, (0, qk_hd - m.v_head_dim))
         out = attend(q, k, v_pad, kind=mask_kind, window=window,
-                     prefix_len=prefix_len, scale=scale)[..., : m.v_head_dim]
+                     prefix_len=prefix_len, scale=scale, q_offset=off,
+                     kv_offset=off)[..., : m.v_head_dim]
         if return_cache:
             new_cache = {"ckv": ckv, "k_rope": k_rope}
     elif mode == "decode":

@@ -146,8 +146,9 @@ class Model(nn.Module):
         return materialize(generator, self.param_specs(), self.cfg.pdtype)
 
     # -- embedding front-ends ------------------------------------------------
-    def _embed_inputs(self, params, batch):
-        """-> (x (B,S,d), positions (B,S), prefix_len, enc_out, enc_pos)."""
+    def _embed_inputs(self, params, batch, *, positions_offset: int = 0):
+        """-> (x (B,S,d), positions (B,S), prefix_len, enc_out, enc_pos);
+        positions are positions_offset + 0..S-1 on every row."""
         cfg = self.cfg
         tokens = batch["tokens"]
         B = tokens.shape[0]
@@ -163,6 +164,8 @@ class Model(nn.Module):
             prefix_len = cfg.num_image_tokens
         S = x.shape[1]
         positions = torch.arange(S, device=x.device).expand(B, S)
+        if positions_offset:
+            positions = positions + positions_offset
         if cfg.is_encoder_decoder and "audio" in batch:
             enc_out, enc_pos = self.encode(params, batch["audio"])
             # whisper-style decoder: sinusoidal absolute positions, no rope
@@ -181,7 +184,8 @@ class Model(nn.Module):
         pos = torch.arange(F, device=x.device).expand(B, F)
         h, _, _ = transformer.decoder_apply(
             params["encoder"], encoder_cfg(cfg), x, mode="train",
-            positions=pos, mask_kind="bidir", use_rope=False)
+            positions=pos, mask_kind="bidir", use_rope=False,
+            positions_offset=0)
         return h, pos
 
     @staticmethod
@@ -200,7 +204,8 @@ class Model(nn.Module):
         h, _, _ = transformer.decoder_apply(
             params, cfg, x, mode="train", positions=positions,
             mask_kind=mask_kind, prefix_len=prefix_len, enc_out=enc_out,
-            enc_positions=enc_pos, use_rope=not cfg.is_encoder_decoder)
+            enc_positions=enc_pos, use_rope=not cfg.is_encoder_decoder,
+            positions_offset=0, enc_positions_offset=0)
         return h
 
     def forward(self, params, batch):
@@ -223,7 +228,8 @@ class Model(nn.Module):
             params, cfg, x, mode="train", positions=positions,
             mask_kind="prefix" if prefix_len is not None else "causal",
             prefix_len=prefix_len, enc_out=enc_out, enc_positions=enc_pos,
-            use_rope=not cfg.is_encoder_decoder, remat=True)
+            use_rope=not cfg.is_encoder_decoder, remat=True,
+            positions_offset=0, enc_positions_offset=0)
         tokens = batch["tokens"]
         P = prefix_len or 0
         h_text = h[:, P:]                               # (B, S_text, d)
@@ -235,22 +241,24 @@ class Model(nn.Module):
         metrics = {"ce": ce, "accuracy": acc, **aux}
         if cfg.mtp_depth:
             mtp = self._mtp_loss(params, cfg, h_text, tokens,
-                                 positions[:, P:])
+                                 positions[:, P:], P)
             total = total + cfg.mtp_loss_weight * mtp
             metrics["mtp_ce"] = mtp
         metrics["loss"] = total
         return total, metrics
 
-    def _mtp_loss(self, params, cfg, h, tokens, positions):
+    def _mtp_loss(self, params, cfg, h, tokens, positions, offset=None):
         """DeepSeek-V3 MTP (depth 1): from h_t and emb(token_{t+1}) predict
-        token_{t+2} through one extra transformer block."""
+        token_{t+2} through one extra transformer block; `positions` are
+        offset + 0..S-1 (None: read from them)."""
         mtp = params["mtp"]
         emb_next = embedding.embed(params["embed"], cfg, tokens[:, 1:])
         hin = torch.cat([norms.apply(mtp["norm_h"], cfg, h[:, :-1]),
                          norms.apply(mtp["norm_e"], cfg, emb_next)], dim=-1)
         hin = torch.einsum("bsd,de->bse", hin, mtp["proj"].to(hin.dtype))
         hb, _, _ = blocks.apply(mtp["block"], cfg, hin, ("attn", "mlp"),
-                                mode="train", positions=positions[:, :-1])
+                                mode="train", positions=positions[:, :-1],
+                                positions_offset=offset)
         hb = norms.apply(mtp["final_norm"], cfg, hb)
         ce, _ = _chunked_xent(params, cfg, hb[:, :-1], tokens[:, 2:], None)
         return ce
@@ -267,7 +275,8 @@ class Model(nn.Module):
             mask_kind="prefix" if prefix_len is not None else "causal",
             prefix_len=prefix_len, enc_out=enc_out, enc_positions=enc_pos,
             window_override=window_override, return_cache=True,
-            use_rope=not cfg.is_encoder_decoder)
+            use_rope=not cfg.is_encoder_decoder, positions_offset=0,
+            enc_positions_offset=0)
         return embedding.logits(params["embed"], cfg, h[:, -1:]), caches
 
     def decode_step(self, params, tokens, caches, cache_pos, *,

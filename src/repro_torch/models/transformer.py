@@ -28,7 +28,8 @@ from repro_torch.common.utils import resolve_device
 from repro_torch.models import blocks
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import norms
-from repro_torch.models.layers.attention import quantize_kv
+from repro_torch.models.layers.attention import (position_offsets,
+                                                 quantize_kv)
 
 
 def decoder_specs(cfg: ModelConfig, *, cross: bool = False):
@@ -162,12 +163,24 @@ def decoder_apply(params, cfg: ModelConfig, x, *, mode: str, positions,
                   prefix_len=None, enc_out=None, enc_positions=None,
                   window_override: Optional[int] = None,
                   return_cache: bool = False, use_rope: bool = True,
-                  remat: bool = False):
+                  remat: bool = False, positions_offset=None,
+                  enc_positions_offset=None):
     """x: (B,S,d) embeddings -> (hidden (B,S,d), caches, aux).  In decode
     mode the caches are updated in place and returned; in train/prefill
     mode the new caches are returned when `return_cache`, else None.  aux
     sums the MoE layers' auxiliary values.  `remat` recomputes each block
-    in the backward (train mode, grad enabled; see the module docstring)."""
+    in the backward (train mode, grad enabled; see the module docstring).
+    Train/prefill: `positions_offset` / `enc_positions_offset` say that the
+    positions are that offset + 0..S-1 per row (an int or a (B,) tensor);
+    None reads it from them once for every layer (`position_offsets`)."""
+    if mode in ("train", "prefill"):
+        B = x.shape[0]
+        if positions_offset is None:
+            positions_offset = position_offsets(positions, B,
+                                                positions.shape[1])
+        if enc_positions_offset is None and enc_positions is not None:
+            enc_positions_offset = position_offsets(
+                enc_positions, B, enc_positions.shape[1], "key")
     aux_total = blocks.zero_aux(x.device)
     new_caches = []
     recompute = remat and mode == "train" and torch.is_grad_enabled()
@@ -180,7 +193,8 @@ def decoder_apply(params, cfg: ModelConfig, x, *, mode: str, positions,
                 window=_block_window(cfg, kind, window_override),
                 prefix_len=prefix_len, enc_out=enc_out,
                 enc_positions=enc_positions, return_cache=return_cache,
-                use_rope=use_rope)
+                use_rope=use_rope, positions_offset=positions_offset,
+                enc_positions_offset=enc_positions_offset)
         x = pt.batch_only(x)             # a meshed step's block input
         x, nc, aux = (checkpoint(block, x, use_reentrant=False) if recompute
                       else block(x))

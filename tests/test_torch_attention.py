@@ -448,19 +448,20 @@ def test_attention_decode_matches_and_updates_the_cache_in_place():
 
 
 def test_attention_unsupported_paths_raise():
-    """The kernels count positions from 0: a train/prefill call whose query
-    (or cross-attention key) positions are not 0..S-1 raises."""
+    """K6 masks a window of positions: a train/prefill call whose query (or
+    cross-attention key) positions are not a row offset + 0..S-1 raises
+    (an offset window itself is served: tests/test_torch_offsets.py)."""
     _, cfg = _cfgs()
     rng = np.random.default_rng(7)
     p = {k: torch.from_numpy(v) for k, v in _attn_params(cfg, rng).items()}
     x = torch.randn(1, 4, cfg.d_model)
     pos = torch.arange(4)[None]
     with pytest.raises(NotImplementedError, match="0..S-1"):
-        attention.apply(p, cfg, x, positions=pos + 3, mode="prefill")
+        attention.apply(p, cfg, x, positions=pos.flip(1), mode="prefill")
     with pytest.raises(NotImplementedError, match="0..S-1"):
         attention.apply(p, cfg, x, positions=pos, mode="prefill",
                         kv_x=torch.randn(1, 6, cfg.d_model),
-                        kv_positions=torch.arange(6)[None] + 1,
+                        kv_positions=torch.tensor([[0, 1, 2, 4, 5, 6]]),
                         use_rope=False)
 
 

@@ -196,16 +196,21 @@ def test_int8_recall_vs_f32_oracle_and_reference_ids(distribution):
 
 
 def test_over_fetch_above_max_k_raises():
-    """kc = pow2(k * rescore) above the kernel's list bound raises; it
-    never falls back to another search."""
+    """kc = pow2(k * rescore) past the scan kernel's list bound MAX_K is
+    answered (the large-k path on the card), here with every live row a
+    candidate, so the rescored answer is the exact f32 top-k; a bad
+    quantization or rescore raises."""
     tv = tvi.VectorIndex(dim=8, capacity=4096, device="cpu", quantize="int8",
                          rescore=8)
-    tv.add(np.random.default_rng(0).standard_normal((600, 8)).astype(
-        np.float32))
+    bank = np.random.default_rng(0).standard_normal((600, 8)).astype(
+        np.float32)
+    tv.add(bank)
     q = np.ones((2, 8), np.float32)
     tv.search_batch(q, [0, 0], k=MAX_K // 8)         # kc == MAX_K
-    with pytest.raises(ValueError, match="MAX_K"):
-        tv.search_batch(q, [0, 0], k=MAX_K // 8 + 1)
+    k = MAX_K // 8 + 1                               # kc == 2 * MAX_K
+    _, ids = tv.search_batch(q, [0, 0], k=k)
+    exact = np.lexsort((np.arange(600), -(bank @ q[0])))[:k]
+    assert np.array_equal(ids, np.stack([exact, exact]))
     for bad in (dict(quantize="fp8"), dict(rescore=0)):
         with pytest.raises(ValueError):
             tvi.VectorIndex(dim=8, device="cpu", **bad)

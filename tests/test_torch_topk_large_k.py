@@ -1,11 +1,13 @@
 """Top-k beyond k = 256 in the port, against the JAX package, and the scan
 kernel's launch plan.
 
-The reference's `topk_mips` has no bound on k; the port's kernels take
-1 <= k <= MAX_K = 2048.  So the port must answer the searches that go
-past 256 as the JAX package does: an f32 `search_batch(k=300)`, and any
-int8 index whose over-fetch pow2(k * rescore) passes 256 (rescore=8 at
-the service's pool of 64 over-fetches 512).  Ids must match exactly and
+The reference's `topk_mips` has no bound on k; the port's scan kernel
+takes k <= MAX_K = 2048 and past it the same wrappers run the large-k
+path.  So the port must answer the searches that go past 256 and past
+2048 as the JAX package does: an f32 `search_batch(k=300)` and
+`search_batch(k=3000)`, and any int8 index whose over-fetch
+pow2(k * rescore) passes 256 (rescore=8 at the service's pool of 64
+over-fetches 512) or 2048 (rescore=8 at k=300 over-fetches 4096).  Ids must match exactly and
 scores to rtol=1e-5, atol=1e-6 (the two einsums may round differently in
 the last ulp).  The plain versions are held against `repro.kernels.ref`'s
 oracles, not Pallas interpret mode, which unrolls k merge steps.  The CUDA
@@ -77,11 +79,101 @@ def test_plain_versions_match_the_jax_oracle_above_256(name, k):
         assert (i.numpy() == -1).any()       # ~330 rows a namespace
 
 
-def _index_pair(quantize, rescore=4):
-    return (jvi.VectorIndex(dim=16, capacity=1024, use_kernel=False,
+@pytest.mark.parametrize("k", [2049, 4096, 10000])
+@pytest.mark.parametrize("name", NAMES)
+def test_plain_versions_match_the_jax_oracle_past_max_k(name, k):
+    """Past MAX_K, at N = 12,288 rows of which 9,000 are live (k = 10,000
+    is past n_valid): ids equal, scores to RTOL/ATOL; the masked pair's
+    one big namespace (~7,000 live rows) selects really, not as fill."""
+    q, bank, codes, scales, q_ns, labels = _inputs(4, 12288, 16, seed=k)
+    labels = np.where(labels >= 0, np.where(labels == 3, 1, 0), -1)
+    labels[[2, 12288 // 3, 12288 // 2]] = 0
+    labels = labels.astype(np.int32)
+    q_ns = np.array([0, 0, 1, 0], np.int32)
+    n_valid = 9000
+    lead = (q, codes, scales) if "quant" in name else (q, bank)
+    args = lead + ((q_ns, labels) if "masked" in name else ())
+    t_args = [torch.from_numpy(np.ascontiguousarray(a)) for a in args]
+    s, i = getattr(tk, name + "_ref")(*t_args, k=k, n_valid=n_valid)
+    s_o, i_o = getattr(jref, name + "_ref")(*args, k=k, n_valid=n_valid)
+    assert s.shape == (4, k) and i.dtype == torch.int32
+    np.testing.assert_array_equal(i.numpy(), np.asarray(i_o))
+    np.testing.assert_allclose(s.numpy(), np.asarray(s_o), rtol=RTOL,
+                               atol=ATOL)
+    assert i.numpy()[0].tolist()[:3] == [2, 4096, 6144]
+    live = (i.numpy() >= 0).sum(1)
+    if "masked" in name:
+        big = int((labels[:n_valid] == 0).sum())
+        assert big > 6000 and live[0] == min(k, big)
+    else:
+        assert (live == min(k, n_valid)).all()
+
+
+def test_large_k_chunk_keeps_the_workspace_bounded():
+    """The large-k path's query chunk: at least one query, whole 64-query
+    tiles past 64, and a workspace (4-byte keys, two 8-byte sort keys a
+    survivor) within LARGE_WORKSPACE whenever one query fits in it."""
+    for Q in (1, 7, 64, 65, 200, 1000):
+        for n_valid in (1, 9000, 1 << 20, 1 << 24):
+            for k in (2049, 4096, 65536, 1 << 20):
+                qc = tk.large_k_chunk(Q, n_valid, k)
+                per = 4 * n_valid + 16 * min(k, n_valid)
+                assert 1 <= qc <= Q
+                if 64 < qc < Q:
+                    assert qc % 64 == 0
+                if per <= tk.LARGE_WORKSPACE:
+                    assert qc * per <= tk.LARGE_WORKSPACE
+                    assert qc == Q or (qc + 64) * per > tk.LARGE_WORKSPACE \
+                        or qc < 64
+    # the main shape: 64 queries over 2^20 rows in one chunk
+    assert tk.large_k_chunk(64, 1 << 20, 65536) == 64
+
+
+def _index_pair(quantize, rescore=4, capacity=1024):
+    return (jvi.VectorIndex(dim=16, capacity=capacity, use_kernel=False,
                             quantize=quantize, rescore=rescore),
-            tvi.VectorIndex(dim=16, capacity=1024, device="cpu",
+            tvi.VectorIndex(dim=16, capacity=capacity, device="cpu",
                             quantize=quantize, rescore=rescore))
+
+
+def _big_namespace_bank(N, seed):
+    """A bank whose namespace 0 owns ~80% of N rows, namespace 1 the rest
+    (a few tombstones as -1 labels mapped to 0)."""
+    q, bank, _, _, _, labels = _inputs(6, N, 16, seed=seed)
+    labels = (np.random.default_rng(seed).random(N) < 0.2).astype(np.int32)
+    return q, bank, labels, np.array([0, 1, 0, 0, 1, 0], np.int32)
+
+
+def test_f32_search_batch_at_k_3000_matches_the_reference():
+    """k = 3,000 > MAX_K over ~6,500 rows of namespace 0 and ~1,600 of
+    namespace 1 (filled past them)."""
+    q, bank, labels, q_ns = _big_namespace_bank(8192, seed=11)
+    jv, tv = _index_pair("none", capacity=8192)
+    for vi in (jv, tv):
+        vi.add(bank, labels)
+    s_t, i_t = tv.search_batch(q, q_ns, k=3000)
+    s_j, i_j = jv.search_batch(q, q_ns, k=3000)
+    np.testing.assert_array_equal(i_t.numpy(), np.asarray(i_j))
+    np.testing.assert_allclose(s_t.numpy(), np.asarray(s_j), rtol=RTOL,
+                               atol=ATOL)
+    live = (i_t.numpy() >= 0).sum(1)
+    assert (live[q_ns == 0] == 3000).all() and (live[q_ns == 1] < 3000).all()
+
+
+def test_int8_index_with_over_fetch_past_max_k_matches_the_reference():
+    """rescore=8 at k=300 over-fetches pow2(2,400) = 4,096 candidates, past
+    MAX_K: the same ids, exact scores and counters as the JAX index."""
+    q, bank, labels, q_ns = _big_namespace_bank(6000, seed=12)
+    jv, tv = _index_pair("int8", rescore=8, capacity=8192)
+    for vi in (jv, tv):
+        vi.add(bank, labels)
+    s_t, i_t = tv.search_batch(q, q_ns, k=300)
+    s_j, i_j = jv.search_batch(q, q_ns, k=300)
+    np.testing.assert_array_equal(i_t.numpy(), np.asarray(i_j))
+    np.testing.assert_allclose(s_t.numpy(), np.asarray(s_j), rtol=RTOL,
+                               atol=ATOL)
+    assert tv.counters == jv.counters
+    assert tv.counters["rescore_rows"] == 6 * 300
 
 
 def test_f32_search_batch_at_k_300_matches_the_reference():
