@@ -33,8 +33,13 @@ line per phase and fails (nonzero exit) on any failed check:
                  four (`large_k_cases`): at the main shape at k in {2049,
                  4096, 16384, 65536} under labels in which one namespace
                  owns 2**18 rows, each size timed beside its bound, its
-                 plain version and `q @ bankᵀ` + `torch.topk(k)`; over
-                 65,536 rows at k = n_valid and past it; an all-tied bank.
+                 plain version and `q @ bankᵀ` + `torch.topk(k)`, with
+                 each pass's device ms; over 65,536 rows at k = n_valid
+                 and past it; an all-tied bank; the device tile plan
+                 against its mirror; the served int8 over-fetch shape (64
+                 queries of 28-row namespaces, k = 4096; timed, with the
+                 workspace's bytes); interleaved query labels, a crowded
+                 pivot bin and one past the candidate cap (ids equal).
 3. ops         — drives the four public entry points of kernels/ops.py
                  once each at the main path's shapes (the path of K3 and
                  K4), launch counters reset just before and read just after.
@@ -357,7 +362,9 @@ commits by the same code:
         python3 chip_smoke.py --serving-times 5 --src $src; done
 
 `--topk-times` only builds the kernels and times K1-K4's scan kernel at
-the main shape (with `--src`, another checkout's).  `--attention-times`
+the main shape and their large-k path (each pass's device ms) at the
+main shape and the served int8 over-fetch shape (with `--src`, another
+checkout's).  `--attention-times`
 only builds the kernels and times every K5/K6
 instance (`attention_times`: the zoo's and train's bf16 instances, D =
 576, K5[lse], the agent's f32 ones) with ptxas's registers; with `--src`
@@ -402,6 +409,12 @@ LAYOUT_KS = (1, 64, 256, 300)
 LARGE_KS = (2049, 4096, 16384, 65536)
 LARGE_SMALL_N = 65536
 LARGE_PATH_K = 4096
+# the served int8 over-fetch shape of the large-k path: B queries, each of
+# its own ~28-row namespace (the serve store's conversations) of MAIN_N
+# rows, at k = pow2(pool x rescore) past MAX_K; and the rows and ks of the
+# large-k path's hard cases (interleaved labels, crowded pivot bins)
+SERVED_B, SERVED_NS_ROWS, SERVED_K = 64, 28, 4096
+LARGE_HARD_N, LARGE_HARD_KS = 1 << 18, (4096, 30000)
 MAIN_N = 1 << 20
 D = 256
 # the shape of most K1 launches: a one-namespace bank of ~280 live rows in
@@ -1163,14 +1176,17 @@ def large_k_bound_ms(Q: int, n_valid: int, entries: int, D: int, k: int,
 def large_k_workspace_bytes(Q: int, entries: int, k: int) -> int:
     """The bytes the large-k path's design moves through its device
     workspace, beyond what the function needs: a 4-byte key per (query,
-    entry) written once and read five times (three histograms, two select
-    passes), and 8-byte sort keys per survivor (min(k, entries) a query)
-    written by the select, read and written by the run sort and each merge
-    round, and read by the output.  A record beside the bound, not part of
-    it."""
+    entry) written once and read twice (the first digit's histogram and
+    the filter; a heavy query's four more reads are not counted), and
+    8-byte sort keys per survivor (min(k, entries) a query) written by the
+    filter, then read and written by the run sort and each merge round
+    (the last stage writes the outputs instead, which the bound counts).
+    The candidates (the pivot bin's keys, 8 bytes written and read once)
+    depend on the scores and are not counted.  A record beside the bound,
+    not part of it."""
     survivors = Q * min(k, entries)
-    rounds = max(0, (max(1, -(-min(k, entries) // 4096)) - 1).bit_length())
-    return 24 * Q * entries + 8 * survivors * (4 + 2 * rounds)
+    rounds = max(0, (max(1, -(-min(k, entries) // 16384)) - 1).bit_length())
+    return 12 * Q * entries + 16 * survivors * (1 + rounds)
 
 
 def all_device_ms(fn, reps: int) -> float:
@@ -1233,16 +1249,312 @@ def check_large(fn, ref, args, k: int, n_valid: int, what: str,
     return err, int((i_k >= 0).sum()), bool(torch.equal(i_k, i_r))
 
 
+# the large-k path's passes, by the names of the kernels that make each
+# (this tree's and the parent's, for an A/B): the tile plan and label
+# compaction, the score pass, the radix select with its filters, the sort
+# runs and merge rounds (whose last stage writes the outputs), and the
+# parent's separate output pass
+LARGE_PASSES = (("compact", ("topk_count_kernel", "topk_compact_kernel",
+                             "topk_group_")),
+                ("score", ("topk_score_kernel",)),
+                ("select", ("topk_radix_", "topk_select_", "topk_filter_")),
+                ("sort", ("topk_sort_runs", "topk_merge_runs")),
+                ("emit", ("topk_emit_kernel",)))
+
+
+def large_split_ms(fn, reps: int) -> dict:
+    """Mean device ms per call of the large-k path's passes (LARGE_PASSES;
+    memsets and the rest as `other`) and of each kernel (`kernels`), from
+    a profile of `reps` calls after a warm-up."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    import re
+    split = {name: 0.0 for name, _ in LARGE_PASSES}
+    split["other"] = 0.0
+    kernels = {}
+    for e in prof.key_averages():
+        if e.device_time_total <= 0:
+            continue
+        part = next((name for name, tags in LARGE_PASSES
+                     if any(t in e.key for t in tags)), "other")
+        split[part] += e.device_time_total
+        m = re.search(r"topk_\w+_kernel(<[^>]*>)?", e.key)
+        name = m.group(0) if m else e.key[:40]
+        kernels[name] = kernels.get(name, 0.0) + e.device_time_total / 1e3 / reps
+    out = {part: t / 1e3 / reps for part, t in split.items()}
+    out["kernels"] = kernels
+    return out
+
+
+def large_modes(s, ok, k: int, n_valid: int) -> dict:
+    """How many queries take each select mode of the large-k path on scores
+    s (Q, N) where `ok` (live and matching): `all` (fewer live entries
+    than k), `filtered` (the k-th key's first-digit bin within the
+    candidate cap, `large_cap`) or `heavy` (past it), counted from the
+    plain scores' order-preserving keys; and the most entries that tie
+    with a query's k-th score."""
+    import torch
+    from repro_torch.kernels import topk_mips as tk
+    s = torch.where(s == 0, torch.zeros_like(s), s)    # -0 ranks as +0
+    bits = s.contiguous().view(torch.int32).to(torch.int64) & 0xffffffff
+    key = torch.where(bits >= 2 ** 31, (~bits) & 0xffffffff, bits | 2 ** 31)
+    key = torch.where(ok, key, torch.zeros_like(key))
+    live = ok.sum(1)
+    kth = torch.topk(key, min(k, key.shape[1]), dim=1).values[:, -1]
+    c0 = (((key >> 21) == (kth >> 21)[:, None]) & ok).sum(1)
+    ties = ((key == kth[:, None]) & ok).sum(1)
+    cap = tk.large_cap(n_valid, k)
+    full = live >= k
+    return {"all": int((~full).sum()),
+            "filtered": int((full & (c0 <= cap)).sum()),
+            "heavy": int((full & (c0 > cap)).sum()),
+            "most_ties_at_kth": int(torch.where(full, ties, 0).max())}
+
+
+def plain_scores(q, bank, codes, scales, q_ns, lab, masked, quant,
+                 n_valid):
+    """The plain scores (Q, N) of a call and where they count (live and,
+    masked, matching labels)."""
+    import torch
+    s = (q @ codes.float().T) * scales if quant else q @ bank.T
+    ok = torch.arange(bank.shape[0], device=q.device)[None, :] < n_valid
+    if masked:
+        ok = ok & (q_ns[:, None] == lab[None, :])
+    return s, ok.expand_as(s)
+
+
+def large_plan_check(device) -> dict:
+    """The device tile plan (`topk_group_plan_kernel`, through the C entry
+    `topk_mips_large_plan`) against `group_tiles`, the wrapper's mirror,
+    on label vectors that take each branch: one label, all distinct,
+    interleaved labels with singletons, a label of exactly GROUP_MIN and
+    GROUP_MIN - 1, a label past one tile, and PLAN_MAX queries."""
+    import ctypes
+    import torch
+    from repro_torch.kernels import topk_mips as tk
+    g = torch.Generator().manual_seed(5)
+    layouts = {
+        "one label": [3] * 70,
+        "distinct": list(range(64, 0, -1)),
+        "interleaved": [i % 6 if i % 6 < 5 else 100 + i for i in range(130)],
+        "group_min edge": [7] * tk.GROUP_MIN + [9] * (tk.GROUP_MIN - 1)
+        + [2] * 5,
+        "past a tile": [1] * 45 + [0] * 3 + [1] * 30,
+        "plan max": torch.randint(-3, 300, (tk.PLAN_MAX,),
+                                  generator=g).tolist()}
+    lib = tk._library()
+    out = {}
+    for name, labels in layouts.items():
+        qc = len(labels)
+        t = tk.group_tiles_max(qc)
+        q_ns = torch.tensor(labels, dtype=torch.int32, device=device)
+        slots = torch.empty(t * tk.GROUP_TILE, dtype=torch.int32,
+                            device=device)
+        slot_ns = torch.empty_like(slots)
+        n_tiles = torch.empty(1, dtype=torch.int32, device=device)
+        rc = lib.topk_mips_large_plan(
+            ctypes.c_void_p(q_ns.data_ptr()), qc,
+            ctypes.c_void_p(slots.data_ptr()),
+            ctypes.c_void_p(slot_ns.data_ptr()),
+            ctypes.c_void_p(n_tiles.data_ptr()),
+            ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream))
+        if rc != 0:
+            fail(f"large-k plan {name}: CUDA error {rc}")
+        torch.cuda.synchronize()
+        nt = int(n_tiles.item())
+        rows = slots.view(t, tk.GROUP_TILE)[:nt].tolist()
+        got = [[x for x in r if x >= 0] for r in rows]
+        want = tk.group_tiles(labels)
+        if got != want:
+            fail(f"large-k plan {name}: device tiles {got} != {want}")
+        if any(r[len(w):] != [-1] * (tk.GROUP_TILE - len(w))
+               for r, w in zip(rows, want)):
+            fail(f"large-k plan {name}: a tile's slots are not a prefix")
+        lab_rows = slot_ns.view(t, tk.GROUP_TILE)[:nt].tolist()
+        if any(lab_rows[i][j] != labels[q] for i, w in enumerate(want)
+               for j, q in enumerate(w)):
+            fail(f"large-k plan {name}: slot labels differ")
+        out[name] = {"queries": qc, "tiles": nt, "tiles_max": t}
+    return out
+
+
+def served_inputs(gen, device):
+    """The served int8 over-fetch shape's inputs: a unit-norm MAIN_N-row
+    bank with its int8 codes, SERVED_NS_ROWS-row namespaces in row order
+    (2% tombstones), SERVED_B unit-norm queries of distinct namespaces."""
+    import torch
+    from repro_torch.kernels import topk_mips as tk
+    N = MAIN_N
+    bank = torch.randn((N, D), generator=gen, device=device)
+    bank /= bank.norm(dim=1, keepdim=True)
+    codes, scales = tk.quantize_rows_ref(bank)
+    lab = (torch.arange(N, device=device) // SERVED_NS_ROWS).to(torch.int32)
+    lab[torch.rand(N, generator=gen, device=device) < 0.02] = -1
+    q_ns = torch.randperm(N // SERVED_NS_ROWS, generator=gen,
+                          device=device)[:SERVED_B].to(torch.int32)
+    q = torch.randn((SERVED_B, D), generator=gen, device=device)
+    q /= q.norm(dim=1, keepdim=True)
+    return bank, codes, scales, lab, q, q_ns
+
+
+def served_large_case(gen, device, reps: int) -> dict:
+    """The served int8 over-fetch shape of the large-k path (SERVED_*):
+    SERVED_B queries, each asking its own SERVED_NS_ROWS-row namespace of a
+    MAIN_N-row bank (an int8 index at rescore 8 over-fetches pow2(8 k)
+    candidates: K2, and K1 at the same k), held against the plain
+    version; timed (CUDA-event ms, device ms and its passes), beside the
+    workspace's bytes, the bound of these labels (`masked_work`), the
+    plain version and `q @ bankᵀ` + mask + `torch.topk(k)`."""
+    import torch
+    from repro_torch.common.utils import sm_count
+    from repro_torch.kernels import topk_mips as tk
+    N, Q, k = MAIN_N, SERVED_B, SERVED_K
+    bank, codes, scales, lab, q, q_ns = served_inputs(gen, device)
+    rows, pairs = tk.masked_work(q_ns, lab, N)
+    sms = sm_count(device)
+    out = {"queries": Q, "rows": N, "k": k, "namespace_rows": SERVED_NS_ROWS}
+    for name in ("topk_mips_quant_masked", "topk_mips_masked"):
+        _, masked, quant, _ = KERNELS[name]
+        args = (q, bank, codes, scales, q_ns, lab, masked, quant)
+        fn, ref = getattr(tk, name), getattr(tk, name + "_ref")
+        err, live, same = check_large(fn, ref, args, k, N,
+                                      f"{name} served k={k} B={Q}")
+        if not same:
+            fail(f"{name} served k={k}: ids differ from the plain version")
+
+        def call():
+            return _call(fn, *args, k=k, n_valid=N)
+
+        def library():
+            s, ok = plain_scores(*args, N)
+            return torch.topk(torch.where(ok, s, NEG_INF), k, dim=1)
+
+        qc = tk.large_k_chunk(Q, N, k, masked, D, sms)
+        bound, by = large_k_bound_ms(Q, N, rows, D, k, quant, masked, pairs)
+        out[name] = {
+            "kernel_ms": time_ms(call, reps),
+            "device_ms": all_device_ms(call, reps),
+            "passes": large_split_ms(call, reps),
+            "plain_ms": time_ms(lambda: _call(ref, *args, k=k, n_valid=N), 1),
+            "library_ms": time_ms(library, 2),
+            "bound_ms": bound, "bound_by": by, "live_slots": live,
+            "max_abs_err": err, "chunk_queries": qc,
+            "workspace_bytes": tk.large_workspace_bytes(qc, N, k, masked, D,
+                                                        sms)}
+    return out
+
+
+def large_k_hard_cases(gen, device) -> dict:
+    """The large-k path's hard cases, each kernel against its plain version
+    with the ids required equal (integer-valued rows and queries, so that
+    both summation orders are exact and every tie is decided by row), over
+    LARGE_HARD_N rows at each k of LARGE_HARD_KS: `interleaved` -- 130
+    queries whose labels cycle through 0..4 with a query of its own small
+    namespace every sixth, so that a chunk's plan gives each of the five
+    labels tiles of its own and packs the rest, and 8 of a label that owns
+    no row (a tile with no entry); the same again in chunks of 50 queries; `crowded` -- rows and
+    queries of entries in {-1, 0, 1}: ~60 distinct scores, thousands of
+    rows tied on both sides of the k-th, its first-digit bin within the
+    candidate cap; `past the cap` -- rows of 0/1 entries against all-ones
+    queries, half the rows in the k-th key's bin (the heavy select).  The
+    modes the queries take are counted from the plain scores
+    (`large_modes`); each case must take the mode it is there for."""
+    import torch
+    from repro_torch.kernels import topk_mips as tk
+    N = LARGE_HARD_N
+    n_valid = N - 123
+    out = {}
+    tern = torch.randint(-1, 2, (N, D), generator=gen, device=device).float()
+    q_tern = torch.randint(-1, 2, (138, D), generator=gen,
+                           device=device).float()
+    lab = torch.randint(0, 5, (N,), generator=gen, device=device,
+                        dtype=torch.int32)
+    small = torch.rand(N, generator=gen, device=device) < 0.1
+    lab[small] = torch.randint(5, 40, (int(small.sum()),), generator=gen,
+                               device=device, dtype=torch.int32)
+    lab[n_valid:] = -2
+    q_ns = torch.tensor([i % 6 if i % 6 < 5 else 5 + i // 6 % 35
+                         for i in range(130)] + [10 ** 6] * 8,
+                        dtype=torch.int32, device=device)
+    binary = torch.randint(0, 2, (N, D), generator=gen,
+                           device=device).float()
+    cases = {"interleaved": (tern, q_tern, lab, q_ns, "masked"),
+             "crowded": (tern, q_tern[:64], torch.zeros_like(lab),
+                         torch.zeros(64, dtype=torch.int32, device=device),
+                         None),
+             "past the cap": (binary, torch.ones((16, D), device=device),
+                              torch.zeros_like(lab),
+                              torch.zeros(16, dtype=torch.int32,
+                                          device=device), None)}
+    want_mode = {"interleaved": "filtered", "crowded": "filtered",
+                 "past the cap": "heavy"}
+    for case, (bank, q, labels, qns, only) in cases.items():
+        codes, scales = tk.quantize_rows_ref(bank)
+        for k in LARGE_HARD_KS:
+            for name, (_, masked, quant, _) in KERNELS.items():
+                if only == "masked" and not masked:
+                    continue
+                args = (q, bank, codes, scales, qns, labels, masked, quant)
+                what = f"{name} large {case} k={k} N={N}"
+                err, _, same = check_large(
+                    getattr(tk, name), getattr(tk, name + "_ref"), args, k,
+                    n_valid, what)
+                if not same:
+                    fail(f"{what}: ids differ from the plain version")
+                modes = large_modes(*plain_scores(*args, n_valid), k,
+                                    n_valid)
+                if modes[want_mode[case]] == 0:
+                    fail(f"{what}: no query took the "
+                         f"{want_mode[case]} select ({modes})")
+                out[f"{case} {name} k={k}"] = {"max_abs_err": err, **modes}
+    # the interleaved queries again in chunks of 50 (a smaller workspace
+    # aim): each chunk plans, compacts and selects on its own
+    from repro_torch.common.utils import sm_count
+    k = LARGE_HARD_KS[0]
+    aim = tk.LARGE_WORKSPACE
+    tk.LARGE_WORKSPACE = tk.large_workspace_bytes(50, n_valid, k, True, D,
+                                                  sm_count(device))
+    try:
+        qc = tk.large_k_chunk(q_tern.shape[0], n_valid, k, True, D,
+                              sm_count(device))
+        if not qc < q_tern.shape[0]:
+            fail(f"large-k chunks: one chunk of {qc} queries")
+        for name in ("topk_mips_masked", "topk_mips_quant_masked"):
+            _, masked, quant, _ = KERNELS[name]
+            codes, scales = tk.quantize_rows_ref(tern)
+            args = (q_tern, tern, codes, scales, q_ns, lab, masked, quant)
+            what = f"{name} large interleaved in chunks of {qc} k={k}"
+            err, _, same = check_large(getattr(tk, name),
+                                       getattr(tk, name + "_ref"), args, k,
+                                       n_valid, what)
+            if not same:
+                fail(f"{what}: ids differ from the plain version")
+            out[f"chunks {name} k={k}"] = {"max_abs_err": err,
+                                           "chunk_queries": qc}
+    finally:
+        tk.LARGE_WORKSPACE = aim
+    return out
+
+
 def large_k_cases(gen, device, reps: int) -> dict:
     """The large-k path of all four kernels against their plain versions:
     at the main shape (Q = 64, N = 2**20, D = 256; namespace 0 owns a
     quarter of the rows, 2**18, so that a large k is really selected, the
     odd queries ask ~1400-row namespaces and are mostly fill) at every k of
     LARGE_KS, each size timed (CUDA-event ms, the device ms of all its
-    kernels, its bound, the plain version and `q @ bankᵀ` (+ mask) +
-    `torch.topk(k)`); over LARGE_SMALL_N rows at k = n_valid and past it;
-    over an all-tied bank, whose ids must be the first k live rows in
-    order."""
+    kernels and of each pass, its bound, the plain version and `q @ bankᵀ`
+    (+ mask) + `torch.topk(k)`); over LARGE_SMALL_N rows at k = n_valid
+    and past it; over an all-tied bank, whose ids must be the first k live
+    rows in order; the device tile plan against its mirror
+    (`large_plan_check`); the served int8 over-fetch shape
+    (`served_large_case`); interleaved labels and crowded pivot bins
+    (`large_k_hard_cases`)."""
     import torch
     from repro_torch.kernels import topk_mips as tk
     res = {name: {"cases": 0, "max_abs_err": 0.0, "sizes": {}}
@@ -1282,6 +1594,7 @@ def large_k_cases(gen, device, reps: int) -> dict:
             r["sizes"][str(k)] = {
                 "kernel_ms": time_ms(call, reps),
                 "device_ms": all_device_ms(call, reps),
+                "passes": large_split_ms(call, reps),
                 "plain_ms": time_ms(lambda: _call(ref, *args, k=k,
                                                   n_valid=n_valid), 1),
                 "library_ms": time_ms(library, 2),
@@ -1318,6 +1631,17 @@ def large_k_cases(gen, device, reps: int) -> dict:
                 fail(f"{what}: tied rows not the first live rows in order")
             res[name]["max_abs_err"] = max(res[name]["max_abs_err"], err)
             res[name]["cases"] += 1
+    del bank, codes, scales, lab, q, q_ns
+    res["plan"] = large_plan_check(device)
+    res["served"] = served_large_case(gen, device, reps)
+    res["hard"] = large_k_hard_cases(gen, device)
+    for name in KERNELS:
+        errs = [r["max_abs_err"] for key, r in res["hard"].items()
+                if key.split()[-2] == name]
+        errs += [res["served"][name]["max_abs_err"]] \
+            if name in res["served"] else []
+        res[name]["max_abs_err"] = max([res[name]["max_abs_err"], *errs])
+        res[name]["cases"] += len(errs)
     return res
 
 
@@ -7510,17 +7834,23 @@ TOPK_TIMES_KS = (512, 1024, 2048)
 
 
 def topk_times(device, reps: int) -> dict:
-    """The `--topk-times` mode: after the build, K1-K4 at the main shape
+    """The `--topk-times` mode: after the build (its ptxas report of
+    `topk_mips.cu`'s kernels kept), K1-K4 at the main shape
     (`main_inputs`, each kernel's k on the main path): CUDA-event ms a call
     over `reps` calls and the device ms a call of their kernels
-    (profiler, reps // 2 calls); and the device ms at each k of
-    TOPK_TIMES_KS (`by_k`)."""
+    (profiler, reps // 2 calls); the device ms at each k of TOPK_TIMES_KS
+    (`by_k`); and the large-k path (`large_k`): at the main shape of
+    `large_k_cases` at each k of LARGE_KS and at the served int8
+    over-fetch shape (`served`, the masked pair at SERVED_K), each call's
+    event ms, device ms, its passes' device ms (`large_split_ms`) and the
+    library call's event ms (`q @ bankᵀ` + mask + `torch.topk(k)`)."""
     import torch
     from repro_torch.kernels import topk_mips as tk
-    phase_build()
+    build = phase_build()
     gen = torch.Generator(device=device).manual_seed(0)
     bank, codes, scales, lab, q, q_ns = main_inputs(gen, device)
-    out = {"phase": "topk_times", "gpu": gpu_line()}
+    out = {"phase": "topk_times", "gpu": gpu_line(),
+           "ptxas": build["kernels"]["topk_mips"]["ptxas"]}
     for name, (_, masked, quant, k) in KERNELS.items():
         fn, args = getattr(tk, name), (q, bank, codes, scales, q_ns, lab,
                                        masked, quant)
@@ -7535,6 +7865,36 @@ def topk_times(device, reps: int) -> dict:
             out[name]["by_k"][kk] = device_profile(
                 lambda: _call(fn, *args, k=kk), max(1, reps // 2),
                 "topk_")[0]
+    del bank, codes, scales, lab, q, q_ns
+    n_valid = MAIN_N - 1000
+    bank, codes, scales, lab, q, q_ns, _ = large_k_inputs(gen, device,
+                                                          MAIN_N, 64, 0.25)
+    lab[n_valid:] = -2
+    shapes = [("main", (q, bank, codes, scales, q_ns, lab), n_valid,
+               LARGE_KS, tuple(KERNELS))]
+    served = served_inputs(gen, device)
+    shapes.append(("served", (served[4], *served[:3], served[5], served[3]),
+                   MAIN_N, (SERVED_K,), ("topk_mips_masked",
+                                         "topk_mips_quant_masked")))
+    large = {}
+    for shape, inputs, nv, ks, names in shapes:
+        for name in names:
+            _, masked, quant, _ = KERNELS[name]
+            fn, args = getattr(tk, name), (*inputs, masked, quant)
+            for kk in ks:
+                def call():
+                    return _call(fn, *args, k=kk, n_valid=nv)
+
+                def library():
+                    s, ok = plain_scores(*args, nv)
+                    return torch.topk(torch.where(ok, s, NEG_INF), kk, dim=1)
+
+                large[f"{shape} {name} k={kk}"] = {
+                    "event_ms": time_ms(call, reps),
+                    "device_ms": all_device_ms(call, max(1, reps // 2)),
+                    "passes": large_split_ms(call, max(1, reps // 2)),
+                    "library_ms": time_ms(library, 2)}
+    out["large_k"] = large
     return out
 
 
@@ -7552,7 +7912,7 @@ def main(argv=None) -> int:
                          "instance (`attention_times`; no other phase)")
     ap.add_argument("--topk-times", action="store_true",
                     help="only build the kernels and time K1-K4's scan "
-                         "kernel at the main shape (`topk_times`; no other "
+                         "kernel and large-k path (`topk_times`; no other "
                          "phase)")
     ap.add_argument("--train-times", type=int, default=0, metavar="STEPS",
                     help="only build the kernels and time internlm2-1.8b's "
@@ -7692,7 +8052,7 @@ def main(argv=None) -> int:
         "name": "topk_mips[large_k]", "route": "cuda",
         "source": "src/repro_torch/csrc/topk_mips.cu",
         "replaces": KERNELS["topk_mips_masked"][0], "launches": launches,
-        "max_abs_err": max(max(r["max_abs_err"] for r in large.values()),
+        "max_abs_err": max(max(large[n]["max_abs_err"] for n in KERNELS),
                            *examples["large_k"]["max_abs_err"].values()),
         "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

@@ -49,9 +49,11 @@
 //
 // Launches of one call: [count, compact] (masked), [sample scan, sample
 // merge] (long chunks), scan, merge.  Past k = kScanMaxK a call runs the
-// large-k path instead (its section below): per chunk of queries, [count,
-// compact], a score pass into a device workspace, an exact radix select,
-// a compaction of the survivors, a sort and the output.
+// large-k path instead (its section below): per chunk of queries, [a plan
+// grouping the queries by label, the compaction of each grouped tile], a
+// score pass into a device workspace, an exact radix select that filters
+// as it goes, and a sort in shared-memory runs and merge rounds whose last
+// stage writes the outputs.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -101,13 +103,10 @@ __host__ __device__ inline int compact_blocks(int n_valid) {
   return (n_valid + rows - 1) / rows;
 }
 
-// The labels of query tile blockIdx.y (qt queries from q0) into lab[0, n),
-// sorted ascending; returns n.  Block-collective.
-__device__ int tile_labels(const int* q_ns, int Q, int qt, int* raw, int* lab) {
+// lab[0, n) = src[0, n) sorted ascending (n <= kThreads).  Block-collective.
+__device__ __forceinline__ void sort_labels(const int* src, int n, int* raw, int* lab) {
   const int tid = threadIdx.x;
-  const int q0 = blockIdx.y * qt;
-  const int n = min(qt, Q - q0);
-  if (tid < n) raw[tid] = q_ns[q0 + tid];
+  if (tid < n) raw[tid] = src[tid];
   __syncthreads();
   if (tid < n) {
     const int v = raw[tid];
@@ -116,6 +115,14 @@ __device__ int tile_labels(const int* q_ns, int Q, int qt, int* raw, int* lab) {
     lab[rank] = v;
   }
   __syncthreads();
+}
+
+// The labels of query tile blockIdx.y (qt queries from q0) into lab[0, n),
+// sorted ascending; returns n.  Block-collective.
+__device__ int tile_labels(const int* q_ns, int Q, int qt, int* raw, int* lab) {
+  const int q0 = blockIdx.y * qt;
+  const int n = min(qt, Q - q0);
+  sort_labels(q_ns + q0, n, raw, lab);
   return n;
 }
 
@@ -143,12 +150,13 @@ __device__ __forceinline__ unsigned match_run(const int* __restrict__ bank_ns, i
   return bits;
 }
 
-__global__ void __launch_bounds__(kThreads)
-topk_count_kernel(const int* __restrict__ q_ns, const int* __restrict__ bank_ns, int Q,
-                  int n_valid, int qt, int* __restrict__ counts) {
-  __shared__ int raw[kMaxTileQueries], lab[kMaxTileQueries], warp_sum[kWarps];
+// The count pass of one (row block, query tile `tile`) against the tile's
+// sorted labels lab[0, n): the block's matching rows into counts.
+// Block-collective.
+__device__ __forceinline__ void count_rows(const int* __restrict__ bank_ns, int n_valid,
+                                           const int* lab, int n, int tile, int* warp_sum,
+                                           int* __restrict__ counts) {
   const int tid = threadIdx.x;
-  const int n = tile_labels(q_ns, Q, qt, raw, lab);
   const int per = compact_rows_per_block(n_valid);
   const int r_begin = blockIdx.x * per;
   const int r_end = (int)min((long long)n_valid, (long long)r_begin + per);
@@ -162,23 +170,26 @@ topk_count_kernel(const int* __restrict__ q_ns, const int* __restrict__ bank_ns,
   if (tid == 0) {
     int total = 0;
     for (int w = 0; w < kWarps; ++w) total += warp_sum[w];
-    counts[blockIdx.y * gridDim.x + blockIdx.x] = total;
+    counts[tile * gridDim.x + blockIdx.x] = total;
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-topk_compact_kernel(const int* __restrict__ q_ns, const int* __restrict__ bank_ns, int Q,
-                    int n_valid, int qt, const int* __restrict__ counts,
-                    int* __restrict__ list, int list_stride, int* __restrict__ list_len) {
-  __shared__ int raw[kMaxTileQueries], lab[kMaxTileQueries], warp_sum[kWarps];
-  __shared__ int staged[kCompactBatch];   // a batch's matches, in row order
+// The write pass of one (row block, query tile): the block's matching rows
+// at its place in the tile's list (after the matches of the blocks before
+// it), in ascending order; the last block writes the list's length.
+// Block-collective.
+__device__ __forceinline__ void compact_rows(const int* __restrict__ bank_ns, int n_valid,
+                                             const int* lab, int n, int tile,
+                                             const int* __restrict__ counts,
+                                             int* __restrict__ list, int list_stride,
+                                             int* __restrict__ list_len, int* warp_sum,
+                                             int* staged) {
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int n = tile_labels(q_ns, Q, qt, raw, lab);
   // this block's place in the list: the matches of the blocks before it
   int before = 0;
-  for (int b = tid; b < (int)blockIdx.x; b += kThreads) before += counts[blockIdx.y * gridDim.x + b];
+  for (int b = tid; b < (int)blockIdx.x; b += kThreads) before += counts[tile * gridDim.x + b];
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) before += __shfl_xor_sync(kFull, before, o);
   if (lane == 0) warp_sum[warp] = before;
@@ -186,7 +197,7 @@ topk_compact_kernel(const int* __restrict__ q_ns, const int* __restrict__ bank_n
   int off = 0;
   for (int w = 0; w < kWarps; ++w) off += warp_sum[w];
   __syncthreads();
-  int* out = list + (size_t)blockIdx.y * list_stride;
+  int* out = list + (size_t)tile * list_stride;
   const int per = compact_rows_per_block(n_valid);
   const int r_begin = blockIdx.x * per;
   const int r_end = (int)min((long long)n_valid, (long long)r_begin + per);
@@ -215,7 +226,26 @@ topk_compact_kernel(const int* __restrict__ q_ns, const int* __restrict__ bank_n
     off += total;
     __syncthreads();   // warp_sum and staged are rewritten next batch
   }
-  if (blockIdx.x == gridDim.x - 1 && tid == 0) list_len[blockIdx.y] = off;
+  if (blockIdx.x == gridDim.x - 1 && tid == 0) list_len[tile] = off;
+}
+
+__global__ void __launch_bounds__(kThreads)
+topk_count_kernel(const int* __restrict__ q_ns, const int* __restrict__ bank_ns, int Q,
+                  int n_valid, int qt, int* __restrict__ counts) {
+  __shared__ int raw[kMaxTileQueries], lab[kMaxTileQueries], warp_sum[kWarps];
+  const int n = tile_labels(q_ns, Q, qt, raw, lab);
+  count_rows(bank_ns, n_valid, lab, n, blockIdx.y, warp_sum, counts);
+}
+
+__global__ void __launch_bounds__(kThreads)
+topk_compact_kernel(const int* __restrict__ q_ns, const int* __restrict__ bank_ns, int Q,
+                    int n_valid, int qt, const int* __restrict__ counts,
+                    int* __restrict__ list, int list_stride, int* __restrict__ list_len) {
+  __shared__ int raw[kMaxTileQueries], lab[kMaxTileQueries], warp_sum[kWarps];
+  __shared__ int staged[kCompactBatch];   // a batch's matches, in row order
+  const int n = tile_labels(q_ns, Q, qt, raw, lab);
+  compact_rows(bank_ns, n_valid, lab, n, blockIdx.y, counts, list, list_stride, list_len,
+               warp_sum, staged);
 }
 
 // ---------------------------------------------------------------------------
@@ -1069,55 +1099,95 @@ cudaError_t raise_scan_ceilings() {
 // (sized by the wrapper so that the workspace stays within a few hundred
 // MB: 64 queries of a 2^20-row bank hold 256 MiB of keys):
 //
-//   [count, compact]  masked: the scan kernel's label compaction, per
-//                     64-query tile (unchanged kernels);
+//   plan, [count,     masked: the chunk's queries grouped by label
+//   compact],         (topk_group_plan_kernel, one CTA): a label that at
+//   offsets           least kGroupMin queries ask gets 32-query tiles of its
+//                     own, the rest share tiles in label order; then the
+//                     label compaction of each such tile (the scan kernel's
+//                     compaction bodies, one block a row block looping over
+//                     the tiles, which also copies the tiles' query rows
+//                     together) and the tiles' key offsets and score CTAs,
+//                     in proportion to their listed rows
+//                     (topk_group_offsets_kernel).  A tile then lists about
+//                     its own queries' rows, not the union of 64 queries'
+//                     labels;
 //   score             topk_score_kernel<kMasked, kQuant>: the scan kernel's
 //                     main loop (scan_tiles: the same ring, the same fmaf
-//                     chain, so the same score bits), writing each (query, entry) score as
-//                     its 32-bit order-preserving key (0 for an entry that
-//                     is not live or whose label differs) to the workspace;
-//   3 x [hist, pick]  an exact radix select of each query's k-th key, digits
-//                     of 11, 11 and 10 bits from the top: per-query
-//                     histograms of the keys that share the prefix chosen so
-//                     far, in shared memory then summed into the workspace
-//                     (hist), and one CTA per query that walks them from the
-//                     top to the bucket holding the k-th key (pick).  The
-//                     result is the k-th key T and how many entries equal
-//                     to it the top-k takes (the rest ranks above T);
-//   select count,     every entry above T, then the lowest entries equal to
-//   select write      T up to that many (entries ascend with the row, so
-//                     these are the lowest rows: the (score desc, row asc)
-//                     tie rule), compacted in entry order by per-block
-//                     counts and a block scan, as 64-bit sort keys
-//                     (~key << 32 | row: ascending = score desc, row asc);
-//   sort runs,        a bitonic sort of 4,096-key runs in shared memory,
-//   merge runs x r    then r = ceil(log2(runs)) merge rounds in device
-//                     memory: each key's place in the merged pair is its
-//                     index plus the count of the partner run's keys below
-//                     it (a binary search; keys are distinct);
-//   emit              (score, row) of the sorted survivors, and (NEG_INF,
-//                     -1) past them when fewer than k entries are live.
+//                     chain, so the same score bits; 8 queries a warp
+//                     unmasked, 4 masked), writing each (query, entry)
+//                     score as its 32-bit order-preserving key (0 for an
+//                     entry whose label differs) to the workspace: query q
+//                     of a grouped tile holds its tile's entries at its own
+//                     offset, so the keys take each tile's rows x queries;
+//   hist              the first radix digit (11 bits) of every live key, one
+//                     histogram a query;
+//   pick, pass 0      one CTA a query picks the bin holding its k-th key
+//                     (with fewer live keys than k the query takes them
+//                     all; else the bin's count sets its mode: `filtered`
+//                     when it fits the candidate buffer of `cap` entries,
+//                     `heavy` when it does not), then one more read of the
+//                     keys filters them (AIR Top-K's filter, Zhang et al.,
+//                     SC'23): a key above the pivot bin goes straight to
+//                     the survivors; a key inside it is counted by the next
+//                     digit and, filtered, copied with its row to the
+//                     candidate buffer;
+//   pick, pass 1,     filtered: the second digit's bin splits the
+//   pick, pass 2      candidates into survivors and second candidates
+//                     (counted by the third digit), whose keys at or above
+//                     the k-th key T then join the survivors -- the top-k
+//                     and every key tied with T, so the sort decides the
+//                     ties by row.  Heavy (a pivot bin past the buffer, as
+//                     on an all-tied bank): the third digit's histogram
+//                     over the keys, then each block's pivot-bin keys above
+//                     T and equal to it;
+//   select write      heavy only: the bin's keys above T and the lowest
+//                     entries equal to it (entries ascend with the row),
+//                     compacted in entry order by the per-block counts and
+//                     a block scan;
+//   sort runs,        survivors as 64-bit sort keys (~key << 32 | row:
+//   merge runs x r    ascending = score desc, row asc), sorted in runs of
+//                     16,384 in shared memory (16 keys a thread sorted in
+//                     registers, then merge-path rounds in shared memory),
+//                     then up to r = ceil(log2(runs)) merge rounds: each CTA
+//                     splits its 8,192 outputs of a pair of runs by a
+//                     merge-path search (a warp's 32-way search in device
+//                     memory), copies both input ranges into shared memory
+//                     coalesced and merges them there.  The stage that
+//                     completes a query's sort writes its outputs: (score,
+//                     row) of the first k, and (NEG_INF, -1) past the
+//                     survivors.
 //
 // What bounds it: the function needs the product and one read of the bank,
 // as the scan kernel.  This design adds the workspace's traffic -- one
-// write and five reads of Q x n_valid 4-byte keys (three histograms, two
-// select passes) and the survivors' 8-byte keys written, sorted and merged
-// (2 x 8 bytes a key a round).  At Q = 64, N = 2^20 the keys are 256 MiB,
-// ~0.5 ms of HBM traffic beside the product's 0.51 ms.
+// write and two reads of each query's 4-byte keys (a heavy query four
+// more), the candidates (8 bytes each, written once and read once, twice
+// for the second ones) and the survivors' 8-byte keys (written once, read
+// and written by the run sort and each merge round).  At Q = 64, N = 2^20 the keys are 256 MiB,
+// ~0.24 ms of HBM traffic beside the product's 0.51 ms.
 // No library sort, select or product runs: every pass is written here.
 // ---------------------------------------------------------------------------
 
-constexpr int kLargeQW = 8;                     // the score pass's queries a warp
-constexpr int kLargeQT = kLargeQW * kWarps;     // and a CTA (one compaction tile)
-constexpr int kRadixPasses = 3;                 // digits of 11, 11 and 10 bits
+constexpr int kLargeQW = 8;                     // the unmasked score pass's queries a warp
+constexpr int kLargeQT = kLargeQW * kWarps;     // and a CTA
+constexpr int kGroupQW = 4;                     // the masked score pass's queries a warp
+constexpr int kGroupQT = kGroupQW * kWarps;     // and a CTA: one grouped tile
+constexpr int kGroupMin = 8;                    // queries of one label that get own tiles
+constexpr int kPlanMax = 1024;                  // a masked chunk's queries (one plan CTA)
+constexpr int kPlanTilesMax = (kPlanMax + kGroupQT - 1) / kGroupQT + kPlanMax / kGroupMin;
 constexpr int kRadixBins = 2048;                // the widest digit's bins
 constexpr int kSelectBatch = kThreads * 4;      // entries a block takes at once
-constexpr int kSortRun = 4096;                  // keys one CTA sorts in shared memory
 constexpr int kSortThreads = 1024;
+constexpr int kSortElems = 16;                  // keys a sort thread holds
+constexpr int kSortRun = kSortThreads * kSortElems;   // keys one CTA sorts
+constexpr int kMergeThreads = 512;
+constexpr int kMergeTile = kMergeThreads * kSortElems;   // outputs a merge CTA makes
 constexpr int kBlocksPerSm = 8;                 // select/histogram CTAs an SM
+constexpr int kCandShare = 16;                  // candidate buffer: n_valid / 16 a query
 
-static_assert(kLargeQT == kMaxTileQueries, "a score CTA's queries are one compaction tile");
+static_assert(kLargeQT <= kMaxTileQueries && kGroupQT <= kMaxTileQueries,
+              "a score CTA's queries fit the compaction's label buffers");
 static_assert(kRadixBins % kThreads == 0, "the pick gives each thread whole bins");
+static_assert(kSelectBatch <= 0xffff, "a batch's counts pack into 16 bits");
 
 // Pass p's digit: its width and its shift, from the key's top.
 __host__ __device__ constexpr int radix_bits(int pass) { return pass < 2 ? 11 : 10; }
@@ -1132,37 +1202,278 @@ __device__ __forceinline__ unsigned long long sort_key(unsigned key, int row) {
 }
 
 // The rank key of a live score: score_key with -0 taken as +0 (they tie as
-// floats), so never 0, the key of an entry that is not live.
+// floats), so never 0, the key of an entry whose label differs.
 __device__ __forceinline__ unsigned rank_key(float s) {
   return score_key(s == 0.f ? 0.f : s);
+}
+
+// Candidate buffer entries a query: n_valid / kCandShare, at least k, at
+// most n_valid.  A pivot bin holding more runs the heavy select.
+__host__ __device__ inline int large_cap(int n_valid, int k) {
+  return min(n_valid, max(k, (n_valid + kCandShare - 1) / kCandShare));
+}
+
+// Survivor sort keys a query: every key above the k-th plus at most the
+// candidates, never more than the live entries.
+__host__ __device__ inline int large_stride(int n_valid, int k) {
+  return (int)min((long long)n_valid, (long long)k + large_cap(n_valid, k));
+}
+
+// A masked chunk of qc queries has at most this many grouped tiles:
+// ceil(qc / kGroupQT) packed, plus one per label of kGroupMin or more.
+__host__ __device__ inline int group_tiles_max(int qc) {
+  return (qc + kGroupQT - 1) / kGroupQT + qc / kGroupMin;
+}
+
+// Where each query's keys are.  Unmasked (null arrays): query q's n_valid
+// entries at q * n_valid, entry e is row e.  Masked: at first[q], count[q]
+// entries, entry e is row list[tile[q] * n_valid + e].
+struct Entries {
+  const long long* first;
+  const int* count;
+  const int* tile;
+  const int* list;
+  int n_valid;
+  __device__ long long at(int q) const { return first ? first[q] : (long long)q * n_valid; }
+  __device__ int n(int q) const { return count ? count[q] : n_valid; }
+  __device__ const int* rows(int q) const {
+    return list ? list + (size_t)tile[q] * n_valid : nullptr;
+  }
+};
+
+// The grouped tiles of a masked score pass: slot s = tile * kGroupQT + i
+// holds query slot_query[s] (-1: empty) of label slot_ns[s]; the tile's
+// CTAs are chunk_off[tile] .. chunk_off[tile + 1] - 1, its compacted rows
+// list + tile * n_valid (list_len[tile] of them), its queries' keys at
+// first[query].
+struct GroupPlan {
+  const int* slot_query;
+  const int* slot_ns;
+  const int* n_tiles;
+  const int* chunk_off;
+  const int* list;
+  const int* list_len;
+  const long long* first;
+};
+
+// Exclusive scan of v over a block of kBlock (<= 1024) threads; *total
+// gets the sum.  Block-collective; warp_sum (kBlock / 32 ints) is free
+// again when it returns.
+template <int kBlock>
+__device__ __forceinline__ int block_scan(int v, int* warp_sum, int* total) {
+  constexpr int kW = kBlock / 32;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  int incl = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(kFull, incl, o);
+    if (lane >= o) incl += y;
+  }
+  if (lane == 31) warp_sum[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < kW ? warp_sum[lane] : 0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(kFull, w, o);
+      if (lane >= o) w += y;
+    }
+    if (lane < kW) warp_sum[lane] = w;   // inclusive over warps
+  }
+  __syncthreads();
+  const int before = (warp > 0 ? warp_sum[warp - 1] : 0) + incl - v;
+  *total = warp_sum[kW - 1];
+  __syncthreads();
+  return before;
+}
+
+// One CTA: the tile plan of a masked chunk's qc (<= kPlanMax) queries.
+// Queries in label order (ties by index); a label asked by >= kGroupMin
+// queries fills tiles of its own (kGroupQT queries each), in label order;
+// the rest follow, packed kGroupQT a tile.  Slots no query fills are -1.
+// Writes slot_query/slot_ns (tiles_max tiles) and the tile count.
+__global__ void __launch_bounds__(kPlanMax)
+topk_group_plan_kernel(const int* __restrict__ q_ns, int qc, int tiles_max,
+                       int* __restrict__ slot_query, int* __restrict__ slot_ns,
+                       int* __restrict__ n_tiles) {
+  __shared__ int lab[kPlanMax], q_at[kPlanMax], g_first[kPlanMax], g_size[kPlanMax];
+  __shared__ int tile_of_head[kPlanMax];
+  __shared__ int warp_sum[kPlanMax / 32];
+  const int tid = threadIdx.x;
+  for (int s = tid; s < tiles_max * kGroupQT; s += kPlanMax) slot_query[s] = -1;
+  if (tid < qc) lab[tid] = q_ns[tid];
+  __syncthreads();
+  if (tid < qc) {   // this query's place in label order, and its label's group
+    const int v = lab[tid];
+    int less = 0, same = 0, same_before = 0;
+    for (int j = 0; j < qc; ++j) {
+      const int u = lab[j];
+      less += u < v ? 1 : 0;
+      same += u == v ? 1 : 0;
+      same_before += (u == v && j < tid) ? 1 : 0;
+    }
+    const int p = less + same_before;
+    q_at[p] = tid;
+    g_first[p] = less;
+    g_size[p] = same;
+  }
+  __syncthreads();
+  // thread p: place p.  A head of a big group adds its tiles; a place of a
+  // small group adds one to the rest (16 bits each, packed)
+  const bool live = tid < qc;
+  const bool big = live && g_size[tid] >= kGroupMin;
+  const int own = big && g_first[tid] == tid ? (g_size[tid] + kGroupQT - 1) / kGroupQT : 0;
+  int total;
+  const int before =
+      block_scan<kPlanMax>((own << 16) | (live && !big ? 1 : 0), warp_sum, &total);
+  const int big_tiles = total >> 16;
+  if (own > 0) tile_of_head[tid] = before >> 16;
+  __syncthreads();
+  if (live) {
+    int tile, lane;
+    if (big) {
+      const int i = tid - g_first[tid];
+      tile = tile_of_head[g_first[tid]] + i / kGroupQT;
+      lane = i % kGroupQT;
+    } else {
+      const int r = before & 0xffff;
+      tile = big_tiles + r / kGroupQT;
+      lane = r % kGroupQT;
+    }
+    const int q = q_at[tid];
+    slot_query[tile * kGroupQT + lane] = q;
+    slot_ns[tile * kGroupQT + lane] = lab[q];
+  }
+  if (tid == 0) *n_tiles = big_tiles + ((total & 0xffff) + kGroupQT - 1) / kGroupQT;
+}
+
+// The labels of grouped tile t (its filled slots, a prefix of the tile),
+// sorted into lab; returns their count.  Block-collective.
+__device__ int group_labels(const int* slot_query, const int* slot_ns, int t, int* raw,
+                            int* lab) {
+  const int s0 = t * kGroupQT;
+  const int n = __syncthreads_count(threadIdx.x < kGroupQT && slot_query[s0 + threadIdx.x] >= 0);
+  sort_labels(slot_ns + s0, n, raw, lab);
+  return n;
+}
+
+// The compaction's count pass over the grouped tiles: one block per row
+// block, looping over the plan's tiles (whose count only the device
+// knows); the blocks also copy the tiles' query rows to q_tiles
+// ([tile][kGroupQT][D], zero in empty slots), so that the score pass reads
+// a tile's queries together.
+__global__ void __launch_bounds__(kThreads)
+topk_group_count_kernel(const float* __restrict__ q, int D, const int* __restrict__ slot_query,
+                        const int* __restrict__ slot_ns, const int* __restrict__ n_tiles,
+                        const int* __restrict__ bank_ns, int n_valid, float* __restrict__ q_tiles,
+                        int* __restrict__ counts) {
+  __shared__ int raw[kMaxTileQueries], lab[kMaxTileQueries], warp_sum[kWarps];
+  const int nt = *n_tiles;
+  for (int t = blockIdx.x; t < nt; t += gridDim.x) {
+    const size_t s0 = (size_t)t * kGroupQT;
+    for (int i = threadIdx.x; i < kGroupQT * D; i += kThreads) {
+      const int qq = slot_query[s0 + i / D];
+      q_tiles[s0 * D + i] = qq >= 0 ? q[(size_t)qq * D + i % D] : 0.f;
+    }
+  }
+  for (int t = 0; t < nt; ++t) {
+    const int n = group_labels(slot_query, slot_ns, t, raw, lab);
+    count_rows(bank_ns, n_valid, lab, n, t, warp_sum, counts);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+topk_group_compact_kernel(const int* __restrict__ slot_query, const int* __restrict__ slot_ns,
+                          const int* __restrict__ n_tiles, const int* __restrict__ bank_ns,
+                          int n_valid, const int* __restrict__ counts, int* __restrict__ list,
+                          int* __restrict__ list_len) {
+  __shared__ int raw[kMaxTileQueries], lab[kMaxTileQueries], warp_sum[kWarps];
+  __shared__ int staged[kCompactBatch];
+  const int nt = *n_tiles;
+  for (int t = 0; t < nt; ++t) {
+    const int n = group_labels(slot_query, slot_ns, t, raw, lab);
+    compact_rows(bank_ns, n_valid, lab, n, t, counts, list, n_valid, list_len, warp_sum, staged);
+  }
+}
+
+// One CTA, after the compaction: tile t's keys follow tile t-1's (its
+// queries x its entries), its score CTAs are in proportion to its 256-row
+// tiles of entries (at least one if it has any, at most one a 256-row
+// tile, score_ctas in all when the tiles with entries are fewer); each
+// query's first key, entry count and tile.
+__global__ void __launch_bounds__(kThreads)
+topk_group_offsets_kernel(const int* __restrict__ slot_query, const int* __restrict__ n_tiles,
+                          const int* __restrict__ list_len, int score_ctas,
+                          long long* __restrict__ first, int* __restrict__ count,
+                          int* __restrict__ tile_of, int* __restrict__ chunk_off) {
+  __shared__ long long key_off[kPlanTilesMax];
+  __shared__ int queries[kPlanTilesMax], entries[kPlanTilesMax];
+  const int tid = threadIdx.x;
+  const int nt = *n_tiles;
+  for (int t = tid; t < nt; t += kThreads) {
+    int c = 0;
+    for (int i = 0; i < kGroupQT; ++i) c += slot_query[t * kGroupQT + i] >= 0 ? 1 : 0;
+    queries[t] = c;
+    entries[t] = list_len[t];
+  }
+  __syncthreads();
+  if (tid == 0) {
+    long long off = 0, row_tiles = 0;
+    for (int t = 0; t < nt; ++t) {
+      key_off[t] = off;
+      off += (long long)queries[t] * entries[t];
+      row_tiles += (entries[t] + kTileRows - 1) / kTileRows;
+    }
+    // one CTA each tile with entries, the rest in proportion (rounded
+    // down, so that the CTAs fit the card at once)
+    int busy = 0;
+    for (int t = 0; t < nt; ++t) busy += entries[t] > 0 ? 1 : 0;
+    const long long spare = max(0, score_ctas - busy);
+    int c = 0;
+    for (int t = 0; t < nt; ++t) {
+      chunk_off[t] = c;
+      const long long rt = (entries[t] + kTileRows - 1) / kTileRows;
+      if (rt > 0) c += (int)min(rt, 1 + spare * rt / row_tiles);
+    }
+    chunk_off[nt] = c;
+  }
+  __syncthreads();
+  for (int s = tid; s < nt * kGroupQT; s += kThreads) {
+    const int qq = slot_query[s];
+    if (qq < 0) continue;
+    const int t = s / kGroupQT;
+    first[qq] = key_off[t] + (long long)(s % kGroupQT) * entries[t];
+    count[qq] = entries[t];
+    tile_of[qq] = t;
+  }
 }
 
 // The score pass's dynamic shared memory: the scan kernel's ring, int8
 // conversion tile, resident queries and row-id buffers, without its lists.
 size_t score_smem_bytes(bool quant, int D, bool resident, bool masked) {
+  const int qt = masked ? kGroupQT : kLargeQT;
   const size_t bank_stage = quant ? (size_t)kTileRows * kSlice
                                   : sizeof(float) * kTileRows * kSliceStride;
-  const size_t q_stage = resident ? 0 : sizeof(float) * kLargeQT * kSliceStride;
+  const size_t q_stage = resident ? 0 : sizeof(float) * qt * kSliceStride;
   const size_t conv = quant ? sizeof(float) * kTileRows * kSliceStride : 0;
-  const size_t qres = resident ? sizeof(float) * kLargeQT * padded_depth(D) : 0;
+  const size_t qres = resident ? sizeof(float) * qt * padded_depth(D) : 0;
   const size_t ids = masked ? sizeof(int) * kIdBufs * kTileRows : 0;
   return kStages * (bank_stage + q_stage) + conv + qres + ids;
 }
 
-// One CTA per (chunk of entry tiles, 64-query tile): the scan kernel's
-// ring (scan_tiles, with this pass's eight queries a warp), then each
-// tile's scores as rank keys into keys[query * n_valid + entry]; 0 where the
-// entry is not live or (masked) its row's label is not the query's.
+// Unmasked: one CTA per (chunk of entry tiles, 64-query tile), keys at
+// keys[query * n_valid + entry].  Masked: CTA b runs chunk b - chunk_off[t]
+// of grouped tile t (4 queries a warp, the tile's rows copied together in
+// q), each query's keys at first[query]; 0 where an entry's label is not
+// the query's.  Both through the scan kernel's ring (scan_tiles).
 template <bool kMasked, bool kQuant>
 __global__ void __launch_bounds__(kThreads, 1)
 topk_score_kernel(const float* __restrict__ q, const void* __restrict__ bank_v,
-                  const float* __restrict__ scales, const int* __restrict__ q_ns,
-                  const int* __restrict__ bank_ns, const int* __restrict__ list,
-                  const int* __restrict__ list_len, int list_stride, int Q, int D,
-                  int n_valid, int n_chunks, bool resident, bool vec, bool qvec,
-                  unsigned* __restrict__ keys) {
-  constexpr int kQW = kLargeQW;
-  constexpr int kQT = kLargeQT;
+                  const float* __restrict__ scales, const int* __restrict__ bank_ns,
+                  GroupPlan plan, int Q, int D, int n_valid, int n_chunks, bool resident,
+                  bool vec, bool qvec, unsigned* __restrict__ keys) {
+  constexpr int kQW = kMasked ? kGroupQW : kLargeQW;
+  constexpr int kQT = kQW * kWarps;
   extern __shared__ __align__(16) unsigned char smem[];
   const int pd = padded_depth(D);
   const int bank_stage = kQuant ? kTileRows * kSlice
@@ -1175,24 +1486,39 @@ topk_score_kernel(const float* __restrict__ q, const void* __restrict__ bank_v,
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const int chunk = blockIdx.x;
-  const int q0 = blockIdx.y * kQT;
-  const int* rows = kMasked ? list + (size_t)blockIdx.y * list_stride : nullptr;
-  const int n_entries = kMasked ? list_len[blockIdx.y] : n_valid;
+  int tile = blockIdx.y, chunk = blockIdx.x, chunks = n_chunks;
+  if constexpr (kMasked) {
+    const int nt = *plan.n_tiles;
+    const int b = blockIdx.x;
+    if (b >= plan.chunk_off[nt]) return;
+    int lo = 0, hi = nt;   // the tile whose CTAs hold b
+    while (hi - lo > 1) {
+      const int mid = (lo + hi) >> 1;
+      if (plan.chunk_off[mid] <= b) lo = mid;
+      else hi = mid;
+    }
+    tile = lo;
+    chunk = b - plan.chunk_off[lo];
+    chunks = plan.chunk_off[lo + 1] - plan.chunk_off[lo];
+  }
+  const int q0 = tile * kQT;
+  const int* rows = kMasked ? plan.list + (size_t)tile * n_valid : nullptr;
+  const int n_entries = kMasked ? plan.list_len[tile] : n_valid;
   const int n_tiles = (n_entries + kTileRows - 1) / kTileRows;
-  const int t_begin = (int)((long long)chunk * n_tiles / n_chunks);
-  const int t_end = (int)((long long)(chunk + 1) * n_tiles / n_chunks);
+  const int t_begin = (int)((long long)chunk * n_tiles / chunks);
+  const int t_end = (int)((long long)(chunk + 1) * n_tiles / chunks);
   const int e_end = min(n_entries, t_end * kTileRows);
   const int n_slices = max(1, (D + kSlice - 1) / kSlice);
   const int n_steps = (t_end - t_begin) * n_slices;
   if (n_steps == 0) return;
 
   if (resident) load_queries<kQT>(qres, q, Q, D, q0, qvec);
-  int qns[kQW];
+  int qid[kQW], qns[kQW];   // masked: each slot's query (-1: none) and label
 #pragma unroll
   for (int i = 0; i < kQW; ++i) {
-    const int gq = q0 + warp * kQW + i;
-    qns[i] = (kMasked && gq < Q) ? q_ns[gq] : 0;
+    const int s = q0 + warp * kQW + i;
+    qid[i] = kMasked ? plan.slot_query[s] : 0;
+    qns[i] = kMasked ? plan.slot_ns[s] : 0;
   }
   // each tile's complete scores: their keys to the workspace
   scan_tiles<kMasked, kQuant, kQW>(
@@ -1210,9 +1536,9 @@ topk_score_kernel(const float* __restrict__ q, const void* __restrict__ bank_v,
         }
 #pragma unroll
         for (int i = 0; i < kQW; ++i) {
-          const int gq = q0 + warp * kQW + i;
-          if (gq >= Q) continue;
-          unsigned* out = keys + (size_t)gq * n_valid;
+          const int gq = kMasked ? qid[i] : q0 + warp * kQW + i;
+          if (kMasked ? gq < 0 : gq >= Q) continue;
+          unsigned* out = keys + (kMasked ? plan.first[gq] : (size_t)gq * n_valid);
 #pragma unroll
           for (int j = 0; j < kRowsPerLane; ++j) {
             const int e = e0 + lane + 32 * j;
@@ -1225,15 +1551,17 @@ topk_score_kernel(const float* __restrict__ q, const void* __restrict__ bank_v,
       });
 }
 
-// A query's selection state between the radix passes: the key prefix
-// chosen so far and its mask, how many entries with that prefix the top-k
-// still takes, and `done` when every live entry is taken (fewer entries
-// than k: the select keeps every key above 0).
+// A query's select state: the key prefix chosen so far and its mask, how
+// many entries with that prefix the top-k still takes, its mode, the first
+// digit's prefix (heavy) and where a heavy query's ordered select writes.
+enum : int { kModeFiltered = 0, kModeHeavy = 1, kModeAll = 2 };
 struct RadixState {
   unsigned prefix;
   unsigned mask;
   int k_rem;
-  int done;
+  int mode;
+  unsigned bucket0;
+  int base;
 };
 
 // Entries [begin, end) of a select/histogram block: whole batches of
@@ -1245,64 +1573,77 @@ __device__ __forceinline__ void block_range(int n, int* begin, int* end) {
   *end = min(n, *begin + per);
 }
 
-__device__ __forceinline__ int query_entries(int n_valid, const int* list_len, int q) {
-  return list_len != nullptr ? list_len[q / kLargeQT] : n_valid;
+// Add one to h[bin] for each lane that takes a key.  Warp-collective.
+// Scores crowd a few bins, but a warp's keys rarely share one; when every
+// taker does (an all-tied bank), one lane adds them all.
+__device__ __forceinline__ void hist_add(unsigned* h, bool take, unsigned bin) {
+  const unsigned m = __ballot_sync(kFull, take);
+  if (m == 0u) return;
+  const unsigned lo = __reduce_min_sync(kFull, take ? bin : 0xffffffffu);
+  const unsigned hi = __reduce_max_sync(kFull, take ? bin : 0u);
+  if (lo == hi) {
+    if ((int)(threadIdx.x & 31) == __ffs(m) - 1) atomicAdd(&h[lo], (unsigned)__popc(m));
+  } else if (take) {
+    atomicAdd(&h[bin], 1u);
+  }
 }
 
-// Pass p's histogram of query blockIdx.y's keys that carry its prefix, by
-// the digit (radix_bits(p) bits from radix_shift(p)), summed into
-// hist[query][bin].  Lanes of a warp that hit one bin add once.
-__global__ void __launch_bounds__(kThreads)
-topk_radix_hist_kernel(const unsigned* __restrict__ keys, int n_valid,
-                       const int* __restrict__ list_len, const RadixState* __restrict__ state,
-                       int pass, unsigned* __restrict__ hist) {
-  __shared__ unsigned h[kRadixBins];
-  const int tid = threadIdx.x;
-  const int qq = blockIdx.y;
-  unsigned prefix = 0u, mask = 0u;
-  if (pass > 0) {
-    const RadixState s = state[qq];
-    if (s.done) return;
-    prefix = s.prefix;
-    mask = s.mask;
+// h[(key >> shift) & (bins - 1)] += 1 for each live key of kq[begin, end)
+// that carries `prefix` under `mask`, 4 keys in flight a thread.
+// Block-collective (the block's threads stride over the range).
+__device__ __forceinline__ void count_keys(unsigned* h, const unsigned* kq, int begin, int end,
+                                           unsigned mask, unsigned prefix, int shift,
+                                           unsigned bins) {
+  for (int base = begin; base < end; base += 4 * kThreads) {   // block-uniform
+    unsigned key[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int e = base + j * kThreads + threadIdx.x;
+      key[j] = e < end ? kq[e] : 0u;
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      hist_add(h, key[j] != 0u && (key[j] & mask) == prefix, (key[j] >> shift) & (bins - 1u));
   }
-  const int shift = radix_shift(pass);
-  const unsigned bins = 1u << radix_bits(pass);
-  for (int i = tid; i < (int)bins; i += kThreads) h[i] = 0u;
+}
+
+// The block's nonzero bins of h (`bins` of them) added to dst.
+// Block-collective: the barrier first.
+__device__ __forceinline__ void flush_hist(const unsigned* h, unsigned bins, unsigned* dst) {
+  __syncthreads();
+  for (int i = threadIdx.x; i < (int)bins; i += kThreads)
+    if (h[i] != 0u) atomicAdd(&dst[i], h[i]);
+}
+
+// The first digit's histogram of query blockIdx.y's live keys, summed
+// into hist[query][bin].
+__global__ void __launch_bounds__(kThreads)
+topk_radix_hist_kernel(const unsigned* __restrict__ keys, Entries en,
+                       unsigned* __restrict__ hist) {
+  __shared__ unsigned h[kRadixBins];
+  const int qq = blockIdx.y;
+  for (int i = threadIdx.x; i < kRadixBins; i += kThreads) h[i] = 0u;
   __syncthreads();
   int begin, end;
-  block_range(query_entries(n_valid, list_len, qq), &begin, &end);
-  const unsigned* kq = keys + (size_t)qq * n_valid;
-  const int lane = tid & 31;
-  for (int base = begin; base < end; base += kThreads) {   // block-uniform
-    const int e = base + tid;
-    const unsigned key = e < end ? kq[e] : 0u;
-    const bool take = e < end && (key & mask) == prefix;
-    const unsigned d = (key >> shift) & (bins - 1u);
-    const unsigned peers = __match_any_sync(kFull, take ? d : 0xffffffffu);
-    if (take && lane == __ffs(peers) - 1) atomicAdd(&h[d], (unsigned)__popc(peers));
-  }
-  __syncthreads();
-  for (int i = tid; i < (int)bins; i += kThreads)
-    if (h[i] != 0u) atomicAdd(&hist[(size_t)qq * kRadixBins + i], h[i]);
+  block_range(en.n(qq), &begin, &end);
+  count_keys(h, keys + en.at(qq), begin, end, 0u, 0u, radix_shift(0), kRadixBins);
+  flush_hist(h, kRadixBins, hist + (size_t)qq * kRadixBins);
 }
 
-// One CTA per query: the bin of pass p that holds the query's k_rem-th
-// key from the top, its digit appended to the prefix and the entries of
-// the bins above it taken off k_rem; the histogram zeroed for the next
-// pass.  Pass 0 starts from k and, with fewer than k entries, ends the
-// select (`done`).
-__global__ void __launch_bounds__(kThreads)
-topk_radix_pick_kernel(int n_valid, const int* __restrict__ list_len, int k, int pass,
-                       RadixState* __restrict__ state, unsigned* __restrict__ hist) {
-  __shared__ unsigned warp_sum[kWarps];
+// Pass p's pick: from the query's pass-p histogram hq and its state s
+// after pass p - 1 (pass 0: from k), the bin that holds its k_rem-th key
+// from the top, its digit appended to the prefix and the entries of the
+// bins above it taken off k_rem.  Pass 0: with fewer live keys than k the
+// query takes them all (kModeAll); else the pivot bin's count sets the
+// mode (filtered within `cap`, else heavy).  Pass 2 records where a heavy
+// query's ordered select writes (after the survivors so far).
+// Block-collective.
+__device__ RadixState block_pick(const unsigned* hq, RadixState s, int pass, int k, int cap,
+                                 const int* n_surv_q, unsigned* warp_sum, RadixState* picked) {
+  if (s.mode == kModeAll) return s;   // block-uniform
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int qq = blockIdx.x;
-  RadixState s = pass == 0 ? RadixState{0u, 0u, k, 0} : state[qq];
-  if (s.done) return;
   const int bins = 1 << radix_bits(pass);
   const int per = bins / kThreads;     // thread t owns bins top - t*per down
-  unsigned* hq = hist + (size_t)qq * kRadixBins;
   const int top = bins - 1 - tid * per;
   unsigned c[kRadixBins / kThreads];
   unsigned mine = 0u;
@@ -1324,92 +1665,218 @@ topk_radix_pick_kernel(int n_valid, const int* __restrict__ list_len, int k, int
     above += w < warp ? warp_sum[w] : 0u;
     total += warp_sum[w];
   }
-  for (int j = 0; j < per; ++j) hq[top - j] = 0u;
-  if (pass == 0 && total < (unsigned)k) {   // fewer entries than k: all live ones
-    if (tid == 0) state[qq] = RadixState{0u, 0u, 0, 1};
-    return;
-  }
-  const unsigned want = (unsigned)s.k_rem;
-  for (int j = 0; j < per; ++j) {
-    if (above < want && above + c[j] >= want) {
-      const unsigned d = (unsigned)(top - j);
-      state[qq] = RadixState{s.prefix | (d << radix_shift(pass)),
-                             s.mask | ((unsigned)(bins - 1) << radix_shift(pass)),
-                             (int)(want - above), 0};
+  if (pass == 0 && total < (unsigned)k) {   // fewer live keys than k: all of them
+    if (tid == 0) *picked = RadixState{0u, 0u, 0, kModeAll, 0u, 0};
+  } else {
+    const unsigned want = (unsigned)s.k_rem;
+    for (int j = 0; j < per; ++j) {
+      if (above < want && above + c[j] >= want) {
+        RadixState t = s;
+        t.prefix |= (unsigned)(top - j) << radix_shift(pass);
+        t.mask |= (unsigned)(bins - 1) << radix_shift(pass);
+        t.k_rem = (int)(want - above);
+        if (pass == 0) {
+          t.bucket0 = t.prefix;
+          t.mode = c[j] <= (unsigned)cap ? kModeFiltered : kModeHeavy;
+        }
+        if (pass == 2) t.base = *n_surv_q;
+        *picked = t;
+      }
+      above += c[j];
     }
-    above += c[j];
-  }
-}
-
-// The selected threshold of a query: keys above T are all taken; of the
-// keys equal to T (never the dead key 0), the first `ties` in entry order.
-__device__ __forceinline__ void select_rule(const RadixState& s, unsigned* T, int* ties) {
-  *T = s.done ? 0u : s.prefix;
-  *ties = (s.done || s.prefix == 0u) ? 0 : s.k_rem;
-}
-
-// Per (block, query): the block's entries above T and equal to T.
-__global__ void __launch_bounds__(kThreads)
-topk_select_count_kernel(const unsigned* __restrict__ keys, int n_valid,
-                         const int* __restrict__ list_len, const RadixState* __restrict__ state,
-                         int* __restrict__ counts) {
-  __shared__ int warp_sum[kWarps], warp_tie[kWarps];
-  const int tid = threadIdx.x;
-  const int qq = blockIdx.y;
-  unsigned T;
-  int ties;
-  select_rule(state[qq], &T, &ties);
-  int begin, end;
-  block_range(query_entries(n_valid, list_len, qq), &begin, &end);
-  const unsigned* kq = keys + (size_t)qq * n_valid;
-  int above = 0, tie = 0;
-  for (int e = begin + tid; e < end; e += kThreads) {
-    const unsigned key = kq[e];
-    above += key > T ? 1 : 0;
-    tie += ties > 0 && key == T ? 1 : 0;
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    above += __shfl_xor_sync(kFull, above, o);
-    tie += __shfl_xor_sync(kFull, tie, o);
-  }
-  if ((tid & 31) == 0) {
-    warp_sum[tid >> 5] = above;
-    warp_tie[tid >> 5] = tie;
   }
   __syncthreads();
-  if (tid == 0) {
-    int a = 0, t = 0;
-    for (int w = 0; w < kWarps; ++w) {
-      a += warp_sum[w];
-      t += warp_tie[w];
-    }
-    counts[((size_t)qq * gridDim.x + blockIdx.x) * 2] = a;
-    counts[((size_t)qq * gridDim.x + blockIdx.x) * 2 + 1] = t;
-  }
+  const RadixState out = *picked;
+  __syncthreads();   // warp_sum and picked are free again
+  return out;
 }
 
-// Per (block, query): the block's entries above T at their place after
-// the blocks before it (in entry order), then its ties after every
-// block's entries above T, as far as the ties taken.  Each thread tests 4
-// consecutive entries of a batch; a block-wide exclusive scan of its
-// (above, tie) counts, packed 16:16, places them.  `rows` (masked) maps an
-// entry of the query's tile list to its row.  Block 0 writes the query's
-// survivor count.
+// One CTA per query: pass p's pick (`block_pick`) into the query's state.
 __global__ void __launch_bounds__(kThreads)
-topk_select_write_kernel(const unsigned* __restrict__ keys, int n_valid,
-                         const int* __restrict__ list_len, const int* __restrict__ list,
-                         const RadixState* __restrict__ state, const int* __restrict__ counts,
-                         int stride, unsigned long long* __restrict__ out,
-                         int* __restrict__ n_out) {
-  __shared__ int warp_sum[kWarps];
+topk_radix_pick_kernel(int k, int cap, int pass, RadixState* __restrict__ state,
+                       const unsigned* __restrict__ hist, const int* __restrict__ n_surv) {
+  __shared__ unsigned warp_sum[kWarps];
+  __shared__ RadixState picked;
+  const int qq = blockIdx.x;
+  const RadixState s =
+      block_pick(hist + (size_t)qq * kRadixBins,
+                 pass == 0 ? RadixState{0u, 0u, k, kModeFiltered, 0u, 0} : state[qq], pass, k,
+                 cap, n_surv + qq, warp_sum, &picked);
+  if (threadIdx.x == 0) state[qq] = s;
+}
+
+// A warp's staged survivors or candidates: the first n of buf (kFlushAt
+// + 32 entries in shared memory) to their place after the query's count
+// (one atomicAdd), coalesced; out-of-range places are dropped (never
+// reached: the counts are bounded by the select).  Warp-collective.
+constexpr int kStaged = 256;
+constexpr int kFlushAt = kStaged - 32;
+__device__ __forceinline__ void flush_staged(unsigned long long* buf, int& n, int* count,
+                                             unsigned long long* dst, int limit) {
+  __syncwarp();
+  int base = 0;
+  if ((threadIdx.x & 31) == 0) base = atomicAdd(count, n);
+  base = __shfl_sync(kFull, base, 0);
+  for (int i = threadIdx.x & 31; i < n; i += 32)
+    if (base + i < limit) dst[base + i] = buf[i];
+  n = 0;
+  __syncwarp();
+}
+
+// One select pass p, per (block, query), after pass p's pick.
+//  - Pass 0 reads the query's keys: with kModeAll every live key is a
+//    survivor; else a key above the pivot bin is, and a key inside it is
+//    counted by the second digit into hist_next and (filtered) copied with
+//    its row to the candidates (AIR Top-K's filter).
+//  - Pass 1, filtered: the candidates; a key above the second digit's bin
+//    is a survivor, one inside it is counted by the third digit and copied
+//    to the second candidates.  Heavy: the third digit's histogram of the
+//    keys that carry the 22-bit prefix.
+//  - Pass 2, filtered: the second candidates; keys at or above the k-th
+//    key T are survivors, so the survivors are the top-k and every key
+//    tied with T, and the sort decides the ties by row.  Heavy: the
+//    block's pivot-bin keys above T and equal to T, into counts, for the
+//    ordered select (topk_select_write_kernel).
+// The filters take 4 x 32 consecutive entries a warp at a time (4 loads in
+// flight a lane) and stage survivors and candidates in shared memory by
+// ballots, flushing each past kFlushAt entries with one atomicAdd on the
+// query's count (their order does not matter: the sort orders them).
+__global__ void __launch_bounds__(kThreads)
+topk_select_pass_kernel(const unsigned* __restrict__ keys, Entries en, int pass,
+                        const RadixState* __restrict__ state,
+                        unsigned* __restrict__ hist_next, const unsigned long long* __restrict__ src,
+                        int src_stride, const int* __restrict__ n_src,
+                        unsigned long long* __restrict__ cand, int cand_stride,
+                        int* __restrict__ n_cand, unsigned long long* __restrict__ surv,
+                        int stride, int* __restrict__ n_surv, int* __restrict__ counts) {
+  __shared__ unsigned h[kRadixBins];
+  __shared__ unsigned long long staged[kWarps][2][kStaged];
+  __shared__ int red[2][kWarps];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int qq = blockIdx.y;
-  unsigned T;
-  int ties;
-  select_rule(state[qq], &T, &ties);
+  const RadixState s = state[qq];
+  if (pass > 0 && s.mode == kModeAll) return;
+  const unsigned* kq = keys + en.at(qq);
+  int begin, end;
+  if (pass > 0 && s.mode == kModeHeavy) {   // the heavy select's passes over the keys
+    block_range(en.n(qq), &begin, &end);
+    if (pass == 1) {
+      for (int i = tid; i < (1 << radix_bits(2)); i += kThreads) h[i] = 0u;
+      __syncthreads();
+      count_keys(h, kq, begin, end, s.mask, s.prefix, radix_shift(2), 1u << radix_bits(2));
+      flush_hist(h, 1u << radix_bits(2), hist_next + (size_t)qq * kRadixBins);
+      return;
+    }
+    const unsigned T = s.prefix;
+    const unsigned b0 = s.bucket0 >> radix_shift(0);
+    int above = 0, tie = 0;
+    for (int e = begin + tid; e < end; e += kThreads) {
+      const unsigned key = kq[e];
+      above += key > T && (key >> radix_shift(0)) == b0 ? 1 : 0;
+      tie += key == T ? 1 : 0;
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      above += __shfl_xor_sync(kFull, above, o);
+      tie += __shfl_xor_sync(kFull, tie, o);
+    }
+    if (lane == 0) {
+      red[0][warp] = above;
+      red[1][warp] = tie;
+    }
+    __syncthreads();
+    if (tid == 0) {
+      int a = 0, t = 0;
+      for (int w = 0; w < kWarps; ++w) {
+        a += red[0][w];
+        t += red[1][w];
+      }
+      counts[((size_t)qq * gridDim.x + blockIdx.x) * 2] = a;
+      counts[((size_t)qq * gridDim.x + blockIdx.x) * 2 + 1] = t;
+    }
+    return;
+  }
+  const bool all = s.mode == kModeAll;
+  const bool keep = s.mode == kModeFiltered && pass < 2;   // candidates stored
+  const bool count = !all && pass < 2;                      // the next digit counted
+  const unsigned bins = 1u << radix_bits(pass + 1);
+  // the bin boundary of this pass: keys above `top` are survivors, keys
+  // whose `shift`-bit prefix equals it are candidates
+  const int shift = pass == 0 ? radix_shift(0) : pass == 1 ? radix_shift(1) : 0;
+  const unsigned top = pass == 0 ? s.bucket0 >> shift : s.prefix >> shift;
+  if (count)
+    for (int i = tid; i < (int)bins; i += kThreads) h[i] = 0u;
+  __syncthreads();
+  block_range(pass == 0 ? en.n(qq) : n_src[qq], &begin, &end);
+  const unsigned long long* sq_in = src + (size_t)qq * src_stride;
+  const int* rows = en.rows(qq);
+  unsigned long long* cq = cand + (size_t)qq * cand_stride;
+  unsigned long long* sq = surv + (size_t)qq * stride;
+  unsigned long long* st_s = staged[warp][0];
+  unsigned long long* st_c = staged[warp][1];
+  int ns = 0, nc = 0;   // staged survivors and candidates (warp-uniform)
+  const unsigned below = (1u << lane) - 1u;
+  for (int base = begin + warp * 128; base < end; base += 4 * kThreads) {   // warp-uniform
+    unsigned long long v[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int e = base + 32 * j + lane;
+      if (pass == 0) v[j] = e < end ? kq[e] : 0u;
+      else v[j] = e < end ? sq_in[e] : ~0ull;   // ~0: the key of no entry
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int e = base + 32 * j + lane;
+      const unsigned key = pass == 0 ? (unsigned)v[j] : ~(unsigned)(v[j] >> 32);
+      const unsigned d = key >> shift;
+      const bool live = key != 0u;
+      const bool is_s = live && (all || d > top || (pass == 2 && d == top));
+      const bool inb = live && !all && pass < 2 && d == top;
+      const unsigned ms = __ballot_sync(kFull, is_s), mi = __ballot_sync(kFull, inb);
+      if ((ms | mi) == 0u) continue;   // most keys lie below the bin
+      if (count) hist_add(h, inb, (key >> radix_shift(pass + 1)) & (bins - 1u));
+      const unsigned mc = keep ? mi : 0u;
+      if (is_s || (keep && inb)) {
+        const unsigned long long val =
+            pass == 0 ? sort_key(key, rows != nullptr ? rows[e] : e) : v[j];
+        if (is_s) st_s[ns + __popc(ms & below)] = val;
+        else st_c[nc + __popc(mc & below)] = val;
+      }
+      ns += __popc(ms);
+      nc += __popc(mc);
+      if (ns > kFlushAt) flush_staged(st_s, ns, &n_surv[qq], sq, stride);
+      if (nc > kFlushAt) flush_staged(st_c, nc, &n_cand[qq], cq, cand_stride);
+    }
+  }
+  if (ns > 0) flush_staged(st_s, ns, &n_surv[qq], sq, stride);
+  if (nc > 0) flush_staged(st_c, nc, &n_cand[qq], cq, cand_stride);
+  if (count) flush_hist(h, bins, hist_next + (size_t)qq * kRadixBins);
+}
+
+// Heavy queries, the ordered select inside the pivot bin: keys of the bin
+// above the k-th key T are all taken, then the lowest entries equal to T
+// (k_rem of them; entries ascend with the row).  Per (block, query), with
+// pass 2's state and per-block counts: the block's bin keys above T at
+// their place after the blocks before it (in entry order), then its ties
+// after every block's keys above T, as far as the ties taken, all after
+// the survivors the filter wrote (state.base).  Each thread tests 4
+// consecutive entries of a batch; a block scan of its (above, tie)
+// counts, packed 16:16, places them.  Block 0 writes the survivor count.
+__global__ void __launch_bounds__(kThreads)
+topk_select_write_kernel(const unsigned* __restrict__ keys, Entries en,
+                         const RadixState* __restrict__ state, const int* __restrict__ counts,
+                         int stride, unsigned long long* __restrict__ surv,
+                         int* __restrict__ n_surv) {
+  __shared__ int warp_sum[kWarps];
+  const int tid = threadIdx.x;
+  const int qq = blockIdx.y;
+  const RadixState s = state[qq];
+  if (s.mode != kModeHeavy) return;
+  const unsigned T = s.prefix;
+  const unsigned b0 = s.bucket0 >> radix_shift(0);
+  int ties = s.k_rem;
   const int* cq = counts + (size_t)qq * gridDim.x * 2;
-  // the entries above T and the ties of the blocks before this one, and of all
+  // the bin keys above T and the ties of the blocks before this one, and of all
   int a_before = 0, t_before = 0, a_total = 0, t_total = 0;
   for (int b = 0; b < (int)gridDim.x; ++b) {
     const int a = cq[2 * b], t = cq[2 * b + 1];
@@ -1420,13 +1887,13 @@ topk_select_write_kernel(const unsigned* __restrict__ keys, int n_valid,
       t_before += t;
     }
   }
-  if (blockIdx.x == 0 && tid == 0) n_out[qq] = a_total + min(t_total, ties);
+  if (blockIdx.x == 0 && tid == 0) n_surv[qq] = s.base + a_total + min(t_total, ties);
   if (t_before >= ties) ties = 0;   // none of this block's ties is taken
   int begin, end;
-  block_range(query_entries(n_valid, list_len, qq), &begin, &end);
-  const unsigned* kq = keys + (size_t)qq * n_valid;
-  const int* rows = list != nullptr ? list + (size_t)(qq / kLargeQT) * n_valid : nullptr;
-  unsigned long long* oq = out + (size_t)qq * stride;
+  block_range(en.n(qq), &begin, &end);
+  const unsigned* kq = keys + en.at(qq);
+  const int* rows = en.rows(qq);
+  unsigned long long* oq = surv + (size_t)qq * stride + s.base;
   for (int base = begin; base < end; base += kSelectBatch) {
     const int e0 = base + 4 * tid;
     unsigned k4[4];
@@ -1434,23 +1901,12 @@ topk_select_write_kernel(const unsigned* __restrict__ keys, int n_valid,
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       k4[i] = e0 + i < end ? kq[e0 + i] : 0u;
-      if (e0 + i < end && k4[i] > T) above_bits |= 1u << i;
-      else if (e0 + i < end && ties > 0 && k4[i] == T) tie_bits |= 1u << i;
+      if (k4[i] > T && (k4[i] >> radix_shift(0)) == b0) above_bits |= 1u << i;
+      else if (ties > 0 && k4[i] == T) tie_bits |= 1u << i;
     }
-    const int c = (__popc(above_bits) << 16) | __popc(tie_bits);
-    int incl = c;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(kFull, incl, o);
-      if (lane >= o) incl += y;
-    }
-    if (lane == 31) warp_sum[warp] = incl;
-    __syncthreads();
-    int at = incl - c, sum = 0;
-    for (int w = 0; w < kWarps; ++w) {
-      at += w < warp ? warp_sum[w] : 0;
-      sum += warp_sum[w];
-    }
+    int sum;
+    const int at =
+        block_scan<kThreads>((__popc(above_bits) << 16) | __popc(tie_bits), warp_sum, &sum);
     int a_at = a_before + (at >> 16), t_at = t_before + (at & 0xffff);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -1463,87 +1919,222 @@ topk_select_write_kernel(const unsigned* __restrict__ keys, int n_valid,
     }
     a_before += sum >> 16;
     t_before += sum & 0xffff;
-    __syncthreads();   // warp_sum is rewritten next batch
   }
 }
 
-// Each CTA sorts run blockIdx.x (kSortRun keys) of query blockIdx.y's
-// n_q survivors ascending, in place: a bitonic sort in shared memory,
-// padded with the largest key (no survivor's: its score key is not 0).
-__global__ void __launch_bounds__(kSortThreads)
-topk_sort_runs_kernel(unsigned long long* __restrict__ buf, int stride,
-                      const int* __restrict__ n_out) {
-  __shared__ unsigned long long s[kSortRun];
-  const int qq = blockIdx.y;
-  const int n = n_out[qq];
-  const int r0 = blockIdx.x * kSortRun;
-  if (r0 >= n) return;
-  unsigned long long* bq = buf + (size_t)qq * stride + r0;
-  const int len = min(kSortRun, n - r0);
-  for (int i = threadIdx.x; i < kSortRun; i += kSortThreads)
-    s[i] = i < len ? bq[i] : ~0ull;
-  __syncthreads();
-  for (int size = 2; size <= kSortRun; size <<= 1) {
-    for (int stride_ = size >> 1; stride_ > 0; stride_ >>= 1) {
-      for (int i = threadIdx.x; i < kSortRun / 2; i += kSortThreads) {
-        const int lo = 2 * stride_ * (i / stride_) + i % stride_;
-        const int hi = lo + stride_;
-        const bool asc = (lo & size) == 0;
-        const unsigned long long a = s[lo], b = s[hi];
-        if ((a > b) == asc) {
-          s[lo] = b;
-          s[hi] = a;
+// ---- the sort: 16,384-key runs in shared memory, merge-path rounds ------
+
+// Shared-memory index of key i: a pad slot after every 16 keys, so that a
+// thread's 16 consecutive keys and its neighbours' fall in other banks.
+__device__ __forceinline__ int spad(int i) { return i + (i >> 4); }
+
+// Sort 16 keys ascending in registers (a bitonic network).
+__device__ __forceinline__ void sort16(unsigned long long (&v)[kSortElems]) {
+#pragma unroll
+  for (int size = 2; size <= kSortElems; size <<= 1)
+#pragma unroll
+    for (int stride = size >> 1; stride > 0; stride >>= 1)
+#pragma unroll
+      for (int i = 0; i < kSortElems; ++i) {
+        const int j = i ^ stride;
+        if (j > i && ((v[i] > v[j]) == ((i & size) == 0))) {
+          const unsigned long long t = v[i];
+          v[i] = v[j];
+          v[j] = t;
         }
       }
-      __syncthreads();
-    }
-  }
-  for (int i = threadIdx.x; i < len; i += kSortThreads) bq[i] = s[i];
 }
 
-// One merge round of sorted runs of `run` keys: key e of src goes to its
-// place in the merged pair, its index in its run plus the count of the
-// partner run's keys below it (keys are distinct), in dst.
-__global__ void __launch_bounds__(kThreads)
-topk_merge_runs_kernel(const unsigned long long* __restrict__ src,
-                       unsigned long long* __restrict__ dst, int stride, int run,
-                       const int* __restrict__ n_out) {
-  const int qq = blockIdx.y;
-  const int n = n_out[qq];
-  const int e = blockIdx.x * kThreads + threadIdx.x;
-  if (e >= n) return;
-  const unsigned long long* sq = src + (size_t)qq * stride;
-  const unsigned long long key = sq[e];
-  const int r = e / run;
-  const int pair0 = (r & ~1) * run;
-  const int p_lo = (r ^ 1) * run;
-  const int p_hi = min(n, p_lo + run);
-  int lo = p_lo, hi = max(p_lo, p_hi);   // first partner key not below `key`
+// Merge path: how many of the first d keys of the merge of sorted a[0, la)
+// and b[0, lb) come from a (equal keys: a's first).
+template <typename A, typename B>
+__device__ __forceinline__ int merge_split(A a, int la, B b, int lb, int d) {
+  int lo = max(0, d - lb), hi = min(d, la);
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
-    if (sq[mid] < key) lo = mid + 1;
+    if (a(mid) <= b(d - 1 - mid)) lo = mid + 1;
     else hi = mid;
   }
-  dst[(size_t)qq * stride + pair0 + (e - r * run) + (lo - p_lo)] = key;
+  return lo;
 }
 
-// The outputs of a query chunk: (score, row) of its sorted survivors, then
-// (NEG_INF, -1) up to k.
-__global__ void __launch_bounds__(kThreads)
-topk_emit_kernel(const unsigned long long* __restrict__ sorted, int stride,
-                 const int* __restrict__ n_out, int k, float* __restrict__ out_s,
-                 int* __restrict__ out_i) {
-  const int qq = blockIdx.y;
-  const int e = blockIdx.x * kThreads + threadIdx.x;
-  if (e >= k) return;
+// The same split by a warp in device memory: each step tests 32 evenly
+// spaced places, so ~4 dependent loads find a split in 65,536 keys.
+// Warp-collective; every lane returns it.
+__device__ __forceinline__ int warp_merge_split(const unsigned long long* a, int la,
+                                                const unsigned long long* b, int lb, int d) {
+  const int lane = threadIdx.x & 31;
+  int lo = max(0, d - lb), hi = min(d, la);   // the split is in [lo, hi]
+  while (lo < hi) {
+    const int step = (hi - lo + 31) / 32;
+    const int i = lo + step * lane;
+    const bool before = i < hi && a[i] <= b[d - 1 - i];
+    const int c = __popc(__ballot_sync(kFull, before));
+    const int next_hi = min(hi, lo + step * c);
+    lo = c > 0 ? lo + step * (c - 1) + 1 : lo;
+    hi = c > 0 ? next_hi : lo;
+  }
+  return lo;
+}
+
+// kSortElems keys of the merge of a[0, la) and b[0, lb) from a's key i and
+// b's key j on (past both: ~0).
+template <typename A, typename B>
+__device__ __forceinline__ void merge_keys(A a, int la, B b, int lb, int i, int j,
+                                           unsigned long long (&v)[kSortElems]) {
+  unsigned long long x = i < la ? a(i) : ~0ull, y = j < lb ? b(j) : ~0ull;
+#pragma unroll
+  for (int e = 0; e < kSortElems; ++e) {
+    const bool from_a = j >= lb || (i < la && x <= y);
+    v[e] = from_a ? x : y;
+    if (from_a) {
+      ++i;
+      x = i < la ? a(i) : ~0ull;
+    } else {
+      ++j;
+      y = j < lb ? b(j) : ~0ull;
+    }
+  }
+}
+
+// The outputs of sorted position e of query qq: (score, row) of its key
+// below n, else the fill.
+__device__ __forceinline__ void emit(float* out_s, int* out_i, int k, int qq, int e, int n,
+                                     unsigned long long key) {
   const size_t o = (size_t)qq * k + e;
-  if (e < n_out[qq]) {
-    const unsigned long long key = sorted[(size_t)qq * stride + e];
+  if (e < n) {
     out_s[o] = key_score(~(unsigned)(key >> 32));
     out_i[o] = (int)(unsigned)(key & 0xffffffffull);
   } else {
     out_s[o] = kNegInf;
     out_i[o] = -1;
+  }
+}
+
+// Each CTA sorts run blockIdx.x (kSortRun keys) of query blockIdx.y's
+// n_surv survivors: its keys padded with ~0 to a power of two (at least
+// 16), 16 a thread sorted in registers, then merge rounds of doubling
+// runs in shared memory, each thread merging its 16 outputs after a
+// merge-path split.  A query whose survivors fit one run is done here: its
+// outputs, the fill up to k included; the others' runs go back in place.
+__global__ void __launch_bounds__(kSortThreads)
+topk_sort_runs_kernel(unsigned long long* __restrict__ buf, int stride,
+                      const int* __restrict__ n_surv, int k, float* __restrict__ out_s,
+                      int* __restrict__ out_i) {
+  extern __shared__ __align__(16) unsigned long long sk[];   // spad(kSortRun)
+  const int tid = threadIdx.x;
+  const int qq = blockIdx.y;
+  const int n = min(n_surv[qq], stride);
+  const bool done = n <= kSortRun;   // one run: this CTA writes the outputs
+  const int r0 = blockIdx.x * kSortRun;
+  if (done ? blockIdx.x > 0 : r0 >= n) return;
+  const int len = max(0, min(kSortRun, n - r0));
+  int n_pad = kSortElems;
+  while (n_pad < len) n_pad <<= 1;
+  unsigned long long* bq = buf + (size_t)qq * stride + r0;
+  for (int i = tid; i < n_pad; i += kSortThreads) sk[spad(i)] = i < len ? bq[i] : ~0ull;
+  __syncthreads();
+  const bool active = kSortElems * tid < n_pad;
+  unsigned long long v[kSortElems];
+  if (active) {
+#pragma unroll
+    for (int e = 0; e < kSortElems; ++e) v[e] = sk[spad(kSortElems * tid + e)];
+    sort16(v);
+  }
+  for (int run = kSortElems; run < n_pad; run <<= 1) {
+    __syncthreads();
+    if (active) {
+#pragma unroll
+      for (int e = 0; e < kSortElems; ++e) sk[spad(kSortElems * tid + e)] = v[e];
+    }
+    __syncthreads();
+    if (active) {
+      const int o = kSortElems * tid;
+      const int a0 = o / (2 * run) * (2 * run);
+      const int d = o - a0;
+      auto A = [&](int i) { return sk[spad(a0 + i)]; };
+      auto B = [&](int i) { return sk[spad(a0 + run + i)]; };
+      const int i = merge_split(A, run, B, run, d);
+      merge_keys(A, run, B, run, i, d - i, v);
+    }
+  }
+  __syncthreads();
+  if (active) {
+#pragma unroll
+    for (int e = 0; e < kSortElems; ++e) sk[spad(kSortElems * tid + e)] = v[e];
+  }
+  __syncthreads();
+  if (done) {
+    for (int e = tid; e < k; e += kSortThreads)
+      emit(out_s, out_i, k, qq, e, len, e < len ? sk[spad(e)] : 0ull);
+  } else {
+    for (int i = tid; i < len; i += kSortThreads) bq[i] = sk[spad(i)];
+  }
+}
+
+// One merge round of sorted runs of `run` keys (a multiple of kSortRun)
+// for the queries whose sort is not complete (more than `run` survivors).
+// CTA x of query y makes outputs [x kMergeTile, (x+1) kMergeTile) of its
+// pair of runs: warps 0 and 1 find where the range starts and ends in each
+// run (warp_merge_split), the block copies both input ranges into shared
+// memory coalesced, each thread merges its 16 outputs there after a
+// merge-path split, and the block writes them coalesced: to dst, or, in
+// the round that completes the query's sort (at most 2 run survivors), as
+// the outputs, with the fill from n to k (the grid covers max(stride, k)
+// outputs).
+__global__ void __launch_bounds__(kMergeThreads)
+topk_merge_runs_kernel(const unsigned long long* __restrict__ src,
+                       unsigned long long* __restrict__ dst, int stride, int run,
+                       const int* __restrict__ n_surv, int k, float* __restrict__ out_s,
+                       int* __restrict__ out_i) {
+  extern __shared__ __align__(16) unsigned long long sk[];   // spad(kMergeTile)
+  __shared__ int split[2];
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int qq = blockIdx.y;
+  const int n = min(n_surv[qq], stride);
+  if (n <= run) return;           // sorted and written by an earlier stage
+  const bool last = n <= 2 * run;  // this round completes the sort
+  const int o0 = blockIdx.x * kMergeTile;
+  if (last)
+    for (int e = max(o0, n) + tid; e < min(o0 + kMergeTile, k); e += kMergeThreads)
+      emit(out_s, out_i, k, qq, e, n, 0ull);
+  if (o0 >= n) return;
+  const int pair0 = o0 / (2 * run) * (2 * run);
+  const int la = max(0, min(run, n - pair0));
+  const int lb = max(0, min(run, n - pair0 - run));
+  const int d0 = o0 - pair0;
+  const int d1 = min(d0 + kMergeTile, la + lb);
+  const unsigned long long* a = src + (size_t)qq * stride + pair0;
+  const unsigned long long* b = a + run;
+  if (warp < 2) {
+    const int s = warp_merge_split(a, la, b, lb, warp == 0 ? d0 : d1);
+    if ((tid & 31) == 0) split[warp] = s;
+  }
+  __syncthreads();
+  const int ia = split[0], na = split[1] - split[0];
+  const int jb = d0 - split[0], nb = (d1 - split[1]) - jb;
+  for (int i = tid; i < na + nb; i += kMergeThreads)
+    sk[spad(i)] = i < na ? a[ia + i] : b[jb + i - na];
+  __syncthreads();
+  const int total = na + nb;
+  const int o = kSortElems * tid;
+  unsigned long long v[kSortElems];
+  if (o < total) {
+    auto A = [&](int i) { return sk[spad(i)]; };
+    auto B = [&](int i) { return sk[spad(na + i)]; };
+    const int i = merge_split(A, na, B, nb, o);
+    merge_keys(A, na, B, nb, i, o - i, v);
+  }
+  __syncthreads();
+  if (o < total) {
+#pragma unroll
+    for (int e = 0; e < kSortElems; ++e)
+      if (o + e < total) sk[spad(o + e)] = v[e];
+  }
+  __syncthreads();
+  for (int i = tid; i < total; i += kMergeThreads) {
+    if (!last) dst[(size_t)qq * stride + o0 + i] = sk[spad(i)];
+    else if (o0 + i < k) emit(out_s, out_i, k, qq, o0 + i, n, sk[spad(i)]);
   }
 }
 
@@ -1557,22 +2148,36 @@ const void* score_kernel(bool masked, bool quant) {
   return quant ? score_instance<false, true>() : score_instance<false, false>();
 }
 
-// The large-k workspace of a query chunk, carved in this order (8-byte
-// aligned): the keys, the histograms, the radix states, the select counts,
-// the survivor counts, (masked) the tiles' compacted lists with their
-// block counts and lengths, then the two sort buffers.
+// The large-k workspace of a query chunk, carved in this order (16-byte
+// aligned pieces): the keys, the three digits' histograms and the survivor
+// and candidate counts (zeroed by one memset), the radix states, the heavy
+// select's block counts, the candidates, (masked) the tile plan, the
+// tiles' compacted lists with their block counts and lengths and their
+// query rows, then the two sort buffers.
 struct LargeWorkspace {
   unsigned* keys;
-  unsigned* hist;
+  unsigned* hist;        // [3][qc][kRadixBins]
+  int* n_surv;
+  int* n_cand;           // [2][qc]: the candidates of passes 0 and 1
+  size_t zero_bytes;     // hist .. n_cand
   RadixState* state;
   int* counts;
-  int* n_out;
+  unsigned long long* cand;
+  int* slot_query;
+  int* slot_ns;
+  int* n_tiles;
+  int* chunk_off;
+  long long* first;
+  int* count;
+  int* tile_of;
   int* list;
   int* list_counts;
   int* list_len;
+  float* q_tiles;
   unsigned long long* sort_a;
   unsigned long long* sort_b;
   int blocks;   // select/histogram blocks a query
+  int tiles;    // grouped tiles (masked)
   size_t bytes;
 };
 
@@ -1582,7 +2187,7 @@ int select_blocks(int qc, int n_valid, int sms) {
   return max(1, min(want, most));
 }
 
-LargeWorkspace carve_large(void* base, int qc, int n_valid, int k, bool masked, int sms) {
+LargeWorkspace carve_large(void* base, int qc, int n_valid, int k, bool masked, int D, int sms) {
   LargeWorkspace w{};
   size_t at = 0;
   auto take = [&](size_t bytes) {
@@ -1590,18 +2195,31 @@ LargeWorkspace carve_large(void* base, int qc, int n_valid, int k, bool masked, 
     at += (bytes + 15) / 16 * 16;
     return p;
   };
-  const int stride = min(k, n_valid);
-  const int tiles = (qc + kLargeQT - 1) / kLargeQT;
+  const int cap = large_cap(n_valid, k);
+  const int stride = large_stride(n_valid, k);
   w.keys = static_cast<unsigned*>(take(sizeof(unsigned) * (size_t)qc * n_valid));
-  w.hist = static_cast<unsigned*>(take(sizeof(unsigned) * (size_t)qc * kRadixBins));
+  const size_t zero0 = at;
+  w.hist = static_cast<unsigned*>(take(sizeof(unsigned) * 3 * (size_t)qc * kRadixBins));
+  w.n_surv = static_cast<int*>(take(sizeof(int) * (size_t)qc));
+  w.n_cand = static_cast<int*>(take(sizeof(int) * 2 * (size_t)qc));
+  w.zero_bytes = at - zero0;
   w.state = static_cast<RadixState*>(take(sizeof(RadixState) * (size_t)qc));
   w.blocks = select_blocks(qc, n_valid, sms);
   w.counts = static_cast<int*>(take(sizeof(int) * 2 * (size_t)qc * w.blocks));
-  w.n_out = static_cast<int*>(take(sizeof(int) * (size_t)qc));
+  w.cand = static_cast<unsigned long long*>(take(sizeof(unsigned long long) * (size_t)qc * cap));
   if (masked) {
-    w.list = static_cast<int*>(take(sizeof(int) * (size_t)tiles * n_valid));
-    w.list_counts = static_cast<int*>(take(sizeof(int) * (size_t)tiles * compact_blocks(n_valid)));
-    w.list_len = static_cast<int*>(take(sizeof(int) * (size_t)tiles));
+    const int t = w.tiles = group_tiles_max(qc);
+    w.slot_query = static_cast<int*>(take(sizeof(int) * (size_t)t * kGroupQT));
+    w.slot_ns = static_cast<int*>(take(sizeof(int) * (size_t)t * kGroupQT));
+    w.n_tiles = static_cast<int*>(take(sizeof(int)));
+    w.chunk_off = static_cast<int*>(take(sizeof(int) * (size_t)(t + 1)));
+    w.first = static_cast<long long*>(take(sizeof(long long) * (size_t)qc));
+    w.count = static_cast<int*>(take(sizeof(int) * (size_t)qc));
+    w.tile_of = static_cast<int*>(take(sizeof(int) * (size_t)qc));
+    w.list = static_cast<int*>(take(sizeof(int) * (size_t)t * n_valid));
+    w.list_counts = static_cast<int*>(take(sizeof(int) * (size_t)t * compact_blocks(n_valid)));
+    w.list_len = static_cast<int*>(take(sizeof(int) * (size_t)t));
+    w.q_tiles = static_cast<float*>(take(sizeof(float) * (size_t)t * kGroupQT * D));
   }
   w.sort_a = static_cast<unsigned long long*>(take(sizeof(unsigned long long) * (size_t)qc * stride));
   w.sort_b = static_cast<unsigned long long*>(take(sizeof(unsigned long long) * (size_t)qc * stride));
@@ -1609,8 +2227,12 @@ LargeWorkspace carve_large(void* base, int qc, int n_valid, int k, bool masked, 
   return w;
 }
 
-// Raise the score instances' shared-memory ceilings, once per device.
-cudaError_t raise_score_ceilings() {
+constexpr size_t kSortSmem = sizeof(unsigned long long) * (kSortRun + kSortRun / 16);
+constexpr size_t kMergeSmem = sizeof(unsigned long long) * (kMergeTile + kMergeTile / 16);
+
+// Raise the score instances' and the sort kernels' shared-memory ceilings,
+// once per device.
+cudaError_t raise_large_ceilings() {
   static int done_device = -1;
   int device;
   cudaError_t err = cudaGetDevice(&device);
@@ -1621,6 +2243,13 @@ cudaError_t raise_score_ceilings() {
                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
                                       kSmemMax)) != cudaSuccess)
         return err;
+  if ((err = cudaFuncSetAttribute(reinterpret_cast<const void*>(topk_sort_runs_kernel),
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)kSortSmem)) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(reinterpret_cast<const void*>(topk_merge_runs_kernel),
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)kMergeSmem)) != cudaSuccess)
+    return err;
   done_device = device;
   return cudaSuccess;
 }
@@ -1632,22 +2261,13 @@ cudaError_t large_chunk(const float* q, const void* bank, const float* scales,
                         bool masked, bool quant, const LargeWorkspace& w, int sms,
                         float* out_s, int* out_i, cudaStream_t st) {
   cudaError_t err;
-  const int stride = min(k, n_valid);
-  const dim3 emit_grid((k + kThreads - 1) / kThreads, qc);
+  const int cap = large_cap(n_valid, k);
+  const int stride = large_stride(n_valid, k);
   if (n_valid == 0) {   // nothing live: every slot is the fill
-    if ((err = cudaMemsetAsync(w.n_out, 0, sizeof(int) * qc, st)) != cudaSuccess) return err;
-    topk_emit_kernel<<<emit_grid, kThreads, 0, st>>>(w.sort_a, 1, w.n_out, k, out_s, out_i);
+    if ((err = cudaMemsetAsync(w.n_surv, 0, sizeof(int) * qc, st)) != cudaSuccess) return err;
+    topk_sort_runs_kernel<<<dim3(1, qc), kSortThreads, kSortSmem, st>>>(w.sort_a, 1, w.n_surv, k,
+                                                                       out_s, out_i);
     return cudaGetLastError();
-  }
-  const int tiles = (qc + kLargeQT - 1) / kLargeQT;
-  if (masked) {
-    const dim3 cgrid(compact_blocks(n_valid), tiles);
-    topk_count_kernel<<<cgrid, kThreads, 0, st>>>(q_ns, bank_ns, qc, n_valid, kLargeQT,
-                                                  w.list_counts);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    topk_compact_kernel<<<cgrid, kThreads, 0, st>>>(q_ns, bank_ns, qc, n_valid, kLargeQT,
-                                                    w.list_counts, w.list, n_valid, w.list_len);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
   // the score pass: as many CTAs as fit on the card at once
   const bool resident = score_smem_bytes(quant, D, true, masked) <= (size_t)kSmemMax;
@@ -1657,58 +2277,99 @@ cudaError_t large_chunk(const float* q, const void* bank, const float* scales,
   if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, score, kThreads, smem)) !=
       cudaSuccess)
     return err;
-  const int n_tiles = (n_valid + kTileRows - 1) / kTileRows;
-  int n_chunks = (max(1, per_sm) * sms + tiles - 1) / tiles;
-  n_chunks = max(1, min(n_chunks, n_tiles));
-  const uintptr_t qa = reinterpret_cast<uintptr_t>(q);
+  const int score_ctas = max(1, per_sm) * sms;
+  GroupPlan plan{};
+  Entries en{nullptr, nullptr, nullptr, nullptr, n_valid};
+  const float* qs = q;
+  int n_q = qc;
+  dim3 sgrid;
+  int n_chunks = 0;
+  if (masked) {
+    const int t = w.tiles;
+    topk_group_plan_kernel<<<1, kPlanMax, 0, st>>>(q_ns, qc, t, w.slot_query, w.slot_ns,
+                                                    w.n_tiles);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    const int cgrid = compact_blocks(n_valid);
+    topk_group_count_kernel<<<cgrid, kThreads, 0, st>>>(q, D, w.slot_query, w.slot_ns, w.n_tiles,
+                                                        bank_ns, n_valid, w.q_tiles,
+                                                        w.list_counts);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    topk_group_compact_kernel<<<cgrid, kThreads, 0, st>>>(w.slot_query, w.slot_ns, w.n_tiles,
+                                                          bank_ns, n_valid, w.list_counts,
+                                                          w.list, w.list_len);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    topk_group_offsets_kernel<<<1, kThreads, 0, st>>>(w.slot_query, w.n_tiles, w.list_len,
+                                                      score_ctas, w.first, w.count, w.tile_of,
+                                                      w.chunk_off);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    plan = GroupPlan{w.slot_query, w.slot_ns, w.n_tiles, w.chunk_off, w.list, w.list_len,
+                     w.first};
+    en = Entries{w.first, w.count, w.tile_of, w.list, n_valid};
+    qs = w.q_tiles;
+    n_q = t * kGroupQT;
+    sgrid = dim3(score_ctas + t, 1);
+  } else {
+    const int tiles = (qc + kLargeQT - 1) / kLargeQT;
+    const int n_tiles = (n_valid + kTileRows - 1) / kTileRows;
+    n_chunks = max(1, min((score_ctas + tiles - 1) / tiles, n_tiles));
+    sgrid = dim3(n_chunks, tiles);
+  }
+  const uintptr_t qa = reinterpret_cast<uintptr_t>(qs);
   const uintptr_t ba = reinterpret_cast<uintptr_t>(bank);
   bool vec = quant ? (D % 16 == 0 && ba % 16 == 0) : (D % 4 == 0 && ba % 16 == 0);
   bool qvec = D % 4 == 0 && qa % 16 == 0;
-  int list_stride = n_valid;
   bool res = resident;
-  void* args[] = {(void*)&q,      (void*)&bank,     (void*)&scales, (void*)&q_ns,
-                  (void*)&bank_ns, (void*)&w.list,  (void*)&w.list_len, (void*)&list_stride,
-                  (void*)&qc,     (void*)&D,        (void*)&n_valid, (void*)&n_chunks,
-                  (void*)&res,    (void*)&vec,      (void*)&qvec,   (void*)&w.keys};
-  if ((err = cudaLaunchKernel(score, dim3(n_chunks, tiles), dim3(kThreads), args, smem, st)) !=
-      cudaSuccess)
+  void* args[] = {(void*)&qs,   (void*)&bank,     (void*)&scales, (void*)&bank_ns,
+                  (void*)&plan, (void*)&n_q,      (void*)&D,      (void*)&n_valid,
+                  (void*)&n_chunks, (void*)&res,  (void*)&vec,    (void*)&qvec,
+                  (void*)&w.keys};
+  if ((err = cudaLaunchKernel(score, sgrid, dim3(kThreads), args, smem, st)) != cudaSuccess)
     return err;
-  // the radix select
+  // the radix select: the first digit's histogram, then three passes, each
+  // after its digit's pick (pass 0: keys -> survivors and candidates; pass
+  // 1: candidates -> survivors and second candidates, in sort_b, idle
+  // until the merges; pass 2: those -> survivors), a heavy query's passes
+  // 1 and 2 counting its keys for the ordered select instead
   const dim3 grid(w.blocks, qc);
-  const int* list_len = masked ? w.list_len : nullptr;
-  if ((err = cudaMemsetAsync(w.hist, 0, sizeof(unsigned) * (size_t)qc * kRadixBins, st)) !=
-      cudaSuccess)
-    return err;
-  for (int pass = 0; pass < kRadixPasses; ++pass) {
-    topk_radix_hist_kernel<<<grid, kThreads, 0, st>>>(w.keys, n_valid, list_len, w.state, pass,
-                                                      w.hist);
+  const size_t hq = (size_t)qc * kRadixBins;
+  if ((err = cudaMemsetAsync(w.hist, 0, w.zero_bytes, st)) != cudaSuccess) return err;
+  topk_radix_hist_kernel<<<grid, kThreads, 0, st>>>(w.keys, en, w.hist);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  for (int pass = 0; pass < 3; ++pass) {
+    topk_radix_pick_kernel<<<qc, kThreads, 0, st>>>(k, cap, pass, w.state, w.hist + pass * hq,
+                                                    w.n_surv);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    topk_radix_pick_kernel<<<qc, kThreads, 0, st>>>(n_valid, list_len, k, pass, w.state, w.hist);
+    const unsigned long long* src = pass == 1 ? w.cand : w.sort_b;
+    const int src_stride = pass == 1 ? cap : stride;
+    unsigned long long* cand = pass == 0 ? w.cand : pass == 1 ? w.sort_b : nullptr;
+    const int cand_stride = pass == 0 ? cap : stride;
+    topk_select_pass_kernel<<<grid, kThreads, 0, st>>>(
+        w.keys, en, pass, w.state, pass < 2 ? w.hist + (pass + 1) * hq : nullptr, src, src_stride,
+        pass > 0 ? w.n_cand + (pass - 1) * qc : nullptr, cand, cand_stride,
+        pass < 2 ? w.n_cand + pass * qc : nullptr, w.sort_a, stride, w.n_surv, w.counts);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
   }
-  topk_select_count_kernel<<<grid, kThreads, 0, st>>>(w.keys, n_valid, list_len, w.state,
-                                                      w.counts);
+  topk_select_write_kernel<<<grid, kThreads, 0, st>>>(w.keys, en, w.state, w.counts, stride,
+                                                      w.sort_a, w.n_surv);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  topk_select_write_kernel<<<grid, kThreads, 0, st>>>(w.keys, n_valid, list_len,
-                                                      masked ? w.list : nullptr, w.state,
-                                                      w.counts, stride, w.sort_a, w.n_out);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  // the sort: runs in shared memory, then merge rounds
+  // the sort: runs in shared memory, then merge rounds; the last stage
+  // writes the outputs
   const int runs = (stride + kSortRun - 1) / kSortRun;
-  topk_sort_runs_kernel<<<dim3(runs, qc), kSortThreads, 0, st>>>(w.sort_a, stride, w.n_out);
+  topk_sort_runs_kernel<<<dim3(runs, qc), kSortThreads, kSortSmem, st>>>(w.sort_a, stride,
+                                                                       w.n_surv, k, out_s, out_i);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   unsigned long long* src = w.sort_a;
   unsigned long long* dst = w.sort_b;
+  const int outs = max(stride, k);   // any round may write a query's outputs
   for (int run = kSortRun; run < stride; run *= 2) {
-    topk_merge_runs_kernel<<<dim3((stride + kThreads - 1) / kThreads, qc), kThreads, 0, st>>>(
-        src, dst, stride, run, w.n_out);
+    topk_merge_runs_kernel<<<dim3((outs + kMergeTile - 1) / kMergeTile, qc), kMergeThreads,
+                             kMergeSmem, st>>>(src, dst, stride, run, w.n_surv, k, out_s, out_i);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
     unsigned long long* t = src;
     src = dst;
     dst = t;
   }
-  topk_emit_kernel<<<emit_grid, kThreads, 0, st>>>(src, stride, w.n_out, k, out_s, out_i);
-  return cudaGetLastError();
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -1834,29 +2495,40 @@ int topk_mips_launch(const float* q, const void* bank, const float* scales,
   return (int)cudaGetLastError();
 }
 
-// The large-k path's workspace (bytes) for chunks of `qc` queries on a
-// card of `sms` SMs.
-size_t topk_mips_large_workspace_bytes(int qc, int n_valid, int k, int masked, int sms) {
-  return carve_large(nullptr, qc, n_valid, k, masked != 0, sms).bytes;
+// The large-k path's workspace (bytes) for chunks of `qc` queries of
+// width D on a card of `sms` SMs.
+size_t topk_mips_large_workspace_bytes(int qc, int n_valid, int k, int masked, int D, int sms) {
+  return carve_large(nullptr, qc, n_valid, k, masked != 0, D, sms).bytes;
+}
+
+// The large-k path's tile plan of qc (<= 1024) query labels alone, on
+// `stream`: slot_query and slot_ns hold group_tiles_max(qc) * 32
+// ints, n_tiles one.  Returns the CUDA error code.
+int topk_mips_large_plan(const int* q_ns, int qc, int* slot_query, int* slot_ns, int* n_tiles,
+                         void* stream) {
+  if (qc < 1 || qc > kPlanMax || q_ns == nullptr) return (int)cudaErrorInvalidValue;
+  topk_group_plan_kernel<<<1, kPlanMax, 0, static_cast<cudaStream_t>(stream)>>>(
+      q_ns, qc, group_tiles_max(qc), slot_query, slot_ns, n_tiles);
+  return (int)cudaGetLastError();
 }
 
 // Launch the large-k path (k > kScanMaxK) on `stream`, chunk by chunk of
-// `qc` queries through one workspace of topk_mips_large_workspace_bytes(qc,
-// ...) bytes, with no read back to the host.  Operands as topk_mips_launch;
-// out_s/out_i hold Q * k entries.  Returns the CUDA error code (0 on
-// success).
+// `qc` queries (at most 1024 masked) through one workspace of
+// topk_mips_large_workspace_bytes(qc, ...) bytes, with no read back to the
+// host.  Operands as topk_mips_launch; out_s/out_i hold Q * k entries.
+// Returns the CUDA error code (0 on success).
 int topk_mips_large_launch(const float* q, const void* bank, const float* scales,
                            const int* q_ns, const int* bank_ns, int Q, int D, int n_valid,
                            int k, int masked, int quant, int qc, int sms, void* workspace,
                            float* out_s, int* out_i, void* stream) {
   if (Q < 0 || D < 0 || n_valid < 0 || k <= kScanMaxK || qc < 1 || sms < 1 ||
-      workspace == nullptr || (masked && (q_ns == nullptr || bank_ns == nullptr)) ||
+      workspace == nullptr || (masked && (q_ns == nullptr || bank_ns == nullptr || qc > kPlanMax)) ||
       (quant && scales == nullptr))
     return (int)cudaErrorInvalidValue;
   if (Q == 0) return 0;
   cudaError_t err;
-  if ((err = raise_score_ceilings()) != cudaSuccess) return (int)err;
-  const LargeWorkspace w = carve_large(workspace, qc, n_valid, k, masked != 0, sms);
+  if ((err = raise_large_ceilings()) != cudaSuccess) return (int)err;
+  const LargeWorkspace w = carve_large(workspace, qc, n_valid, k, masked != 0, D, sms);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   for (int c0 = 0; c0 < Q; c0 += qc) {
     if ((err = large_chunk(q + (size_t)c0 * D, bank, scales, masked ? q_ns + c0 : nullptr,

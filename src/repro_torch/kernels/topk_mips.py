@@ -26,11 +26,14 @@ scan (`masked_work` counts the least work of a masked call).  All four
 run one design, the scan kernel over a split bank and a merge of the
 chunks' lists (the source explains it), for k <= MAX_K = 2048 (the
 scan kernel keeps its lists in shared memory).  Past MAX_K the same four
-kernels run the large-k path of the same source: a score pass into a
-device workspace, an exact radix select of each query's k-th score, a
-compaction of the survivors and a sort, all hand-written (no library
+kernels run the large-k path of the same source: masked, the chunk's
+queries grouped by label into 32-query tiles (`group_tiles`); a score pass
+into a device workspace; a radix select that filters as it goes (the keys
+read twice, the pivot bin's keys kept as candidates); a sort in
+shared-memory runs and merge-path rounds; all hand-written (no library
 sort, select or product), in query chunks of at most LARGE_WORKSPACE
-bytes.  Every k >= 1 is answered on every device.
+bytes (`large_workspace_bytes`).  Every k >= 1 is answered on every
+device.
 
 Every wrapper dispatches by device: CPU tensors run its plain PyTorch
 version (`*_ref` below); CUDA tensors launch the kernel, or the call
@@ -58,7 +61,24 @@ SMEM_PER_BLOCK = 232448  # H100: dynamic shared memory one block can use
 _SMEM_PER_SM = 233472   # H100: 228 KB of shared memory per SM
 _SMEM_PER_CTA = 1024    # reserved by the system for each resident CTA
 LARGE_WORKSPACE = 512 << 20   # the large-k path's workspace aim (bytes)
-_LARGE_TILE = 64        # the large-k score pass's query tile
+# The large-k path's constants, as csrc/topk_mips.cu has them: the
+# unmasked score pass's query tile, a grouped (masked) tile, the queries of
+# one label that get tiles of their own, a masked chunk's most queries
+# (kLargeQT, kGroupQT, kGroupMin, kPlanMax); the candidate buffer's share
+# of n_valid, the radix bins, the select batch, select blocks an SM, the
+# compaction's batch and most blocks, sizeof(RadixState) (the workspace
+# mirror's terms).
+_LARGE_TILE = 64
+GROUP_TILE = 32
+GROUP_MIN = 8
+PLAN_MAX = 1024
+_CAND_SHARE = 16
+_RADIX_BINS = 2048
+_SELECT_BATCH = 1024
+_BLOCKS_PER_SM = 8
+_COMPACT_BATCH = 1024
+_COMPACT_MAX_BLOCKS = 1024
+_RADIX_STATE = 24
 
 
 # -- plain PyTorch versions ---------------------------------------------------
@@ -229,16 +249,103 @@ def plan_chunks(n_valid: int, Q: int, sms: int, k: int, masked: bool,
     return chunks, -(-tiles // chunks) * _TILE_ROWS
 
 
-def large_k_chunk(Q: int, n_valid: int, k: int) -> int:
+def large_cap(n_valid: int, k: int) -> int:
+    """The large-k path's candidate buffer, entries a query: n_valid / 16,
+    at least k, at most n_valid (`large_cap` in csrc/topk_mips.cu).  A
+    query whose pivot bin holds more runs the heavy select."""
+    return min(n_valid, max(k, -(-n_valid // _CAND_SHARE)))
+
+
+def large_stride(n_valid: int, k: int) -> int:
+    """Survivor sort keys a query: k plus the candidates, at most
+    n_valid."""
+    return min(n_valid, k + large_cap(n_valid, k))
+
+
+def group_tiles_max(qc: int) -> int:
+    """The most grouped tiles a masked chunk of qc queries needs."""
+    return -(-qc // GROUP_TILE) + qc // GROUP_MIN
+
+
+def group_tiles(q_ns) -> list:
+    """The masked large-k path's tile plan, as `topk_group_plan_kernel`
+    makes it on the device: the chunk's queries in label order (ties by
+    index); a label that GROUP_MIN or more queries ask fills tiles of its
+    own, GROUP_TILE queries each, in label order; the rest follow, packed
+    GROUP_TILE a tile.  Returns the tiles as lists of query indices, in
+    slot order."""
+    q_ns = [int(x) for x in q_ns]
+    if len(q_ns) > PLAN_MAX:
+        raise ValueError(f"{len(q_ns)} queries: a masked chunk plans at "
+                         f"most {PLAN_MAX}")
+    order = sorted(range(len(q_ns)), key=lambda i: (q_ns[i], i))
+    size = {}
+    for x in q_ns:
+        size[x] = size.get(x, 0) + 1
+    tiles, rest, at = [], [], 0
+    while at < len(order):
+        run = order[at:at + size[q_ns[order[at]]]]   # one label's queries
+        at += len(run)
+        if len(run) < GROUP_MIN:
+            rest += run
+        else:
+            tiles += [run[j:j + GROUP_TILE]
+                      for j in range(0, len(run), GROUP_TILE)]
+    tiles += [rest[j:j + GROUP_TILE] for j in range(0, len(rest), GROUP_TILE)]
+    return tiles
+
+
+def _compact_blocks(n_valid: int) -> int:
+    batches = -(-n_valid // _COMPACT_BATCH)
+    per = max(1, -(-batches // _COMPACT_MAX_BLOCKS)) * _COMPACT_BATCH
+    return -(-n_valid // per)
+
+
+def large_workspace_bytes(qc: int, n_valid: int, k: int, masked: bool,
+                          D: int, sms: int) -> int:
+    """The large-k path's device workspace for chunks of qc queries, as
+    `carve_large` in csrc/topk_mips.cu carves it (16-byte pieces): 4-byte
+    keys (qc x n_valid), three digits' histograms, the survivor and two
+    candidate counts, the radix states, the heavy select's block
+    counts, 8-byte candidates (large_cap a query), (masked) the tile plan,
+    the tiles' compacted lists, counts, lengths and query rows, and two
+    8-byte sort buffers (large_stride a query)."""
+    cap, stride = large_cap(n_valid, k), large_stride(n_valid, k)
+    blocks = max(1, min(-(-_BLOCKS_PER_SM * sms // qc),
+                        max(1, -(-n_valid // _SELECT_BATCH))))
+    parts = [4 * qc * n_valid, 4 * 3 * qc * _RADIX_BINS, 4 * qc, 8 * qc,
+             _RADIX_STATE * qc, 8 * qc * blocks, 8 * qc * cap]
+    if masked:
+        t = group_tiles_max(qc)
+        parts += [4 * t * GROUP_TILE, 4 * t * GROUP_TILE, 4, 4 * (t + 1),
+                  8 * qc, 4 * qc, 4 * qc, 4 * t * n_valid,
+                  4 * t * _compact_blocks(n_valid), 4 * t,
+                  4 * t * GROUP_TILE * D]
+    parts += [8 * qc * stride, 8 * qc * stride]
+    return sum(-(-b // 16) * 16 for b in parts)
+
+
+def large_k_chunk(Q: int, n_valid: int, k: int, masked: bool = False,
+                  D: int = 0, sms: int = 132) -> int:
     """Queries of one chunk of the large-k path: as many as keep its
-    workspace -- a 4-byte key per (query, live row) and two 8-byte sort
-    keys per survivor (min(k, n_valid) a query) -- within LARGE_WORKSPACE;
-    whole 64-query tiles past 64, at least one query, at most Q."""
-    per_query = 4 * n_valid + 16 * min(k, n_valid)
-    qc = max(1, LARGE_WORKSPACE // max(1, per_query))
-    if qc >= _LARGE_TILE:
-        qc -= qc % _LARGE_TILE
-    return max(1, min(qc, Q))
+    workspace (`large_workspace_bytes`) within LARGE_WORKSPACE; whole
+    64-query tiles past 64 unless the chunk is all of Q, at least one
+    query, at most Q (masked: at most PLAN_MAX)."""
+    limit = min(Q, PLAN_MAX) if masked else Q
+
+    def fits(qc):
+        return large_workspace_bytes(qc, n_valid, k, masked, D,
+                                     sms) <= LARGE_WORKSPACE
+
+    if limit <= 1 or fits(limit):
+        return max(1, limit)
+    lo, hi = 1, limit          # fits(lo) or lo == 1; not fits(hi)
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if fits(mid) else (lo, mid)
+    if lo >= _LARGE_TILE:
+        lo -= lo % _LARGE_TILE
+    return lo
 
 
 @functools.lru_cache(maxsize=None)
@@ -258,8 +365,10 @@ def _library():
     lib.topk_mips_scan_tile.restype = i
     lib.topk_mips_occupancy.argtypes = [i, i, i, i, ctypes.POINTER(i)]
     lib.topk_mips_occupancy.restype = i
-    lib.topk_mips_large_workspace_bytes.argtypes = [i, i, i, i, i]
+    lib.topk_mips_large_workspace_bytes.argtypes = [i, i, i, i, i, i]
     lib.topk_mips_large_workspace_bytes.restype = ctypes.c_size_t
+    lib.topk_mips_large_plan.argtypes = [p, i, p, p, p, p]
+    lib.topk_mips_large_plan.restype = i
     lib.topk_mips_large_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
                                            i, i, p, p, p, p]
     lib.topk_mips_large_launch.restype = i
@@ -277,6 +386,17 @@ def _library():
                             scan_smem_bytes(k, quant, D, queries, resident,
                                             masked)):
                         raise RuntimeError("scan_tile / scan_smem_bytes are "
+                                           "out of step with "
+                                           "csrc/topk_mips.cu")
+    for n_valid in (0, 1000, 65536, 1 << 20):
+        for k in (2049, 65536):
+            for qc in (1, 64, 1000):
+                for masked in (False, True):
+                    if (lib.topk_mips_large_workspace_bytes(
+                            qc, n_valid, k, int(masked), 256, 132) !=
+                            large_workspace_bytes(qc, n_valid, k, masked, 256,
+                                                  132)):
+                        raise RuntimeError("the large-k workspace mirrors are "
                                            "out of step with "
                                            "csrc/topk_mips.cu")
     return lib
@@ -334,9 +454,10 @@ def _launch(fn, queries, bank, scales, q_ns, bank_ns, k, n_valid):
 
     if k > MAX_K:
         sms = sm_count(device)
-        qc = large_k_chunk(Q, nv, k)
+        qc = large_k_chunk(Q, nv, k, masked, D, sms)
         work = torch.empty((lib.topk_mips_large_workspace_bytes(
-            qc, nv, k, int(masked), sms),), dtype=torch.uint8, device=device)
+            qc, nv, k, int(masked), D, sms),), dtype=torch.uint8,
+            device=device)
         rc = lib.topk_mips_large_launch(
             ptr(queries), ptr(bank), ptr(scales), ptr(q_ns), ptr(bank_ns), Q,
             D, nv, k, int(masked), int(quant), qc, sms, ptr(work), ptr(out_s),
