@@ -6,6 +6,8 @@ import functools
 import numpy as np
 import torch
 
+from repro_torch.obs.telemetry import get_telemetry
+
 
 def cdiv(a: int, b: int) -> int:
     return -(-a // b)
@@ -27,10 +29,27 @@ def stable_hash(text: str, mod: int) -> int:
     return h % mod
 
 
+def upload(a, device, dtype=None) -> torch.Tensor:
+    """`a` as a tensor on `device` (`dtype` if given): the host-to-device
+    copy of the port's serving path.  The bytes of host data (an array or
+    a list) are added to `h2d_bytes` of the innermost open telemetry span,
+    on the CPU too (where `.to` copies nothing), so the CPU tests read the
+    card's numbers; a tensor counts only when it leaves the CPU for
+    another device."""
+    t = torch.as_tensor(a, dtype=dtype)
+    if not isinstance(a, torch.Tensor) or (
+            t.device.type == "cpu" and torch.device(device).type != "cpu"):
+        get_telemetry().add_count("h2d_bytes", t.numel() * t.element_size())
+    return t.to(device)
+
+
 def to_device(a, device) -> torch.Tensor:
     """A copy of host array `a` on `device` — a copy on the CPU too, so a
-    buffer updated in place never aliases the host mirror it came from."""
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device, copy=True)
+    buffer updated in place never aliases the host mirror it came from.
+    Counted as `upload` counts."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    get_telemetry().add_count("h2d_bytes", t.numel() * t.element_size())
+    return t.to(device, copy=True)
 
 
 def resolve_device(device) -> torch.device:

@@ -25,8 +25,10 @@ from typing import List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from repro_torch.common.utils import next_pow2, resolve_device, to_device
+from repro_torch.common.utils import (next_pow2, resolve_device, to_device,
+                                      upload)
 from repro_torch.data.tokenizer import HashTokenizer, default_tokenizer
+from repro_torch.obs.telemetry import NULL_SUMMED, get_telemetry
 
 
 def topk_lowest_index(x: torch.Tensor, k: int):
@@ -233,7 +235,8 @@ class BM25Index:
         return list(dict.fromkeys(self.tokenizer.encode(query)))
 
     def _scores_batch(self, term_lists: Sequence[List[int]],
-                      sels: np.ndarray, sel_dev=None) -> torch.Tensor:
+                      sels: np.ndarray, sel_dev=None,
+                      score=NULL_SUMMED) -> torch.Tensor:
         """Stacked scoring: B scoped queries against the whole corpus ->
         (B, capacity) f32 (unfilled/unselected slots score 0).  `sels` is
         the (B, n) per-query selection over the filled prefix; `sel_dev`
@@ -242,22 +245,50 @@ class BM25Index:
         scatter over the doc block); df/idf/avg_len stay per query, over
         each query's own selection.  The f32 arithmetic follows the
         reference expression by expression; the per-term sum runs in term
-        order."""
+        order.  The term statistics are the `sparse.stats` span, the sum a
+        part of `score` (`topk_batch_dev`'s `sparse.score`)."""
         B = len(term_lists)
         N = self.n
         if N == 0:
             return torch.zeros((B, 0), device=self.device)
+        cap = self._docs.shape[0]
+        with get_telemetry().span("sparse.stats"):
+            stats = self._term_stats(term_lists, sels, sel_dev)
+        if stats is None:
+            return torch.zeros((B, cap), device=self.device)
+        tf_u, idx_dev, idf_dev, norm, sel_dev, n_sel = stats
+        with score.part():
+            out = torch.zeros((B, cap), device=self.device)
+            for t in range(idx_dev.shape[1]):
+                G = tf_u[idx_dev[:, t]]
+                out = out + (idf_dev[:, t, None] * G * (self.k1 + 1.0)
+                             / (G + norm))
+            # a copy from pageable memory waits for the stream: the sum's
+            # kernels finish inside this part
+            row_live = upload(np.asarray(
+                [bool(term_lists[b]) and bool(n_sel[b]) for b in range(B)]),
+                self.device)[:, None]
+            return torch.where(sel_dev & row_live, out, torch.zeros_like(out))
+
+    def _term_stats(self, term_lists, sels, sel_dev):
+        """The batch's term statistics: tf over the union of its terms
+        (one scatter over the doc block), each query's df over its own
+        selection (read to the host: the batch's one device sync), avg_len
+        and idf -> (tf_u, idx_dev, idf_dev, norm, sel_dev, n_sel), or None
+        when no query has both terms and a selection."""
+        B = len(term_lists)
+        N = self.n
         docs, lens = self._arrays()                        # (cap, L), (cap,)
         cap = self._docs.shape[0]
         if sel_dev is None:
             sel_pad = np.zeros((B, cap), bool)
             sel_pad[:, :N] = sels
-            sel_dev = torch.from_numpy(sel_pad).to(self.device)
+            sel_dev = upload(sel_pad, self.device)
         n_sel = sels.sum(axis=1)                                  # (B,)
         union = list(dict.fromkeys(t for ts in term_lists for t in ts))
         live = [b for b in range(B) if term_lists[b] and n_sel[b]]
         if not union or not live:
-            return torch.zeros((B, cap), device=self.device)
+            return None
         uidx = {t: i for i, t in enumerate(union)}
         U = len(union)
         T = max(len(ts) for ts in term_lists)
@@ -270,12 +301,12 @@ class BM25Index:
         # last row collecting padding and non-query terms
         V = self.tokenizer.vocab_size
         lut = torch.full((V + 1,), U, dtype=torch.int64, device=self.device)
-        lut[torch.as_tensor(union, dtype=torch.int64, device=self.device)] = \
+        lut[upload(union, self.device, torch.int64)] = \
             torch.arange(U, device=self.device)
         col = lut[torch.where((docs >= 0) & (docs < V), docs, V).long()].T
         tf_u = torch.zeros((U + 1, cap), device=self.device)
         tf_u.scatter_add_(0, col, torch.ones_like(col, dtype=torch.float32))
-        idx_dev = torch.from_numpy(idx).to(self.device)
+        idx_dev = upload(idx, self.device)
         # tf_u[idx_dev[:, t]] (B, cap) is query b's t-th term frequency in
         # every doc; per-query df over its selection is the one device
         # sync per batch
@@ -290,17 +321,9 @@ class BM25Index:
                        np.log(1.0 + (n_sel_f - df + 0.5) / (df + 0.5)),
                        0.0).astype(np.float32) * valid
         norm = self.k1 * (1.0 - self.b + self.b * lens[None, :]
-                          / torch.from_numpy(avg).to(self.device)[:, None])
-        idf_dev = torch.from_numpy(idf).to(self.device)
-        out = torch.zeros((B, cap), device=self.device)
-        for t in range(T):
-            G = tf_u[idx_dev[:, t]]
-            out = out + (idf_dev[:, t, None] * G * (self.k1 + 1.0)
-                         / (G + norm))
-        row_live = torch.from_numpy(np.asarray(
-            [bool(term_lists[b]) and bool(n_sel[b]) for b in range(B)])).to(
-                self.device)[:, None]
-        return torch.where(sel_dev & row_live, out, torch.zeros_like(out))
+                          / upload(avg, self.device)[:, None])
+        idf_dev = upload(idf, self.device)
+        return tf_u, idx_dev, idf_dev, norm, sel_dev, n_sel
 
     def topk(self, query: str, k: int, namespace: Optional[int] = None):
         """Top-k (scores, global doc ids), restricted to the selection.
@@ -325,23 +348,29 @@ class BM25Index:
                                device=self.device))
         if namespaces is None:
             namespaces = [None] * B
-        sels = np.stack([self._selection(ns) for ns in namespaces])
-        sel_pad = np.zeros((B, self._docs.shape[0]), bool)
-        sel_pad[:, : self.n] = sels
-        sel_dev = torch.from_numpy(sel_pad).to(self.device)
-        S = self._scores_batch([self._terms(q) for q in queries], sels,
-                               sel_dev=sel_dev)
-        key = torch.where(sel_dev, S, torch.full_like(S, -float("inf")))
-        # k clamps to the capacity, not the doc count: unfilled slots are
-        # -inf-masked into (0, -1) anyway
-        kk = min(k, self._docs.shape[0])
-        s, idx = topk_lowest_index(key, kk)
-        live = s > -float("inf")
-        s = torch.where(live, s, torch.zeros_like(s))
-        idx = torch.where(live, idx, -1).to(torch.int32)
-        if kk < k:
-            s = torch.nn.functional.pad(s, (0, k - kk))
-            idx = torch.nn.functional.pad(idx, (0, k - kk), value=-1)
+        tel = get_telemetry()
+        with tel.summed("sparse.score") as score:
+            with tel.span("sparse.select"):
+                sels = np.stack([self._selection(ns) for ns in namespaces])
+                sel_pad = np.zeros((B, self._docs.shape[0]), bool)
+                sel_pad[:, : self.n] = sels
+            with tel.span("sparse.upload"):
+                sel_dev = upload(sel_pad, self.device)
+            S = self._scores_batch([self._terms(q) for q in queries], sels,
+                                   sel_dev=sel_dev, score=score)
+            with score.part():
+                key = torch.where(sel_dev, S,
+                                  torch.full_like(S, -float("inf")))
+                # k clamps to the capacity, not the doc count: unfilled
+                # slots are -inf-masked into (0, -1) anyway
+                kk = min(k, self._docs.shape[0])
+                s, idx = topk_lowest_index(key, kk)
+                live = s > -float("inf")
+                s = torch.where(live, s, torch.zeros_like(s))
+                idx = torch.where(live, idx, -1).to(torch.int32)
+                if kk < k:
+                    s = torch.nn.functional.pad(s, (0, k - kk))
+                    idx = torch.nn.functional.pad(idx, (0, k - kk), value=-1)
         return s, idx
 
     def topk_batch(self, queries: Sequence[str], k: int,

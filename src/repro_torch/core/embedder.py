@@ -19,7 +19,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from repro_torch.common.utils import resolve_device, stable_hash
+from repro_torch.common.utils import resolve_device, stable_hash, upload
 from repro_torch.data.tokenizer import HashTokenizer, default_tokenizer
 
 
@@ -87,7 +87,7 @@ class HashEmbedder:
         return out
 
     def embed_texts(self, texts: Sequence[str]) -> torch.Tensor:
-        return torch.from_numpy(self.embed_texts_np(texts)).to(self.device)
+        return upload(self.embed_texts_np(texts), self.device)
 
     def embed_text(self, text: str) -> torch.Tensor:
         return self.embed_texts([text])[0]
@@ -118,9 +118,9 @@ class LMEmbedder:
             ids = self.tokenizer.encode(t)[:L]
             toks[i, : len(ids)] = ids
             mask[i, : len(ids)] = 1.0
-        h = self.model.hidden(self.params, torch.from_numpy(toks).to(
-            self.device), mask_kind="bidir")
-        m = torch.from_numpy(mask).to(self.device)[..., None].to(h.dtype)
+        h = self.model.hidden(self.params, upload(toks, self.device),
+                              mask_kind="bidir")
+        m = upload(mask, self.device)[..., None].to(h.dtype)
         pooled = (h * m).sum(1) / torch.clamp(m.sum(1), min=1.0)
         pooled = pooled[:, : self.out_dim]
         return pooled / torch.clamp(

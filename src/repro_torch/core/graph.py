@@ -50,7 +50,8 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.common.utils import next_pow2, resolve_device, to_device
+from repro_torch.common.utils import (next_pow2, resolve_device, to_device,
+                                      upload)
 from repro_torch.core.triples import normalize_entity
 
 EDGE_ENTITY = 0
@@ -385,10 +386,10 @@ class MemoryGraph:
         ids, scores, per_hop = _expand_device(
             d["edge_src"], d["edge_dst"], d["edge_type"], d["edge_w"],
             d["node_ns"], d["row_sub"], d["row_obj"], row_labels.to(dev),
-            [torch.as_tensor(r).to(dev) for r in rankings],
-            torch.as_tensor(np.asarray(q_ns, np.int64)).to(dev),
-            torch.as_tensor(np.asarray(type_w, np.float32)).to(dev),
-            torch.as_tensor(np.asarray(hops_b, np.int64)).to(dev),
+            [upload(r, dev) for r in rankings],
+            upload(np.asarray(q_ns, np.int64), dev),
+            upload(np.asarray(type_w, np.float32), dev),
+            upload(np.asarray(hops_b, np.int64), dev),
             self._n_edges, self._n_rows, hops=hops, k=int(k),
             seed_k=int(seed_k), decay=float(decay))
         self.counters["expansions"] += 1

@@ -21,6 +21,8 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from repro_torch.common.utils import upload
+
 _INT32_MAX = 2**31 - 1
 
 
@@ -104,7 +106,7 @@ def rrf_fuse_batch(rankings, weights=None, c: float = 60.0, k: int = 10):
     c)[:k]` exactly."""
     dev = next((r.device for r in rankings if isinstance(r, torch.Tensor)),
                torch.device("cpu"))
-    rankings = [torch.as_tensor(r).to(dev, torch.int32) for r in rankings]
+    rankings = [upload(r, dev).to(torch.int32) for r in rankings]
     B = rankings[0].shape[0] if rankings else 0
     P_sizes = [int(r.shape[1]) for r in rankings]
     if not rankings or B == 0 or sum(P_sizes) == 0:
@@ -122,9 +124,8 @@ def rrf_fuse_batch(rankings, weights=None, c: float = 60.0, k: int = 10):
     ranking_id = np.concatenate(
         [np.full((p,), i, np.int64) for i, p in enumerate(P_sizes)])
     fused_ids, fused_scores = _rrf_fuse_device(
-        torch.cat(rankings, dim=1), torch.from_numpy(pos).to(dev),
-        torch.from_numpy(ranking_id).to(dev),
-        torch.from_numpy(np.ascontiguousarray(w)).to(dev), k=k, c=float(c))
+        torch.cat(rankings, dim=1), upload(pos, dev), upload(ranking_id, dev),
+        upload(np.ascontiguousarray(w), dev), k=k, c=float(c))
     P = sum(P_sizes)
     if P < k:
         fused_ids = torch.nn.functional.pad(fused_ids, (0, k - P), value=-1)

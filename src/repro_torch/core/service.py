@@ -70,7 +70,7 @@ from typing import Any, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.common.utils import next_pow2
+from repro_torch.common.utils import next_pow2, upload
 from repro_torch.core.admission import AdmissionError
 from repro_torch.core.api import (RawRetrieval, RetrievalPlan,
                                   RetrieveRequest, as_retrieve_request)
@@ -370,7 +370,7 @@ class MemoryService:
         # only the dense search consumes query vectors, so only requests
         # whose stage set includes it are embedded
         dense_rows = [i for i, rr in enumerate(res) if rr.dense]
-        with tel.span("plan.embed", batch=len(dense_rows), launches=1):
+        with tel.span("plan.embed", batch=len(dense_rows)):
             qvecs = (self.embedder.embed_texts([reqs[i].query
                                                 for i in dense_rows])
                      if dense_rows else None)
@@ -416,13 +416,13 @@ class MemoryService:
                 q_ns = np.asarray(ns_pad, np.int32)
                 rankings, weight_cols = [], []
                 if dense_rows:
-                    with tel.span("plan.dense", batch=Bp, pool=self.pool,
-                                  launches=1) as sp:
+                    with tel.span("plan.dense", batch=Bp,
+                                  pool=self.pool) as sp:
                         qv = torch.as_tensor(qvecs, dtype=torch.float32).to(
                             device)
                         qmat = torch.zeros((Bp, qv.shape[1]),
                                            dtype=torch.float32, device=device)
-                        qmat[dense_rows] = qv
+                        qmat[upload(dense_rows, device, torch.int64)] = qv
                         if sharded is not None:
                             # shard-wise placement: one K1 launch over the
                             # slab bank; ids come back in global-row space
@@ -445,8 +445,8 @@ class MemoryService:
                                 _, hi = vindex.search_host(qmat[fb], q_ns[fb],
                                                            k=self.pool)
                                 dense_ids = dense_ids.clone()
-                                dense_ids[fb] = torch.from_numpy(
-                                    hi.astype(np.int32)).to(device)
+                                dense_ids[fb] = upload(hi.astype(np.int32),
+                                                       device)
                                 for i in fb:
                                     tiers.note_host_fallback(tenants[i].ns_id)
                         downed = self._downed(tenants, down_before)
@@ -461,8 +461,7 @@ class MemoryService:
                 if not dense_rows:
                     downed = self._downed(tenants, down_before)
                 if any(r.sparse for r in res):
-                    with tel.span("plan.sparse", batch=Bp, pool=self.pool,
-                                  launches=1):
+                    with tel.span("plan.sparse", batch=Bp, pool=self.pool):
                         _, sparse_ids = self.store.bm25.topk_batch_dev(
                             [r.query for r in reqs] + [""] * (Bp - B),
                             k=self.pool, namespaces=ns_pad)
@@ -493,7 +492,7 @@ class MemoryService:
                     tw[:B] = [rr.edge_weights for rr in res]
                     max_hops = next_pow2(max(1, int(hops_arr.max())))
                     with tel.span("plan.graph", batch=Bp, pool=self.pool,
-                                  max_hops=max_hops, launches=1) as sp:
+                                  max_hops=max_hops) as sp:
                         graph_ids, _, fsz, etc = g.expand(
                             rankings, q_ns, self.store.row_namespaces_device(),
                             tw, hops_arr, k=self.pool, max_hops=max_hops,
@@ -513,7 +512,7 @@ class MemoryService:
                                 time.perf_counter() - t_g,
                                 help="graph k-hop expansion stage latency")
                 with tel.span("plan.fuse", batch=Bp, k=k_fuse,
-                              rankings=len(rankings), launches=1):
+                              rankings=len(rankings)):
                     fused_ids, fused_scores = rrf_fuse_batch(
                         rankings,
                         weights=np.stack(
@@ -527,7 +526,10 @@ class MemoryService:
                 fused_ids = np.full((B, k_fuse), -1, np.int32)
                 fused_scores = np.zeros((B, k_fuse), np.float32)
             out: List[Any] = []
-            with tel.span("plan.budget", batch=B):
+            # the summed spans join plan.budget as they close: select first
+            with tel.span("plan.budget", batch=B), \
+                    tel.summed("budget.render") as show, \
+                    tel.summed("budget.select") as pick:
                 for r, (rr, t) in enumerate(zip(res, tenants)):
                     # the fused ranking is sorted best-first, so its k_r prefix
                     # is the k=k_r fusion of the same inputs
@@ -535,21 +537,27 @@ class MemoryService:
                     scs = fused_scores[r][: rr.k]
                     if t is None:
                         if rr.budget:
-                            text = render([], [])
-                            out.append(RetrievedContext(
-                                [], [], text, self.tokenizer.count(text)))
+                            with show.part():
+                                text = render([], [])
+                                n_tok = self.tokenizer.count(text)
+                            out.append(RetrievedContext([], [], text, n_tok))
                         else:
                             out.append(RawRetrieval([], [], []))
                         continue
                     if rr.budget:
-                        scored = [(t.triples.get(self.store.row_tid(int(g))),
-                                   float(s))
-                                  for g, s in zip(ids, scs) if g >= 0]
-                        ctx = self.budgeter.select(scored, t.summaries)
-                        text = render(ctx.triples, ctx.summaries)
+                        with pick.part():
+                            scored = [(t.triples.get(
+                                self.store.row_tid(int(g))), float(s))
+                                for g, s in zip(ids, scs) if g >= 0]
+                            ctx = self.budgeter.select(scored, t.summaries)
+                        pick.add("considered", len(scored))
+                        pick.add("kept", len(ctx.triples))
+                        with show.part():
+                            text = render(ctx.triples, ctx.summaries)
+                            n_tok = self.tokenizer.count(text)
                         out.append(RetrievedContext(
-                            ctx.triples, ctx.summaries, text,
-                            self.tokenizer.count(text), degraded=downed[r]))
+                            ctx.triples, ctx.summaries, text, n_tok,
+                            degraded=downed[r]))
                     else:
                         rows = [int(g) for g in ids if g >= 0]
                         out.append(RawRetrieval(
@@ -611,7 +619,7 @@ class MemoryService:
             return ids
         mask = np.ones((Bp,), bool)
         mask[: len(wants)] = wants
-        mask = torch.from_numpy(mask).to(ids.device)
+        mask = upload(mask, ids.device)
         return torch.where(mask[:, None], ids, torch.full_like(ids, -1))
 
     def answer_prompt(self, namespace: str, question: str

@@ -54,7 +54,8 @@ import contextlib
 import numpy as np
 import torch
 
-from repro_torch.common.utils import next_pow2, resolve_device, to_device
+from repro_torch.common.utils import (next_pow2, resolve_device, to_device,
+                                      upload)
 from repro_torch.core.vector_index import (_search_device, mesh_slab,
                                            sharded_topk)
 
@@ -353,8 +354,7 @@ class ShardedBank:
         (`rebuild` first)."""
         if self.stale:
             raise RuntimeError("ShardedBank is stale; rebuild() first")
-        queries = torch.as_tensor(queries, dtype=torch.float32).to(
-            self.device)
+        queries = upload(queries, self.device, torch.float32)
         if queries.dim() == 1:
             queries = queries[None]
         queries = queries.contiguous()
@@ -365,8 +365,7 @@ class ShardedBank:
                                device=self.device))
         self._ensure_device()
         self.counters["searches"] += 1
-        q_ns = torch.as_tensor(q_ns, dtype=torch.int32).to(
-            self.device).contiguous()
+        q_ns = upload(q_ns, self.device, torch.int32).contiguous()
         kk = min(k, self.n_slots)
         if self.mesh is not None:
             s, i = sharded_topk(queries, self.bank_device(), kk, q_ns=q_ns,

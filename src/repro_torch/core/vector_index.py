@@ -44,7 +44,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.common.utils import next_pow2, resolve_device, to_device
+from repro_torch.common.utils import (next_pow2, resolve_device, to_device,
+                                      upload)
 from repro_torch.kernels.topk_mips import (NEG_INF, topk_mips,
                                            topk_mips_masked,
                                            topk_mips_quant_masked)
@@ -504,12 +505,11 @@ class VectorIndex:
                 np.full((Q, k), -1, np.int64))
 
     def _queries(self, queries) -> torch.Tensor:
-        q = torch.as_tensor(queries, dtype=torch.float32).to(self.device)
+        q = upload(queries, self.device, torch.float32)
         return (q[None] if q.dim() == 1 else q).contiguous()
 
     def _q_ns(self, q_ns) -> torch.Tensor:
-        return torch.as_tensor(q_ns, dtype=torch.int32).to(
-            self.device).contiguous()
+        return upload(q_ns, self.device, torch.int32).contiguous()
 
     def _run_search(self, queries, q_ns, k: int, labels=None,
                     uniform: bool = False):

@@ -11,8 +11,8 @@ from three primitives:
   counts, exact Prometheus `_bucket`/`_sum`/`_count` semantics) and
   monotonic `Counter`s (`_total` suffix on the wire).  One tiny lock per
   metric; an `observe()` is a bisect + two in-place adds, cheap enough for
-  every request on the hot path (CI gates the end-to-end overhead at
-  < 5% p50 — benchmarks/telemetry_overhead_bench.py).
+  every request on the hot path (the port's tracing cost on the card is
+  recorded in PERF.md).
 * **Traces** — per-request span trees.  A `Trace` is created at the edge
   (the HTTP frontend honors/emits `X-Request-Id`) and *activated* on
   whichever thread is currently doing the request's work; `span()` then
@@ -22,6 +22,16 @@ from three primitives:
   with its batch size — in each request's own tree.  Finished traces land
   in a bounded ring buffer, retrievable by request id
   (`GET /v1/admin/trace/<id>`, or `debug: true` on a retrieve).
+  Every serialized span carries `start_unix_ns` / `end_unix_ns` on the
+  clock `torch.profiler` stamps its events with (Unix-epoch ns), and while
+  a profile is active each span also opens a
+  `record_function("memori.<name>")`, so a device trace shows the
+  program's stages above the kernels they launch.  A part that runs once
+  per request inside a stage is timed by `summed()`: one child span whose
+  duration is the parts' sum (`parts`, `summed: true`; its bounds run from
+  the first part's start to the last one's end).  `add_count()` adds to a
+  count attribute of the innermost open span (`h2d_bytes`, the bytes
+  `common/utils.upload` copies host to device).
 * **Events** — a bounded structured event log (ring buffer of dicts,
   optional JSONL file sink): slow queries over a configurable threshold,
   admission rejections, degraded-shard responses, backpressure, recovery.
@@ -44,6 +54,7 @@ from collections import deque
 from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 # canonical metric names (the acceptance set: retrieve/record/flush/fsync)
 RETRIEVE_LATENCY = "memori_retrieve_latency_seconds"
@@ -51,6 +62,12 @@ RECORD_LATENCY = "memori_record_latency_seconds"
 FLUSH_LATENCY = "memori_flush_latency_seconds"
 FSYNC_LATENCY = "memori_fsync_latency_seconds"
 GRAPH_EXPAND_LATENCY = "memori_graph_expand_latency_seconds"
+
+# spans inside a plan stage that only the port records (the JAX package's
+# trees hold the stages alone): BM25's parts under plan.sparse and the
+# budgeter's under plan.budget
+STAGE_PART_SPANS = ("sparse.select", "sparse.upload", "sparse.stats",
+                    "sparse.score", "budget.select", "budget.render")
 
 # 100us .. 10s: wide enough for a CPU dev box and a production accelerator
 # without reconfiguration; override per-histogram via buckets=
@@ -148,9 +165,12 @@ class Histogram:
 
 class Span:
     """One timed operation inside a trace.  `t0` is absolute
-    `time.perf_counter()`; serialization re-bases it on the trace start."""
+    `time.perf_counter()`; serialization re-bases it on the trace start
+    (`start_s`) and on the Unix-epoch clock (`start_unix_ns`,
+    `end_unix_ns`).  `t_end` is set only where the span's end is not
+    `t0 + duration_s` (a summed span)."""
 
-    __slots__ = ("name", "t0", "duration_s", "attrs", "children")
+    __slots__ = ("name", "t0", "duration_s", "attrs", "children", "t_end")
 
     def __init__(self, name: str, t0: float,
                  attrs: Optional[Dict[str, Any]] = None):
@@ -159,15 +179,24 @@ class Span:
         self.duration_s: Optional[float] = None
         self.attrs = attrs or {}
         self.children: List["Span"] = []
+        self.t_end: Optional[float] = None
 
-    def to_dict(self, base: float) -> dict:
-        d: Dict[str, Any] = {"name": self.name,
-                             "start_s": self.t0 - base,
-                             "duration_s": self.duration_s}
+    def to_dict(self, base: float, base_ns: int) -> dict:
+        """`base` is the trace's start on `perf_counter`, `base_ns` the
+        same instant in Unix-epoch ns."""
+        end = (self.t_end if self.t_end is not None
+               else None if self.duration_s is None
+               else self.t0 + self.duration_s)
+        d: Dict[str, Any] = {
+            "name": self.name, "start_s": self.t0 - base,
+            "duration_s": self.duration_s,
+            "start_unix_ns": base_ns + round((self.t0 - base) * 1e9),
+            "end_unix_ns": (None if end is None
+                            else base_ns + round((end - base) * 1e9))}
         if self.attrs:
             d["attrs"] = dict(self.attrs)
         if self.children:
-            d["children"] = [c.to_dict(base) for c in self.children]
+            d["children"] = [c.to_dict(base, base_ns) for c in self.children]
         return d
 
 
@@ -182,6 +211,7 @@ class Trace:
         self.op = op
         self.started_unix = time.time()
         self.t0 = time.perf_counter()
+        self.t0_unix_ns = time.time_ns()        # the profiler's clock
         self.root = Span(op or "request", self.t0)
         self.duration_s: Optional[float] = None
         self.finished = False
@@ -212,6 +242,11 @@ class Trace:
         self._stack[-1].children.append(sp)
         return sp
 
+    def add_count(self, key: str, n: float) -> None:
+        """Add `n` to attribute `key` of the innermost open span."""
+        attrs = self._stack[-1].attrs
+        attrs[key] = attrs.get(key, 0) + n
+
     def finish(self) -> None:
         if not self.finished:
             self.duration_s = time.perf_counter() - self.t0
@@ -222,7 +257,7 @@ class Trace:
         return {"request_id": self.request_id, "op": self.op,
                 "started_unix": self.started_unix,
                 "duration_s": self.duration_s,
-                "root": self.root.to_dict(self.t0)}
+                "root": self.root.to_dict(self.t0, self.t0_unix_ns)}
 
 
 class _SpanHandle:
@@ -240,6 +275,74 @@ class _SpanHandle:
 
 
 _NULL_HANDLE = _SpanHandle()
+
+
+def _profiler_range(name: str):
+    """An open `record_function("memori.<name>")` while a `torch.profiler`
+    profile is active, else None."""
+    if not torch._C._autograd._profiler_enabled():
+        return None
+    rf = torch.autograd.profiler.record_function("memori." + name)
+    rf.__enter__()
+    return rf
+
+
+class _Summed:
+    """What `Telemetry.summed()` yields: `part()` times one more part (a
+    context manager; `memori.<name>` range under a profiler), `add()` adds
+    to a count attribute of the span."""
+
+    __slots__ = ("name", "attrs", "total_s", "parts", "t_first", "t_last",
+                 "_t", "_rf")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.attrs: Dict[str, Any] = {}
+        self.total_s = 0.0
+        self.parts = 0
+        self.t_first: Optional[float] = None
+        self.t_last = 0.0
+        self._t = 0.0
+        self._rf = None
+
+    def part(self) -> "_Summed":
+        return self
+
+    def __enter__(self) -> "_Summed":
+        self._rf = _profiler_range(self.name)
+        self._t = time.perf_counter()
+        if self.t_first is None:
+            self.t_first = self._t
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        now = time.perf_counter()
+        if self._rf is not None:
+            self._rf.__exit__(None, None, None)
+            self._rf = None
+        self.total_s += now - self._t
+        self.parts += 1
+        self.t_last = now
+        return False
+
+    def add(self, key: str, n: float) -> None:
+        self.attrs[key] = self.attrs.get(key, 0) + n
+
+
+class _NullSummed:
+    """`summed()` with no active trace: parts time nothing."""
+
+    __slots__ = ()
+    _part = contextlib.nullcontext()
+
+    def part(self):
+        return self._part
+
+    def add(self, key: str, n: float) -> None:
+        pass
+
+
+NULL_SUMMED = _NullSummed()
 
 
 def new_request_id() -> str:
@@ -366,6 +469,9 @@ class Telemetry:
         if not active:
             yield _NULL_HANDLE
             return
+        # the profiler's range opens first and closes last: its own cost
+        # stays out of the span
+        rf = _profiler_range(name)
         opened = [(tr, tr.push(name, dict(attrs))) for tr in active]
         t0 = time.perf_counter()
         try:
@@ -374,6 +480,40 @@ class Telemetry:
             dt = time.perf_counter() - t0
             for tr, sp in opened:
                 tr.pop(sp, dt)
+            if rf is not None:
+                rf.__exit__(None, None, None)
+
+    @contextlib.contextmanager
+    def summed(self, name: str):
+        """One child span for a part that runs many times inside the block
+        (once per request), where a span per part would cost more than it
+        measures: each `with acc.part():` adds its time, and on exit one
+        completed span `name` joins the innermost open span of every
+        active trace, its duration the parts' sum, attributes `parts` and
+        `summed: true` (its interval is not contiguous).  Records nothing
+        with no active trace, or when no part ran."""
+        active = getattr(self._tls, "active", None) if self.enabled else None
+        if not active:
+            yield NULL_SUMMED
+            return
+        acc = _Summed(name)
+        try:
+            yield acc
+        finally:
+            if acc.parts:
+                for tr in active:
+                    sp = tr.add_completed(name, acc.total_s, t0=acc.t_first,
+                                          **acc.attrs, parts=acc.parts,
+                                          summed=True)
+                    sp.t_end = acc.t_last
+
+    def add_count(self, key: str, n: float) -> None:
+        """Add `n` to count attribute `key` of the innermost open span of
+        every active trace (nothing with none active)."""
+        if not self.enabled:
+            return
+        for tr in getattr(self._tls, "active", None) or ():
+            tr.add_count(key, n)
 
     def finish_trace(self, trace: Optional[Trace]) -> None:
         """Close a trace and push it into the ring buffer (oldest traces

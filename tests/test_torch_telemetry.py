@@ -2,13 +2,15 @@
 reference's full-stack span-tree case (tests/test_telemetry.py) — a traced
 retrieve submitted through the port's scheduler carries its queue wait,
 the shared tick and every executed plan stage in ONE tree, with the same
-span names as the JAX package's scheduler gives the same request."""
+span names as the JAX package's scheduler gives the same request (the
+port's parts of a stage, `STAGE_PART_SPANS`, aside)."""
 import pytest
 
 from repro_torch.core import (HashEmbedder, MemoryScheduler, MemoryService,
                               Message, RetrieveRequest)
-from repro_torch.obs.telemetry import (Telemetry, get_telemetry,
-                                       set_telemetry, span_names, walk_spans)
+from repro_torch.obs.telemetry import (STAGE_PART_SPANS, Telemetry,
+                                       get_telemetry, set_telemetry,
+                                       span_names, walk_spans)
 
 
 @pytest.fixture()
@@ -73,8 +75,11 @@ def test_full_stack_span_tree_scheduler_to_plan(tel):
             traces=[jtr])[0]
         assert jfut.result(timeout=60).status == "ok"
         jt.finish_trace(jtr)
-        assert span_names(tel.get_trace("full-1")) == \
-            jtel.span_names(jt.get_trace("full-1"))
+        # the port's own parts of a stage aside, every span the JAX
+        # package records appears, in the same order
+        port = [n for n in span_names(tel.get_trace("full-1"))
+                if n not in STAGE_PART_SPANS]
+        assert port == jtel.span_names(jt.get_trace("full-1"))
     finally:
         jsched.close()
         jtel.set_telemetry(prev)
